@@ -1,0 +1,238 @@
+"""Parallel-in-time Kalman filter and smoother in time-last layout
+(counterpart of ``markovflow_tpu/ops/kalman.py``, the time-last core).
+
+Plain PyTorch: these are the reference versions that the CUDA kernels of
+:mod:`markovflow_tpu_torch.ops.cuda_scan` are held against, and the path
+every CPU tensor takes.
+
+Conventions: N states; the prior-step arrays (F, c, Q) hold the initial
+distribution at element 0 (F_0 = 0, c_0 = mu0, Q_0 = P0) and the transition
+x_k = F_k x_{k-1} + c_k + N(0, Q_k) at k >= 1.  Matrices are [..., d1, d2, N]
+with any leading batch shape; sites enter in natural form (nu, lam).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from .scans import scan_tl
+
+__all__ = ["make_filter_elements_tl", "filter_pipeline_tl",
+           "smoother_pipeline_tl"]
+
+
+def _no_tf32(x: torch.Tensor) -> None:
+    """The plain versions are float32 references on the card: no TF32."""
+    if x.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _mm_tl(a, b):
+    """[..., d1, d2, N] @ [..., d2, d3, N] -> [..., d1, d3, N], as
+    elementwise products summed over d2."""
+    return (a[..., :, :, None, :] * b[..., None, :, :, :]).sum(-3)
+
+
+def _t_tl(a):
+    return a.transpose(-3, -2)
+
+
+def _sym_tl(a):
+    return 0.5 * (a + _t_tl(a))
+
+
+def _eye_tl(d: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(d, dtype=like.dtype, device=like.device)[..., None]
+
+
+def _cat(blocks, dim):
+    """Concatenate blocks whose leading batch shapes broadcast."""
+    lead = torch.broadcast_shapes(*(b.shape[:-3] for b in blocks))
+    return torch.cat([b.expand(lead + b.shape[-3:]) for b in blocks], dim=dim)
+
+
+def _inv_tl(m):
+    """Inverse over the leading matrix dims of [..., d, d, N]: closed forms
+    for d <= 3, one Schur-complement level onto them for d <= 6 (the CUDA
+    kernels' device functions compute the same), LU above."""
+    d = m.shape[-3]
+    if d == 1:
+        return 1.0 / m
+    if d == 2:
+        det = m[..., 0, 0, :] * m[..., 1, 1, :] - m[..., 0, 1, :] * m[..., 1, 0, :]
+        adj = torch.stack([
+            torch.stack([m[..., 1, 1, :], -m[..., 0, 1, :]], -2),
+            torch.stack([-m[..., 1, 0, :], m[..., 0, 0, :]], -2)], -3)
+        return adj / det[..., None, None, :]
+    if d == 3:
+        def c(i1, j1, i2, j2):
+            return (m[..., i1, j1, :] * m[..., i2, j2, :]
+                    - m[..., i1, j2, :] * m[..., i2, j1, :])
+        det = (m[..., 0, 0, :] * c(1, 1, 2, 2) - m[..., 0, 1, :] * c(1, 0, 2, 2)
+               + m[..., 0, 2, :] * c(1, 0, 2, 1))
+        adj = torch.stack([
+            torch.stack([c(1, 1, 2, 2), -c(0, 1, 2, 2), c(0, 1, 1, 2)], -2),
+            torch.stack([-c(1, 0, 2, 2), c(0, 0, 2, 2), -c(0, 0, 1, 2)], -2),
+            torch.stack([c(1, 0, 2, 1), -c(0, 0, 2, 1), c(0, 0, 1, 1)], -2),
+        ], -3)
+        return adj / det[..., None, None, :]
+    if d <= 6:
+        k = d // 2
+        a_i = _inv_tl(m[..., :k, :k, :])
+        b, c_, dd = m[..., :k, k:, :], m[..., k:, :k, :], m[..., k:, k:, :]
+        aib = _mm_tl(a_i, b)
+        s_i = _inv_tl(dd - _mm_tl(c_, aib))
+        cai = _mm_tl(c_, a_i)
+        top = torch.cat([a_i + _mm_tl(aib, _mm_tl(s_i, cai)),
+                         -_mm_tl(aib, s_i)], dim=-2)
+        bot = torch.cat([-_mm_tl(s_i, cai), s_i], dim=-2)
+        return torch.cat([top, bot], dim=-3)
+    return torch.linalg.inv(m.movedim(-1, -3)).movedim(-3, -1)
+
+
+def _det_tl(m):
+    """Determinant over the leading matrix dims of [..., d, d, N] (same
+    forms as :func:`_inv_tl`)."""
+    d = m.shape[-3]
+    if d == 1:
+        return m[..., 0, 0, :]
+    if d == 2:
+        return m[..., 0, 0, :] * m[..., 1, 1, :] - m[..., 0, 1, :] * m[..., 1, 0, :]
+    if d == 3:
+        def c(i1, j1, i2, j2):
+            return (m[..., i1, j1, :] * m[..., i2, j2, :]
+                    - m[..., i1, j2, :] * m[..., i2, j1, :])
+        return (m[..., 0, 0, :] * c(1, 1, 2, 2) - m[..., 0, 1, :] * c(1, 0, 2, 2)
+                + m[..., 0, 2, :] * c(1, 0, 2, 1))
+    if d <= 6:
+        k = d // 2
+        a = m[..., :k, :k, :]
+        s = m[..., k:, k:, :] - _mm_tl(
+            m[..., k:, :k, :], _mm_tl(_inv_tl(a), m[..., :k, k:, :]))
+        return _det_tl(a) * _det_tl(s)
+    return torch.linalg.det(m.movedim(-1, -3))
+
+
+def make_filter_elements_tl(F, c, Q, H, nu, lam) -> Tuple[torch.Tensor, ...]:
+    """Associative filtering elements (A, b, C, J, eta) (Sarkka &
+    Garcia-Fernandez 2021, eq. 10) from prior steps and sites.
+
+    F [..., d, d, N]; c [..., d, 1, N]; Q [..., d, d, N]; H [..., o, d, N];
+    nu [..., o, 1, N]; lam [..., o, o, N].
+    """
+    o = lam.shape[-3]
+    d = F.shape[-3]
+    qht = _mm_tl(Q, _t_tl(H))                       # [d, o, N]
+    hqht = _mm_tl(H, qht)                           # [o, o, N]
+    z = _inv_tl(_eye_tl(o, F) + _mm_tl(hqht, lam))
+    lam_z = _sym_tl(_mm_tl(lam, z))                 # S^{-1}
+    gain = _mm_tl(qht, lam_z)                       # [d, o, N]
+    i_gh = _eye_tl(d, F) - _mm_tl(gain, H)
+    a_e = _mm_tl(i_gh, F)
+    b_e = _mm_tl(i_gh, c) + _mm_tl(qht, _mm_tl(_t_tl(z), nu))
+    c_e = _sym_tl(_mm_tl(i_gh, Q))
+    hc = _mm_tl(H, c)                               # [o, 1, N]
+    resid = _mm_tl(_t_tl(z), nu) - _mm_tl(lam_z, hc)
+    eta = _mm_tl(_t_tl(F), _mm_tl(_t_tl(H), resid))
+    hf = _mm_tl(H, F)                               # [o, d, N]
+    j_e = _sym_tl(_mm_tl(_t_tl(hf), _mm_tl(lam_z, hf)))
+    return a_e, b_e, c_e, j_e, eta
+
+
+def _combine_filter_tl(x, y):
+    """Filtering composition, x earlier and y later (Lemma 8)."""
+    xa, xb, xc, xj, xe = x
+    ya, yb, yc, yj, ye = y
+    m_inv = _inv_tl(_eye_tl(xa.shape[-3], xa) + _mm_tl(xc, yj))
+    m_inv_t = _t_tl(m_inv)
+    a = _mm_tl(ya, _mm_tl(m_inv, xa))
+    b = _mm_tl(ya, _mm_tl(m_inv, xb + _mm_tl(xc, ye))) + yb
+    c = _mm_tl(ya, _mm_tl(_mm_tl(m_inv, xc), _t_tl(ya))) + yc
+    eta = _mm_tl(_t_tl(xa), _mm_tl(m_inv_t, ye - _mm_tl(yj, xb))) + xe
+    j = _mm_tl(_t_tl(xa), _mm_tl(m_inv_t, _mm_tl(yj, xa))) + xj
+    return a, b, _sym_tl(c), _sym_tl(j), eta
+
+
+def _combine_smoother_tl(later, earlier):
+    """Smoothing composition (reverse scan): ``later`` is the suffix."""
+    le, lg, ll = later
+    ee, eg, el = earlier
+    e = _mm_tl(ee, le)
+    g = _mm_tl(ee, lg) + eg
+    ell = _mm_tl(ee, _mm_tl(ll, _t_tl(ee))) + el
+    return e, g, _sym_tl(ell)
+
+
+def filter_pipeline_tl(F, c, Q, H, nu, lam,
+                       mask: Optional[torch.Tensor] = None):
+    """Elements -> parallel filter -> predicted moments -> site
+    log-likelihood.  Inputs as :func:`make_filter_elements_tl`; ``mask``
+    is a boolean [..., N] or None (masked steps add 0 to the likelihood).
+
+    Returns (m_f [..., d, 1, N], P_f [..., d, d, N], loglik [...]).
+    """
+    _no_tf32(F)
+    elems = make_filter_elements_tl(F, c, Q, H, nu, lam)
+    _, m_f, p_f, _, _ = scan_tl(_combine_filter_tl, elems)
+    # predicted moments: index 0 is the prior (c_0, Q_0)
+    fm = _mm_tl(F[..., 1:], m_f[..., :-1]) + c[..., 1:]
+    fp = _mm_tl(F[..., 1:], _mm_tl(p_f[..., :-1], _t_tl(F[..., 1:]))) + Q[..., 1:]
+    m_pred = _cat([c[..., :1], fm], dim=-1)
+    p_pred = _sym_tl(_cat([Q[..., :1], fp], dim=-1))
+    # site log-likelihood in lam form
+    o = lam.shape[-3]
+    hm = _mm_tl(H, m_pred)                          # [o, 1, N]
+    hpht = _mm_tl(H, _mm_tl(p_pred, _t_tl(H)))      # [o, o, N]
+    w = nu - _mm_tl(lam, hm)
+    m_mat = lam + _mm_tl(lam, _mm_tl(hpht, lam))
+    eye_o = _eye_tl(o, F)
+    lam_safe = lam
+    if mask is not None:
+        keep = mask[..., None, None, :]
+        m_mat = torch.where(keep, m_mat, eye_o)
+        lam_safe = torch.where(keep, lam, eye_o)
+    quad = (w * _mm_tl(_inv_tl(m_mat), w)).sum(dim=(-3, -2))
+    log_det_s = (torch.log(torch.abs(_det_tl(eye_o + _mm_tl(hpht, lam_safe))))
+                 - torch.log(torch.abs(_det_tl(lam_safe))))
+    ll = -0.5 * (quad + log_det_s + o * math.log(2.0 * math.pi))
+    if mask is not None:
+        ll = torch.where(mask, ll, torch.zeros((), dtype=ll.dtype,
+                                               device=ll.device))
+    return m_f, p_f, ll.sum(-1)
+
+
+def smoother_pipeline_tl(F, c, Q, m_f, p_f):
+    """RTS smoother from the filtered moments.
+
+    Returns (m_s [..., d, 1, N], P_s [..., d, d, N], gains [..., d, d, N-1]).
+    """
+    _no_tf32(F)
+    fn, cn, qn = F[..., 1:], c[..., 1:], Q[..., 1:]
+    mk, pk = m_f[..., :-1], p_f[..., :-1]
+    p_pred = _sym_tl(_mm_tl(fn, _mm_tl(pk, _t_tl(fn))) + qn)
+    pft = _mm_tl(pk, _t_tl(fn))
+    gains = _t_tl(_mm_tl(_inv_tl(p_pred), _t_tl(pft)))
+    g = mk - _mm_tl(gains, _mm_tl(fn, mk) + cn)
+    ell = _sym_tl(pk - _mm_tl(gains, _mm_tl(fn, pk)))
+    e_all = _cat([gains, torch.zeros_like(p_f[..., -1:])], dim=-1)
+    g_all = _cat([g, m_f[..., -1:]], dim=-1)
+    l_all = _cat([ell, p_f[..., -1:]], dim=-1)
+    _, m_s, p_s = scan_tl(_combine_smoother_tl, (e_all, g_all, l_all),
+                          reverse=True)
+    return m_s, p_s, gains
+
+
+def _materialize_uniform(Fc, cc, Qc, mu0, P0, Hc, n: int):
+    """Expand the constant uniform-grid representation to full time-last
+    arrays: F = [0, Fc, Fc, ...], c = [mu0, cc, ...], Q = [P0, Qc, ...],
+    H broadcast to all n steps."""
+    def rep(x):
+        return x.expand(x.shape[:-1] + (n - 1,))
+    F = _cat([torch.zeros_like(Fc), rep(Fc)], dim=-1)
+    c = _cat([mu0, rep(cc)], dim=-1)
+    Q = _cat([P0, rep(Qc)], dim=-1)
+    H = Hc.expand(Hc.shape[:-1] + (n,))
+    return F, c, Q, H

@@ -1,0 +1,55 @@
+"""Constraint bijectors (counterpart of ``markovflow_tpu/utils/bijectors.py``).
+
+``forward`` maps an unconstrained tensor to the constrained space;
+``inverse`` maps back and accepts numpy arrays or tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+__all__ = ["Bijector", "Identity", "Positive", "positive"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Bijector:
+    def forward(self, x):
+        raise NotImplementedError
+
+    def inverse(self, y):
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class Identity(Bijector):
+    def forward(self, x):
+        return x
+
+    def inverse(self, y):
+        return y
+
+
+@dataclasses.dataclass(frozen=True)
+class Positive(Bijector):
+    """Softplus with a small lower bound, as the JAX package's ``positive()``."""
+
+    lower: float = 1e-6
+
+    def forward(self, x):
+        # logaddexp(x, 0), not F.softplus: softplus returns x itself above
+        # its threshold, 2e-9 away from the JAX value at x = 20
+        return torch.logaddexp(x, torch.zeros_like(x)) + self.lower
+
+    def inverse(self, y):
+        if isinstance(y, torch.Tensor):
+            y = torch.clamp(y - self.lower, min=1e-20)
+            return y + torch.log(-torch.expm1(-y))
+        y = np.maximum(np.asarray(y) - self.lower, 1e-20)
+        # softplus^{-1}(y) = y + log(1 - exp(-y)), stable for large/small y
+        return y + np.log(-np.expm1(-y))
+
+
+def positive(lower: float = 1e-6) -> Positive:
+    return Positive(lower=lower)
