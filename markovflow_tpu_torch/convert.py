@@ -22,9 +22,10 @@ def gpr_from_numpy(params: Dict[str, np.ndarray], time_points: np.ndarray,
     """A :class:`GaussianProcessRegression` from numpy parameters under the
     JAX model's attribute paths: ``kernel.lengthscale`` and
     ``kernel.variance`` (UNCONSTRAINED values) and ``chol_obs_covariance``.
-    ``kernel`` names the kernel class.  The time points are checked, and the
-    grid's uniformity detected, on the host before they move to
-    ``device``."""
+    ``kernel`` names the kernel class.  The time points, on any grid, are
+    checked, and the grid's uniformity detected, on the host before they
+    move to ``device``.  Training (:func:`markovflow_tpu_torch.training.fit`)
+    starts from these parameter values."""
     k = _KERNELS[kernel](dtype=dtype, device=device)
     with torch.no_grad():
         for name in ("lengthscale", "variance"):

@@ -1,14 +1,15 @@
 """Kalman filter classes (counterpart of ``markovflow_tpu/kalman_filter.py``:
 ``BaseKalmanFilter`` and ``KalmanFilter``).
 
-Two engines:
+Two engines, each through the kernel wrappers of :mod:`.ops.cuda_scan`
+and :mod:`.ops.adjoint`, which launch the CUDA kernels on CUDA tensors and
+run the plain versions on CPU tensors:
 
 * the uniform-grid path, given ``prior_const_tl`` (constant prior steps):
-  the filter and smoother wrappers of :mod:`.ops.cuda_scan`, which launch
-  the CUDA kernels on CUDA tensors and run the plain versions on CPU tensors;
-* the general path, given ``prior_tl`` (per-step prior arrays): the plain
-  pipelines on CPU tensors.  On CUDA it raises until the general kernel pair
-  is ported.
+  the uniform filter and smoother, and the uniform Koopman backward;
+* the general path, given ``prior_tl`` (per-step prior arrays, any grid):
+  the general filter and the smoother scan, which also serves the general
+  Koopman backward.
 """
 from __future__ import annotations
 
@@ -17,19 +18,13 @@ import abc
 import torch
 
 from .emission_model import EmissionModel
-from .ops import kalman as K
-from .ops.adjoint import log_likelihood_koopman_uniform
-from .ops.cuda_scan import filter_pipeline_uniform, smoother_pipeline_uniform
+from .ops.adjoint import log_likelihood_koopman, log_likelihood_koopman_uniform
+from .ops.cuda_scan import (filter_pipeline, filter_pipeline_uniform,
+                            smoother_pipeline_uniform, smoother_scan)
+from .ops.kalman import smoother_elements_tl
 from .utils.linalg import small_solve, tlt
 
 __all__ = ["BaseKalmanFilter", "KalmanFilter"]
-
-
-def _general_path_device_check(x: torch.Tensor) -> None:
-    if x.is_cuda:
-        raise NotImplementedError(
-            "the general (non-uniform grid) Kalman path has no CUDA kernel yet "
-            "(ports of pallas_filter_pipeline / pallas_smoother_scan)")
 
 
 class BaseKalmanFilter(abc.ABC):
@@ -65,27 +60,25 @@ class BaseKalmanFilter(abc.ABC):
             Fc, cc, Qc, mu0, P0 = self.prior_const_tl
             return log_likelihood_koopman_uniform(
                 Fc, cc, Qc, mu0, P0, self._const_emission_tl(), nu, lam, mask)
-        _general_path_device_check(nu)
         F, c, Q = self.prior_tl
-        _, _, ll = K.filter_pipeline_tl(F, c, Q, self._emission_tl(),
-                                        nu, lam, mask)
-        return ll
+        return log_likelihood_koopman(F, c, Q, self._emission_tl(), nu, lam,
+                                      mask)
 
     def posterior_marginals(self):
         """Smoothed means and covariances ([..., N, d], [..., N, d, d])."""
         nu, lam, mask = self._site_nats_tl()
+        maskf = None if mask is None else mask.to(nu.dtype)[..., None, None, :]
         if self.prior_const_tl is not None:
             Fc, cc, Qc, mu0, P0 = self.prior_const_tl
-            maskf = None if mask is None else mask.to(nu.dtype)[..., None, None, :]
             m_f, p_f, _ = filter_pipeline_uniform(
                 Fc, cc, Qc, mu0, P0, self._const_emission_tl(), nu, lam, maskf)
             m_s, p_s = smoother_pipeline_uniform(Fc, cc, Qc, m_f, p_f)
         else:
-            _general_path_device_check(nu)
             F, c, Q = self.prior_tl
-            m_f, p_f, _ = K.filter_pipeline_tl(
-                F, c, Q, self._emission_tl(), nu, lam, mask)
-            m_s, p_s, _ = K.smoother_pipeline_tl(F, c, Q, m_f, p_f)
+            m_f, p_f, _ = filter_pipeline(F, c, Q, self._emission_tl(), nu,
+                                          lam, maskf)
+            e, g, ell, _ = smoother_elements_tl(F, c, Q, m_f, p_f)
+            m_s, p_s = smoother_scan(e, g, ell)
         return m_s[..., 0, :].movedim(-1, -2), p_s.movedim(-1, -3)
 
 

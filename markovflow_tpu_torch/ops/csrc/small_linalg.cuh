@@ -2,11 +2,12 @@
 //
 // Matrices are row-major in flat arrays whose sizes are compile-time
 // constants, so once the loops unroll every array lives in registers.
-// inv/det are the device counterparts of the closed forms and the one-level
-// Schur reduction in markovflow_tpu/ops/pallas_scan.py (_inv, _det): adjugate
-// formulas for d <= 3 and inv([[A, B], [C, D]]) with S = D - C A^-1 B for
-// 4 <= d <= 6.  The reduction does not pivot, as on the TPU, so it loses
-// accuracy when the leading block is near singular (ROADMAP.md, queue 3).
+// inv/det use the closed forms of markovflow_tpu/ops/pallas_scan.py (_inv,
+// _det) for d <= 3.  For 4 <= d <= 6 they use Gauss-Jordan elimination with
+// partial pivoting, where the TPU kernels use one unpivoted Schur-complement
+// level, which loses accuracy when the leading block is near singular (the
+// filter composition inverts I + C J, which is not symmetric).  The plain
+// PyTorch version is _gauss_jordan_tl in markovflow_tpu_torch/ops/kalman.py.
 // No output argument may alias an input.
 #pragma once
 
@@ -102,19 +103,64 @@ MF_DEV T cof(const T* m, int i1, int j1, int i2, int j2) {
   return m[i1 * 3 + j1] * m[i2 * 3 + j2] - m[i1 * 3 + j2] * m[i2 * 3 + j1];
 }
 
-// copy the [ROWS x COLS] block at (r0, c0) of a [D x D] matrix
-template <typename T, int D, int ROWS, int COLS>
-MF_DEV void block(const T* m, int r0, int c0, T* out) {
+// Gauss-Jordan elimination on [m | I] with partial pivoting, unrolled so
+// that the augmented matrix stays in registers.  The pivot search swaps row
+// j with each later row whose entry in column j is larger in magnitude, by
+// selects (no indexing by a runtime row); any row order gives the same
+// inverse.  Columns left of j are zero in the rows it touches, so each step
+// works on columns j.. only.  Returns the determinant; writes the inverse
+// to out when INV.
+template <typename T, int D, bool INV>
+MF_DEV T gauss_jordan(const T* m, T* out) {
+  T a[D][2 * D];
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
+  for (int i = 0; i < D; ++i) {
 #pragma unroll
-    for (int j = 0; j < COLS; ++j) out[i * COLS + j] = m[(r0 + i) * D + c0 + j];
+    for (int j = 0; j < D; ++j) {
+      a[i][j] = m[i * D + j];
+      a[i][D + j] = i == j ? T(1) : T(0);
+    }
   }
+  T det = T(1);
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+#pragma unroll
+    for (int i = j + 1; i < D; ++i) {
+      const bool s = fabs(a[i][j]) > fabs(a[j][j]);
+#pragma unroll
+      for (int c = j; c < 2 * D; ++c) {
+        const T x = a[j][c], y = a[i][c];
+        a[j][c] = s ? y : x;
+        a[i][c] = s ? x : y;
+      }
+      det = s ? -det : det;
+    }
+    const T p = a[j][j];
+    det *= p;
+    const T r = T(1) / p;
+#pragma unroll
+    for (int c = j; c < 2 * D; ++c) a[j][c] *= r;
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      if (i == j) continue;
+      const T f = a[i][j];
+#pragma unroll
+      for (int c = j; c < 2 * D; ++c) a[i][c] -= f * a[j][c];
+    }
+  }
+  if constexpr (INV) {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) out[i * D + j] = a[i][D + j];
+    }
+  }
+  return det;
 }
 
 template <typename T, int D>
 MF_DEV void inv(const T* m, T* out) {
-  static_assert(D >= 1 && D <= 6, "closed forms cover d <= 6");
+  static_assert(D >= 1 && D <= 6, "instantiated for d <= 6");
   if constexpr (D == 1) {
     out[0] = T(1) / m[0];
   } else if constexpr (D == 2) {
@@ -137,44 +183,13 @@ MF_DEV void inv(const T* m, T* out) {
     out[7] = -cof(m, 0, 0, 2, 1) / det;
     out[8] = cof(m, 0, 0, 1, 1) / det;
   } else {
-    constexpr int K = D / 2, L = D - K;
-    T a[K * K], b[K * L], c[L * K], s[L * L];
-    block<T, D, K, K>(m, 0, 0, a);
-    block<T, D, K, L>(m, 0, K, b);
-    block<T, D, L, K>(m, K, 0, c);
-    block<T, D, L, L>(m, K, K, s);
-    T ai[K * K], aib[K * L], cab[L * L], si[L * L], cai[L * K], sicai[L * K];
-    inv<T, K>(a, ai);
-    mm<T, K, K, L>(ai, b, aib);
-    mm<T, L, K, L>(c, aib, cab);
-#pragma unroll
-    for (int i = 0; i < L * L; ++i) s[i] -= cab[i];
-    inv<T, L>(s, si);
-    mm<T, L, K, K>(c, ai, cai);
-    mm<T, L, L, K>(si, cai, sicai);
-    T tl[K * K], tr[K * L];
-    mm<T, K, L, K>(aib, sicai, tl);
-    mm<T, K, L, L>(aib, si, tr);
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-#pragma unroll
-      for (int j = 0; j < K; ++j) out[i * D + j] = ai[i * K + j] + tl[i * K + j];
-#pragma unroll
-      for (int j = 0; j < L; ++j) out[i * D + K + j] = -tr[i * L + j];
-    }
-#pragma unroll
-    for (int i = 0; i < L; ++i) {
-#pragma unroll
-      for (int j = 0; j < K; ++j) out[(K + i) * D + j] = -sicai[i * K + j];
-#pragma unroll
-      for (int j = 0; j < L; ++j) out[(K + i) * D + K + j] = si[i * L + j];
-    }
+    gauss_jordan<T, D, true>(m, out);
   }
 }
 
 template <typename T, int D>
 MF_DEV T det(const T* m) {
-  static_assert(D >= 1 && D <= 6, "closed forms cover d <= 6");
+  static_assert(D >= 1 && D <= 6, "instantiated for d <= 6");
   if constexpr (D == 1) {
     return m[0];
   } else if constexpr (D == 2) {
@@ -183,20 +198,7 @@ MF_DEV T det(const T* m) {
     return m[0] * cof(m, 1, 1, 2, 2) - m[1] * cof(m, 1, 0, 2, 2) +
            m[2] * cof(m, 1, 0, 2, 1);
   } else {
-    // det = det(A) det(D - C A^-1 B)
-    constexpr int K = D / 2, L = D - K;
-    T a[K * K], b[K * L], c[L * K], s[L * L];
-    block<T, D, K, K>(m, 0, 0, a);
-    block<T, D, K, L>(m, 0, K, b);
-    block<T, D, L, K>(m, K, 0, c);
-    block<T, D, L, L>(m, K, K, s);
-    T ai[K * K], aib[K * L], cab[L * L];
-    inv<T, K>(a, ai);
-    mm<T, K, K, L>(ai, b, aib);
-    mm<T, L, K, L>(c, aib, cab);
-#pragma unroll
-    for (int i = 0; i < L * L; ++i) s[i] -= cab[i];
-    return det<T, K>(a) * det<T, L>(s);
+    return gauss_jordan<T, D, false>(m, nullptr);
   }
 }
 

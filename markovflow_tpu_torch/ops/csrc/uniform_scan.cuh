@@ -1,32 +1,15 @@
 // Uniform-grid Kalman filter and RTS smoother kernels for Hopper (sm_90a).
 //
-// Replaces the TPU kernels of markovflow_tpu/ops/pallas_scan.py:
+// Replace the TPU kernels of markovflow_tpu/ops/pallas_scan.py:
 //   * filter:   pallas_filter_pipeline_uniform (_uniform_pipeline_kernel)
 //   * smoother: pallas_smoother_pipeline_uniform (_uniform_smoother_kernel)
 // They compute the same functions; the plain PyTorch versions are
 // filter_pipeline_uniform_plain / smoother_pipeline_uniform_plain in
-// markovflow_tpu_torch/ops/cuda_scan.py.
-//
-// Design: reduce, then scan, then fix up.  The TPU threads one carry
-// through a sequential grid; here blocks run in no order, so
-//   1. each thread owns R consecutive steps, builds their associative
-//      elements in registers from the constant prior step (Fc, cc, Qc, Hc)
-//      and the per-step sites, and composes them in order; a warp-shuffle
-//      scan plus a scan of the warp totals gives the block total, which is
-//      written out (one element per block);
-//   2. one block per batch row scans the block totals into exclusive
-//      carries, in place;
-//   3. each thread rebuilds its elements (re-reading the sites is cheaper
-//      than storing 3d^2 + 2d values per step), folds in its exclusive
-//      prefix and writes the outputs.  The filter also evaluates each step's
-//      site log-likelihood against the previous step's filtered moments and
-//      writes one partial sum per block;
-//   4. (filter) one block per batch row sums the partials in a fixed order.
-// No float atomics: a run repeats bit for bit.
-//
-// The prior element sits at global step 0 of the filter and the boundary
-// element (0, m_f[N-1], P_f[N-1]) at global step N-1 of the smoother; both
-// are found from global indices, and steps past N are simply absent.
+// markovflow_tpu_torch/ops/cuda_scan.py.  The passes (reduce, scan, fix up)
+// are those of scan_core.cuh; this file supplies the element sources: the
+// constant prior step (Fc, cc, Qc, Hc) of a batch row, with the prior
+// (0, mu0, P0) at global step 0, and for the smoother the RTS element built
+// from the filtered moments, with the boundary element at global step N-1.
 //
 // What bounds them on an H100: at d = 2, o = 1, float32 the filter reads
 // about 12 B of sites per step twice and writes 24 B of moments, ~48 B a
@@ -41,279 +24,30 @@
 // d = 2, float32, torch.profiler): filter_outputs 94 us, filter_totals
 // 27 us, scan_totals 23 us; the outputs pass moves ~28 B a step for GPR
 // (lam is one expanded value), an 8 us floor at 3.35 TB/s.
-// ptxas gives 255 registers a thread at d = 2, so one 256-thread block per
-// SM hides little latency, and the single-block scan of the ~500 block
+// ptxas (CUDA 12.8) gives filter_outputs 80 registers a thread at d = 2,
+// float32, with 8 bytes spilled; the single-block scan of the ~500 block
 // totals is serial.
 #pragma once
 
-#include <stdint.h>
-
-#include "small_linalg.cuh"
+#include "scan_core.cuh"
 
 namespace mf {
 
-// Threads per block and steps per thread, sized by the state dimension.
-template <int D>
-struct Tiling {
-  static constexpr int THREADS = D <= 2 ? 256 : 128;
-  static constexpr int R = D <= 2 ? 8 : 4;
-  static constexpr int64_t TILE = int64_t(THREADS) * R;
-};
-
-inline int64_t num_blocks(int64_t n, int64_t tile) { return (n + tile - 1) / tile; }
-
-MF_DEV int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
-
-// ---------------------------------------------------------------------------
-// Associative elements and their compositions.
-// ---------------------------------------------------------------------------
-
-// Filtering element (A, b, C, J, eta) of Sarkka & Garcia-Fernandez (2021).
-template <typename T, int D>
-struct FElem {
-  static constexpr int OA = 0, OB = D * D, OC = OB + D, OJ = OC + D * D,
-                       OE = OJ + D * D, SIZE = OE + D;
-  T v[SIZE];
-};
-
-// Smoothing element (E, g, L).
-template <typename T, int D>
-struct SElem {
-  static constexpr int OE = 0, OG = D * D, OL = OG + D, SIZE = OL + D * D;
-  T v[SIZE];
-};
-
-template <typename T, int D>
-struct FilterOp {
-  using Elem = FElem<T, D>;
-
-  static MF_DEV void identity(Elem& x) {
-#pragma unroll
-    for (int i = 0; i < Elem::SIZE; ++i) x.v[i] = T(0);
-#pragma unroll
-    for (int i = 0; i < D; ++i) x.v[Elem::OA + i * D + i] = T(1);
-  }
-
-  // out = x (earlier) composed with y (later)
-  static MF_DEV void combine(const Elem& x, const Elem& y, Elem& out) {
-    if constexpr (D >= 4) combine_call(x, y, out);
-    else combine_body(x, y, out);
-  }
-
-  // For d >= 4 the composition is a call, not inlined at each of its uses:
-  // those instantiations spill registers anyway, and inlining them took most
-  // of the build time.
-  static __device__ __noinline__ void combine_call(const Elem& x, const Elem& y,
-                                                   Elem& out) {
-    combine_body(x, y, out);
-  }
-
-  static MF_DEV void combine_body(const Elem& x, const Elem& y, Elem& out) {
-    const T *xa = x.v + Elem::OA, *xb = x.v + Elem::OB, *xc = x.v + Elem::OC,
-            *xj = x.v + Elem::OJ, *xe = x.v + Elem::OE;
-    const T *ya = y.v + Elem::OA, *yb = y.v + Elem::OB, *yc = y.v + Elem::OC,
-            *yj = y.v + Elem::OJ, *ye = y.v + Elem::OE;
-    T *oa = out.v + Elem::OA, *ob = out.v + Elem::OB, *oc = out.v + Elem::OC,
-      *oj = out.v + Elem::OJ, *oe = out.v + Elem::OE;
-    T t1[D * D], t2[D * D], minv[D * D], v1[D], v2[D];
-    mm<T, D, D, D>(xc, yj, t1);
-    add_eye<T, D>(t1);
-    inv<T, D>(t1, minv);
-    // A = ya minv xa
-    mm<T, D, D, D>(minv, xa, t1);
-    mm<T, D, D, D>(ya, t1, oa);
-    // b = ya minv (xb + xc ye) + yb
-    mm<T, D, D, 1>(xc, ye, v1);
-    add_to<T, D>(v1, xb);
-    mm<T, D, D, 1>(minv, v1, v2);
-    mm<T, D, D, 1>(ya, v2, ob);
-    add_to<T, D>(ob, yb);
-    // C = sym(ya (minv xc) ya^T + yc)
-    mm<T, D, D, D>(minv, xc, t1);
-    mm_nt<T, D, D, D>(t1, ya, t2);
-    mm<T, D, D, D>(ya, t2, oc);
-    add_to<T, D * D>(oc, yc);
-    sym<T, D>(oc);
-    // eta = xa^T minv^T (ye - yj xb) + xe
-    mm<T, D, D, 1>(yj, xb, v1);
-#pragma unroll
-    for (int i = 0; i < D; ++i) v1[i] = ye[i] - v1[i];
-    mm_tn<T, D, D, 1>(minv, v1, v2);
-    mm_tn<T, D, D, 1>(xa, v2, oe);
-    add_to<T, D>(oe, xe);
-    // J = sym(xa^T minv^T yj xa + xj)
-    mm<T, D, D, D>(yj, xa, t1);
-    mm_tn<T, D, D, D>(minv, t1, t2);
-    mm_tn<T, D, D, D>(xa, t2, oj);
-    add_to<T, D * D>(oj, xj);
-    sym<T, D>(oj);
-  }
-};
-
-template <typename T, int D>
-struct SmootherOp {
-  using Elem = SElem<T, D>;
-
-  static MF_DEV void identity(Elem& x) {
-#pragma unroll
-    for (int i = 0; i < Elem::SIZE; ++i) x.v[i] = T(0);
-#pragma unroll
-    for (int i = 0; i < D; ++i) x.v[Elem::OE + i * D + i] = T(1);
-  }
-
-  // out = e (earlier) composed with l (later, the suffix):
-  // E = eE lE, g = eE lg + eg, L = sym(eE lL eE^T + eL)
-  static MF_DEV void combine(const Elem& e, const Elem& l, Elem& out) {
-    if constexpr (D >= 4) combine_call(e, l, out);
-    else combine_body(e, l, out);
-  }
-
-  static __device__ __noinline__ void combine_call(const Elem& e, const Elem& l,
-                                                   Elem& out) {
-    combine_body(e, l, out);
-  }
-
-  static MF_DEV void combine_body(const Elem& e, const Elem& l, Elem& out) {
-    const T* ee = e.v + Elem::OE;
-    mm<T, D, D, D>(ee, l.v + Elem::OE, out.v + Elem::OE);
-    mm<T, D, D, 1>(ee, l.v + Elem::OG, out.v + Elem::OG);
-    add_to<T, D>(out.v + Elem::OG, e.v + Elem::OG);
-    T t[D * D];
-    mm_nt<T, D, D, D>(l.v + Elem::OL, ee, t);
-    mm<T, D, D, D>(ee, t, out.v + Elem::OL);
-    add_to<T, D * D>(out.v + Elem::OL, e.v + Elem::OL);
-    sym<T, D>(out.v + Elem::OL);
-  }
-};
-
-// ---------------------------------------------------------------------------
-// Block-wide exclusive scan of one element per thread.
-// ---------------------------------------------------------------------------
-
-template <typename E>
-MF_DEV void shfl(const E& src, E& dst, int off, bool down) {
-#pragma unroll
-  for (int i = 0; i < E::SIZE; ++i)
-    dst.v[i] = down ? __shfl_down_sync(0xffffffffu, src.v[i], off)
-                    : __shfl_up_sync(0xffffffffu, src.v[i], off);
-}
-
-// Inclusive scan across the 32 lanes of a warp.  REV = false runs in time
-// order (lane 0 earliest); REV = true accumulates suffixes (lane 31 last).
-template <class Op, bool REV>
-MF_DEV void warp_inclusive(typename Op::Elem& incl) {
-  using E = typename Op::Elem;
-  const int lane = threadIdx.x & 31;
-  E y, t;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    shfl(incl, y, off, REV);
-    if (REV ? lane + off < 32 : lane >= off) {
-      if (REV) Op::combine(incl, y, t);
-      else Op::combine(y, incl, t);
-      incl = t;
-    }
-  }
-}
-
-// excl: for REV = false the composition of the elements of all earlier
-// threads of the block, for REV = true that of all later threads.  total:
-// the composition over the whole block.  smem holds THREADS / 32 + 1
-// elements.  Every thread of the block must call it.
-template <class Op, int THREADS, bool REV>
-MF_DEV void block_scan(const typename Op::Elem& x, typename Op::Elem& excl,
-                       typename Op::Elem& total, typename Op::Elem* smem) {
-  using E = typename Op::Elem;
-  constexpr int NW = THREADS / 32;
-  static_assert(THREADS % 32 == 0 && NW <= 32, "1 to 32 full warps");
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  E incl = x, wex;
-  warp_inclusive<Op, REV>(incl);
-  shfl(incl, wex, 1, REV);
-  if (lane == (REV ? 31 : 0)) Op::identity(wex);
-  if (lane == (REV ? 0 : 31)) smem[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    E w, wx;
-    if (lane < NW) w = smem[lane];
-    else Op::identity(w);  // lanes past the last warp: harmless identities
-    warp_inclusive<Op, REV>(w);
-    shfl(w, wx, 1, REV);
-    if (lane == (REV ? 31 : 0)) Op::identity(wx);
-    if (lane < NW) smem[lane] = wx;
-    if (lane == (REV ? 0 : NW - 1)) smem[NW] = w;
-  }
-  __syncthreads();
-  if (REV) Op::combine(wex, smem[warp], excl);
-  else Op::combine(smem[warp], wex, excl);
-  total = smem[NW];
-  __syncthreads();
-}
-
-// Pass 2: exclusive scan of the block totals of each batch row, in place.
-// One block per row; each thread composes a contiguous run of totals.
-template <class Op, int THREADS, bool REV>
-__global__ void __launch_bounds__(THREADS)
-scan_totals(typename Op::Elem* totals, int64_t nblk) {
-  using E = typename Op::Elem;
-  __shared__ E smem[THREADS / 32 + 1];
-  E* row = totals + int64_t(blockIdx.x) * nblk;
-  const int64_t per = (nblk + THREADS - 1) / THREADS;
-  const int64_t i0 = imin(int64_t(threadIdx.x) * per, nblk);
-  const int64_t i1 = imin(i0 + per, nblk);
-  E acc, t, excl, total;
-  Op::identity(acc);
-  if (REV) {
-    for (int64_t i = i1 - 1; i >= i0; --i) { Op::combine(row[i], acc, t); acc = t; }
-  } else {
-    for (int64_t i = i0; i < i1; ++i) { Op::combine(acc, row[i], t); acc = t; }
-  }
-  block_scan<Op, THREADS, REV>(acc, excl, total, smem);
-  E run = excl;
-  if (REV) {
-    for (int64_t i = i1 - 1; i >= i0; --i) {
-      const E x = row[i];
-      row[i] = run;
-      Op::combine(x, run, t);
-      run = t;
-    }
-  } else {
-    for (int64_t i = i0; i < i1; ++i) {
-      const E x = row[i];
-      row[i] = run;
-      Op::combine(run, x, t);
-      run = t;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Filter (replaces pallas_filter_pipeline_uniform).
-// ---------------------------------------------------------------------------
-
+// constants, [B, ...] contiguous: Fc [d, d], cc [d], Qc [d, d], mu0 [d],
+// P0 [d, d], Hc [o, d]
 template <typename T>
-struct FilterArgs {
-  // constants, [B, ...] contiguous: Fc [d, d], cc [d], Qc [d, d], mu0 [d],
-  // P0 [d, d], Hc [o, d]
+struct UniformPrior {
   const T *fc, *cc, *qc, *mu0, *p0, *hc;
-  // sites: nu [B, o, 1, N], lam [B, o, o, N], mask [B, 1, 1, N] (may be
-  // null: every step kept), any strides (0 reads an expanded tensor)
-  const T *nu, *lam, *mask;
-  int64_t nu_sb, nu_si, nu_st;
-  int64_t lam_sb, lam_si, lam_sj, lam_st;
-  int64_t mask_sb, mask_st;
-  // outputs, contiguous: m_f [B, d, 1, N], P_f [B, d, d, N], loglik [B]
-  T *m_f, *p_f, *loglik;
-  // scratch: block totals [B, nblk] elements, then partial sums [B, nblk]
-  T *totals, *partials;
-  int64_t n, nblk;
 };
 
-template <typename T, int D, int O>
-struct UniformConsts {
+template <typename T_, int D_, int O_>
+struct UniformRow {
+  using T = T_;
+  static constexpr int D = D_, O = O_;
+  using Prior = UniformPrior<T>;
   T f[D * D], c[D], q[D * D], m0[D], p0[D * D], h[O * D];
 
-  MF_DEV void load(const FilterArgs<T>& a, int64_t b) {
+  MF_DEV void load(const Prior& a, int64_t b) {
 #pragma unroll
     for (int i = 0; i < D * D; ++i) {
       f[i] = a.fc[b * D * D + i];
@@ -328,245 +62,37 @@ struct UniformConsts {
 #pragma unroll
     for (int i = 0; i < O * D; ++i) h[i] = a.hc[b * O * D + i];
   }
-};
 
-// The inputs of global step k: prior step (F, c, Q), with the prior
-// (0, mu0, P0) at k = 0, and the sites.
-template <typename T, int D, int O>
-struct FilterStep {
-  T f[D * D], c[D], q[D * D], nu[O], lam[O * O];
-  bool keep;
-
-  MF_DEV void load(const FilterArgs<T>& a, const UniformConsts<T, D, O>& k0,
-                   int64_t b, int64_t k) {
+  // prior step and emission of global step k
+  MF_DEV void step(const Prior&, int64_t, int64_t k, FilterStep<T, D, O>& s) const {
     const bool first = k == 0;
 #pragma unroll
     for (int i = 0; i < D * D; ++i) {
-      f[i] = first ? T(0) : k0.f[i];
-      q[i] = first ? k0.p0[i] : k0.q[i];
+      s.f[i] = first ? T(0) : f[i];
+      s.q[i] = first ? p0[i] : q[i];
     }
 #pragma unroll
-    for (int i = 0; i < D; ++i) c[i] = first ? k0.m0[i] : k0.c[i];
+    for (int i = 0; i < D; ++i) s.c[i] = first ? m0[i] : c[i];
 #pragma unroll
-    for (int i = 0; i < O; ++i) nu[i] = a.nu[b * a.nu_sb + i * a.nu_si + k * a.nu_st];
-#pragma unroll
-    for (int i = 0; i < O; ++i) {
-#pragma unroll
-      for (int j = 0; j < O; ++j)
-        lam[i * O + j] = a.lam[b * a.lam_sb + i * a.lam_si + j * a.lam_sj + k * a.lam_st];
-    }
-    keep = a.mask == nullptr || a.mask[b * a.mask_sb + k * a.mask_st] > T(0.5);
+    for (int i = 0; i < O * D; ++i) s.h[i] = h[i];
   }
 };
 
-// Filter element of one step (make_filter_elements_tl / _make_elem_slice).
-template <typename T, int D, int O>
-MF_DEV void make_filter_elem(const FilterStep<T, D, O>& s, const T* h, FElem<T, D>& out) {
-  using E = FElem<T, D>;
-  T qht[D * O], hqht[O * O], t[O * O], z[O * O], lz[O * O], gain[D * O];
-  mm_nt<T, D, D, O>(s.q, h, qht);  // Q H^T
-  mm<T, O, D, O>(h, qht, hqht);
-  mm<T, O, O, O>(hqht, s.lam, t);
-  add_eye<T, O>(t);
-  inv<T, O>(t, z);
-  mm<T, O, O, O>(s.lam, z, lz);  // S^-1
-  sym<T, O>(lz);
-  mm<T, D, O, O>(qht, lz, gain);
-  T igh[D * D];
-  mm<T, D, O, D>(gain, h, igh);
-#pragma unroll
-  for (int i = 0; i < D * D; ++i) igh[i] = -igh[i];
-  add_eye<T, D>(igh);  // I - K H
-  mm<T, D, D, D>(igh, s.f, out.v + E::OA);
-  // b = (I - K H) c + Q H^T z^T nu
-  T ztnu[O], v[D];
-  mm_tn<T, O, O, 1>(z, s.nu, ztnu);
-  mm<T, D, D, 1>(igh, s.c, out.v + E::OB);
-  mm<T, D, O, 1>(qht, ztnu, v);
-  add_to<T, D>(out.v + E::OB, v);
-  // C = sym((I - K H) Q)
-  mm<T, D, D, D>(igh, s.q, out.v + E::OC);
-  sym<T, D>(out.v + E::OC);
-  // eta = F^T H^T (z^T nu - S^-1 H c)
-  T hc[O], r[O], htr[D];
-  mm<T, O, D, 1>(h, s.c, hc);
-  mm<T, O, O, 1>(lz, hc, r);
-#pragma unroll
-  for (int i = 0; i < O; ++i) r[i] = ztnu[i] - r[i];
-  mm_tn<T, D, O, 1>(h, r, htr);
-  mm_tn<T, D, D, 1>(s.f, htr, out.v + E::OE);
-  // J = sym((H F)^T S^-1 (H F))
-  T hf[O * D], lhf[O * D];
-  mm<T, O, D, D>(h, s.f, hf);
-  mm<T, O, O, D>(lz, hf, lhf);
-  mm_tn<T, D, O, D>(hf, lhf, out.v + E::OJ);
-  sym<T, D>(out.v + E::OJ);
-}
-
-// Site log-likelihood of one step given the previous filtered moments
-// (pm, pp), in lam form (filter_pipeline_tl / _ll_slice).  Masked steps
-// give 0 and use the identity in place of lam.
-template <typename T, int D, int O>
-MF_DEV T step_loglik(const FilterStep<T, D, O>& s, const T* h, const T* pm, const T* pp) {
-  T mp[D], t[D * D], ppred[D * D];
-  mm<T, D, D, 1>(s.f, pm, mp);
-  add_to<T, D>(mp, s.c);
-  mm_nt<T, D, D, D>(pp, s.f, t);
-  mm<T, D, D, D>(s.f, t, ppred);
-  add_to<T, D * D>(ppred, s.q);
-  sym<T, D>(ppred);
-  T hm[O], ph[D * O], hpht[O * O], w[O];
-  mm<T, O, D, 1>(h, mp, hm);
-  mm_nt<T, D, D, O>(ppred, h, ph);
-  mm<T, O, D, O>(h, ph, hpht);
-  mm<T, O, O, 1>(s.lam, hm, w);
-#pragma unroll
-  for (int i = 0; i < O; ++i) w[i] = s.nu[i] - w[i];
-  T lsafe[O * O], mmat[O * O], hl[O * O];
-  if (s.keep) {
-#pragma unroll
-    for (int i = 0; i < O * O; ++i) lsafe[i] = s.lam[i];
-    mm<T, O, O, O>(hpht, s.lam, hl);
-    mm<T, O, O, O>(s.lam, hl, mmat);
-    add_to<T, O * O>(mmat, s.lam);
-  } else {
-    set_eye<T, O>(lsafe);
-    set_eye<T, O>(mmat);
-  }
-  T mi[O * O], sol[O];
-  inv<T, O>(mmat, mi);
-  mm<T, O, O, 1>(mi, w, sol);
-  T quad = T(0);
-#pragma unroll
-  for (int i = 0; i < O; ++i) quad += w[i] * sol[i];
-  mm<T, O, O, O>(hpht, lsafe, hl);
-  add_eye<T, O>(hl);
-  const T log_det_s = log(fabs(det<T, O>(hl))) - log(fabs(det<T, O>(lsafe)));
-  const T log_2pi = T(1.8378770664093453);
-  const T ll = T(-0.5) * (quad + log_det_s + T(O) * log_2pi);
-  return s.keep ? ll : T(0);
-}
-
-// Pass 1 and the first half of pass 3: the composition of this thread's run
-// of R steps, and its exclusive prefix within the block.
-template <typename T, int D, int O>
-MF_DEV void filter_thread_prefix(const FilterArgs<T>& a, const UniformConsts<T, D, O>& k0,
-                                 int64_t b, int64_t first_step, FElem<T, D>& excl,
-                                 FElem<T, D>& total, FElem<T, D>* smem) {
-  using Op = FilterOp<T, D>;
-  using E = FElem<T, D>;
-  constexpr int R = Tiling<D>::R;
-  E run, e, t;
-  Op::identity(run);
-  FilterStep<T, D, O> s;
-  for (int r = 0; r < R; ++r) {
-    const int64_t k = first_step + r;
-    if (k >= a.n) break;
-    s.load(a, k0, b, k);
-    make_filter_elem<T, D, O>(s, k0.h, e);
-    Op::combine(run, e, t);
-    run = t;
-  }
-  block_scan<Op, Tiling<D>::THREADS, false>(run, excl, total, smem);
-}
-
-template <typename T, int D, int O>
-__global__ void __launch_bounds__(Tiling<D>::THREADS) filter_totals(FilterArgs<T> a) {
-  using E = FElem<T, D>;
-  constexpr int THREADS = Tiling<D>::THREADS;
-  __shared__ E smem[THREADS / 32 + 1];
-  const int64_t b = blockIdx.y, blk = blockIdx.x;
-  UniformConsts<T, D, O> k0;
-  k0.load(a, b);
-  E excl, total;
-  filter_thread_prefix<T, D, O>(a, k0, b, (blk * THREADS + threadIdx.x) * Tiling<D>::R,
-                                excl, total, smem);
-  if (threadIdx.x == 0) reinterpret_cast<E*>(a.totals)[b * a.nblk + blk] = total;
-}
-
-template <typename T, int D, int O>
-__global__ void __launch_bounds__(Tiling<D>::THREADS) filter_outputs(FilterArgs<T> a) {
-  using Op = FilterOp<T, D>;
-  using E = FElem<T, D>;
-  constexpr int THREADS = Tiling<D>::THREADS, R = Tiling<D>::R;
-  __shared__ E smem[THREADS / 32 + 1];
-  __shared__ T red[THREADS];
-  const int64_t b = blockIdx.y, blk = blockIdx.x, n = a.n;
-  const int64_t first_step = (blk * THREADS + threadIdx.x) * R;
-  UniformConsts<T, D, O> k0;
-  k0.load(a, b);
-  E excl, total, run, e, t;
-  filter_thread_prefix<T, D, O>(a, k0, b, first_step, excl, total, smem);
-  // carry of all earlier blocks, then of the earlier threads of this block
-  Op::combine(reinterpret_cast<const E*>(a.totals)[b * a.nblk + blk], excl, run);
-  T ll = T(0);
-  FilterStep<T, D, O> s;
-  for (int r = 0; r < R; ++r) {
-    const int64_t k = first_step + r;
-    if (k >= n) break;
-    s.load(a, k0, b, k);
-    // run holds the filtered moments of step k - 1 (b = 0, C = 0 before
-    // step 0, where F = 0 makes them irrelevant)
-    ll += step_loglik<T, D, O>(s, k0.h, run.v + E::OB, run.v + E::OC);
-    make_filter_elem<T, D, O>(s, k0.h, e);
-    Op::combine(run, e, t);
-    run = t;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      a.m_f[(b * D + i) * n + k] = run.v[E::OB + i];
-#pragma unroll
-      for (int j = 0; j < D; ++j) a.p_f[((b * D + i) * D + j) * n + k] = run.v[E::OC + i * D + j];
-    }
-  }
-  red[threadIdx.x] = ll;
-  __syncthreads();
-#pragma unroll
-  for (int w = THREADS / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) a.partials[b * a.nblk + blk] = red[0];
-}
-
-// Pass 4: the log-likelihood of each batch row, summed in a fixed order.
-template <typename T, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-sum_partials(const T* partials, int64_t nblk, T* out) {
-  __shared__ T red[THREADS];
-  const T* row = partials + int64_t(blockIdx.x) * nblk;
-  T s = T(0);
-  for (int64_t i = threadIdx.x; i < nblk; i += THREADS) s += row[i];
-  red[threadIdx.x] = s;
-  __syncthreads();
-#pragma unroll
-  for (int w = THREADS / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[blockIdx.x] = red[0];
-}
-
-// ---------------------------------------------------------------------------
-// Smoother (replaces pallas_smoother_pipeline_uniform).
-// ---------------------------------------------------------------------------
-
+// constants Fc, cc, Qc as UniformPrior; filtered moments, contiguous:
+// m_f [B, d, 1, N], P_f [B, d, d, N]
 template <typename T>
-struct SmootherArgs {
-  // constants, [B, ...] contiguous: Fc [d, d], cc [d], Qc [d, d]
-  const T *fc, *cc, *qc;
-  // filtered moments, contiguous: m_f [B, d, 1, N], P_f [B, d, d, N]
-  const T *m_f, *p_f;
-  // outputs, contiguous: m_s [B, d, 1, N], P_s [B, d, d, N]
-  T *m_s, *p_s;
-  T* totals;  // scratch: block totals [B, nblk] elements
-  int64_t n, nblk;
+struct UniformRts {
+  const T *fc, *cc, *qc, *m_f, *p_f;
 };
 
-template <typename T, int D>
-struct SmootherConsts {
+template <typename T_, int D_>
+struct UniformRtsRow {
+  using T = T_;
+  static constexpr int D = D_;
+  using Prior = UniformRts<T>;
   T f[D * D], c[D], q[D * D];
 
-  MF_DEV void load(const SmootherArgs<T>& a, int64_t b) {
+  MF_DEV void load(const Prior& a, int64_t b) {
 #pragma unroll
     for (int i = 0; i < D * D; ++i) {
       f[i] = a.fc[b * D * D + i];
@@ -575,222 +101,85 @@ struct SmootherConsts {
 #pragma unroll
     for (int i = 0; i < D; ++i) c[i] = a.cc[b * D + i];
   }
-};
 
-// RTS element of global step k (smoother_pipeline_tl /
-// _uniform_smoother_kernel): E = P_k F^T Pp^-1 with Pp = sym(F P_k F^T + Q),
-// g = m_k - E (F m_k + c), L = sym(P_k - E F P_k); the last step is the
-// boundary element (0, m_f[N-1], P_f[N-1]).
-template <typename T, int D>
-MF_DEV void make_smoother_elem(const SmootherArgs<T>& a, const SmootherConsts<T, D>& k0,
-                               int64_t b, int64_t k, SElem<T, D>& out) {
-  using E = SElem<T, D>;
-  const int64_t n = a.n;
-  T mk[D], pk[D * D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    mk[i] = a.m_f[(b * D + i) * n + k];
-#pragma unroll
-    for (int j = 0; j < D; ++j) pk[i * D + j] = a.p_f[((b * D + i) * D + j) * n + k];
-  }
-  if (k == n - 1) {
-#pragma unroll
-    for (int i = 0; i < D * D; ++i) {
-      out.v[E::OE + i] = T(0);
-      out.v[E::OL + i] = pk[i];
-    }
-#pragma unroll
-    for (int i = 0; i < D; ++i) out.v[E::OG + i] = mk[i];
-    return;
-  }
-  T pft[D * D], pp[D * D], pinv[D * D];
-  mm_nt<T, D, D, D>(pk, k0.f, pft);  // P F^T
-  mm<T, D, D, D>(k0.f, pft, pp);
-  add_to<T, D * D>(pp, k0.q);
-  sym<T, D>(pp);
-  inv<T, D>(pp, pinv);
-  T* gain = out.v + E::OE;
-  mm<T, D, D, D>(pft, pinv, gain);
-  T fm[D], gfm[D];
-  mm<T, D, D, 1>(k0.f, mk, fm);
-  add_to<T, D>(fm, k0.c);
-  mm<T, D, D, 1>(gain, fm, gfm);
-#pragma unroll
-  for (int i = 0; i < D; ++i) out.v[E::OG + i] = mk[i] - gfm[i];
-  T fp[D * D];
-  mm<T, D, D, D>(k0.f, pk, fp);
-  mm<T, D, D, D>(gain, fp, pp);
-#pragma unroll
-  for (int i = 0; i < D * D; ++i) out.v[E::OL + i] = pk[i] - pp[i];
-  sym<T, D>(out.v + E::OL);
-}
-
-// The composition of this thread's run of R steps, and the exclusive
-// suffix within the block (all later threads).
-template <typename T, int D>
-MF_DEV void smoother_thread_suffix(const SmootherArgs<T>& a, const SmootherConsts<T, D>& k0,
-                                   int64_t b, int64_t first_step, SElem<T, D>& excl,
-                                   SElem<T, D>& total, SElem<T, D>* smem) {
-  using Op = SmootherOp<T, D>;
-  using E = SElem<T, D>;
-  constexpr int R = Tiling<D>::R;
-  E run, e, t;
-  Op::identity(run);
-  for (int r = R - 1; r >= 0; --r) {
-    const int64_t k = first_step + r;
-    if (k >= a.n) continue;
-    make_smoother_elem<T, D>(a, k0, b, k, e);
-    Op::combine(e, run, t);
-    run = t;
-  }
-  block_scan<Op, Tiling<D>::THREADS, true>(run, excl, total, smem);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(Tiling<D>::THREADS) smoother_totals(SmootherArgs<T> a) {
-  using E = SElem<T, D>;
-  constexpr int THREADS = Tiling<D>::THREADS;
-  __shared__ E smem[THREADS / 32 + 1];
-  const int64_t b = blockIdx.y, blk = blockIdx.x;
-  SmootherConsts<T, D> k0;
-  k0.load(a, b);
-  E excl, total;
-  smoother_thread_suffix<T, D>(a, k0, b, (blk * THREADS + threadIdx.x) * Tiling<D>::R,
-                               excl, total, smem);
-  if (threadIdx.x == 0) reinterpret_cast<E*>(a.totals)[b * a.nblk + blk] = total;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(Tiling<D>::THREADS) smoother_outputs(SmootherArgs<T> a) {
-  using Op = SmootherOp<T, D>;
-  using E = SElem<T, D>;
-  constexpr int THREADS = Tiling<D>::THREADS, R = Tiling<D>::R;
-  __shared__ E smem[THREADS / 32 + 1];
-  const int64_t b = blockIdx.y, blk = blockIdx.x, n = a.n;
-  const int64_t first_step = (blk * THREADS + threadIdx.x) * R;
-  SmootherConsts<T, D> k0;
-  k0.load(a, b);
-  E excl, total, run, e, t;
-  smoother_thread_suffix<T, D>(a, k0, b, first_step, excl, total, smem);
-  // the later threads of this block, then all later blocks
-  Op::combine(excl, reinterpret_cast<const E*>(a.totals)[b * a.nblk + blk], run);
-  for (int r = R - 1; r >= 0; --r) {
-    const int64_t k = first_step + r;
-    if (k >= n) continue;
-    make_smoother_elem<T, D>(a, k0, b, k, e);
-    Op::combine(e, run, t);
-    run = t;
+  // RTS element of global step k (smoother_pipeline_tl /
+  // _uniform_smoother_kernel): E = P_k F^T Pp^-1 with Pp = sym(F P_k F^T + Q),
+  // g = m_k - E (F m_k + c), L = sym(P_k - E F P_k); the last step is the
+  // boundary element (0, m_f[N-1], P_f[N-1]).
+  MF_DEV void elem(const Prior& a, int64_t b, int64_t k, int64_t n,
+                   SElem<T, D>& out) const {
+    using E = SElem<T, D>;
+    T mk[D], pk[D * D];
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      a.m_s[(b * D + i) * n + k] = run.v[E::OG + i];
+      mk[i] = a.m_f[(b * D + i) * n + k];
 #pragma unroll
-      for (int j = 0; j < D; ++j) a.p_s[((b * D + i) * D + j) * n + k] = run.v[E::OL + i * D + j];
+      for (int j = 0; j < D; ++j) pk[i * D + j] = a.p_f[((b * D + i) * D + j) * n + k];
     }
+    if (k == n - 1) {
+#pragma unroll
+      for (int i = 0; i < D * D; ++i) {
+        out.v[E::OE + i] = T(0);
+        out.v[E::OL + i] = pk[i];
+      }
+#pragma unroll
+      for (int i = 0; i < D; ++i) out.v[E::OG + i] = mk[i];
+      return;
+    }
+    T pft[D * D], pp[D * D], pinv[D * D];
+    mm_nt<T, D, D, D>(pk, f, pft);  // P F^T
+    mm<T, D, D, D>(f, pft, pp);
+    add_to<T, D * D>(pp, q);
+    sym<T, D>(pp);
+    inv<T, D>(pp, pinv);
+    T* gain = out.v + E::OE;
+    mm<T, D, D, D>(pft, pinv, gain);
+    T fm[D], gfm[D];
+    mm<T, D, D, 1>(f, mk, fm);
+    add_to<T, D>(fm, c);
+    mm<T, D, D, 1>(gain, fm, gfm);
+#pragma unroll
+    for (int i = 0; i < D; ++i) out.v[E::OG + i] = mk[i] - gfm[i];
+    T fp[D * D];
+    mm<T, D, D, D>(f, pk, fp);
+    mm<T, D, D, D>(gain, fp, pp);
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) out.v[E::OL + i] = pk[i] - pp[i];
+    sym<T, D>(out.v + E::OL);
   }
-}
-
-// ---------------------------------------------------------------------------
-// Host launchers.  Each returns cudaGetLastError() after its launches.
-// ---------------------------------------------------------------------------
-
-#define MF_CHECK_LAUNCH()                      \
-  do {                                         \
-    const cudaError_t err = cudaGetLastError(); \
-    if (err != cudaSuccess) return int(err);   \
-  } while (0)
-
-template <typename T, int D>
-int64_t filter_scratch(int64_t batch, int64_t n) {
-  const int64_t nblk = num_blocks(n, Tiling<D>::TILE);
-  return batch * nblk * (FElem<T, D>::SIZE + 1);
-}
-
-template <typename T, int D>
-int64_t smoother_scratch(int64_t batch, int64_t n) {
-  return batch * num_blocks(n, Tiling<D>::TILE) * SElem<T, D>::SIZE;
-}
-
-template <typename T, int D>
-int launch_filter(FilterArgs<T> a, T* scratch, int64_t batch, cudaStream_t stream) {
-  constexpr int THREADS = Tiling<D>::THREADS;
-  a.nblk = num_blocks(a.n, Tiling<D>::TILE);
-  a.totals = scratch;
-  a.partials = scratch + batch * a.nblk * FElem<T, D>::SIZE;
-  const dim3 grid(unsigned(a.nblk), unsigned(batch));
-  filter_totals<T, D, 1><<<grid, THREADS, 0, stream>>>(a);
-  MF_CHECK_LAUNCH();
-  scan_totals<FilterOp<T, D>, THREADS, false><<<unsigned(batch), THREADS, 0, stream>>>(
-      reinterpret_cast<FElem<T, D>*>(a.totals), a.nblk);
-  MF_CHECK_LAUNCH();
-  filter_outputs<T, D, 1><<<grid, THREADS, 0, stream>>>(a);
-  MF_CHECK_LAUNCH();
-  sum_partials<T, THREADS><<<unsigned(batch), THREADS, 0, stream>>>(a.partials, a.nblk, a.loglik);
-  MF_CHECK_LAUNCH();
-  return 0;
-}
-
-template <typename T, int D>
-int launch_smoother(SmootherArgs<T> a, T* scratch, int64_t batch, cudaStream_t stream) {
-  constexpr int THREADS = Tiling<D>::THREADS;
-  a.nblk = num_blocks(a.n, Tiling<D>::TILE);
-  a.totals = scratch;
-  const dim3 grid(unsigned(a.nblk), unsigned(batch));
-  smoother_totals<T, D><<<grid, THREADS, 0, stream>>>(a);
-  MF_CHECK_LAUNCH();
-  scan_totals<SmootherOp<T, D>, THREADS, true><<<unsigned(batch), THREADS, 0, stream>>>(
-      reinterpret_cast<SElem<T, D>*>(a.totals), a.nblk);
-  MF_CHECK_LAUNCH();
-  smoother_outputs<T, D><<<grid, THREADS, 0, stream>>>(a);
-  MF_CHECK_LAUNCH();
-  return 0;
-}
+};
 
 }  // namespace mf
 
 // C entry points for one dtype (T, suffix).  The state dimension is a
 // runtime argument dispatched to the compile-time instantiations d = 1..6;
 // the output dimension is 1.  Sizes are int64; every pointer, and the
-// stream, is passed as an address.
-#define MF_SWITCH_D(d, EXPR_OF_D, BAD) \
-  switch (d) {                         \
-    case 1: { constexpr int D_ = 1; return EXPR_OF_D; } \
-    case 2: { constexpr int D_ = 2; return EXPR_OF_D; } \
-    case 3: { constexpr int D_ = 3; return EXPR_OF_D; } \
-    case 4: { constexpr int D_ = 4; return EXPR_OF_D; } \
-    case 5: { constexpr int D_ = 5; return EXPR_OF_D; } \
-    case 6: { constexpr int D_ = 6; return EXPR_OF_D; } \
-    default: return BAD;               \
-  }
-
-#define MF_DEFINE_ENTRY_POINTS(T, SUFFIX)                                              \
-  extern "C" int64_t mf_uniform_filter_scratch_##SUFFIX(int64_t d, int64_t batch,      \
-                                                         int64_t n) {                  \
-    MF_SWITCH_D(d, (mf::filter_scratch<T, D_>(batch, n)), -1)                          \
-  }                                                                                    \
-  extern "C" int64_t mf_uniform_smoother_scratch_##SUFFIX(int64_t d, int64_t batch,    \
-                                                           int64_t n) {                \
-    MF_SWITCH_D(d, (mf::smoother_scratch<T, D_>(batch, n)), -1)                        \
-  }                                                                                    \
+// stream, is passed as an address; strides come as a host array of int64.
+#define MF_DEFINE_UNIFORM_ENTRY_POINTS(T, SUFFIX)                                      \
   extern "C" int mf_uniform_filter_##SUFFIX(                                           \
       const T* fc, const T* cc, const T* qc, const T* mu0, const T* p0, const T* hc,   \
-      const T* nu, int64_t nu_sb, int64_t nu_si, int64_t nu_st, const T* lam,          \
-      int64_t lam_sb, int64_t lam_si, int64_t lam_sj, int64_t lam_st, const T* mask,   \
-      int64_t mask_sb, int64_t mask_st, T* m_f, T* p_f, T* loglik, T* scratch,         \
-      int64_t batch, int64_t n, int64_t d, void* stream) {                             \
+      const T* nu, const T* lam, const T* mask, const int64_t* site_strides, T* m_f,   \
+      T* p_f, T* loglik, T* scratch, int64_t batch, int64_t n, int64_t d,              \
+      void* stream) {                                                                  \
     if (batch < 1 || batch > 65535 || n < 1) return int(cudaErrorInvalidValue);        \
-    mf::FilterArgs<T> a{fc, cc, qc, mu0, p0, hc, nu, lam, mask,                        \
-                        nu_sb, nu_si, nu_st, lam_sb, lam_si, lam_sj, lam_st,           \
-                        mask_sb, mask_st, m_f, p_f, loglik, nullptr, nullptr, n, 0};   \
+    mf::UniformPrior<T> p{fc, cc, qc, mu0, p0, hc};                                    \
+    mf::FilterArgs<T> a{};                                                             \
+    a.nu = nu; a.lam = lam; a.mask = mask;                                             \
+    mf::set_site_strides(a, site_strides);                                             \
+    a.m_f = m_f; a.p_f = p_f; a.loglik = loglik; a.n = n;                              \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
-    MF_SWITCH_D(d, (mf::launch_filter<T, D_>(a, scratch, batch, s)),                   \
+    MF_SWITCH_D(d, (mf::launch_filter<mf::UniformRow<T, D_, 1>>(a, p, scratch, batch,  \
+                                                                s)),                   \
                 int(cudaErrorInvalidValue))                                            \
   }                                                                                    \
   extern "C" int mf_uniform_smoother_##SUFFIX(                                         \
       const T* fc, const T* cc, const T* qc, const T* m_f, const T* p_f, T* m_s,       \
       T* p_s, T* scratch, int64_t batch, int64_t n, int64_t d, void* stream) {         \
     if (batch < 1 || batch > 65535 || n < 1) return int(cudaErrorInvalidValue);        \
-    mf::SmootherArgs<T> a{fc, cc, qc, m_f, p_f, m_s, p_s, nullptr, n, 0};              \
+    mf::UniformRts<T> p{fc, cc, qc, m_f, p_f};                                         \
+    mf::SmootherArgs<T> a{m_s, p_s, nullptr, n, 0};                                    \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
-    MF_SWITCH_D(d, (mf::launch_smoother<T, D_>(a, scratch, batch, s)),                 \
+    MF_SWITCH_D(d, (mf::launch_smoother<mf::UniformRtsRow<T, D_>>(a, p, scratch,       \
+                                                                  batch, s)),          \
                 int(cudaErrorInvalidValue))                                            \
   }

@@ -1,19 +1,25 @@
-"""Uniform-grid Kalman filter and smoother: CUDA kernels and their plain
-versions.
+"""Kalman filter and smoother scans: CUDA kernels and their plain versions.
 
-Two kernels written by hand for Hopper (``sm_90a``), in
-``ops/csrc/uniform_scan.cuh``:
+Kernels written by hand for Hopper (``sm_90a``), in ``ops/csrc/``:
 
 * :func:`filter_pipeline_uniform` replaces the TPU kernel
   ``markovflow_tpu/ops/pallas_scan.py::pallas_filter_pipeline_uniform``;
 * :func:`smoother_pipeline_uniform` replaces
-  ``markovflow_tpu/ops/pallas_scan.py::pallas_smoother_pipeline_uniform``.
+  ``markovflow_tpu/ops/pallas_scan.py::pallas_smoother_pipeline_uniform``
+  (both in ``csrc/uniform_scan.cuh``);
+* :func:`filter_pipeline` replaces ``pallas_filter_pipeline`` and
+  :func:`smoother_scan` replaces ``pallas_smoother_scan`` (both in
+  ``csrc/general_scan.cuh``).
 
-Each wrapper takes its plain PyTorch version (:func:`filter_pipeline_uniform_plain`,
-:func:`smoother_pipeline_uniform_plain`) only when the tensors lie on the CPU.
-For CUDA tensors it launches the kernel, or raises on a device, dtype, state
-or output dimension it does not take; it never falls back.  Each wrapper
-counts its launches in a plain integer attribute ``launches``.
+The Koopman backward kernel, the port of ``pallas_adjoint_pipeline_uniform``,
+has its wrapper in :mod:`markovflow_tpu_torch.ops.adjoint` beside its plain
+version; it is built into the same library.
+
+Each wrapper takes its plain PyTorch version (``*_plain``) only when the
+tensors lie on the CPU.  For CUDA tensors it launches the kernel, or raises
+on a device, dtype, state or output dimension it does not take; it never
+falls back.  Each wrapper counts its launches in a plain integer attribute
+``launches``.
 
 The kernels are built at first use with ``nvcc`` from the sources in
 ``csrc/`` into ``_build/torch_kernels/<hash of the sources>/`` at the root
@@ -34,10 +40,13 @@ from typing import Optional
 
 import torch
 
-from .kalman import _materialize_uniform, filter_pipeline_tl, smoother_pipeline_tl
+from .kalman import (_materialize_uniform, filter_pipeline_tl,
+                     smoother_pipeline_tl, smoother_scan_tl)
 
 __all__ = ["filter_pipeline_uniform", "smoother_pipeline_uniform",
+           "filter_pipeline", "smoother_scan",
            "filter_pipeline_uniform_plain", "smoother_pipeline_uniform_plain",
+           "filter_pipeline_plain", "smoother_scan_plain",
            "build_kernels", "MAX_STATE_DIM"]
 
 #: the kernels are instantiated for state dims 1..6 and output dim 1
@@ -47,7 +56,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "_build" / "torch_kernels"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC"]
-_LIB_NAME = "libmarkovflow_uniform_scan.so"
+_LIB_NAME = "libmarkovflow_scans.so"
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -72,6 +81,19 @@ def smoother_pipeline_uniform_plain(Fc, cc, Qc, m_f, p_f):
     return m_s, p_s
 
 
+def filter_pipeline_plain(F, c, Q, H, nu, lam, maskf=None):
+    """Plain PyTorch version of :func:`filter_pipeline`:
+    :func:`ops.kalman.filter_pipeline_tl` with the float mask as booleans."""
+    mask = None if maskf is None else maskf[..., 0, 0, :] > 0.5
+    return filter_pipeline_tl(F, c, Q, H, nu, lam, mask)
+
+
+def smoother_scan_plain(E, g, L):
+    """Plain PyTorch version of :func:`smoother_scan`: the reverse
+    :func:`ops.scans.scan_tl` over the smoothing composition."""
+    return smoother_scan_tl(E, g, L)
+
+
 # ---------------------------------------------------------------------------
 # Build and load
 # ---------------------------------------------------------------------------
@@ -91,11 +113,14 @@ def _find_nvcc() -> str:
     return nvcc
 
 
-#: compilation units: the C entry points, then one unit per (dtype, state
-#: dim) instantiation of the kernels, so that nvcc runs them in parallel
-_UNITS = [("uniform_scan.cu", [])] + [
-    ("uniform_scan_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}"])
-    for t in ("float", "double") for d in range(1, MAX_STATE_DIM + 1)]
+#: compilation units: the C entry points, then one unit per (kernel family,
+#: dtype, state dim) instantiation of the kernels, so that nvcc runs them in
+#: parallel; the largest state dims, the slowest to build, start first
+_FAMILIES = ("uniform", "general", "adjoint")
+_UNITS = [("entry_points.cu", [])] + [
+    (f"{fam}_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}"])
+    for fam in _FAMILIES for t in ("float", "double")
+    for d in range(MAX_STATE_DIM, 0, -1)]
 
 
 def _source_hash() -> str:
@@ -127,16 +152,24 @@ def _compile(nvcc: str, out_dir: Path) -> Path:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     for sfx in ("f32", "f64"):
-        for kind in ("filter", "smoother"):
-            fn = getattr(lib, f"mf_uniform_{kind}_scratch_{sfx}")
+        for kind in ("filter", "smoother", "adjoint"):
+            fn = getattr(lib, f"mf_{kind}_scratch_{sfx}")
             fn.argtypes = [i64, i64, i64]
             fn.restype = i64
         fn = getattr(lib, f"mf_uniform_filter_{sfx}")
-        fn.argtypes = ([p] * 7 + [i64] * 3 + [p] + [i64] * 4 + [p] + [i64] * 2
-                       + [p] * 4 + [i64] * 3 + [p])
+        fn.argtypes = [p] * 10 + [p] * 4 + [i64] * 3 + [p]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"mf_uniform_smoother_{sfx}")
         fn.argtypes = [p] * 8 + [i64] * 3 + [p]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"mf_general_filter_{sfx}")
+        fn.argtypes = [p] * 8 + [p] * 4 + [i64] * 3 + [p]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"mf_smoother_scan_{sfx}")
+        fn.argtypes = [p] * 6 + [i64] * 3 + [p]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"mf_uniform_adjoint_{sfx}")
+        fn.argtypes = [p] * 10 + [p] * 3 + [p] * 6 + [i64] * 3 + [p]
         fn.restype = ctypes.c_int
 
 
@@ -213,6 +246,40 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
+def _flat_steps(lead, B, x, shape):
+    """Broadcast per-step [..., d1, d2, N] to the batch as [B, d1, d2, N],
+    a view where the strides allow (expanded axes keep stride 0)."""
+    return x.expand(lead + shape).reshape((B,) + shape)
+
+
+def _strides(*tensors_and_axes):
+    """A C array of int64 strides: for each (tensor, axes), the strides of
+    those axes of the [B, d1, d2, N] tensor (0 for an absent tensor)."""
+    vals = []
+    for t, axes in tensors_and_axes:
+        vals += [0] * len(axes) if t is None else [t.stride(a) for a in axes]
+    return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def _site_views(lead, B, o, n, nu, lam, maskf):
+    """The site inputs as [B, ...] views, and their strides in the order the
+    C entry points take them: nu (batch, row, step), lam (batch, row,
+    column, step), mask (batch, step)."""
+    nu_b = _flat_steps(lead, B, nu, (o, 1, n))
+    lam_b = _flat_steps(lead, B, lam, (o, o, n))
+    mask_b = None if maskf is None else _flat_steps(lead, B, maskf, (1, 1, n))
+    strides = [(nu_b, (0, 1, 3)), (lam_b, (0, 1, 2, 3)), (mask_b, (0, 3))]
+    ptrs = (nu_b.data_ptr(), lam_b.data_ptr(),
+            None if mask_b is None else mask_b.data_ptr())
+    return ptrs, strides
+
+
+def _scratch(kind: str, sfx: str, d: int, B: int, n: int, like):
+    lib = build_kernels()
+    size = getattr(lib, f"mf_{kind}_scratch_{sfx}")(d, B, n)
+    return torch.empty((size,), dtype=like.dtype, device=like.device)
+
+
 def filter_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf=None):
     """Kalman filter on a uniform grid with constant prior steps.
 
@@ -232,40 +299,24 @@ def filter_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf=None):
         raise ValueError(f"no kernel for device {nu.device}")
     d, o, n = Fc.shape[-3], lam.shape[-3], nu.shape[-1]
     inputs = [Fc, cc, Qc, mu0, P0, Hc, nu, lam]
-    leads = [x.shape[:-3] for x in inputs]
     if maskf is not None:
         inputs.append(maskf)
-        leads.append(maskf.shape[:-3])
     sfx = _check_cuda(inputs, d, o)
-    lead = torch.broadcast_shapes(*leads)
+    lead = torch.broadcast_shapes(*(x.shape[:-3] for x in inputs))
     B = math.prod(lead)
     _check_grid(B, n)
-    fc, ccf, qc, m0, p0, hc = _flat_consts(
+    consts = _flat_consts(
         lead, B, (Fc, (d, d, 1)), (cc, (d, 1, 1)), (Qc, (d, d, 1)),
         (mu0, (d, 1, 1)), (P0, (d, d, 1)), (Hc, (o, d, 1)))
-    nu_b = nu.expand(lead + (o, 1, n)).reshape(B, o, 1, n)
-    lam_b = lam.expand(lead + (o, o, n)).reshape(B, o, o, n)
-    if maskf is None:
-        mask_ptr, mask_sb, mask_st = None, 0, 0
-    else:
-        mask_b = maskf.expand(lead + (1, 1, n)).reshape(B, 1, 1, n)
-        mask_ptr, mask_sb, mask_st = (mask_b.data_ptr(), mask_b.stride(0),
-                                      mask_b.stride(3))
+    sites, site_strides = _site_views(lead, B, o, n, nu, lam, maskf)
     kw = dict(dtype=nu.dtype, device=nu.device)
     m_f = torch.empty((B, d, 1, n), **kw)
     p_f = torch.empty((B, d, d, n), **kw)
     loglik = torch.empty((B,), **kw)
-    lib = build_kernels()
-    scratch = torch.empty(
-        (getattr(lib, f"mf_uniform_filter_scratch_{sfx}")(d, B, n),), **kw)
-    sn, sl = nu_b.stride(), lam_b.stride()
+    scratch = _scratch("filter", sfx, d, B, n, nu)
     with torch.cuda.device(nu.device):
-        err = getattr(lib, f"mf_uniform_filter_{sfx}")(
-            fc.data_ptr(), ccf.data_ptr(), qc.data_ptr(), m0.data_ptr(),
-            p0.data_ptr(), hc.data_ptr(),
-            nu_b.data_ptr(), sn[0], sn[1], sn[3],
-            lam_b.data_ptr(), sl[0], sl[1], sl[2], sl[3],
-            mask_ptr, mask_sb, mask_st,
+        err = getattr(build_kernels(), f"mf_uniform_filter_{sfx}")(
+            *(x.data_ptr() for x in consts), *sites, _strides(*site_strides),
             m_f.data_ptr(), p_f.data_ptr(), loglik.data_ptr(),
             scratch.data_ptr(), B, n, d, _stream(nu.device))
     _raise_on(err, "filter_pipeline_uniform")
@@ -289,23 +340,16 @@ def smoother_pipeline_uniform(Fc, cc, Qc, m_f, p_f):
     d, n = Fc.shape[-3], m_f.shape[-1]
     sfx = _check_cuda([Fc, cc, Qc, m_f, p_f], d, 1)
     lead = m_f.shape[:-3]
-    if p_f.shape != lead + (d, d, n) or m_f.shape != lead + (d, 1, n):
-        raise ValueError(f"m_f {tuple(m_f.shape)} / P_f {tuple(p_f.shape)} "
-                         f"do not match state dim {d}")
-    if not (m_f.is_contiguous() and p_f.is_contiguous()):
-        raise ValueError("the smoother kernel takes contiguous m_f and P_f")
+    _check_moments(m_f, p_f, lead, d, n)
     B = math.prod(lead)
     _check_grid(B, n)
     fc, ccf, qc = _flat_consts(lead, B, (Fc, (d, d, 1)), (cc, (d, 1, 1)),
                                (Qc, (d, d, 1)))
     m_s = torch.empty_like(m_f)
     p_s = torch.empty_like(p_f)
-    lib = build_kernels()
-    scratch = torch.empty(
-        (getattr(lib, f"mf_uniform_smoother_scratch_{sfx}")(d, B, n),),
-        dtype=m_f.dtype, device=m_f.device)
+    scratch = _scratch("smoother", sfx, d, B, n, m_f)
     with torch.cuda.device(m_f.device):
-        err = getattr(lib, f"mf_uniform_smoother_{sfx}")(
+        err = getattr(build_kernels(), f"mf_uniform_smoother_{sfx}")(
             fc.data_ptr(), ccf.data_ptr(), qc.data_ptr(), m_f.data_ptr(),
             p_f.data_ptr(), m_s.data_ptr(), p_s.data_ptr(), scratch.data_ptr(),
             B, n, d, _stream(m_f.device))
@@ -315,3 +359,94 @@ def smoother_pipeline_uniform(Fc, cc, Qc, m_f, p_f):
 
 
 smoother_pipeline_uniform.launches = 0
+
+
+def _check_moments(m, p, lead, d, n):
+    """(m [..., d, 1, N], P [..., d, d, N]) pairs the kernels read as
+    contiguous arrays."""
+    if p.shape != lead + (d, d, n) or m.shape != lead + (d, 1, n):
+        raise ValueError(f"{tuple(m.shape)} / {tuple(p.shape)} do not match "
+                         f"state dim {d} and {n} steps")
+    if not (m.is_contiguous() and p.is_contiguous()):
+        raise ValueError("the CUDA kernels take contiguous moments")
+
+
+def filter_pipeline(F, c, Q, H, nu, lam, maskf=None):
+    """Kalman filter with per-step prior steps and emission, for any grid.
+
+    F [..., d, d, N], c [..., d, 1, N], Q [..., d, d, N] (step 0 is the
+    prior: F_0 = 0, c_0 = mu0, Q_0 = P0); H [..., o, d, N]; sites
+    nu [..., o, 1, N], lam [..., o, o, N] and an optional mask
+    maskf [..., 1, 1, N] (steps with maskf <= 0.5 add 0 to the likelihood).
+    Every input may be an expanded view: the kernel reads all of them
+    through their strides.
+
+    Returns (m_f [..., d, 1, N], P_f [..., d, d, N], loglik [...]).
+    """
+    if F.device.type == "cpu":
+        return filter_pipeline_plain(F, c, Q, H, nu, lam, maskf)
+    if F.device.type != "cuda":
+        raise ValueError(f"no kernel for device {F.device}")
+    d, o, n = F.shape[-3], lam.shape[-3], F.shape[-1]
+    inputs = [F, c, Q, H, nu, lam]
+    if maskf is not None:
+        inputs.append(maskf)
+    sfx = _check_cuda(inputs, d, o)
+    lead = torch.broadcast_shapes(*(x.shape[:-3] for x in inputs))
+    B = math.prod(lead)
+    _check_grid(B, n)
+    prior = [_flat_steps(lead, B, x, shape) for x, shape in
+             ((F, (d, d, n)), (c, (d, 1, n)), (Q, (d, d, n)), (H, (o, d, n)))]
+    sites, site_strides = _site_views(lead, B, o, n, nu, lam, maskf)
+    strides = _strides((prior[0], (0, 1, 2, 3)), (prior[1], (0, 1, 3)),
+                       (prior[2], (0, 1, 2, 3)), (prior[3], (0, 1, 2, 3)),
+                       *site_strides)
+    kw = dict(dtype=F.dtype, device=F.device)
+    m_f = torch.empty((B, d, 1, n), **kw)
+    p_f = torch.empty((B, d, d, n), **kw)
+    loglik = torch.empty((B,), **kw)
+    scratch = _scratch("filter", sfx, d, B, n, F)
+    with torch.cuda.device(F.device):
+        err = getattr(build_kernels(), f"mf_general_filter_{sfx}")(
+            *(x.data_ptr() for x in prior), *sites, strides,
+            m_f.data_ptr(), p_f.data_ptr(), loglik.data_ptr(),
+            scratch.data_ptr(), B, n, d, _stream(F.device))
+    _raise_on(err, "filter_pipeline")
+    filter_pipeline.launches += 1
+    return (m_f.reshape(lead + (d, 1, n)), p_f.reshape(lead + (d, d, n)),
+            loglik.reshape(lead))
+
+
+filter_pipeline.launches = 0
+
+
+def smoother_scan(E, g, L):
+    """Reverse (suffix) scan of prebuilt smoothing elements E [..., d, d, N],
+    g [..., d, 1, N], L [..., d, d, N] (leading shapes broadcast).
+    Returns the g and L legs of every suffix, (m_s [..., d, 1, N],
+    P_s [..., d, d, N]) for RTS elements."""
+    if E.device.type == "cpu":
+        return smoother_scan_plain(E, g, L)
+    if E.device.type != "cuda":
+        raise ValueError(f"no kernel for device {E.device}")
+    d, n = E.shape[-3], E.shape[-1]
+    sfx = _check_cuda([E, g, L], d, 1)
+    lead = torch.broadcast_shapes(*(x.shape[:-3] for x in (E, g, L)))
+    B = math.prod(lead)
+    _check_grid(B, n)
+    e_b, g_b, l_b = (x.expand(lead + shape).reshape((B,) + shape).contiguous()
+                     for x, shape in ((E, (d, d, n)), (g, (d, 1, n)),
+                                      (L, (d, d, n))))
+    m_s = torch.empty_like(g_b)
+    p_s = torch.empty_like(l_b)
+    scratch = _scratch("smoother", sfx, d, B, n, E)
+    with torch.cuda.device(E.device):
+        err = getattr(build_kernels(), f"mf_smoother_scan_{sfx}")(
+            e_b.data_ptr(), g_b.data_ptr(), l_b.data_ptr(), m_s.data_ptr(),
+            p_s.data_ptr(), scratch.data_ptr(), B, n, d, _stream(E.device))
+    _raise_on(err, "smoother_scan")
+    smoother_scan.launches += 1
+    return m_s.reshape(lead + (d, 1, n)), p_s.reshape(lead + (d, d, n))
+
+
+smoother_scan.launches = 0

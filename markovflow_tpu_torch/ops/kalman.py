@@ -20,7 +20,7 @@ import torch
 from .scans import scan_tl
 
 __all__ = ["make_filter_elements_tl", "filter_pipeline_tl",
-           "smoother_pipeline_tl"]
+           "smoother_elements_tl", "smoother_scan_tl", "smoother_pipeline_tl"]
 
 
 def _no_tf32(x: torch.Tensor) -> None:
@@ -54,10 +54,38 @@ def _cat(blocks, dim):
     return torch.cat([b.expand(lead + b.shape[-3:]) for b in blocks], dim=dim)
 
 
+def _gauss_jordan_tl(m):
+    """Inverse and determinant of [..., d, d, N] by Gauss-Jordan elimination
+    on [m | I] with partial pivoting, unrolled over d.  The pivot search
+    swaps row j with each later row whose entry in column j is larger in
+    magnitude (selects, no gathers); any row order gives the same inverse.
+    The CUDA kernels' device ``gauss_jordan`` (``ops/csrc/small_linalg.cuh``)
+    does the same operations in the same order."""
+    d = m.shape[-3]
+    eye = _eye_tl(d, m).expand(m.shape)
+    rows = [torch.cat([m[..., i, :, :], eye[..., i, :, :]], dim=-2)
+            for i in range(d)]                      # each [..., 2d, N]
+    det = torch.ones_like(m[..., 0, 0, :])
+    for j in range(d):
+        for i in range(j + 1, d):
+            swap = rows[i][..., j, :].abs() > rows[j][..., j, :].abs()
+            s = swap[..., None, :]
+            rows[j], rows[i] = (torch.where(s, rows[i], rows[j]),
+                                torch.where(s, rows[j], rows[i]))
+            det = torch.where(swap, -det, det)
+        piv = rows[j][..., j, :]
+        det = det * piv
+        rows[j] = rows[j] * (1.0 / piv)[..., None, :]
+        for i in range(d):
+            if i != j:
+                rows[i] = rows[i] - rows[i][..., j:j + 1, :] * rows[j]
+    return torch.stack([r[..., d:, :] for r in rows], dim=-3), det
+
+
 def _inv_tl(m):
     """Inverse over the leading matrix dims of [..., d, d, N]: closed forms
-    for d <= 3, one Schur-complement level onto them for d <= 6 (the CUDA
-    kernels' device functions compute the same), LU above."""
+    for d <= 3, pivoted Gauss-Jordan for d <= 6 (the CUDA kernels' device
+    functions compute the same), LU above."""
     d = m.shape[-3]
     if d == 1:
         return 1.0 / m
@@ -80,16 +108,7 @@ def _inv_tl(m):
         ], -3)
         return adj / det[..., None, None, :]
     if d <= 6:
-        k = d // 2
-        a_i = _inv_tl(m[..., :k, :k, :])
-        b, c_, dd = m[..., :k, k:, :], m[..., k:, :k, :], m[..., k:, k:, :]
-        aib = _mm_tl(a_i, b)
-        s_i = _inv_tl(dd - _mm_tl(c_, aib))
-        cai = _mm_tl(c_, a_i)
-        top = torch.cat([a_i + _mm_tl(aib, _mm_tl(s_i, cai)),
-                         -_mm_tl(aib, s_i)], dim=-2)
-        bot = torch.cat([-_mm_tl(s_i, cai), s_i], dim=-2)
-        return torch.cat([top, bot], dim=-3)
+        return _gauss_jordan_tl(m)[0]
     return torch.linalg.inv(m.movedim(-1, -3)).movedim(-3, -1)
 
 
@@ -108,11 +127,7 @@ def _det_tl(m):
         return (m[..., 0, 0, :] * c(1, 1, 2, 2) - m[..., 0, 1, :] * c(1, 0, 2, 2)
                 + m[..., 0, 2, :] * c(1, 0, 2, 1))
     if d <= 6:
-        k = d // 2
-        a = m[..., :k, :k, :]
-        s = m[..., k:, k:, :] - _mm_tl(
-            m[..., k:, :k, :], _mm_tl(_inv_tl(a), m[..., :k, k:, :]))
-        return _det_tl(a) * _det_tl(s)
+        return _gauss_jordan_tl(m)[1]
     return torch.linalg.det(m.movedim(-1, -3))
 
 
@@ -204,12 +219,16 @@ def filter_pipeline_tl(F, c, Q, H, nu, lam,
     return m_f, p_f, ll.sum(-1)
 
 
-def smoother_pipeline_tl(F, c, Q, m_f, p_f):
-    """RTS smoother from the filtered moments.
+def smoother_elements_tl(F, c, Q, m_f, p_f):
+    """RTS smoothing elements (E, g, L) of every step from the filtered
+    moments: E_k = P_k F^T Pp^-1 (the gain), g_k = m_k - E_k (F m_k + c),
+    L_k = sym(P_k - E_k F P_k) with (F, c, Q) of step k + 1, and the
+    boundary element (0, m_f[N-1], P_f[N-1]) at the last step.  Element 0 of
+    (F, c, Q), the prior, is never read.
 
-    Returns (m_s [..., d, 1, N], P_s [..., d, d, N], gains [..., d, d, N-1]).
+    Returns (E [..., d, d, N], g [..., d, 1, N], L [..., d, d, N],
+    gains [..., d, d, N-1]).
     """
-    _no_tf32(F)
     fn, cn, qn = F[..., 1:], c[..., 1:], Q[..., 1:]
     mk, pk = m_f[..., :-1], p_f[..., :-1]
     p_pred = _sym_tl(_mm_tl(fn, _mm_tl(pk, _t_tl(fn))) + qn)
@@ -220,8 +239,28 @@ def smoother_pipeline_tl(F, c, Q, m_f, p_f):
     e_all = _cat([gains, torch.zeros_like(p_f[..., -1:])], dim=-1)
     g_all = _cat([g, m_f[..., -1:]], dim=-1)
     l_all = _cat([ell, p_f[..., -1:]], dim=-1)
-    _, m_s, p_s = scan_tl(_combine_smoother_tl, (e_all, g_all, l_all),
-                          reverse=True)
+    return e_all, g_all, l_all, gains
+
+
+def smoother_scan_tl(E, g, L):
+    """Reverse (suffix) scan of smoothing elements E [..., d, d, N],
+    g [..., d, 1, N], L [..., d, d, N] with the smoothing composition.
+    Returns the g and L legs of every suffix: (m_s [..., d, 1, N],
+    P_s [..., d, d, N]) for RTS elements, (r, NDK) for Koopman adjoint
+    elements."""
+    _no_tf32(E)
+    _, m_s, p_s = scan_tl(_combine_smoother_tl, (E, g, L), reverse=True)
+    return m_s, p_s
+
+
+def smoother_pipeline_tl(F, c, Q, m_f, p_f):
+    """RTS smoother from the filtered moments.
+
+    Returns (m_s [..., d, 1, N], P_s [..., d, d, N], gains [..., d, d, N-1]).
+    """
+    _no_tf32(F)
+    e_all, g_all, l_all, gains = smoother_elements_tl(F, c, Q, m_f, p_f)
+    m_s, p_s = smoother_scan_tl(e_all, g_all, l_all)
     return m_s, p_s, gains
 
 

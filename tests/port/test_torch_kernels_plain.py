@@ -1,17 +1,16 @@
-"""The plain PyTorch versions of the port's two CUDA kernels against the JAX
-package's Pallas kernels, run in interpret mode (float64, CPU).
+"""The plain PyTorch versions of the port's filter and smoother kernels
+against the JAX package's Pallas kernels, run in interpret mode (float64,
+CPU).
 
 * ``filter_pipeline_uniform_plain`` against ``pallas_filter_pipeline_uniform``;
 * ``smoother_pipeline_uniform_plain`` against
-  ``pallas_smoother_pipeline_uniform`` (both fed the Pallas filter's output).
+  ``pallas_smoother_pipeline_uniform`` (both fed the Pallas filter's output);
+* ``filter_pipeline_plain`` against ``pallas_filter_pipeline`` and
+  ``smoother_scan_plain`` against ``pallas_smoother_scan`` (general grid).
 
 The Pallas references run in fresh processes (``_pallas_refs.py``), as
 ``tests.tools.isolated`` runs the JAX suite's interpret-mode tests.
 """
-import os
-import subprocess
-import sys
-
 import numpy as np
 import pytest
 import torch
@@ -19,18 +18,18 @@ import torch
 pytest.importorskip("jax")
 
 from markovflow_tpu_torch.ops.cuda_scan import (  # noqa: E402
-    filter_pipeline_uniform, filter_pipeline_uniform_plain,
-    smoother_pipeline_uniform, smoother_pipeline_uniform_plain)
+    filter_pipeline, filter_pipeline_plain, filter_pipeline_uniform,
+    filter_pipeline_uniform_plain, smoother_pipeline_uniform,
+    smoother_pipeline_uniform_plain, smoother_scan, smoother_scan_plain)
 
-from _pallas_refs import CASES, INPUT_NAMES, case_inputs  # noqa: E402
-
-HERE = os.path.dirname(os.path.abspath(__file__))
-ROOT = os.path.dirname(os.path.dirname(HERE))
+from _pallas_refs import (CASES, GENERAL_CASES, GENERAL_INPUT_NAMES,  # noqa: E402
+                          INPUT_NAMES, case_inputs, general_inputs, run_refs,
+                          scan_inputs)
 
 # concurrent reference processes, balanced by cost (d = 3 dominates)
 GROUPS = (("d3_n64", "d1_n64", "d1_n73"), ("d3_n73", "d2_n64"),
-          ("d2_n73", "d2_n73_masked", "d2_n64_batch3"))
-assert sorted(sum(GROUPS, ())) == sorted(CASES)
+          ("d2_n73", "d2_n73_masked", "d2_n64_batch3"), tuple(GENERAL_CASES))
+assert sorted(sum(GROUPS, ())) == sorted(CASES) + sorted(GENERAL_CASES)
 
 # float64 values agree to roundoff: the plain version scans in another
 # bracketing than the Pallas kernel's sequential runs + lane scan
@@ -40,24 +39,7 @@ LOGLIK_RTOL = 1e-12
 
 @pytest.fixture(scope="module")
 def pallas_refs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("pallas_refs")
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               PYTHONPATH=os.pathsep.join(
-                   [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    procs = []
-    for i, names in enumerate(GROUPS):
-        out = str(tmp / f"refs{i}.npz")
-        procs.append((out, subprocess.Popen(
-            [sys.executable, os.path.join(HERE, "_pallas_refs.py"), out, *names],
-            env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    refs = {}
-    for out, proc in procs:
-        log, _ = proc.communicate(timeout=600)
-        assert proc.returncode == 0, f"Pallas reference process failed:\n{log[-4000:]}"
-        with np.load(out) as z:
-            refs.update({k: z[k] for k in z.files})
-    return refs
+    return run_refs(tmp_path_factory.mktemp("pallas_refs"), GROUPS)
 
 
 def _inputs(name):
@@ -84,6 +66,27 @@ def test_smoother_plain_matches_pallas(pallas_refs, name):
     np.testing.assert_allclose(p_s.numpy(), pallas_refs[f"{name}/p_s"], atol=ATOL, rtol=0)
 
 
+def _general(name):
+    return [None if v is None else torch.from_numpy(v)
+            for v in (general_inputs(name)[k] for k in GENERAL_INPUT_NAMES)]
+
+
+@pytest.mark.parametrize("name", sorted(GENERAL_CASES))
+def test_general_filter_plain_matches_pallas(pallas_refs, name):
+    m_f, p_f, ll = filter_pipeline_plain(*_general(name))
+    np.testing.assert_allclose(m_f.numpy(), pallas_refs[f"{name}/m_f"], atol=ATOL, rtol=0)
+    np.testing.assert_allclose(p_f.numpy(), pallas_refs[f"{name}/p_f"], atol=ATOL, rtol=0)
+    np.testing.assert_allclose(ll.numpy(), pallas_refs[f"{name}/loglik"],
+                               rtol=LOGLIK_RTOL)
+
+
+@pytest.mark.parametrize("name", sorted(GENERAL_CASES))
+def test_smoother_scan_plain_matches_pallas(pallas_refs, name):
+    m_s, p_s = smoother_scan_plain(*(torch.from_numpy(x) for x in scan_inputs(name)))
+    np.testing.assert_allclose(m_s.numpy(), pallas_refs[f"{name}/m_s"], atol=ATOL, rtol=0)
+    np.testing.assert_allclose(p_s.numpy(), pallas_refs[f"{name}/p_s"], atol=ATOL, rtol=0)
+
+
 def test_wrappers_take_the_plain_versions_on_cpu():
     """On CPU tensors the wrappers return exactly the plain versions'
     results and launch nothing."""
@@ -99,3 +102,14 @@ def test_wrappers_take_the_plain_versions_on_cpu():
         assert torch.equal(g, w)
     assert (filter_pipeline_uniform.launches,
             smoother_pipeline_uniform.launches) == before
+
+
+def test_general_wrappers_take_the_plain_versions_on_cpu():
+    args = _general("g_d2_n73_masked")
+    elems = [torch.from_numpy(x) for x in scan_inputs("g_d2_n73_masked")]
+    before = (filter_pipeline.launches, smoother_scan.launches)
+    for g, w in zip(filter_pipeline(*args), filter_pipeline_plain(*args)):
+        assert torch.equal(g, w)
+    for g, w in zip(smoother_scan(*elems), smoother_scan_plain(*elems)):
+        assert torch.equal(g, w)
+    assert (filter_pipeline.launches, smoother_scan.launches) == before

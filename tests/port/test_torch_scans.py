@@ -35,8 +35,9 @@ def test_scan_tl_matches_sequential(n, reverse):
 
 @pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 6])
 def test_inverse_and_determinant_closed_forms(d):
-    """The closed forms and the Schur reduction that the kernels' device
-    functions mirror, against LU (float64, well-conditioned matrices)."""
+    """The closed forms and the pivoted Gauss-Jordan elimination that the
+    kernels' device functions mirror, against LU (float64,
+    well-conditioned matrices)."""
     g = torch.Generator().manual_seed(d)
     a = torch.randn(5, d, d, generator=g, dtype=torch.float64)
     m = a @ a.transpose(-1, -2) + d * torch.eye(d, dtype=torch.float64)
@@ -54,3 +55,22 @@ def test_wrappers_refuse_other_devices():
                                     meta, meta)
     with pytest.raises(ValueError):
         ops.smoother_pipeline_uniform(meta, meta, meta, meta, meta)
+
+
+@pytest.mark.parametrize("d", [4, 5, 6])
+def test_pivoted_inverse_with_a_near_singular_leading_block(d):
+    """d = 4..6 invert by pivoted Gauss-Jordan.  The leading d // 2 block of
+    these matrices is near singular (rank one plus 1e-13), and the unpivoted
+    one-level Schur reduction (the JAX package's Pallas ``_inv``) divides by
+    its inverse: it loses every digit here, the pivoted form none."""
+    k = d // 2
+    g = torch.Generator().manual_seed(d)
+    m = torch.randn(2, d, d, 5, generator=g, dtype=torch.float64)
+    u = torch.randn(2, k, 5, generator=g, dtype=torch.float64)
+    m[:, :k, :k] = (u[:, :, None] * u[:, None, :]) + 1e-13 * torch.eye(
+        k, dtype=torch.float64)[..., None]
+    want = torch.linalg.inv(m.movedim(-1, -3)).movedim(-3, -1)
+    got = _inv_tl(m)
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-9
+    det = torch.linalg.det(m.movedim(-1, -3))
+    assert float(((_det_tl(m) - det) / det).abs().max()) < 1e-9
