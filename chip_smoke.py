@@ -8,11 +8,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. device: a CUDA card must be present (no CPU fallback); print its name and
    power limit as nvidia-smi reports them;
 2. build the CUDA kernels from the sources in the checkout (one nvcc unit
-   per kernel family, dtype and state dim, compiled in parallel);
+   per kernel family, dtype and state dim 1..6, and one per family and
+   dtype for d = 7..12, compiled in parallel);
 3. hold each of the five kernels against its plain PyTorch version on the
    card: N in {4099, 1e6}, batch () and (3,), d in {1, 2, 3}
    (Matern12/32/52), float64 and float32, plus one masked case; the uniform
-   kernels on a uniform grid, the general pair on a jittered grid;
+   kernels on a uniform grid, the general pair on a jittered grid.  Then
+   the filter and smoother kernels at d = 7..12 (Sums of Matern kernels,
+   the d = 7..12 kernels of csrc/wide_scan.cuh): float64 at N = 4099,
+   batch (3,), and float32 at d = 9, N = 1e5 (the uniform Koopman backward
+   takes d <= 6 only);
 4. the slice at full size, T = 1e6, float32, flagship GPR (Matern32(0.5,
    1.0), noise Cholesky 0.2), each path with the launch counters set to 0
    just before it and read just after:
@@ -28,10 +33,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       general filter and smoother-scan kernels, against float64, and at
       N = 500 against the numpy oracle (value, marginals, finite-difference
       gradients);
+   d. the composite model (bench.py's d9 config: Matern52(0.5, 1) +
+      Matern52(2, 0.5) + Matern52(8, 0.25), state dim 9, noise Cholesky
+      0.2) at T = 1e5, float32: serving on a uniform grid (loss() through
+      the general filter, as the JAX package routes d > 6;
+      posterior_marginals() through the uniform filter and smoother), 5
+      fit steps (general filter, smoother scan), and loss().backward() and
+      posterior_marginals() on the jittered grid; float32 against float64
+      (kernel path and plain path) within the measured d9 bounds, and at
+      N = 500 float64 against the numpy oracle and central differences;
 5. times, kernel path against plain path, with CUDA events after a warm-up
    (median of several runs): serving requests, training steps on both
-   grids, general-grid requests; each kernel's device time per call from a
-   torch.profiler trace (the wrapper's call time also holds its host work).
+   grids, general-grid requests, the d9 requests and training step; each
+   kernel's device time per call from a torch.profiler trace (the wrapper's
+   call time also holds its host work), at the flagship's d = 2 and at the
+   d9 model's d = 9.
 
 The plain path swaps every kernel wrapper for its plain version
 (``plain_path``).  The line before the last is a JSON summary of the
@@ -54,7 +70,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 T_FULL = 1_000_000
+T_D9 = 100_000
 FIT_STEPS = 5
+#: the d9 model's children, (lengthscale, variance) of each Matern52
+D9 = ((0.5, 1.0), (2.0, 0.5), (8.0, 0.25))
 # float64: the kernels and the plain versions compose the same elements in
 # different orders, so they agree to a few hundred ulps of the largest entry.
 TOL_F64 = 1e-9
@@ -73,11 +92,33 @@ TOL_F32_VS_F64_LOSS = 1e-5
 # f32 hyperparameter gradients against f64; the JAX package's parity run
 # measured 2.0e-6 for its f32 kernels (BENCH_r05.json).
 TOL_F32_VS_F64_GRAD = 1e-4
+# float32 at d = 9 (phase 3): the d9 model's filtered covariances are ill
+# conditioned at dt = 1e-3 (the lengthscale-8 block is nearly
+# deterministic), so two float32 bracketings may differ by more than
+# TOL_F32_MOMENTS.  There each output of a kernel passes if it is within the
+# tolerance of its plain version or, against float64, no less accurate than
+# the plain version up to this factor.
+F32_NO_WORSE = 2.0
 # float64 gradients against central differences (h = 1e-5) of the numpy
 # oracle's log-likelihood: truncation ~h^2, roundoff ~1e-16 |ll| / h.
 TOL_FD = 1e-6
 FD_STEP = 1e-5
+# The d9 model in float32 against float64 at T = 1e5.  Its process noise is
+# the generic Q = P_inf - A P_inf A^T (as in the JAX package), which loses
+# Q[0, 0] of the lengthscale-0.5 block in float32 at dt = 1e-3 (about
+# 5e-13 of P_inf[0, 0]); the JAX package's own XLA path differs from its
+# float64 by 3.7e-5 in the loss.  Measured on an H100 (PERF.md), kernel
+# path / plain path: loss 2.4e-5 / 2.2e-5 (uniform grid), 1.2e-6 / 1.8e-6
+# (jittered); marginals up to 5.3e-3 / 7.0e-3; gradients 3.8e-4 / 3.9e-4
+# normwise (the lengthscale-8 child's variance 2.3e-2 on its own).  The
+# bounds are about 4x the largest of these.
+TOL_D9_F32_VS_F64_LOSS = 1e-4
+TOL_D9_F32_VS_F64_GRAD = 2e-3
+TOL_D9_F32_MOMENTS = 3e-2
 KERNEL_NAMES = {1: "Matern12", 2: "Matern32", 3: "Matern52"}
+#: children past the d9 model's Matern52s for the phase-3 Sums at d = 7..12
+WIDE_EXTRA = {7: ("Matern12",), 8: ("Matern32",), 9: (), 10: ("Matern12",),
+              11: ("Matern32",), 12: ("Matern52",)}
 DEVICE = torch.device("cuda")
 
 
@@ -99,6 +140,26 @@ def check(tag: str, diffs: dict, tols: dict) -> None:
     for key, val in diffs.items():
         if not (np.isfinite(val) and val <= tols[key]):
             raise AssertionError(f"{tag}: {key} differs by {val:.3e} > {tols[key]:g}")
+
+
+def check_f32_wide(tag: str, outs: dict, tols: dict) -> None:
+    """outs: name -> (kernel output, plain output, float64 reference of the
+    plain version on the same inputs).  Each output passes within its
+    tolerance of the plain version, or if its error against float64 is at
+    most F32_NO_WORSE times the plain version's."""
+    diffs = {k: rel_diff(kk, pp) for k, (kk, pp, _) in outs.items()}
+    errs = {k: (rel_diff(kk.double(), rr), rel_diff(pp.double(), rr))
+            for k, (kk, pp, rr) in outs.items()}
+    log(f"  {tag}: max rel diff "
+        + " ".join(f"{k}={v:.3e}" for k, v in diffs.items())
+        + "; against float64, kernel / plain: "
+        + " ".join(f"{k}={a:.3e}/{b:.3e}" for k, (a, b) in errs.items()))
+    for key, val in diffs.items():
+        err_k, err_p = errs[key]
+        if not (val <= tols[key] or err_k <= F32_NO_WORSE * err_p):
+            raise AssertionError(f"{tag}: {key} differs by {val:.3e} > {tols[key]:g} "
+                                 f"and its float64 error {err_k:.3e} exceeds "
+                                 f"{F32_NO_WORSE:g} x the plain version's {err_p:.3e}")
 
 
 def card_line() -> str:
@@ -184,37 +245,65 @@ def sites(n, batch, dtype, rng, masked):
     return nu, lam, maskf
 
 
+def wide_kernel(d, dtype):
+    """A Sum of Matern kernels of state dim d = 7..12: the d9 model's
+    Matern52s (the first two for d < 9), then WIDE_EXTRA[d]."""
+    from markovflow_tpu_torch import kernels
+
+    kids = [kernels.Matern52(lengthscale=ell, variance=var, dtype=dtype,
+                             device=DEVICE) for ell, var in D9[:3 if d >= 9 else 2]]
+    kids += [getattr(kernels, name)(lengthscale=1.0, variance=0.3, dtype=dtype,
+                                    device=DEVICE) for name in WIDE_EXTRA[d]]
+    k = kernels.Sum(kids)
+    assert k.state_dim == d
+    return k
+
+
+def emission_row(k, d, dtype):
+    """The kernel's emission row as [1, d, 1]: [1, 0, ...] for a Matern,
+    the children's rows side by side for a Sum."""
+    if d <= 3:
+        h = torch.zeros((1, d, 1), dtype=dtype, device=DEVICE)
+        h[0, 0, 0] = 1.0
+        return h
+    tp = torch.zeros((1,), dtype=dtype, device=DEVICE)
+    return k.generate_emission_model(tp).emission_matrix.movedim(-3, -1)
+
+
 def uniform_problem(d, n, batch, dtype, seed, masked=False):
-    """Constant Matern prior steps on linspace(0, 100, n) with sites."""
+    """Constant Matern prior steps on linspace(0, 100, n) with sites; for
+    d >= 7 those of a Sum (wide_kernel), made in float64 and cast, as
+    general_problem makes them."""
     from markovflow_tpu_torch import kernels
 
     dev = DEVICE
-    k = getattr(kernels, KERNEL_NAMES[d])(lengthscale=0.5, variance=1.0,
-                                         dtype=dtype, device=dev)
-    dt = torch.full((1,), 100.0 / (n - 1), dtype=dtype, device=dev)
+    kdtype = dtype if d <= 3 else torch.float64
+    k = (getattr(kernels, KERNEL_NAMES[d])(lengthscale=0.5, variance=1.0,
+                                          dtype=kdtype, device=dev)
+         if d <= 3 else wide_kernel(d, kdtype))
+    dt = torch.full((1,), 100.0 / (n - 1), dtype=kdtype, device=dev)
     with torch.no_grad():
-        fc, cc, qc, mu0, p0 = k.prior_const_tl(dt)
-    hc = torch.zeros((1, d, 1), dtype=dtype, device=dev)
-    hc[0, 0, 0] = 1.0
+        fc, cc, qc, mu0, p0 = (x.to(dtype) for x in k.prior_const_tl(dt))
+    hc = emission_row(k, d, dtype)
     nu, lam, maskf = sites(n, batch, dtype, np.random.default_rng(seed), masked)
     return (fc, cc, qc, mu0, p0, hc, nu, lam, maskf)
 
 
 def general_problem(d, n, batch, dtype, seed, masked=False):
-    """Per-step Matern prior steps on a jittered grid, one emission row
-    expanded over the steps, and sites.  The prior steps are made in
-    float64 and cast: Matern52's generic process noise cancels in float32
-    at these small steps, and the check is of the kernels."""
+    """Per-step Matern prior steps (a Sum's for d >= 7) on a jittered grid,
+    one emission row expanded over the steps, and sites.  The prior steps
+    are made in float64 and cast: Matern52's generic process noise cancels
+    in float32 at these small steps, and the check is of the kernels."""
     from markovflow_tpu_torch import kernels
 
     dev = DEVICE
-    k = getattr(kernels, KERNEL_NAMES[d])(lengthscale=0.5, variance=1.0,
-                                         dtype=torch.float64, device=dev)
+    k = (getattr(kernels, KERNEL_NAMES[d])(lengthscale=0.5, variance=1.0,
+                                          dtype=torch.float64, device=dev)
+         if d <= 3 else wide_kernel(d, torch.float64))
     tp = torch.as_tensor(jittered_grid(n, seed), device=dev)
     with torch.no_grad():
         F, c, Q = (x.to(dtype) for x in k.prior_arrays_tl(tp))
-    h = torch.zeros((1, d, 1), dtype=dtype, device=dev)
-    h[0, 0, 0] = 1.0
+    h = emission_row(k, d, dtype)
     nu, lam, maskf = sites(n, batch, dtype, np.random.default_rng(seed), masked)
     return (F, c, Q, h.expand(1, d, n), nu, lam, maskf)
 
@@ -255,6 +344,9 @@ def phase_kernels_vs_plain(cs, adj):
              for n in (4099, T_FULL) for batch in ((), (3,)) for d in (1, 2, 3)]
     cases.append((4099, (3,), 2, torch.float64, True))
     cases.append((4099, (3,), 2, torch.float32, True))
+    # the d = 7..12 kernels: float64 at N = 4099, float32 at d = 9, N = 1e5
+    cases += [(4099, (3,), d, torch.float64, False) for d in range(7, 13)]
+    cases.append((T_D9, (), 9, torch.float32, False))
     for i, (n, batch, d, dtype, masked) in enumerate(cases):
         f64 = dtype == torch.float64
         tol_m = TOL_F64 if f64 else TOL_F32_MOMENTS
@@ -266,23 +358,38 @@ def phase_kernels_vs_plain(cs, adj):
         fc, cc, qc = args[:3]
         gscale = torch.linspace(1.0, -0.5, max(1, int(np.prod(batch))),
                                 dtype=dtype, device=DEVICE).reshape(batch)
+        with_adjoint = d <= adj.UNIFORM_ADJOINT_MAX_STATE_DIM
         with torch.no_grad():
             m_k, p_k, ll_k = cs.filter_pipeline_uniform(*args)
             m_p, p_p, ll_p = cs.filter_pipeline_uniform_plain(*args)
             ms_k, ps_k = cs.smoother_pipeline_uniform(fc, cc, qc, m_p, p_p)
             ms_p, ps_p = cs.smoother_pipeline_uniform_plain(fc, cc, qc, m_p, p_p)
-            a_k = adj.adjoint_pipeline_uniform(*args, m_p, p_p, gscale)
-            a_p = adj.adjoint_pipeline_uniform_plain(*args, m_p, p_p, gscale)
-            scales = adjoint_sum_scales(adj, args, m_p, p_p, gscale)
+            a_k = a_p = scales = ()
+            if with_adjoint:
+                a_k = adj.adjoint_pipeline_uniform(*args, m_p, p_p, gscale)
+                a_p = adj.adjoint_pipeline_uniform_plain(*args, m_p, p_p, gscale)
+                scales = adjoint_sum_scales(adj, args, m_p, p_p, gscale) + (None, None)
         torch.cuda.synchronize()
         diffs = {"m_f": rel_diff(m_k, m_p), "P_f": rel_diff(p_k, p_p),
                  "loglik": rel_diff(ll_k, ll_p), "m_s": rel_diff(ms_k, ms_p),
                  "P_s": rel_diff(ps_k, ps_p)}
         diffs.update({name: rel_diff(g, w, s) for name, g, w, s in
-                      zip(ADJ_OUT, a_k, a_p, scales + (None, None))})
+                      zip(ADJ_OUT, a_k, a_p, scales)})
         tols = {k: tol_m for k in diffs}
         tols["loglik"] = tol_ll
-        check("uniform " + tag, diffs, tols)
+        wide32 = d > adj.UNIFORM_ADJOINT_MAX_STATE_DIM and not f64
+        if wide32:
+            a64 = [None if x is None else x.double() for x in args]
+            with torch.no_grad():
+                r_m, r_p, r_ll = cs.filter_pipeline_uniform_plain(*a64)
+                r_ms, r_ps = cs.smoother_pipeline_uniform_plain(
+                    *a64[:3], m_p.double(), p_p.double())
+            check_f32_wide("uniform " + tag, {
+                "m_f": (m_k, m_p, r_m), "P_f": (p_k, p_p, r_p),
+                "loglik": (ll_k, ll_p, r_ll), "m_s": (ms_k, ms_p, r_ms),
+                "P_s": (ps_k, ps_p, r_ps)}, tols)
+        else:
+            check("uniform " + tag, diffs, tols)
         del args, m_k, p_k, m_p, p_p, ms_k, ps_k, ms_p, ps_p, a_k, a_p, scales
         # kernels 4-5 on a jittered grid
         gargs = general_problem(d, n, batch, dtype, seed=i, masked=masked)
@@ -293,12 +400,22 @@ def phase_kernels_vs_plain(cs, adj):
             ms_k, ps_k = cs.smoother_scan(*elems)
             ms_p, ps_p = cs.smoother_scan_plain(*elems)
         torch.cuda.synchronize()
-        check("general " + tag,
-              {"m_f": rel_diff(m_k, m_p), "P_f": rel_diff(p_k, p_p),
-               "loglik": rel_diff(ll_k, ll_p), "m_s": rel_diff(ms_k, ms_p),
-               "P_s": rel_diff(ps_k, ps_p)},
-              {"m_f": tol_m, "P_f": tol_m, "loglik": tol_ll, "m_s": tol_m,
-               "P_s": tol_m})
+        tols = {"m_f": tol_m, "P_f": tol_m, "loglik": tol_ll, "m_s": tol_m,
+                "P_s": tol_m}
+        if wide32:
+            g64 = [None if x is None else x.double() for x in gargs]
+            with torch.no_grad():
+                r_m, r_p, r_ll = cs.filter_pipeline_plain(*g64)
+                r_ms, r_ps = cs.smoother_scan_plain(*(e.double() for e in elems))
+            check_f32_wide("general " + tag, {
+                "m_f": (m_k, m_p, r_m), "P_f": (p_k, p_p, r_p),
+                "loglik": (ll_k, ll_p, r_ll), "m_s": (ms_k, ms_p, r_ms),
+                "P_s": (ps_k, ps_p, r_ps)}, tols)
+        else:
+            check("general " + tag,
+                  {"m_f": rel_diff(m_k, m_p), "P_f": rel_diff(p_k, p_p),
+                   "loglik": rel_diff(ll_k, ll_p), "m_s": rel_diff(ms_k, ms_p),
+                   "P_s": rel_diff(ps_k, ps_p)}, tols)
 
 
 # ---------------------------------------------------------------------------
@@ -319,17 +436,40 @@ def flagship_params(lengthscale=0.5, variance=1.0):
             "chol_obs_covariance": np.asarray([[0.2]])}
 
 
-def build_gpr(n, dtype, uniform=True, params=None):
+def d9_params():
+    """The d9 model's parameters under the JAX Sum's attribute paths."""
+    from markovflow_tpu_torch.utils.bijectors import positive
+
+    params = {"chol_obs_covariance": np.asarray([[0.2]])}
+    for i, (ell, var) in enumerate(D9):
+        params[f"kernel.kernels[{i}].lengthscale"] = positive().inverse(np.asarray(ell))
+        params[f"kernel.kernels[{i}].variance"] = positive().inverse(np.asarray(var))
+    return params
+
+
+def build_gpr(n, dtype, uniform=True, d9=False):
+    """The flagship GPR, or the d9 model (bench.py's d9 config, whose data
+    are the flagship's), on a uniform or the jittered grid."""
     from markovflow_tpu_torch.convert import gpr_from_numpy
 
     x, y = flagship_data(n, uniform)
-    model = gpr_from_numpy(params or flagship_params(), x, y,
+    model = gpr_from_numpy(d9_params() if d9 else flagship_params(), x, y,
                            device=DEVICE, dtype=dtype,
-                           kernel="Matern32")
+                           kernel=("Matern52",) * 3 if d9 else "Matern32")
     if model._uniform_grid != uniform:
         raise AssertionError(f"the grid was detected as uniform="
                              f"{model._uniform_grid}, not {uniform}")
     return model
+
+
+def hyper(model):
+    """label -> unconstrained hyperparameter tensor of a model's kernel."""
+    k = model.kernel
+    if not hasattr(k, "kernels"):
+        return {name: getattr(k, name).unconstrained
+                for name in ("lengthscale", "variance")}
+    return {f"kernels[{i}].{name}": getattr(c, name).unconstrained
+            for i, c in enumerate(k.kernels) for name in ("lengthscale", "variance")}
 
 
 def load_numpy_oracle():
@@ -353,19 +493,19 @@ def oracle_steps(model):
 
 def oracle_loglik(npk, model, y):
     mu0, p0, a, b, q = oracle_steps(model)
-    return npk.kalman_filter(mu0, p0, a, b, q, np.asarray([[1.0, 0.0]]),
-                             np.asarray([[0.04]]), y)
+    h = model.kernel.generate_emission_model(
+        model.time_points[:1]).emission_matrix[0].cpu().numpy()
+    return npk.kalman_filter(mu0, p0, a, b, q, h, np.asarray([[0.04]]), y)
 
 
-def check_fd_gradients(npk, n, uniform):
+def check_fd_gradients(npk, n, uniform, d9=False):
     """float64 gradients of the loss at N = n against central differences
     of the numpy oracle's log-likelihood in the unconstrained parameters."""
-    model = build_gpr(n, torch.float64, uniform)
+    model = build_gpr(n, torch.float64, uniform, d9)
     model.loss().backward()
     _, y = flagship_data(n, uniform)
     errs = {}
-    for name in ("lengthscale", "variance"):
-        p = getattr(model.kernel, name).unconstrained
+    for name, p in hyper(model).items():
         got = float(p.grad)
         lls = []
         for sign in (1.0, -1.0):
@@ -383,9 +523,9 @@ def check_fd_gradients(npk, n, uniform):
         raise AssertionError("gradients disagree with finite differences")
 
 
-def check_oracle_values(npk, n, uniform):
+def check_oracle_values(npk, n, uniform, d9=False):
     """float64 value and marginals at N = n against the numpy oracle."""
-    small = build_gpr(n, torch.float64, uniform)
+    small = build_gpr(n, torch.float64, uniform, d9)
     with torch.no_grad():
         ll = float(small.log_likelihood())
         m_s, p_s = small.kalman.posterior_marginals()
@@ -403,44 +543,60 @@ def check_oracle_values(npk, n, uniform):
         raise AssertionError("the port disagrees with the numpy oracle")
 
 
-def check_marginals(marginals):
+def check_marginals(marginals, n=T_FULL, d=2):
     for m_s, p_s in marginals:
-        if m_s.shape != (T_FULL, 2) or p_s.shape != (T_FULL, 2, 2):
+        if m_s.shape != (n, d) or p_s.shape != (n, d, d):
             raise AssertionError(f"bad marginal shapes {m_s.shape} {p_s.shape}")
         if not (torch.isfinite(m_s).all() and torch.isfinite(p_s).all()):
             raise AssertionError("non-finite posterior marginals")
 
 
-def check_f32_vs_f64(model, uniform, loss32, marg32):
-    """The float32 model's loss, marginals and gradients against the same
-    model in float64 (both on the kernel path)."""
-    model64 = build_gpr(T_FULL, torch.float64, uniform)
+def f32_vs_f64(uniform, d9, loss32, marg32):
+    """The float32 loss, marginals and gradients against the same model in
+    float64, on the current path: (loss rel diff, marginal m and P diffs
+    normwise, per-parameter gradient rel diffs, gradients normwise).  The
+    float32 gradients come from a fresh model."""
+    n = T_D9 if d9 else T_FULL
+    model64 = build_gpr(n, torch.float64, uniform, d9)
     loss64 = model64.loss()
     loss64.backward()
     with torch.no_grad():
         m64, p64 = model64.kalman.posterior_marginals()
-    fresh = build_gpr(T_FULL, torch.float32, uniform)
+    fresh = build_gpr(n, torch.float32, uniform, d9)
     fresh.loss().backward()
     loss32, loss64 = float(loss32.detach()), float(loss64.detach())
-    rel = abs(loss32 - loss64) / abs(loss64)
-    rel_m = rel_diff(marg32[0].double(), m64)
-    rel_p = rel_diff(marg32[1].double(), p64)
-    rel_g = {name: abs(float(getattr(fresh.kernel, name).unconstrained.grad)
-                       - float(getattr(model64.kernel, name).unconstrained.grad))
-             / abs(float(getattr(model64.kernel, name).unconstrained.grad))
-             for name in ("lengthscale", "variance")}
+    g32 = {k: float(v.grad) for k, v in hyper(fresh).items()}
+    g64 = {k: float(v.grad) for k, v in hyper(model64).items()}
+    rel_g = {k: abs(g32[k] - g64[k]) / abs(g64[k]) for k in g64}
+    norm_g = (max(abs(g32[k] - g64[k]) for k in g64)
+              / max(abs(v) for v in g64.values()))
+    return (abs(loss32 - loss64) / abs(loss64), loss64,
+            rel_diff(marg32[0].double(), m64), rel_diff(marg32[1].double(), p64),
+            rel_g, norm_g)
+
+
+def check_f32_vs_f64(model, uniform, loss32, marg32, d9=False):
+    """The float32 model's loss, marginals and gradients against the same
+    model in float64 (both on the kernel path); for the d9 model the
+    gradients are compared normwise (its six gradients span four orders of
+    magnitude) against the measured d9 bounds."""
+    rel, loss64, rel_m, rel_p, rel_g, norm_g = f32_vs_f64(uniform, d9, loss32, marg32)
+    tol_loss, tol_m, tol_g = ((TOL_D9_F32_VS_F64_LOSS, TOL_D9_F32_MOMENTS,
+                               TOL_D9_F32_VS_F64_GRAD) if d9 else
+                              (TOL_F32_VS_F64_LOSS, TOL_F32_MOMENTS,
+                               TOL_F32_VS_F64_GRAD))
     log(f"  loss (f64) = {loss64!r}; f32 vs f64: loss {rel:.3e} "
-        f"(tol {TOL_F32_VS_F64_LOSS:g}); marginals m {rel_m:.3e}, P {rel_p:.3e} "
-        f"(tol {TOL_F32_MOMENTS:g}); gradients "
+        f"(tol {tol_loss:g}); marginals m {rel_m:.3e}, P {rel_p:.3e} "
+        f"(tol {tol_m:g}); gradients "
         + ", ".join(f"{k} {v:.3e}" for k, v in rel_g.items())
-        + f" (tol {TOL_F32_VS_F64_GRAD:g})")
-    if not rel <= TOL_F32_VS_F64_LOSS:
+        + (f", normwise {norm_g:.3e}" if d9 else "") + f" (tol {tol_g:g})")
+    if not rel <= tol_loss:
         raise AssertionError(f"f32 loss differs from f64 by {rel:.3e}")
-    if not (rel_m <= TOL_F32_MOMENTS and rel_p <= TOL_F32_MOMENTS):
+    if not (rel_m <= tol_m and rel_p <= tol_m):
         raise AssertionError("f32 marginals differ from f64")
-    if not all(v <= TOL_F32_VS_F64_GRAD for v in rel_g.values()):
+    if not (norm_g <= tol_g if d9 else all(v <= tol_g for v in rel_g.values())):
         raise AssertionError("f32 gradients differ from f64")
-    return {k: float(v) for k, v in rel_g.items()}
+    return rel_g
 
 
 def check_fit(losses):
@@ -458,6 +614,13 @@ def expect_launches(path, got, want):
         raise AssertionError(f"{path}: launches {got}, expected {want}")
 
 
+def no_launches(**counts):
+    """Expected launch counts: the given ones, 0 for every other kernel."""
+    names = ("filter_pipeline_uniform", "smoother_pipeline_uniform",
+             "adjoint_pipeline_uniform", "filter_pipeline", "smoother_scan")
+    return {name: counts.get(name, 0) for name in names}
+
+
 def phase_serving(cs, adj, npk):
     log(f"phase 4a: GPR serving on a uniform grid at T = {T_FULL}, float32")
     model = build_gpr(T_FULL, torch.float32)
@@ -466,9 +629,8 @@ def phase_serving(cs, adj, npk):
         losses = [model.loss() for _ in range(3)]
         marginals = [model.kalman.posterior_marginals() for _ in range(2)]
     expect_launches("the uniform requests", counts,
-                    {"filter_pipeline_uniform": 5, "smoother_pipeline_uniform": 2,
-                     "adjoint_pipeline_uniform": 0, "filter_pipeline": 0,
-                     "smoother_scan": 0})
+                    no_launches(filter_pipeline_uniform=5,
+                                smoother_pipeline_uniform=2))
     for loss in losses:
         if loss.shape != () or not torch.isfinite(loss):
             raise AssertionError(f"bad loss {loss}")
@@ -499,10 +661,8 @@ def phase_training_uniform(cs, adj, training, npk):
     with launches_of(cs, adj, counts):
         _, losses = training.fit(model, num_steps=FIT_STEPS)
     expect_launches(f"{FIT_STEPS} uniform fit steps", counts,
-                    {"filter_pipeline_uniform": FIT_STEPS,
-                     "smoother_pipeline_uniform": 0,
-                     "adjoint_pipeline_uniform": FIT_STEPS,
-                     "filter_pipeline": 0, "smoother_scan": 0})
+                    no_launches(filter_pipeline_uniform=FIT_STEPS,
+                                adjoint_pipeline_uniform=FIT_STEPS))
     check_fit(losses)
     fresh = build_gpr(T_FULL, torch.float32)
     loss32 = fresh.loss()
@@ -523,10 +683,8 @@ def phase_general(cs, adj, training, npk):
             marginals = [model.kalman.posterior_marginals()]
         _, losses = training.fit(model, num_steps=FIT_STEPS)
     expect_launches(f"a loss, marginals and {FIT_STEPS} fit steps", counts,
-                    {"filter_pipeline_uniform": 0, "smoother_pipeline_uniform": 0,
-                     "adjoint_pipeline_uniform": 0,
-                     "filter_pipeline": 2 + FIT_STEPS,
-                     "smoother_scan": 1 + FIT_STEPS})
+                    no_launches(filter_pipeline=2 + FIT_STEPS,
+                                smoother_scan=1 + FIT_STEPS))
     if loss.shape != () or not torch.isfinite(loss):
         raise AssertionError(f"bad loss {loss}")
     check_marginals(marginals)
@@ -536,6 +694,64 @@ def phase_general(cs, adj, training, npk):
     check_oracle_values(npk, 500, uniform=False)
     check_fd_gradients(npk, 500, uniform=False)
     return counts, rel_g
+
+
+def phase_d9(cs, adj, kf, training, npk):
+    """The d9 model at T = 1e5, float32, on the kernel path; returns the
+    launch counts of its three paths."""
+    log(f"phase 4d: the d9 model (Sum of three Matern52, state dim 9) at "
+        f"T = {T_D9}, float32")
+    counts = {}
+    model = build_gpr(T_D9, torch.float32, d9=True)
+    counts["d9 serving"] = {}
+    with launches_of(cs, adj, counts["d9 serving"]), torch.no_grad():
+        loss = model.loss()
+        marginals = model.kalman.posterior_marginals()
+    expect_launches("a d9 loss() and posterior_marginals()", counts["d9 serving"],
+                    no_launches(filter_pipeline=1, filter_pipeline_uniform=1,
+                                smoother_pipeline_uniform=1))
+    if loss.shape != () or not torch.isfinite(loss):
+        raise AssertionError(f"bad loss {loss}")
+    check_marginals([marginals], T_D9, 9)
+    log(f"  loss (f32) = {float(loss)!r}")
+    check_f32_vs_f64(model, True, loss, marginals, d9=True)
+    fit_model = build_gpr(T_D9, torch.float32, d9=True)
+    counts["d9 training"] = {}
+    with launches_of(cs, adj, counts["d9 training"]):
+        _, losses = training.fit(fit_model, num_steps=FIT_STEPS)
+    expect_launches(f"{FIT_STEPS} d9 fit steps", counts["d9 training"],
+                    no_launches(filter_pipeline=FIT_STEPS, smoother_scan=FIT_STEPS))
+    check_fit(losses)
+    jit = build_gpr(T_D9, torch.float32, uniform=False, d9=True)
+    counts["d9 jittered"] = {}
+    with launches_of(cs, adj, counts["d9 jittered"]):
+        jloss = jit.loss()
+        jloss.backward()
+        with torch.no_grad():
+            jmarg = jit.kalman.posterior_marginals()
+    expect_launches("a d9 jittered loss().backward() and posterior_marginals()",
+                    counts["d9 jittered"],
+                    no_launches(filter_pipeline=2, smoother_scan=2))
+    check_marginals([jmarg], T_D9, 9)
+    log(f"  jittered loss (f32) = {float(jloss.detach())!r}")
+    check_f32_vs_f64(jit, False, jloss, jmarg, d9=True)
+    # the same comparison on the plain path: what the reference's formulas
+    # give in float32, without the kernels
+    with plain_path(cs, adj, kf):
+        for uniform in (True, False):
+            plain = build_gpr(T_D9, torch.float32, uniform, d9=True)
+            ploss = plain.loss()
+            with torch.no_grad():
+                pmarg = plain.kalman.posterior_marginals()
+            rel, _, rel_m, rel_p, rel_g, norm_g = f32_vs_f64(uniform, True, ploss, pmarg)
+            log(f"  plain path, {'uniform' if uniform else 'jittered'} grid: f32 vs "
+                f"f64 loss {rel:.3e}; marginals m {rel_m:.3e}, P {rel_p:.3e}; "
+                f"gradients " + ", ".join(f"{k} {v:.3e}" for k, v in rel_g.items())
+                + f", normwise {norm_g:.3e}")
+    for uniform in (True, False):
+        check_oracle_values(npk, 500, uniform, d9=True)
+        check_fd_gradients(npk, 500, uniform, d9=True)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -590,10 +806,12 @@ def train_step(model):
     return step
 
 
-def phase_times(cs, adj, kf, card, counts):
-    log(f"phase 5: times at T = {T_FULL}, float32, on {card}")
-    uni = build_gpr(T_FULL, torch.float32)
-    gen = build_gpr(T_FULL, torch.float32, uniform=False)
+def kernel_calls(cs, adj, uni, gen):
+    """Each kernel on the inputs of a uniform-grid and a jittered-grid model
+    (the uniform adjoint up to d = 6): its max abs diff from its plain
+    version, the largest entry, and (kernel call, plain call)."""
+    from markovflow_tpu_torch.ops.kalman import smoother_elements_tl
+
     k_uni, k_gen = uni.kalman, gen.kalman
     Fc, cc, Qc, mu0, P0 = (x.detach() for x in k_uni.prior_const_tl)
     hc = k_uni._const_emission_tl()
@@ -603,53 +821,73 @@ def phase_times(cs, adj, kf, card, counts):
     H = k_gen._emission_tl()
     gnu, glam, _ = k_gen._site_nats_tl()
     gargs = (F, c, Q, H, gnu, glam)
-    gs = torch.ones((), dtype=torch.float32, device=DEVICE)
-    from markovflow_tpu_torch.ops.kalman import smoother_elements_tl
-
+    gs = torch.ones((), dtype=nu.dtype, device=DEVICE)
     with torch.no_grad():
         m_fp, p_fp, _ = cs.filter_pipeline_uniform_plain(*args)
         gm_fp, gp_fp, _ = cs.filter_pipeline_plain(*gargs)
         elems = smoother_elements_tl(F, c, Q, gm_fp, gp_fp)[:3]
-        errs, largest = {}, {}
-        for name, got, want in (
-                ("filter_pipeline_uniform", cs.filter_pipeline_uniform(*args)[:2],
-                 (m_fp, p_fp)),
-                ("smoother_pipeline_uniform",
-                 cs.smoother_pipeline_uniform(Fc, cc, Qc, m_fp, p_fp),
-                 cs.smoother_pipeline_uniform_plain(Fc, cc, Qc, m_fp, p_fp)),
-                ("adjoint_pipeline_uniform",
-                 adj.adjoint_pipeline_uniform(*args, None, m_fp, p_fp, gs),
-                 adj.adjoint_pipeline_uniform_plain(*args, None, m_fp, p_fp, gs)),
-                ("filter_pipeline", cs.filter_pipeline(*gargs)[:2], (gm_fp, gp_fp)),
-                ("smoother_scan", cs.smoother_scan(*elems),
-                 cs.smoother_scan_plain(*elems))):
-            errs[name] = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            largest[name] = max(float(w.abs().max()) for w in want)
+        pairs = {
+            "filter_pipeline_uniform": (cs.filter_pipeline_uniform(*args)[:2],
+                                        (m_fp, p_fp)),
+            "smoother_pipeline_uniform": (
+                cs.smoother_pipeline_uniform(Fc, cc, Qc, m_fp, p_fp),
+                cs.smoother_pipeline_uniform_plain(Fc, cc, Qc, m_fp, p_fp)),
+            "filter_pipeline": (cs.filter_pipeline(*gargs)[:2], (gm_fp, gp_fp)),
+            "smoother_scan": (cs.smoother_scan(*elems), cs.smoother_scan_plain(*elems)),
+        }
         calls = {
             "filter_pipeline_uniform": (lambda: cs.filter_pipeline_uniform(*args),
                                         lambda: cs.filter_pipeline_uniform_plain(*args)),
             "smoother_pipeline_uniform": (
                 lambda: cs.smoother_pipeline_uniform(Fc, cc, Qc, m_fp, p_fp),
                 lambda: cs.smoother_pipeline_uniform_plain(Fc, cc, Qc, m_fp, p_fp)),
-            # as the flagship's backward calls it: no site gradients
-            "adjoint_pipeline_uniform": (
-                lambda: adj.adjoint_pipeline_uniform(*args, None, m_fp, p_fp, gs,
-                                                     site_grads=False),
-                lambda: adj.adjoint_pipeline_uniform_plain(*args, None, m_fp,
-                                                           p_fp, gs)),
             "filter_pipeline": (lambda: cs.filter_pipeline(*gargs),
                                 lambda: cs.filter_pipeline_plain(*gargs)),
             "smoother_scan": (lambda: cs.smoother_scan(*elems),
                               lambda: cs.smoother_scan_plain(*elems)),
         }
+        if Fc.shape[-3] <= adj.UNIFORM_ADJOINT_MAX_STATE_DIM:
+            pairs["adjoint_pipeline_uniform"] = (
+                adj.adjoint_pipeline_uniform(*args, None, m_fp, p_fp, gs),
+                adj.adjoint_pipeline_uniform_plain(*args, None, m_fp, p_fp, gs))
+            # as the flagship's backward calls it: no site gradients
+            calls["adjoint_pipeline_uniform"] = (
+                lambda: adj.adjoint_pipeline_uniform(*args, None, m_fp, p_fp, gs,
+                                                     site_grads=False),
+                lambda: adj.adjoint_pipeline_uniform_plain(*args, None, m_fp,
+                                                           p_fp, gs))
+        errs = {k: max(float((g - w).abs().max()) for g, w in zip(*pair))
+                for k, pair in pairs.items()}
+        largest = {k: max(float(w.abs().max()) for w in pair[1])
+                   for k, pair in pairs.items()}
+    return errs, largest, calls
+
+
+def phase_times(cs, adj, kf, card, counts):
+    log(f"phase 5: times at T = {T_FULL} (flagship) and T = {T_D9} (d9 model), "
+        f"float32, on {card}")
+    uni = build_gpr(T_FULL, torch.float32)
+    gen = build_gpr(T_FULL, torch.float32, uniform=False)
+    d9u = build_gpr(T_D9, torch.float32, d9=True)
+    d9j = build_gpr(T_D9, torch.float32, uniform=False, d9=True)
+    sets = {"": kernel_calls(cs, adj, uni, gen),
+            " d=9": kernel_calls(cs, adj, d9u, d9j)}
     requests = {
         "uniform loss()": lambda: uni.loss(),
         "uniform posterior_marginals()": lambda: uni.kalman.posterior_marginals(),
         "jittered loss()": lambda: gen.loss(),
         "jittered posterior_marginals()": lambda: gen.kalman.posterior_marginals(),
+        "d9 loss()": lambda: d9u.loss(),
+        "d9 posterior_marginals()": lambda: d9u.kalman.posterior_marginals(),
+        "d9 jittered loss()": lambda: d9j.loss(),
+        "d9 jittered posterior_marginals()": lambda: d9j.kalman.posterior_marginals(),
     }
     steps = {"uniform training step": train_step(uni),
-             "jittered training step": train_step(gen)}
+             "jittered training step": train_step(gen),
+             "d9 training step": train_step(d9u),
+             "d9 jittered training step": train_step(d9j)}
+    calls = {name + tag: fns for tag, (_, _, c) in sets.items()
+             for name, fns in c.items()}
     # turns: plain, kernel, kernel, plain; the medians of both turns
     t = {}
     for turn in ("plain", "kernel", "kernel", "plain"):
@@ -673,6 +911,8 @@ def phase_times(cs, adj, kf, card, counts):
     with torch.no_grad():
         for key, (kfn, _) in calls.items():
             dev[key] = kernel_device_ms(kfn)
+    errs = {name + tag: e for tag, (es, _, _) in sets.items() for name, e in es.items()}
+    largest = {name + tag: v for tag, (_, ls, _) in sets.items() for name, v in ls.items()}
     for key in calls:
         src = "on the device per call (torch.profiler)"
         if dev[key] <= 0.0:
@@ -684,16 +924,21 @@ def phase_times(cs, adj, kf, card, counts):
             f"{ms[('kernel', key)]!r} ms, plain version {ms[('plain', key)]!r} ms "
             f"(CUDA events, median per call)  [{card}]")
     source = "markovflow_tpu_torch/ops/csrc/"
-    rows = [("filter_pipeline_uniform", "uniform_scan.cuh", "pallas_scan.py:1036", "serving"),
-            ("smoother_pipeline_uniform", "uniform_scan.cuh", "pallas_scan.py:1457", "serving"),
-            ("adjoint_pipeline_uniform", "adjoint_scan.cuh", "pallas_scan.py:1229", "training"),
-            ("filter_pipeline", "general_scan.cuh", "pallas_scan.py:849", "general"),
-            ("smoother_scan", "general_scan.cuh", "pallas_scan.py:1313", "general")]
+    rows = [("filter_pipeline_uniform", "uniform_scan.cuh", "pallas_scan.py:1036", ("serving",)),
+            ("smoother_pipeline_uniform", "uniform_scan.cuh", "pallas_scan.py:1457", ("serving",)),
+            ("adjoint_pipeline_uniform", "adjoint_scan.cuh", "pallas_scan.py:1229", ("training",)),
+            ("filter_pipeline", "general_scan.cuh", "pallas_scan.py:849", ("general",)),
+            ("smoother_scan", "general_scan.cuh", "pallas_scan.py:1313", ("general",))]
+    # the same wrappers at d = 9: the d = 7..12 kernels, on the d9 paths
+    d9_paths = ("d9 serving", "d9 training", "d9 jittered")
+    rows += [(name + " d=9", "wide_scan.cuh", rep, d9_paths)
+             for name, _, rep, _ in rows if name != "adjoint_pipeline_uniform"]
     return [{"name": name, "route": "cuda", "source": source + src,
              "replaces": "markovflow_tpu/ops/" + rep,
-             "launches": counts[path][name], "max_abs_err": errs[name],
-             "ms": dev[name], "plain_ms": ms[("plain", name)]}
-            for name, src, rep, path in rows]
+             "launches": sum(counts[path][name.split(" ")[0]] for path in paths),
+             "max_abs_err": errs[name], "ms": dev[name],
+             "plain_ms": ms[("plain", name)]}
+            for name, src, rep, paths in rows]
 
 
 def main() -> int:
@@ -719,6 +964,7 @@ def main() -> int:
     _, counts["serving"] = phase_serving(cs, adj, npk)
     counts["training"], _ = phase_training_uniform(cs, adj, training, npk)
     counts["general"], _ = phase_general(cs, adj, training, npk)
+    counts.update(phase_d9(cs, adj, kf, training, npk))
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels = phase_times(cs, adj, kf, card, counts)

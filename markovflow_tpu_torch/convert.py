@@ -2,7 +2,7 @@
 numpy arrays, so that both packages compute the same thing."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence, Union
 
 import numpy as np
 import torch
@@ -16,23 +16,37 @@ _KERNELS = {"Matern12": kernels.Matern12, "Matern32": kernels.Matern32,
             "Matern52": kernels.Matern52}
 
 
+def _kernel(name: str, params, prefix: str, dtype, device):
+    """A Matern kernel whose UNCONSTRAINED lengthscale and variance are
+    taken from ``params[prefix + name]`` where present."""
+    k = _KERNELS[name](dtype=dtype, device=device)
+    with torch.no_grad():
+        for p in ("lengthscale", "variance"):
+            if prefix + p in params:
+                getattr(k, p).unconstrained.copy_(
+                    torch.as_tensor(np.asarray(params[prefix + p]), dtype=dtype))
+    return k
+
+
 def gpr_from_numpy(params: Dict[str, np.ndarray], time_points: np.ndarray,
                    observations: np.ndarray, *, device, dtype: torch.dtype,
-                   kernel: str = "Matern32") -> GaussianProcessRegression:
+                   kernel: Union[str, Sequence[str]] = "Matern32"
+                   ) -> GaussianProcessRegression:
     """A :class:`GaussianProcessRegression` from numpy parameters under the
     JAX model's attribute paths: ``kernel.lengthscale`` and
     ``kernel.variance`` (UNCONSTRAINED values) and ``chol_obs_covariance``.
-    ``kernel`` names the kernel class.  The time points, on any grid, are
-    checked, and the grid's uniformity detected, on the host before they
-    move to ``device``.  Training (:func:`markovflow_tpu_torch.training.fit`)
-    starts from these parameter values."""
-    k = _KERNELS[kernel](dtype=dtype, device=device)
-    with torch.no_grad():
-        for name in ("lengthscale", "variance"):
-            key = f"kernel.{name}"
-            if key in params:
-                getattr(k, name).unconstrained.copy_(
-                    torch.as_tensor(np.asarray(params[key]), dtype=dtype))
+    ``kernel`` names the kernel class, or is a sequence of names for a
+    :class:`~markovflow_tpu_torch.kernels.Sum` of those kernels, whose
+    parameters are ``kernel.kernels[i].lengthscale`` and so on, as in a JAX
+    ``Sum([...])``.  The time points, on any grid, are checked, and the
+    grid's uniformity detected, on the host before they move to ``device``.
+    Training (:func:`markovflow_tpu_torch.training.fit`) starts from these
+    parameter values."""
+    if isinstance(kernel, str):
+        k = _kernel(kernel, params, "kernel.", dtype, device)
+    else:
+        k = kernels.Sum([_kernel(name, params, f"kernel.kernels[{i}].", dtype,
+                                 device) for i, name in enumerate(kernel)])
     as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
     # numpy time points: the model checks them on the host, then moves them
     return GaussianProcessRegression(

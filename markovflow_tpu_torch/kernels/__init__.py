@@ -1,3 +1,3 @@
 from .kernel import Kernel
 from .matern import Matern12, Matern32, Matern52
-from .sde_kernel import SDEKernel, StationaryKernel
+from .sde_kernel import ConcatKernel, SDEKernel, StationaryKernel, Sum

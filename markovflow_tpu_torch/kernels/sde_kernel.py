@@ -8,15 +8,18 @@ global default dtype.
 from __future__ import annotations
 
 import abc
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..emission_model import EmissionModel
+from ..utils.linalg import block_diag
 from ..utils.module import Parameter
 from .kernel import Kernel
 
-__all__ = ["SDEKernel", "StationaryKernel"]
+__all__ = ["SDEKernel", "StationaryKernel", "ConcatKernel", "Sum"]
 
 
 def _mat_vec_tl(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -51,6 +54,9 @@ class SDEKernel(Kernel, abc.ABC):
         shape = tuple(time_points.shape[:-1]) + (n, self.output_dim,
                                                  self.state_dim)
         return EmissionModel(h_row.expand(shape))
+
+    def __add__(self, other: "SDEKernel") -> "Sum":
+        return Sum([self, other])
 
 
 class StationaryKernel(SDEKernel, abc.ABC):
@@ -124,3 +130,45 @@ class StationaryKernel(SDEKernel, abc.ABC):
         cc = (m[..., None] - _mat_vec_tl(a, m))[..., :, None, :]
         mu0 = m[..., None, None].expand(m.shape[:-1] + (d, 1, 1))
         return a, cc, q, mu0, self._p0(a.dtype)
+
+
+class ConcatKernel(StationaryKernel, abc.ABC):
+    """State concatenation of stationary child kernels: block-diagonal A and
+    P_inf, concatenated state mean.  The process noise is the generic
+    Q = P_inf - A P_inf A^T of the whole state, not the children's own
+    forms, as in the JAX package (it cancels in float32 at small steps)."""
+
+    def __init__(self, kernels: Sequence[StationaryKernel], jitter: float = 0.0,
+                 output_dim: Optional[int] = None):
+        kernels = list(kernels)
+        out = output_dim if output_dim is not None else kernels[0].output_dim
+        SDEKernel.__init__(self, out, jitter)   # the state mean is the children's
+        self.kernels = nn.ModuleList(kernels)
+
+    @property
+    def state_dim(self) -> int:
+        return sum(k.state_dim for k in self.kernels)
+
+    @property
+    def state_mean(self) -> torch.Tensor:
+        return torch.cat([k.state_mean for k in self.kernels], dim=-1)
+
+    @property
+    def steady_state_covariance(self) -> torch.Tensor:
+        return block_diag([k.steady_state_covariance for k in self.kernels])
+
+    def state_transitions_tl(self, time_deltas: torch.Tensor) -> torch.Tensor:
+        blocks = [k.state_transitions_tl(time_deltas).movedim(-1, -3)
+                  for k in self.kernels]
+        return block_diag(blocks).movedim(-3, -1)
+
+
+class Sum(ConcatKernel):
+    """f = sum_i f_i: H is the horizontal concatenation of the children's."""
+
+    def generate_emission_model(self, time_points: torch.Tensor) -> EmissionModel:
+        """The children's rows side by side, as an expanded view
+        [..., N, o, d] in the time points' dtype and device."""
+        h = torch.cat([k.generate_emission_model(time_points).emission_matrix[..., :1, :, :]
+                       for k in self.kernels], dim=-1)
+        return EmissionModel(h.expand(h.shape[:-3] + time_points.shape[-1:] + h.shape[-2:]))

@@ -8,9 +8,11 @@ reverse scan with the smoothing composition over the elements
 derivation is in the JAX module's docstring.
 
 * :func:`log_likelihood_koopman_uniform` (uniform grid, constant prior
-  steps): the forward is the uniform filter kernel, the backward the port of
-  ``pallas_adjoint_pipeline_uniform`` (:func:`adjoint_pipeline_uniform`),
-  which sums the constant inputs' gradients on the device.
+  steps): for d <= 6 the forward is the uniform filter kernel, the backward
+  the port of ``pallas_adjoint_pipeline_uniform``
+  (:func:`adjoint_pipeline_uniform`), which sums the constant inputs'
+  gradients on the device; for d > 6 the prior steps are materialised and
+  take the general route below, as in the JAX package.
 * :func:`log_likelihood_koopman` (any grid, per-step prior steps): the
   forward is the general filter kernel; the backward builds the elements in
   plain torch (stage 1), scans them with the general smoother-scan kernel
@@ -33,7 +35,8 @@ from .kalman import (_cat, _eye_tl, _inv_tl, _materialize_uniform, _mm_tl,
 
 __all__ = ["log_likelihood_koopman_uniform", "log_likelihood_koopman",
            "adjoint_pipeline_uniform", "adjoint_pipeline_uniform_plain",
-           "adjoint_scan_elements", "adjoint_grads_from_scan"]
+           "adjoint_scan_elements", "adjoint_grads_from_scan",
+           "UNIFORM_ADJOINT_MAX_STATE_DIM"]
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +108,11 @@ def _adjoint_grads(F, c, Q, H, nu, lam, maskf, m_f, p_f, scan):
 # ---------------------------------------------------------------------------
 # Kernel 3: the uniform-grid Koopman backward
 # ---------------------------------------------------------------------------
+#: the state dims of the uniform backward kernel, as the JAX package routes
+#: it (``_uniform_engine``); a larger d takes the materialised general route
+UNIFORM_ADJOINT_MAX_STATE_DIM = 6
+
+
 def adjoint_pipeline_uniform_plain(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf,
                                    m_f, p_f, gscale):
     """Plain PyTorch version of :func:`adjoint_pipeline_uniform`: the
@@ -154,7 +162,7 @@ def adjoint_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf, m_f,
     inputs = [Fc, cc, Qc, mu0, P0, Hc, nu, lam, m_f, p_f]
     if maskf is not None:
         inputs.append(maskf)
-    sfx = cs._check_cuda(inputs + [gscale], d, o)
+    sfx = cs._check_cuda(inputs + [gscale], d, o, UNIFORM_ADJOINT_MAX_STATE_DIM)
     lead = torch.broadcast_shapes(*(x.shape[:-3] for x in inputs),
                                   gscale.shape)
     B = math.prod(lead)
@@ -261,8 +269,12 @@ def log_likelihood_koopman_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam,
     k >= 1, the prior mu0 [..., d, 1, 1], P0 [..., d, d, 1] at step 0, a
     constant emission Hc [..., o, d, 1]; per-step sites nu [..., o, 1, N],
     lam [..., o, o, N] and an optional boolean mask [..., N].  Its gradient
-    is the Koopman score; no [d, d, N] array is materialised on CUDA.
-    Returns loglik [...]."""
+    is the Koopman score.  Up to state dim
+    :data:`UNIFORM_ADJOINT_MAX_STATE_DIM` no [d, d, N] array is materialised
+    on CUDA; above it, as in the JAX package, the prior steps are
+    materialised and take :func:`log_likelihood_koopman` (the general filter
+    and smoother-scan kernels), whose per-step gradients autograd sums back
+    onto the constants.  Returns loglik [...]."""
     n = nu.shape[-1]
     lead = torch.broadcast_shapes(*(x.shape[:-3] for x in
                                     (Fc, cc, Qc, mu0, P0, Hc, nu, lam)))
@@ -270,6 +282,9 @@ def log_likelihood_koopman_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam,
     nu = nu.expand(lead + (o, 1, n))
     lam = lam.expand(lead + (o, o, n))
     maskf = _float_mask(mask, lead, n, nu.dtype)
+    if Fc.shape[-3] > UNIFORM_ADJOINT_MAX_STATE_DIM:
+        F, c, Q, H = _materialize_uniform(Fc, cc, Qc, mu0, P0, Hc, n)
+        return _Koopman.apply(F, c, Q, H, nu, lam, maskf)
     return _KoopmanUniform.apply(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf)
 
 

@@ -1,6 +1,7 @@
-// C entry points of the scan kernels (see uniform_scan.cuh, general_scan.cuh
-// and adjoint_scan.cuh).  The kernels themselves are instantiated in the
-// *_inst.cu units, one per (kernel family, dtype, state dimension).
+// C entry points of the scan kernels (see uniform_scan.cuh, general_scan.cuh,
+// adjoint_scan.cuh and wide_scan.cuh).  The kernels themselves are
+// instantiated in the *_inst.cu units, one per (kernel family, dtype, state
+// dimension) for d <= 6 and one per (kernel family, dtype) for d = 7..12.
 #include "adjoint_scan.cuh"
 #include "general_scan.cuh"
 
@@ -21,12 +22,29 @@
 MF_EXTERN_ALL_D(float)
 MF_EXTERN_ALL_D(double)
 
-// Scratch sizes in elements of T.
+#define MF_EXTERN_WIDE(T)                                                                 \
+  extern template int mf::launch_wide_filter<mf::WideUniformRow<T>>(                     \
+      mf::FilterArgs<T>, mf::UniformPrior<T>, T*, int64_t, int, cudaStream_t);            \
+  extern template int mf::launch_wide_smoother<mf::WideUniformRtsRow<T>>(                 \
+      mf::SmootherArgs<T>, mf::UniformRts<T>, T*, int64_t, int, cudaStream_t);            \
+  extern template int mf::launch_wide_filter<mf::WideGeneralRow<T>>(                     \
+      mf::FilterArgs<T>, mf::GeneralPrior<T>, T*, int64_t, int, cudaStream_t);            \
+  extern template int mf::launch_wide_smoother<mf::WidePrebuiltRow<T>>(                   \
+      mf::SmootherArgs<T>, mf::Prebuilt<T>, T*, int64_t, int, cudaStream_t);
+
+MF_EXTERN_WIDE(float)
+MF_EXTERN_WIDE(double)
+
+// Scratch sizes in elements of T (-1 for a state dimension with no kernel).
 #define MF_DEFINE_SCRATCH(T, SUFFIX)                                                    \
   extern "C" int64_t mf_filter_scratch_##SUFFIX(int64_t d, int64_t batch, int64_t n) {  \
+    if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
+      return mf::wide_filter_scratch<T>(int(d), batch, n);                              \
     MF_SWITCH_D(d, (mf::filter_scratch<T, D_>(batch, n)), -1)                           \
   }                                                                                     \
   extern "C" int64_t mf_smoother_scratch_##SUFFIX(int64_t d, int64_t batch, int64_t n) { \
+    if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
+      return mf::wide_smoother_scratch<T>(int(d), batch, n);                            \
     MF_SWITCH_D(d, (mf::smoother_scratch<T, D_>(batch, n)), -1)                         \
   }                                                                                     \
   extern "C" int64_t mf_adjoint_scratch_##SUFFIX(int64_t d, int64_t batch, int64_t n) { \

@@ -18,12 +18,13 @@
 // smoother scan reads 2 d^2 + d values a step twice and writes d^2 + d, with
 // one composition per step and no inverse: at d = 2, float32, ~104 B a step,
 // 31 us at 3.35 TB/s for N = 1e6, close to its arithmetic.  The TPU kernels
-// take d <= 12; d = 7..12 needs another element layout (an FElem at d = 12
-// has 456 values and does not fit in registers), so these are instantiated
-// for d = 1..6.
+// take d <= 12: d = 1..6 are instantiated here, with every element in
+// registers; d = 7..12 (an FElem at d = 12 has 456 values) run through the
+// warp-per-element kernels of wide_scan.cuh with the Wide*Row sources below.
 #pragma once
 
 #include "scan_core.cuh"
+#include "wide_scan.cuh"
 
 namespace mf {
 
@@ -95,6 +96,43 @@ struct PrebuiltRow {
   }
 };
 
+// The same two sources for d = 7..12 (wide_scan.cuh), all lanes together.
+template <typename T_>
+struct WideGeneralRow {
+  using T = T_;
+  using Prior = GeneralPrior<T>;
+
+  static MF_DEV void step(const Prior& a, int64_t b, int64_t k, WideWork<T>& w, int d) {
+    for (int e = lane_id(); e < d * d; e += 32) {
+      const int i = e / d, j = e - i * d;
+      w.f[e] = a.f[b * a.f_sb + i * a.f_si + j * a.f_sj + k * a.f_st];
+      w.q[e] = a.q[b * a.q_sb + i * a.q_si + j * a.q_sj + k * a.q_st];
+    }
+    for (int e = lane_id(); e < d; e += 32) {
+      w.c[e] = a.c[b * a.c_sb + e * a.c_si + k * a.c_st];
+      w.h[e] = a.h[b * a.h_sb + e * a.h_sj + k * a.h_st];
+    }
+    __syncwarp();
+  }
+};
+
+template <typename T_>
+struct WidePrebuiltRow {
+  using T = T_;
+  using Prior = Prebuilt<T>;
+
+  static MF_DEV void elem(const Prior& a, int64_t b, int64_t k, int64_t n, T* out,
+                          WideWork<T>& w, int d) {
+    const int dd = d * d;
+    for (int e = lane_id(); e < dd; e += 32) {
+      out[e] = a.e[(b * dd + e) * n + k];
+      out[dd + d + e] = a.l[(b * dd + e) * n + k];
+    }
+    for (int e = lane_id(); e < d; e += 32) out[dd + e] = a.g[(b * d + e) * n + k];
+    __syncwarp();
+  }
+};
+
 }  // namespace mf
 
 // C entry points for one dtype (T, suffix), as in uniform_scan.cuh.  The
@@ -116,6 +154,9 @@ struct PrebuiltRow {
     mf::set_site_strides(a, st + 15);                                                  \
     a.m_f = m_f; a.p_f = p_f; a.loglik = loglik; a.n = n;                              \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (d >= mf::WIDE_MIN_D)                                                           \
+      return mf::launch_wide_filter<mf::WideGeneralRow<T>>(a, p, scratch, batch, int(d), \
+                                                           s);                         \
     MF_SWITCH_D(d, (mf::launch_filter<mf::GeneralRow<T, D_, 1>>(a, p, scratch, batch,  \
                                                                 s)),                   \
                 int(cudaErrorInvalidValue))                                            \
@@ -127,6 +168,9 @@ struct PrebuiltRow {
     mf::Prebuilt<T> p{e, g, l};                                                        \
     mf::SmootherArgs<T> a{m_s, p_s, nullptr, n, 0};                                    \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (d >= mf::WIDE_MIN_D)                                                           \
+      return mf::launch_wide_smoother<mf::WidePrebuiltRow<T>>(a, p, scratch, batch,    \
+                                                              int(d), s);              \
     MF_SWITCH_D(d, (mf::launch_smoother<mf::PrebuiltRow<T, D_>>(a, p, scratch, batch,  \
                                                                 s)),                   \
                 int(cudaErrorInvalidValue))                                            \

@@ -8,6 +8,8 @@
 // level, which loses accuracy when the leading block is near singular (the
 // filter composition inverts I + C J, which is not symmetric).  The plain
 // PyTorch version is _gauss_jordan_tl in markovflow_tpu_torch/ops/kalman.py.
+// The kernels for 7 <= d <= 12 invert with the same pivoting, a warp per
+// matrix (winv in wide_scan.cuh); they need no determinant above o = 1.
 // No output argument may alias an input.
 #pragma once
 

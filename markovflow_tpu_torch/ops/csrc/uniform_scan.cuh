@@ -30,6 +30,7 @@
 #pragma once
 
 #include "scan_core.cuh"
+#include "wide_scan.cuh"
 
 namespace mf {
 
@@ -149,12 +150,83 @@ struct UniformRtsRow {
   }
 };
 
+// The same two sources for d = 7..12 (wide_scan.cuh): each builds its step
+// into the warp's workspace, all lanes together.
+template <typename T_>
+struct WideUniformRow {
+  using T = T_;
+  using Prior = UniformPrior<T>;
+
+  static MF_DEV void step(const Prior& a, int64_t b, int64_t k, WideWork<T>& w, int d) {
+    const bool first = k == 0;
+    const int dd = d * d;
+    for (int e = lane_id(); e < dd; e += 32) {
+      w.f[e] = first ? T(0) : a.fc[b * dd + e];
+      w.q[e] = first ? a.p0[b * dd + e] : a.qc[b * dd + e];
+    }
+    for (int e = lane_id(); e < d; e += 32) {
+      w.c[e] = first ? a.mu0[b * d + e] : a.cc[b * d + e];
+      w.h[e] = a.hc[b * d + e];
+    }
+    __syncwarp();
+  }
+};
+
+template <typename T_>
+struct WideUniformRtsRow {
+  using T = T_;
+  using Prior = UniformRts<T>;
+
+  // UniformRtsRow::elem, with the temporaries in the workspace
+  static MF_DEV void elem(const Prior& a, int64_t b, int64_t k, int64_t n, T* out,
+                          WideWork<T>& w, int d) {
+    const int dd = d * d, OE = 0, OG = dd, OL = dd + d, lane = lane_id();
+    T *mk = w.v[5], *pk = w.m[3], *pft = w.m[0], *pp = w.m[1], *pinv = w.m[2];
+    T *fm = w.v[0], *gfm = w.v[1];
+    for (int e = lane; e < d; e += 32) mk[e] = a.m_f[(b * d + e) * n + k];
+    for (int e = lane; e < dd; e += 32) pk[e] = a.p_f[(b * dd + e) * n + k];
+    __syncwarp();
+    if (k == n - 1) {
+      for (int e = lane; e < dd; e += 32) {
+        out[OE + e] = T(0);
+        out[OL + e] = pk[e];
+      }
+      for (int e = lane; e < d; e += 32) out[OG + e] = mk[e];
+      __syncwarp();
+      return;
+    }
+    for (int e = lane; e < dd; e += 32) {
+      w.f[e] = a.fc[b * dd + e];
+      w.q[e] = a.qc[b * dd + e];
+    }
+    for (int e = lane; e < d; e += 32) w.c[e] = a.cc[b * d + e];
+    __syncwarp();
+    wmm<T, false, true>(pk, w.f, pft, d, d, d);  // P F^T
+    wmm(w.f, pft, pp, d, d, d);
+    wadd(pp, w.q, dd);
+    wsym(pp, d);
+    winv(pp, pinv, w.aug, w.v[6], d);
+    wmm(pft, pinv, out + OE, d, d, d);
+    wmm(w.f, mk, fm, d, d, 1);
+    wadd(fm, w.c, d);
+    wmm(out + OE, fm, gfm, d, d, 1);
+    for (int e = lane; e < d; e += 32) out[OG + e] = mk[e] - gfm[e];
+    __syncwarp();
+    wmm(w.f, pk, pft, d, d, d);  // F P
+    wmm(out + OE, pft, pp, d, d, d);
+    for (int e = lane; e < dd; e += 32) out[OL + e] = pk[e] - pp[e];
+    __syncwarp();
+    wsym(out + OL, d);
+  }
+};
+
 }  // namespace mf
 
 // C entry points for one dtype (T, suffix).  The state dimension is a
-// runtime argument dispatched to the compile-time instantiations d = 1..6;
-// the output dimension is 1.  Sizes are int64; every pointer, and the
-// stream, is passed as an address; strides come as a host array of int64.
+// runtime argument dispatched to the compile-time instantiations d = 1..6,
+// or to the runtime-d kernels for d = 7..12; the output dimension is 1.
+// Sizes are int64; every pointer, and the stream, is passed as an address;
+// strides come as a host array of int64.
 #define MF_DEFINE_UNIFORM_ENTRY_POINTS(T, SUFFIX)                                      \
   extern "C" int mf_uniform_filter_##SUFFIX(                                           \
       const T* fc, const T* cc, const T* qc, const T* mu0, const T* p0, const T* hc,   \
@@ -168,6 +240,9 @@ struct UniformRtsRow {
     mf::set_site_strides(a, site_strides);                                             \
     a.m_f = m_f; a.p_f = p_f; a.loglik = loglik; a.n = n;                              \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (d >= mf::WIDE_MIN_D)                                                           \
+      return mf::launch_wide_filter<mf::WideUniformRow<T>>(a, p, scratch, batch, int(d), \
+                                                           s);                         \
     MF_SWITCH_D(d, (mf::launch_filter<mf::UniformRow<T, D_, 1>>(a, p, scratch, batch,  \
                                                                 s)),                   \
                 int(cudaErrorInvalidValue))                                            \
@@ -179,6 +254,9 @@ struct UniformRtsRow {
     mf::UniformRts<T> p{fc, cc, qc, m_f, p_f};                                         \
     mf::SmootherArgs<T> a{m_s, p_s, nullptr, n, 0};                                    \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (d >= mf::WIDE_MIN_D)                                                           \
+      return mf::launch_wide_smoother<mf::WideUniformRtsRow<T>>(a, p, scratch, batch,  \
+                                                                int(d), s);            \
     MF_SWITCH_D(d, (mf::launch_smoother<mf::UniformRtsRow<T, D_>>(a, p, scratch,       \
                                                                   batch, s)),          \
                 int(cudaErrorInvalidValue))                                            \

@@ -49,8 +49,11 @@ __all__ = ["filter_pipeline_uniform", "smoother_pipeline_uniform",
            "filter_pipeline_plain", "smoother_scan_plain",
            "build_kernels", "MAX_STATE_DIM"]
 
-#: the kernels are instantiated for state dims 1..6 and output dim 1
-MAX_STATE_DIM = 6
+#: the filter and smoother kernels take state dims 1..12 and output dim 1:
+#: d = 1..6 as unrolled instantiations with elements in registers, d = 7..12
+#: through one runtime-d instantiation whose warps compose elements held in
+#: shared memory (``csrc/wide_scan.cuh``)
+MAX_STATE_DIM = 12
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "_build" / "torch_kernels"
@@ -114,13 +117,17 @@ def _find_nvcc() -> str:
 
 
 #: compilation units: the C entry points, then one unit per (kernel family,
-#: dtype, state dim) instantiation of the kernels, so that nvcc runs them in
-#: parallel; the largest state dims, the slowest to build, start first
+#: dtype, state dim) instantiation of the unrolled kernels for d = 1..6 and
+#: one per (family, dtype) of the runtime-d kernels for d = 7..12, so that
+#: nvcc runs them in parallel; the largest state dims, the slowest to build,
+#: start first
 _FAMILIES = ("uniform", "general", "adjoint")
 _UNITS = [("entry_points.cu", [])] + [
     (f"{fam}_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}"])
     for fam in _FAMILIES for t in ("float", "double")
-    for d in range(MAX_STATE_DIM, 0, -1)]
+    for d in range(6, 0, -1)] + [
+    ("wide_inst.cu", [f"-DMF_T={t}", f"-DMF_{fam.upper()}"])
+    for fam in ("uniform", "general") for t in ("float", "double")]
 
 
 def _source_hash() -> str:
@@ -202,9 +209,10 @@ def build_kernels() -> ctypes.CDLL:
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _check_cuda(tensors, d: int, o: int) -> str:
+def _check_cuda(tensors, d: int, o: int, max_d: int = MAX_STATE_DIM) -> str:
     """Raise unless every tensor is on one CUDA device with one supported
-    dtype and the dims are instantiated; return the dtype suffix."""
+    dtype and the dims are instantiated (state dims 1..``max_d``); return
+    the dtype suffix."""
     device, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != device:
@@ -213,9 +221,9 @@ def _check_cuda(tensors, d: int, o: int) -> str:
             raise TypeError(f"all inputs must be {dtype}, got {t.dtype}")
     if dtype not in _SUFFIX:
         raise TypeError(f"the CUDA kernels take float32 or float64, got {dtype}")
-    if not 1 <= d <= MAX_STATE_DIM:
+    if not 1 <= d <= max_d:
         raise NotImplementedError(
-            f"the CUDA kernels take state dims 1..{MAX_STATE_DIM}, got {d}")
+            f"this CUDA kernel takes state dims 1..{max_d}, got {d}")
     if o != 1:
         raise NotImplementedError(
             f"the CUDA kernels take output dim 1, got {o}")

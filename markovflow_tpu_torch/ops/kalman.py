@@ -84,7 +84,7 @@ def _gauss_jordan_tl(m):
 
 def _inv_tl(m):
     """Inverse over the leading matrix dims of [..., d, d, N]: closed forms
-    for d <= 3, pivoted Gauss-Jordan for d <= 6 (the CUDA kernels' device
+    for d <= 3, pivoted Gauss-Jordan for d <= 12 (the CUDA kernels' device
     functions compute the same), LU above."""
     d = m.shape[-3]
     if d == 1:
@@ -107,7 +107,7 @@ def _inv_tl(m):
             torch.stack([c(1, 0, 2, 1), -c(0, 0, 2, 1), c(0, 0, 1, 1)], -2),
         ], -3)
         return adj / det[..., None, None, :]
-    if d <= 6:
+    if d <= 12:
         return _gauss_jordan_tl(m)[0]
     return torch.linalg.inv(m.movedim(-1, -3)).movedim(-3, -1)
 
@@ -126,7 +126,7 @@ def _det_tl(m):
                     - m[..., i1, j2, :] * m[..., i2, j1, :])
         return (m[..., 0, 0, :] * c(1, 1, 2, 2) - m[..., 0, 1, :] * c(1, 0, 2, 2)
                 + m[..., 0, 2, :] * c(1, 0, 2, 1))
-    if d <= 6:
+    if d <= 12:
         return _gauss_jordan_tl(m)[1]
     return torch.linalg.det(m.movedim(-1, -3))
 

@@ -1,14 +1,33 @@
 """Batched small-matrix helpers (counterpart of ``markovflow_tpu/utils/linalg.py``)."""
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
-__all__ = ["tlt", "symmetrize", "small_det", "small_inv", "small_solve"]
+__all__ = ["tlt", "symmetrize", "small_det", "small_inv", "small_solve",
+           "block_diag"]
 
 
 def tlt(x: torch.Tensor) -> torch.Tensor:
     """Transpose the last two axes."""
     return x.transpose(-1, -2)
+
+
+def block_diag(mats: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Batched block-diagonal: [..., d_i, e_i] blocks -> [..., sum d, sum e].
+    Batch shapes broadcast; the blocks share one dtype and device."""
+    batch = torch.broadcast_shapes(*(m.shape[:-2] for m in mats))
+    rows = sum(m.shape[-2] for m in mats)
+    cols = sum(m.shape[-1] for m in mats)
+    out = mats[0].new_zeros(batch + (rows, cols))
+    r = c = 0
+    for m in mats:
+        dr, dc = m.shape[-2], m.shape[-1]
+        out[..., r:r + dr, c:c + dc] = m
+        r += dr
+        c += dc
+    return out
 
 
 def symmetrize(x: torch.Tensor) -> torch.Tensor:

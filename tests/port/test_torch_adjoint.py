@@ -6,8 +6,12 @@
 * the uniform likelihood's Koopman backward against autograd through the
   plain filter, an independent oracle;
 * the general ``log_likelihood_koopman``: value and all six gradients
-  against the JAX package's ``log_likelihood_koopman``.
+  against the JAX package's ``log_likelihood_koopman``;
+* the uniform likelihood's route by state dim, as the JAX package's
+  ``_uniform_engine`` chooses it.
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 from markovflow_tpu.ops.adjoint import \
     log_likelihood_koopman as j_log_likelihood_koopman  # noqa: E402
 from markovflow_tpu_torch.ops import adjoint as adj  # noqa: E402
+from markovflow_tpu_torch.ops import cuda_scan as cs  # noqa: E402
 from markovflow_tpu_torch.ops.cuda_scan import \
     filter_pipeline_uniform_plain  # noqa: E402
 
@@ -119,3 +124,52 @@ def test_general_log_likelihood_koopman_matches_jax(name):
         w = np.array(w)
         np.testing.assert_allclose(g.numpy(), w, rtol=GRAD_RTOL,
                                    atol=GRAD_RTOL * np.abs(w).max(), err_msg=key)
+
+
+def _constant_ssm(d, n):
+    """A random stable constant SSM with one output (the uniform
+    likelihood's inputs), float64, every input but the mask trainable."""
+    rng = np.random.default_rng(d)
+    fc = 0.8 * np.eye(d) + 0.05 * rng.standard_normal((d, d))
+    lq = 0.3 * rng.standard_normal((d, d)) + np.eye(d)
+    arrays = [fc[..., None], 0.1 * rng.standard_normal((d, 1, 1)),
+              (0.3 * lq @ lq.T)[..., None], rng.standard_normal((d, 1, 1)),
+              (1.5 * np.eye(d))[..., None], rng.standard_normal((1, d, 1)),
+              rng.standard_normal((1, 1, n)), 2.0 + rng.random((1, 1, n))]
+    return [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+
+
+@pytest.mark.parametrize("d", [6, 9])
+def test_uniform_likelihood_routes_by_state_dim(monkeypatch, d):
+    """Up to d = 6 the uniform likelihood runs the uniform filter forward
+    and the uniform Koopman backward.  Above it, as the JAX package's
+    ``_uniform_engine`` routes d > 6, the prior steps are materialised and
+    take the general filter forward and the smoother scan backward (before
+    this route, a d = 9 model raised on CUDA, where the uniform backward
+    kernel takes d <= 6).  Counted by calls into the wrappers, which run
+    the plain versions on these CPU tensors; the value is the plain
+    filter's either way."""
+    calls = collections.Counter()
+
+    def counting(module, name):
+        fn = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        monkeypatch.setattr(module, name, wrapped)
+
+    for name in ("filter_pipeline_uniform", "filter_pipeline", "smoother_scan"):
+        counting(cs, name)
+    counting(adj, "adjoint_pipeline_uniform")
+    x = _constant_ssm(d, 41)
+    ll = adj.log_likelihood_koopman_uniform(*x)
+    ll.backward()
+    assert all(v.grad is not None for v in x)
+    general = d > adj.UNIFORM_ADJOINT_MAX_STATE_DIM
+    assert dict(calls) == ({"filter_pipeline": 1, "smoother_scan": 1} if general
+                           else {"filter_pipeline_uniform": 1,
+                                 "adjoint_pipeline_uniform": 1})
+    with torch.no_grad():
+        want = filter_pipeline_uniform_plain(*x)[2]
+    np.testing.assert_allclose(ll.item(), want.item(), rtol=1e-12)

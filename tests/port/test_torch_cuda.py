@@ -80,17 +80,20 @@ def _general(d, n, batch, device, dtype=torch.float64, masked=True, seed=0):
 
 def _check_all_kernels(args, gargs, tol, tol_ll):
     """Every kernel against its plain version on one uniform problem and one
-    general problem; the smoothers and the adjoint read the plain filter's
-    moments, so each kernel is held on its own."""
+    general problem (the uniform adjoint up to its largest state dim, 6);
+    the smoothers and the adjoint read the plain filter's moments, so each
+    kernel is held on its own."""
     fc, cc, qc = args[:3]
     m_k, p_k, ll_k = ops.filter_pipeline_uniform(*args)
     m_p, p_p, ll_p = ops.filter_pipeline_uniform_plain(*args)
     ms_k, ps_k = ops.smoother_pipeline_uniform(fc, cc, qc, m_p, p_p)
     ms_p, ps_p = ops.smoother_pipeline_uniform_plain(fc, cc, qc, m_p, p_p)
-    gs = torch.linspace(0.5, -1.5, math.prod(m_p.shape[:-3]), dtype=m_p.dtype,
-                        device=m_p.device).reshape(m_p.shape[:-3])
-    adj_k = adj.adjoint_pipeline_uniform(*args, m_p, p_p, gs)
-    adj_p = adj.adjoint_pipeline_uniform_plain(*args, m_p, p_p, gs)
+    adj_k = adj_p = ()
+    if fc.shape[-3] <= adj.UNIFORM_ADJOINT_MAX_STATE_DIM:
+        gs = torch.linspace(0.5, -1.5, math.prod(m_p.shape[:-3]), dtype=m_p.dtype,
+                            device=m_p.device).reshape(m_p.shape[:-3])
+        adj_k = adj.adjoint_pipeline_uniform(*args, m_p, p_p, gs)
+        adj_p = adj.adjoint_pipeline_uniform_plain(*args, m_p, p_p, gs)
     gm_k, gp_k, gll_k = ops.filter_pipeline(*gargs)
     gm_p, gp_p, gll_p = ops.filter_pipeline_plain(*gargs)
     elems = smoother_elements_tl(*gargs[:3], gm_p, gp_p)[:3]
@@ -107,7 +110,7 @@ def _check_all_kernels(args, gargs, tol, tol_ll):
 
 
 @pytest.mark.parametrize("n", [1, 37, 4099])
-@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("d", list(range(1, ops.MAX_STATE_DIM + 1)))
 def test_kernels_match_plain_float64(cuda_device, d, n):
     _check_all_kernels(_problem(d, n, (2,), cuda_device),
                        _general(d, n, (2,), cuda_device), F64_TOL, F64_TOL)
@@ -132,15 +135,54 @@ def test_kernels_match_plain_float32(cuda_device):
         1e-3, 1e-4)
 
 
+def test_kernels_match_plain_float32_at_d9(cuda_device):
+    """float32 at d = 9 (the state dim of a Sum of three Matern52), N = 1e5,
+    through the d = 7..12 kernels, at the tolerances of the d = 2 case."""
+    _check_all_kernels(
+        _problem(9, 100_000, (), cuda_device, dtype=torch.float32, masked=False),
+        _general(9, 100_000, (), cuda_device, dtype=torch.float32, masked=False),
+        1e-3, 1e-4)
+
+
+def _near_singular_moments(d, n, device):
+    """Symmetric, well-conditioned P [d, d] whose leading d // 2 block is
+    rank one plus 1e-13 (as test_pivoted_inverse_with_a_near_singular_leading_block
+    builds it), repeated over n steps, and random means."""
+    k = d // 2
+    g = torch.Generator().manual_seed(d)
+    a = torch.randn(d, d, generator=g, dtype=torch.float64)
+    p = a + a.T + 2.0 * d * torch.eye(d, dtype=torch.float64)
+    u = torch.randn(k, generator=g, dtype=torch.float64)
+    p[:k, :k] = torch.outer(u, u) + 1e-13 * torch.eye(k, dtype=torch.float64)
+    m = torch.randn(d, 1, n, generator=g, dtype=torch.float64)
+    return (m.to(device), p[..., None].expand(d, d, n).contiguous().to(device))
+
+
+def test_pivoted_inverse_with_a_near_singular_leading_block_at_d9(cuda_device):
+    """The RTS element inverts Pp = sym(F P F^T + Q); with F = I, Q = 0 and
+    c = 0 every gain is P P^-1 = I, so the smoothed moments of every step
+    are the last filtered ones.  The leading 4 x 4 block of P is near
+    singular: the device's pivoted Gauss-Jordan inverse (d = 7..12) keeps
+    every step exact to roundoff of P's condition number."""
+    d, n = 9, 64
+    m_f, p_f = _near_singular_moments(d, n, cuda_device)
+    fc = torch.eye(d, dtype=torch.float64, device=cuda_device)[..., None]
+    zeros = torch.zeros((d, 1, 1), dtype=torch.float64, device=cuda_device)
+    m_s, p_s = ops.smoother_pipeline_uniform(fc, zeros, 0.0 * fc, m_f, p_f)
+    torch.cuda.synchronize()
+    assert _rel(m_s, m_f[..., -1:].expand_as(m_s)) < 1e-9
+    assert _rel(p_s, p_f[..., -1:].expand_as(p_s)) < 1e-9
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     args = _problem(2, 64, (), cuda_device)
     with pytest.raises(TypeError):
         ops.filter_pipeline_uniform(*[None if a is None else a.half() for a in args])
     with pytest.raises(ValueError):
         ops.filter_pipeline_uniform(args[0].cpu(), *args[1:])
-    big = _problem(7, 64, (), cuda_device)
     with pytest.raises(NotImplementedError):
-        ops.filter_pipeline_uniform(*big)
+        ops.filter_pipeline_uniform(*_problem(13, 64, (), cuda_device))
+    big = _problem(7, 64, (), cuda_device)
     two_out = list(args)
     two_out[5] = torch.ones((2, 2, 1), dtype=args[0].dtype, device=cuda_device)
     two_out[7] = args[7].expand(2, 2, 64)
@@ -153,17 +195,22 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         ops.smoother_pipeline_uniform(*args[:3], m_f, p_f.transpose(-3, -2))
     gs = torch.ones((), dtype=args[0].dtype, device=cuda_device)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):   # the uniform adjoint: d <= 6
         adj.adjoint_pipeline_uniform(*big, *ops.filter_pipeline_uniform_plain(*big)[:2], gs)
+    m13 = torch.zeros((13, 1, 64), dtype=torch.float64, device=cuda_device)
+    p13 = torch.eye(13, dtype=torch.float64, device=cuda_device)[..., None].expand(13, 13, 64)
+    with pytest.raises(NotImplementedError):
+        ops.smoother_pipeline_uniform(p13[..., :1], m13[..., :1], p13[..., :1], m13,
+                                      p13.contiguous())
 
 
-def test_general_pair_raises_above_d6(cuda_device):
-    gargs = _general(7, 64, (), cuda_device)
+def test_general_pair_raises_above_d12(cuda_device):
+    gargs = _general(13, 64, (), cuda_device)
     with pytest.raises(NotImplementedError):
         ops.filter_pipeline(*gargs)
-    d7 = torch.eye(7, dtype=torch.float64, device=cuda_device)[..., None].expand(7, 7, 64)
+    d13 = torch.eye(13, dtype=torch.float64, device=cuda_device)[..., None].expand(13, 13, 64)
     with pytest.raises(NotImplementedError):
-        ops.smoother_scan(d7, d7[:, :1], d7)
+        ops.smoother_scan(d13, d13[:, :1], d13)
 
 
 def test_gpr_requests_run_through_the_kernels(cuda_device):
@@ -233,3 +280,68 @@ def test_fit_on_cuda_matches_cpu(cuda_device, uniform):
     _, cpu_losses = training.fit(cpu, num_steps=3)
     np.testing.assert_allclose(losses.cpu().numpy(), cpu_losses.numpy(), rtol=1e-9)
     assert losses[-1] < losses[0]
+
+
+#: the composite model: Matern52(0.5, 1) + Matern52(2, 0.5) + Matern52(8, 0.25)
+D9 = ((0.5, 1.0), (2.0, 0.5), (8.0, 0.25))
+
+
+def _d9_pair(uniform, device, n=300):
+    """The d = 9 Sum-of-three-Matern52 GPR on CUDA and on the CPU (float64),
+    from one set of parameters."""
+    from markovflow_tpu_torch.utils.bijectors import positive
+
+    rng = np.random.default_rng(2)
+    x = np.linspace(0.0, 10.0, n)
+    if not uniform:
+        x = x + 0.4 * (x[1] - x[0]) * rng.uniform(-1.0, 1.0, n)
+    y = (np.sin(2.0 * x) + 0.2 * rng.standard_normal(n))[:, None]
+    params = {"chol_obs_covariance": np.asarray([[0.2]])}
+    for i, (ell, var) in enumerate(D9):
+        params[f"kernel.kernels[{i}].lengthscale"] = positive().inverse(np.asarray(ell))
+        params[f"kernel.kernels[{i}].variance"] = positive().inverse(np.asarray(var))
+    return [gpr_from_numpy(params, x, y, device=dev, dtype=torch.float64,
+                           kernel=("Matern52",) * 3) for dev in (device, "cpu")]
+
+
+def _launches():
+    return {"filter_pipeline_uniform": ops.filter_pipeline_uniform.launches,
+            "smoother_pipeline_uniform": ops.smoother_pipeline_uniform.launches,
+            "adjoint_pipeline_uniform": adj.adjoint_pipeline_uniform.launches,
+            "filter_pipeline": ops.filter_pipeline.launches,
+            "smoother_scan": ops.smoother_scan.launches}
+
+
+@pytest.mark.parametrize("uniform", [True, False])
+def test_d9_loss_backward_and_marginals_on_cuda(cuda_device, uniform):
+    """d = 9: loss().backward() takes the general filter and smoother-scan
+    kernels on both grids (above d = 6 the uniform grid's prior steps are
+    materialised, as in the JAX package); posterior_marginals() takes the
+    uniform filter and smoother on a uniform grid, the general pair
+    otherwise.  Values and gradients are the CPU's."""
+    gpu, cpu = _d9_pair(uniform, cuda_device)
+    assert gpu.kernel.state_dim == 9 and gpu._uniform_grid == uniform
+    before = _launches()
+    loss = gpu.loss()
+    loss.backward()
+    with torch.no_grad():
+        means, covs = gpu.kalman.posterior_marginals()
+    got = {k: v - before[k] for k, v in _launches().items()}
+    want = {"filter_pipeline_uniform": int(uniform),
+            "smoother_pipeline_uniform": int(uniform),
+            "adjoint_pipeline_uniform": 0,
+            "filter_pipeline": 1 + int(not uniform),
+            "smoother_scan": 1 + int(not uniform)}
+    assert got == want
+    cpu_loss = cpu.loss()
+    cpu_loss.backward()
+    with torch.no_grad():
+        want_means, want_covs = cpu.kalman.posterior_marginals()
+    np.testing.assert_allclose(loss.item(), cpu_loss.item(), rtol=1e-10)
+    np.testing.assert_allclose(means.cpu().numpy(), want_means.numpy(), atol=1e-10)
+    np.testing.assert_allclose(covs.cpu().numpy(), want_covs.numpy(), atol=1e-10)
+    for i in range(3):
+        for name in ("lengthscale", "variance"):
+            g = getattr(gpu.kernel.kernels[i], name).unconstrained.grad.cpu().numpy()
+            r = getattr(cpu.kernel.kernels[i], name).unconstrained.grad.numpy()
+            np.testing.assert_allclose(g, r, rtol=1e-9, err_msg=f"{i} {name}")

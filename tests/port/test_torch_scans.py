@@ -33,7 +33,7 @@ def test_scan_tl_matches_sequential(n, reverse):
         torch.testing.assert_close(got_c[..., k:k + 1], acc[1], rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("d", list(range(1, 13)))
 def test_inverse_and_determinant_closed_forms(d):
     """The closed forms and the pivoted Gauss-Jordan elimination that the
     kernels' device functions mirror, against LU (float64,
@@ -57,9 +57,9 @@ def test_wrappers_refuse_other_devices():
         ops.smoother_pipeline_uniform(meta, meta, meta, meta, meta)
 
 
-@pytest.mark.parametrize("d", [4, 5, 6])
+@pytest.mark.parametrize("d", [4, 5, 6, 7, 9, 12])
 def test_pivoted_inverse_with_a_near_singular_leading_block(d):
-    """d = 4..6 invert by pivoted Gauss-Jordan.  The leading d // 2 block of
+    """d = 4..12 invert by pivoted Gauss-Jordan.  The leading d // 2 block of
     these matrices is near singular (rank one plus 1e-13), and the unpivoted
     one-level Schur reduction (the JAX package's Pallas ``_inv``) divides by
     its inverse: it loses every digit here, the pivoted form none."""
@@ -74,3 +74,26 @@ def test_pivoted_inverse_with_a_near_singular_leading_block(d):
     assert float((got - want).abs().max() / want.abs().max()) < 1e-9
     det = torch.linalg.det(m.movedim(-1, -3))
     assert float(((_det_tl(m) - det) / det).abs().max()) < 1e-9
+
+
+@pytest.mark.parametrize("d", [5, 9, 12])
+def test_rts_gains_with_a_near_singular_leading_block(d):
+    """The RTS element inverts Pp = sym(F P F^T + Q).  With F = I, c = 0,
+    Q = 0 every gain is P P^-1 = I, so every smoothed moment is the last
+    filtered one.  P is symmetric and well conditioned, but its leading
+    d // 2 block is rank one plus 1e-13: the pivoted inverse keeps the
+    identity to roundoff of P's condition number (the same check runs the
+    CUDA kernels in test_torch_cuda.py at d = 9)."""
+    k = d // 2
+    g = torch.Generator().manual_seed(d)
+    a = torch.randn(d, d, generator=g, dtype=torch.float64)
+    p = a + a.T + 2.0 * d * torch.eye(d, dtype=torch.float64)
+    u = torch.randn(k, generator=g, dtype=torch.float64)
+    p[:k, :k] = torch.outer(u, u) + 1e-13 * torch.eye(k, dtype=torch.float64)
+    m_f = torch.randn(d, 1, 16, generator=g, dtype=torch.float64)
+    p_f = p[..., None].expand(d, d, 16).contiguous()
+    fc = torch.eye(d, dtype=torch.float64)[..., None]
+    m_s, p_s = ops.smoother_pipeline_uniform(fc, torch.zeros(d, 1, 1, dtype=torch.float64),
+                                             0.0 * fc, m_f, p_f)
+    assert float((m_s - m_f[..., -1:]).abs().max() / m_f[..., -1].abs().max()) < 1e-9
+    assert float((p_s - p_f[..., -1:]).abs().max() / p.abs().max()) < 1e-9
