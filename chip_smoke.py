@@ -10,12 +10,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 2. build the CUDA kernels from the sources in the checkout (one nvcc unit
    per kernel family, dtype and state dim 1..6, and one per family and
    dtype for d = 7..12, compiled in parallel);
-3. hold each of the five kernels against its plain PyTorch version on the
+3. hold each of the seven kernels against its plain PyTorch version on the
    card: N in {4099, 1e6}, batch () and (3,), d in {1, 2, 3}
    (Matern12/32/52), float64 and float32, plus one masked case; the uniform
-   kernels on a uniform grid, the general pair on a jittered grid.  Then
-   the filter and smoother kernels at d = 7..12 (Sums of Matern kernels,
-   the d = 7..12 kernels of csrc/wide_scan.cuh): float64 at N = 4099,
+   kernels on a uniform grid, the general ones (filter, smoother scan,
+   filter scan, general Koopman backward) on a jittered grid.  Then the
+   same at d = 7..12 (Sums of Matern kernels, the d = 7..12 kernels of
+   csrc/wide_scan.cuh and csrc/general_adjoint.cuh): float64 at N = 4099,
    batch (3,), and float32 at d = 9, N = 1e5 (the uniform Koopman backward
    takes d <= 6 only);
 4. the slice at full size, T = 1e6, float32, flagship GPR (Matern32(0.5,
@@ -30,24 +31,36 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       finite differences of the numpy oracle's log-likelihood;
    c. an irregular grid (linspace(0, 100, T) jittered by up to 0.4 of the
       spacing): loss(), posterior_marginals() and 5 fit steps through the
-      general filter and smoother-scan kernels, against float64, and at
-      N = 500 against the numpy oracle (value, marginals, finite-difference
-      gradients);
+      general filter, the smoother scan (marginals) and the general Koopman
+      backward (one launch a step), against float64, and at N = 500 against
+      the numpy oracle (value, marginals, finite-difference gradients);
    d. the composite model (bench.py's d9 config: Matern52(0.5, 1) +
       Matern52(2, 0.5) + Matern52(8, 0.25), state dim 9, noise Cholesky
       0.2) at T = 1e5, float32: serving on a uniform grid (loss() through
       the general filter, as the JAX package routes d > 6;
       posterior_marginals() through the uniform filter and smoother), 5
-      fit steps (general filter, smoother scan), and loss().backward() and
-      posterior_marginals() on the jittered grid; float32 against float64
-      (kernel path and plain path) within the measured d9 bounds, and at
-      N = 500 float64 against the numpy oracle and central differences;
+      fit steps (general filter, general Koopman backward), and
+      loss().backward() and posterior_marginals() on the jittered grid;
+      float32 against float64 (kernel path and plain path) within the
+      measured d9 bounds, and at N = 500 float64 against the numpy oracle
+      and central differences;
+   e. the ops filter API on the jittered grid (the flagship at T = 1e6, the
+      d9 model at T = 1e5): make_filter_elements from the model's prior
+      steps and sites, then parallel_filter (the filter-scan kernel),
+      against the general filter kernel's moments on the same inputs and
+      against float64; and KalmanFilterWithSparseSites with 30% of the
+      flagship's grid points unobserved: -log_likelihood().backward()
+      through the general filter and the general Koopman backward with
+      that mask, against float64;
 5. times, kernel path against plain path, with CUDA events after a warm-up
    (median of several runs): serving requests, training steps on both
    grids, general-grid requests, the d9 requests and training step; each
    kernel's device time per call from a torch.profiler trace (the wrapper's
    call time also holds its host work), at the flagship's d = 2 and at the
-   d9 model's d = 9.
+   d9 model's d = 9, beside its bound: the least time an H100 needs for
+   the bytes the call must move (each input read once, each output written
+   once) or for the operations of the sequential Kalman recursion it
+   computes, whichever is larger.
 
 The plain path swaps every kernel wrapper for its plain version
 (``plain_path``).  The line before the last is a JSON summary of the
@@ -59,6 +72,7 @@ from __future__ import annotations
 import contextlib
 import importlib.util
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -120,6 +134,17 @@ KERNEL_NAMES = {1: "Matern12", 2: "Matern32", 3: "Matern52"}
 WIDE_EXTRA = {7: ("Matern12",), 8: ("Matern32",), 9: (), 10: ("Matern12",),
               11: ("Matern32",), 12: ("Matern52",)}
 DEVICE = torch.device("cuda")
+#: the H100's memory rate and float32 rate outside the tensor cores
+#: (NVIDIA's data sheet, SXM part, at a 700 W power limit)
+H100_BYTES_PER_S = 3.35e12
+H100_F32_FLOPS = 67e12
+#: the launch counters the paths read: (module, wrapper name)
+COUNTED = (("cs", "filter_pipeline_uniform"), ("cs", "smoother_pipeline_uniform"),
+           ("adj", "adjoint_pipeline_uniform"), ("cs", "filter_pipeline"),
+           ("cs", "smoother_scan"), ("cs", "filter_scan"),
+           ("adj", "adjoint_pipeline"))
+#: the gradients the GPR backward asks of the general Koopman backward
+GPR_NEEDS = (True, True, True, False, False, False)
 
 
 def log(msg: str) -> None:
@@ -177,11 +202,8 @@ def modules():
 
 def counted(cs, adj):
     """The wrappers whose launch counters the paths read, by kernel name."""
-    return {"filter_pipeline_uniform": cs.filter_pipeline_uniform,
-            "smoother_pipeline_uniform": cs.smoother_pipeline_uniform,
-            "adjoint_pipeline_uniform": adj.adjoint_pipeline_uniform,
-            "filter_pipeline": cs.filter_pipeline,
-            "smoother_scan": cs.smoother_scan}
+    mods = {"cs": cs, "adj": adj}
+    return {name: getattr(mods[mod], name) for mod, name in COUNTED}
 
 
 @contextlib.contextmanager
@@ -201,18 +223,24 @@ def plain_path(cs, adj, kf):
     modules that call them), for the plain-path timings."""
     def adjoint_plain(*args, site_grads=True):
         return adj.adjoint_pipeline_uniform_plain(*args)
+
+    def gadjoint_plain(*args, needs=None):
+        return adj.adjoint_pipeline_plain(*args)
     swaps = {"filter_pipeline_uniform": cs.filter_pipeline_uniform_plain,
              "smoother_pipeline_uniform": cs.smoother_pipeline_uniform_plain,
              "filter_pipeline": cs.filter_pipeline_plain,
-             "smoother_scan": cs.smoother_scan_plain}
+             "smoother_scan": cs.smoother_scan_plain,
+             "filter_scan": cs.filter_scan_plain}
     saved = []
     for mod in (cs, kf):
         for name, fn in swaps.items():
             if hasattr(mod, name):
                 saved.append((mod, name, getattr(mod, name)))
                 setattr(mod, name, fn)
-    saved.append((adj, "adjoint_pipeline_uniform", adj.adjoint_pipeline_uniform))
-    adj.adjoint_pipeline_uniform = adjoint_plain
+    for name, fn in (("adjoint_pipeline_uniform", adjoint_plain),
+                     ("adjoint_pipeline", gadjoint_plain)):
+        saved.append((adj, name, getattr(adj, name)))
+        setattr(adj, name, fn)
     try:
         yield
     finally:
@@ -311,16 +339,14 @@ def general_problem(d, n, batch, dtype, seed, masked=False):
 def adjoint_sum_scales(adj, args, m_f, p_f, gscale):
     """The sums of the magnitudes of the terms of the adjoint's six summed
     gradients (the scale of each sum's error), from the plain stages."""
-    from markovflow_tpu_torch.ops.kalman import (_materialize_uniform,
-                                                 smoother_scan_tl)
+    from markovflow_tpu_torch.ops.kalman import _materialize_uniform
 
     fc, cc, qc, mu0, p0, hc, nu, lam, maskf = args
     n = nu.shape[-1]
     F, c, Q, H = _materialize_uniform(fc, cc, qc, mu0, p0, hc, n)
     mk = (torch.ones(nu.shape[:-3] + (n,), dtype=nu.dtype, device=nu.device)
           if maskf is None else maskf[..., 0, 0, :])
-    g_f, g_c, g_q, g_h, _, _ = adj._adjoint_grads(
-        F, c, Q, H, nu, lam, mk, m_f, p_f, scan=smoother_scan_tl)
+    g_f, g_c, g_q, g_h, _, _ = adj._adjoint_grads(F, c, Q, H, nu, lam, mk, m_f, p_f)
     gg = gscale.abs()[..., None, None, None]
 
     def mag(x):
@@ -333,10 +359,12 @@ def adjoint_sum_scales(adj, args, m_f, p_f, gscale):
 # Phase 3
 # ---------------------------------------------------------------------------
 ADJ_OUT = ("gFc", "gcc", "gQc", "gmu0", "gP0", "gHc", "gnu", "glam")
+GADJ_OUT = ("gF", "gc", "gQ", "gH", "gnu", "glam")
 
 
 def phase_kernels_vs_plain(cs, adj):
-    from markovflow_tpu_torch.ops.kalman import smoother_elements_tl
+    from markovflow_tpu_torch.ops.kalman import (make_filter_elements_tl,
+                                                 smoother_elements_tl)
 
     log("phase 3: kernels against their plain versions on the card")
     cases = [(n, batch, d, dtype, False)
@@ -391,7 +419,9 @@ def phase_kernels_vs_plain(cs, adj):
         else:
             check("uniform " + tag, diffs, tols)
         del args, m_k, p_k, m_p, p_p, ms_k, ps_k, ms_p, ps_p, a_k, a_p, scales
-        # kernels 4-5 on a jittered grid
+        # kernels 4-7 on a jittered grid: the general filter, the smoother
+        # scan, the filter scan (of the problem's filtering elements) and the
+        # general Koopman backward (all six gradients)
         gargs = general_problem(d, n, batch, dtype, seed=i, masked=masked)
         with torch.no_grad():
             m_k, p_k, ll_k = cs.filter_pipeline(*gargs)
@@ -399,23 +429,29 @@ def phase_kernels_vs_plain(cs, adj):
             elems = smoother_elements_tl(*gargs[:3], m_p, p_p)[:3]
             ms_k, ps_k = cs.smoother_scan(*elems)
             ms_p, ps_p = cs.smoother_scan_plain(*elems)
+            felems = make_filter_elements_tl(*gargs[:6])
+            fs_k, fs_p = cs.filter_scan(*felems), cs.filter_scan_plain(*felems)
+            ga_k = adj.adjoint_pipeline(*gargs, m_p, p_p, gscale)
+            ga_p = adj.adjoint_pipeline_plain(*gargs, m_p, p_p, gscale)
         torch.cuda.synchronize()
-        tols = {"m_f": tol_m, "P_f": tol_m, "loglik": tol_ll, "m_s": tol_m,
-                "P_s": tol_m}
+        outs = {"m_f": (m_k, m_p), "P_f": (p_k, p_p), "loglik": (ll_k, ll_p),
+                "m_s": (ms_k, ms_p), "P_s": (ps_k, ps_p), "scan m_f": (fs_k[0], fs_p[0]),
+                "scan P_f": (fs_k[1], fs_p[1]), **dict(zip(GADJ_OUT, zip(ga_k, ga_p)))}
+        tols = {k: tol_m for k in outs}
+        tols["loglik"] = tol_ll
         if wide32:
             g64 = [None if x is None else x.double() for x in gargs]
             with torch.no_grad():
                 r_m, r_p, r_ll = cs.filter_pipeline_plain(*g64)
-                r_ms, r_ps = cs.smoother_scan_plain(*(e.double() for e in elems))
-            check_f32_wide("general " + tag, {
-                "m_f": (m_k, m_p, r_m), "P_f": (p_k, p_p, r_p),
-                "loglik": (ll_k, ll_p, r_ll), "m_s": (ms_k, ms_p, r_ms),
-                "P_s": (ps_k, ps_p, r_ps)}, tols)
+                refs = [r_m, r_p, r_ll, *cs.smoother_scan_plain(*(e.double() for e in elems)),
+                        *cs.filter_scan_plain(*(e.double() for e in felems)),
+                        *adj.adjoint_pipeline_plain(*g64, m_p.double(), p_p.double(),
+                                                    gscale.double())]
+            check_f32_wide("general " + tag, {k: (kk, pp, r) for (k, (kk, pp)), r
+                                              in zip(outs.items(), refs)}, tols)
         else:
-            check("general " + tag,
-                  {"m_f": rel_diff(m_k, m_p), "P_f": rel_diff(p_k, p_p),
-                   "loglik": rel_diff(ll_k, ll_p), "m_s": rel_diff(ms_k, ms_p),
-                   "P_s": rel_diff(ps_k, ps_p)}, tols)
+            check("general " + tag, {k: rel_diff(kk, pp) for k, (kk, pp) in outs.items()},
+                  tols)
 
 
 # ---------------------------------------------------------------------------
@@ -616,9 +652,7 @@ def expect_launches(path, got, want):
 
 def no_launches(**counts):
     """Expected launch counts: the given ones, 0 for every other kernel."""
-    names = ("filter_pipeline_uniform", "smoother_pipeline_uniform",
-             "adjoint_pipeline_uniform", "filter_pipeline", "smoother_scan")
-    return {name: counts.get(name, 0) for name in names}
+    return {name: counts.get(name, 0) for _, name in COUNTED}
 
 
 def phase_serving(cs, adj, npk):
@@ -683,8 +717,8 @@ def phase_general(cs, adj, training, npk):
             marginals = [model.kalman.posterior_marginals()]
         _, losses = training.fit(model, num_steps=FIT_STEPS)
     expect_launches(f"a loss, marginals and {FIT_STEPS} fit steps", counts,
-                    no_launches(filter_pipeline=2 + FIT_STEPS,
-                                smoother_scan=1 + FIT_STEPS))
+                    no_launches(filter_pipeline=2 + FIT_STEPS, smoother_scan=1,
+                                adjoint_pipeline=FIT_STEPS))
     if loss.shape != () or not torch.isfinite(loss):
         raise AssertionError(f"bad loss {loss}")
     check_marginals(marginals)
@@ -720,7 +754,7 @@ def phase_d9(cs, adj, kf, training, npk):
     with launches_of(cs, adj, counts["d9 training"]):
         _, losses = training.fit(fit_model, num_steps=FIT_STEPS)
     expect_launches(f"{FIT_STEPS} d9 fit steps", counts["d9 training"],
-                    no_launches(filter_pipeline=FIT_STEPS, smoother_scan=FIT_STEPS))
+                    no_launches(filter_pipeline=FIT_STEPS, adjoint_pipeline=FIT_STEPS))
     check_fit(losses)
     jit = build_gpr(T_D9, torch.float32, uniform=False, d9=True)
     counts["d9 jittered"] = {}
@@ -731,7 +765,8 @@ def phase_d9(cs, adj, kf, training, npk):
             jmarg = jit.kalman.posterior_marginals()
     expect_launches("a d9 jittered loss().backward() and posterior_marginals()",
                     counts["d9 jittered"],
-                    no_launches(filter_pipeline=2, smoother_scan=2))
+                    no_launches(filter_pipeline=2, smoother_scan=1,
+                                adjoint_pipeline=1))
     check_marginals([jmarg], T_D9, 9)
     log(f"  jittered loss (f32) = {float(jloss.detach())!r}")
     check_f32_vs_f64(jit, False, jloss, jmarg, d9=True)
@@ -751,6 +786,98 @@ def phase_d9(cs, adj, kf, training, npk):
     for uniform in (True, False):
         check_oracle_values(npk, 500, uniform, d9=True)
         check_fd_gradients(npk, 500, uniform, d9=True)
+    return counts
+
+
+def ops_inputs(model):
+    """A model's prior steps, emission and sites in the time-middle layout
+    of the ops API: F [N, d, d], c [N, d], Q [N, d, d], H [N, 1, d],
+    nu [N, 1], lam [N, 1, 1]; and the same in the time-last layout."""
+    kal = model.kalman
+    with torch.no_grad():
+        F, c, Q = kal.prior_tl
+        H = kal._emission_tl()
+        nu, lam, _ = kal._site_nats_tl()
+    tl = (F, c, Q, H, nu, lam)
+    tm = lambda x: x.movedim(-1, -3)            # noqa: E731
+    vec = lambda x: x[..., 0, :].movedim(-1, -2)  # noqa: E731
+    return (tm(F), vec(c), tm(Q), tm(H), vec(nu), tm(lam)), tl
+
+
+def sparse_sites_run(kf, dtype, x, y, idx):
+    """KalmanFilterWithSparseSites for the flagship's kernel on the grid x
+    with sites at x[idx] (y / 0.04, precision 1 / 0.04): the loss
+    -log_likelihood(), after its backward, and the gradients of the
+    kernel's two hyperparameters and of the sites' two naturals."""
+    from markovflow_tpu_torch import kernels
+
+    k = kernels.Matern32(lengthscale=0.5, variance=1.0, dtype=dtype, device=DEVICE)
+    tp = torch.as_tensor(x, dtype=dtype, device=DEVICE)
+    nat1 = torch.as_tensor(y[idx, None] / 0.04, dtype=dtype, device=DEVICE)
+    nat2 = torch.full((idx.size, 1, 1), -0.5 / 0.04, dtype=dtype, device=DEVICE)
+    nat1.requires_grad_(True)
+    nat2.requires_grad_(True)
+    f = kf.KalmanFilterWithSparseSites(
+        k.generate_emission_model(tp), kf.UnivariateGaussianSitesNat(nat1, nat2),
+        x.size, torch.as_tensor(idx, device=DEVICE), None,
+        prior_tl=k.prior_arrays_tl(tp))
+    loss = -f.log_likelihood()
+    loss.backward()
+    return loss.detach(), [k.lengthscale.unconstrained.grad,
+                           k.variance.unconstrained.grad, nat1.grad, nat2.grad]
+
+
+def phase_ops(cs, adj, kf):
+    """The ops filter API through the filter-scan kernel and the sparse-site
+    filter through the general Koopman backward; returns the launch counts
+    of its paths."""
+    from markovflow_tpu_torch.ops import kalman
+
+    log(f"phase 4e: the ops filter API and the sparse-site filter on the jittered "
+        f"grid, float32")
+    counts = {}
+    for path, n, d9 in (("ops", T_FULL, False), ("ops d9", T_D9, True)):
+        model = build_gpr(n, torch.float32, uniform=False, d9=d9)
+        args, tl = ops_inputs(model)
+        counts[path] = {}
+        with launches_of(cs, adj, counts[path]), torch.no_grad():
+            m_f, p_f = kalman.parallel_filter(kalman.make_filter_elements(*args))
+        expect_launches(f"parallel_filter at T = {n}" + (" (d9)" if d9 else ""),
+                        counts[path], no_launches(filter_scan=1))
+        d = model.kernel.state_dim
+        if m_f.shape != (n, d) or p_f.shape != (n, d, d):
+            raise AssertionError(f"bad filtered shapes {m_f.shape} {p_f.shape}")
+        with torch.no_grad():
+            gm, gp, _ = cs.filter_pipeline(*tl)
+            args64, _ = ops_inputs(build_gpr(n, torch.float64, uniform=False, d9=d9))
+            m64, p64 = kalman.parallel_filter(kalman.make_filter_elements(*args64))
+        tol = TOL_D9_F32_MOMENTS if d9 else TOL_F32_MOMENTS
+        check(f"T={n} d={d} parallel_filter vs the general filter kernel, and vs f64",
+              {"m_f": rel_diff(m_f, gm[..., 0, :].movedim(-1, -2)),
+               "P_f": rel_diff(p_f, gp.movedim(-1, -3)),
+               "m_f f64": rel_diff(m_f.double(), m64),
+               "P_f f64": rel_diff(p_f.double(), p64)},
+              {"m_f": tol, "P_f": tol, "m_f f64": tol, "P_f f64": tol})
+    x, y = flagship_data(T_FULL, uniform=False)
+    idx = np.sort(np.random.default_rng(1).choice(T_FULL, int(0.7 * T_FULL),
+                                                  replace=False))
+    counts["sparse"] = {}
+    with launches_of(cs, adj, counts["sparse"]):
+        loss, grads = sparse_sites_run(kf, torch.float32, x, y[:, 0], idx)
+    expect_launches("a sparse-site -log_likelihood().backward()", counts["sparse"],
+                    no_launches(filter_pipeline=1, adjoint_pipeline=1))
+    if not (torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)):
+        raise AssertionError("non-finite sparse-site loss or gradients")
+    loss64, grads64 = sparse_sites_run(kf, torch.float64, x, y[:, 0], idx)
+    diffs = {"loss": rel_diff(loss.double(), loss64)}
+    diffs.update({name: rel_diff(g.double(), w) for name, g, w in
+                  zip(("lengthscale", "variance", "nat1", "nat2"), grads, grads64)})
+    log(f"  sparse sites: {idx.size} of {T_FULL} grid points observed; "
+        f"loss (f64) = {float(loss64)!r}")
+    check("sparse sites f32 vs f64", diffs,
+          {"loss": TOL_F32_VS_F64_LOSS, "lengthscale": TOL_F32_VS_F64_GRAD,
+           "variance": TOL_F32_VS_F64_GRAD, "nat1": TOL_F32_MOMENTS,
+           "nat2": TOL_F32_MOMENTS})
     return counts
 
 
@@ -806,11 +933,56 @@ def train_step(model):
     return step
 
 
+def stored_bytes(x) -> int:
+    """Bytes of the distinct values of a tensor: an expanded axis (stride 0)
+    holds one value."""
+    return math.prod(n for n, st in zip(x.shape, x.stride()) if st != 0) * x.element_size()
+
+
+def step_flops(name: str, d: int) -> int:
+    """Operations of one step of the sequential recursion that a kernel's
+    function computes (o = 1, counting a d x d product as 2 d^3 and a d x d
+    inverse as 2 d^3): the least arithmetic of the function, whatever the
+    kernel's parallel scan adds (each associative composition costs ~2x a
+    sequential step).
+      filter: predict F P F^T (4 d^3), update and likelihood (6 d^2);
+      RTS smoother: Pp (4 d^3), its inverse and the gain (4 d^3), the
+        smoothed covariance G (Ps - Pp) G^T (4 d^3), the means;
+      smoother scan of prebuilt (E, g, L): E P E^T + L, E m + g;
+      filter scan of prebuilt (A, b, C, J, eta): (I + C J)^-1 and
+        A M C A^T (10 d^3), the means;
+      Koopman backward, per step: Pp and L = F (I - K H) (6 d^3), the
+        suffix E NDK E^T (4 d^3), N F P (4 d^3); the uniform one also the
+        smoothed covariance for its summed gH (4 d^3)."""
+    d2, d3 = d * d, d ** 3
+    return {"filter_pipeline_uniform": 4 * d3 + 6 * d2,
+            "filter_pipeline": 4 * d3 + 6 * d2,
+            "smoother_pipeline_uniform": 12 * d3 + 6 * d2,
+            "smoother_scan": 4 * d3 + 2 * d2,
+            "filter_scan": 10 * d3 + 6 * d2,
+            "adjoint_pipeline": 14 * d3 + 6 * d2,
+            "adjoint_pipeline_uniform": 18 * d3 + 6 * d2}[name]
+
+
+def bound(name, inputs, outputs, d, steps):
+    """(bound_ms, bound_by) of one call: the larger of its bytes (each
+    input read once, each output written once) over the H100's memory rate
+    and its float32 operations (step_flops per step) over its float32 rate."""
+    nbytes = sum(stored_bytes(x) for x in list(inputs) + list(outputs)
+                 if isinstance(x, torch.Tensor))
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = step_flops(name, d) * steps / H100_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def kernel_calls(cs, adj, uni, gen):
     """Each kernel on the inputs of a uniform-grid and a jittered-grid model
-    (the uniform adjoint up to d = 6): its max abs diff from its plain
-    version, the largest entry, and (kernel call, plain call)."""
-    from markovflow_tpu_torch.ops.kalman import smoother_elements_tl
+    (the uniform adjoint up to d = 6), called as the main path calls it:
+    name -> (kernel call, plain call, inputs).  The filter scan takes the
+    jittered model's filtering elements; the two Koopman backwards write
+    only what the GPR backward asks for."""
+    from markovflow_tpu_torch.ops.kalman import (make_filter_elements_tl,
+                                                 smoother_elements_tl)
 
     k_uni, k_gen = uni.kalman, gen.kalman
     Fc, cc, Qc, mu0, P0 = (x.detach() for x in k_uni.prior_const_tl)
@@ -826,41 +998,45 @@ def kernel_calls(cs, adj, uni, gen):
         m_fp, p_fp, _ = cs.filter_pipeline_uniform_plain(*args)
         gm_fp, gp_fp, _ = cs.filter_pipeline_plain(*gargs)
         elems = smoother_elements_tl(F, c, Q, gm_fp, gp_fp)[:3]
-        pairs = {
-            "filter_pipeline_uniform": (cs.filter_pipeline_uniform(*args)[:2],
-                                        (m_fp, p_fp)),
-            "smoother_pipeline_uniform": (
-                cs.smoother_pipeline_uniform(Fc, cc, Qc, m_fp, p_fp),
-                cs.smoother_pipeline_uniform_plain(Fc, cc, Qc, m_fp, p_fp)),
-            "filter_pipeline": (cs.filter_pipeline(*gargs)[:2], (gm_fp, gp_fp)),
-            "smoother_scan": (cs.smoother_scan(*elems), cs.smoother_scan_plain(*elems)),
-        }
-        calls = {
-            "filter_pipeline_uniform": (lambda: cs.filter_pipeline_uniform(*args),
-                                        lambda: cs.filter_pipeline_uniform_plain(*args)),
-            "smoother_pipeline_uniform": (
-                lambda: cs.smoother_pipeline_uniform(Fc, cc, Qc, m_fp, p_fp),
-                lambda: cs.smoother_pipeline_uniform_plain(Fc, cc, Qc, m_fp, p_fp)),
-            "filter_pipeline": (lambda: cs.filter_pipeline(*gargs),
-                                lambda: cs.filter_pipeline_plain(*gargs)),
-            "smoother_scan": (lambda: cs.smoother_scan(*elems),
-                              lambda: cs.smoother_scan_plain(*elems)),
-        }
-        if Fc.shape[-3] <= adj.UNIFORM_ADJOINT_MAX_STATE_DIM:
-            pairs["adjoint_pipeline_uniform"] = (
-                adj.adjoint_pipeline_uniform(*args, None, m_fp, p_fp, gs),
-                adj.adjoint_pipeline_uniform_plain(*args, None, m_fp, p_fp, gs))
-            # as the flagship's backward calls it: no site gradients
-            calls["adjoint_pipeline_uniform"] = (
-                lambda: adj.adjoint_pipeline_uniform(*args, None, m_fp, p_fp, gs,
-                                                     site_grads=False),
-                lambda: adj.adjoint_pipeline_uniform_plain(*args, None, m_fp,
-                                                           p_fp, gs))
-        errs = {k: max(float((g - w).abs().max()) for g, w in zip(*pair))
-                for k, pair in pairs.items()}
-        largest = {k: max(float(w.abs().max()) for w in pair[1])
-                   for k, pair in pairs.items()}
-    return errs, largest, calls
+        felems = make_filter_elements_tl(*gargs)
+    calls = {
+        "filter_pipeline_uniform": (lambda: cs.filter_pipeline_uniform(*args),
+                                    lambda: cs.filter_pipeline_uniform_plain(*args),
+                                    args),
+        "smoother_pipeline_uniform": (
+            lambda: cs.smoother_pipeline_uniform(Fc, cc, Qc, m_fp, p_fp),
+            lambda: cs.smoother_pipeline_uniform_plain(Fc, cc, Qc, m_fp, p_fp),
+            (Fc, cc, Qc, m_fp, p_fp)),
+        "filter_pipeline": (lambda: cs.filter_pipeline(*gargs),
+                            lambda: cs.filter_pipeline_plain(*gargs), gargs),
+        "smoother_scan": (lambda: cs.smoother_scan(*elems),
+                          lambda: cs.smoother_scan_plain(*elems), elems),
+        "filter_scan": (lambda: cs.filter_scan(*felems),
+                        lambda: cs.filter_scan_plain(*felems), felems),
+        "adjoint_pipeline": (
+            lambda: adj.adjoint_pipeline(*gargs, None, gm_fp, gp_fp, gs, needs=GPR_NEEDS),
+            lambda: adj.adjoint_pipeline_plain(*gargs, None, gm_fp, gp_fp, gs),
+            gargs + (gm_fp, gp_fp, gs)),
+    }
+    if Fc.shape[-3] <= adj.UNIFORM_ADJOINT_MAX_STATE_DIM:
+        # as the flagship's backward calls it: no site gradients
+        calls["adjoint_pipeline_uniform"] = (
+            lambda: adj.adjoint_pipeline_uniform(*args, None, m_fp, p_fp, gs,
+                                                 site_grads=False),
+            lambda: adj.adjoint_pipeline_uniform_plain(*args, None, m_fp, p_fp, gs),
+            args + (m_fp, p_fp, gs))
+    return calls
+
+
+def compare_call(kfn, pfn):
+    """A kernel call's outputs against its plain version's: the max abs
+    difference and the largest plain entry, over the per-step and summed
+    arrays both return (not the log-likelihood, a sum of N terms)."""
+    with torch.no_grad():
+        got, want = kfn(), pfn()
+    pairs = [(g, w) for g, w in zip(got, want) if g is not None and g.dim() >= 3]
+    return (max(float((g - w).abs().max()) for g, w in pairs),
+            max(float(w.abs().max()) for _, w in pairs), got)
 
 
 def phase_times(cs, adj, kf, card, counts):
@@ -870,8 +1046,8 @@ def phase_times(cs, adj, kf, card, counts):
     gen = build_gpr(T_FULL, torch.float32, uniform=False)
     d9u = build_gpr(T_D9, torch.float32, d9=True)
     d9j = build_gpr(T_D9, torch.float32, uniform=False, d9=True)
-    sets = {"": kernel_calls(cs, adj, uni, gen),
-            " d=9": kernel_calls(cs, adj, d9u, d9j)}
+    sets = {"": (kernel_calls(cs, adj, uni, gen), 2, T_FULL),
+            " d=9": (kernel_calls(cs, adj, d9u, d9j), 9, T_D9)}
     requests = {
         "uniform loss()": lambda: uni.loss(),
         "uniform posterior_marginals()": lambda: uni.kalman.posterior_marginals(),
@@ -886,7 +1062,7 @@ def phase_times(cs, adj, kf, card, counts):
              "jittered training step": train_step(gen),
              "d9 training step": train_step(d9u),
              "d9 jittered training step": train_step(d9j)}
-    calls = {name + tag: fns for tag, (_, _, c) in sets.items()
+    calls = {name + tag: fns for tag, (c, _, _) in sets.items()
              for name, fns in c.items()}
     # turns: plain, kernel, kernel, plain; the medians of both turns
     t = {}
@@ -900,19 +1076,21 @@ def phase_times(cs, adj, kf, card, counts):
             for key, fn in steps.items():
                 t.setdefault((turn, key), []).append(cuda_ms(fn, reps))
         with torch.no_grad():
-            for key, (kfn, pfn) in calls.items():
+            for key, (kfn, pfn, _) in calls.items():
                 t.setdefault((turn, key), []).append(
                     cuda_ms(kfn if turn == "kernel" else pfn, reps))
     ms = {k: statistics.median(v) for k, v in t.items()}
     for key in list(requests) + list(steps):
         log(f"  {key}: kernel path {ms[('kernel', key)]!r} ms, plain path "
             f"{ms[('plain', key)]!r} ms (CUDA events, median)  [{card}]")
-    dev = {}
-    with torch.no_grad():
-        for key, (kfn, _) in calls.items():
-            dev[key] = kernel_device_ms(kfn)
-    errs = {name + tag: e for tag, (es, _, _) in sets.items() for name, e in es.items()}
-    largest = {name + tag: v for tag, (_, ls, _) in sets.items() for name, v in ls.items()}
+    dev, errs, largest, bounds = {}, {}, {}, {}
+    for tag, (c, d, n) in sets.items():
+        for name, (kfn, pfn, inputs) in c.items():
+            key = name + tag
+            with torch.no_grad():
+                dev[key] = kernel_device_ms(kfn)
+            errs[key], largest[key], outputs = compare_call(kfn, pfn)
+            bounds[key] = bound(name, inputs, outputs, d, n)
     for key in calls:
         src = "on the device per call (torch.profiler)"
         if dev[key] <= 0.0:
@@ -920,25 +1098,40 @@ def phase_times(cs, adj, kf, card, counts):
             src = "per wrapper call (the profiler saw no device time)"
         log(f"  {key} kernel: max abs diff from its plain version "
             f"{errs[key]:.3e} (largest entry {largest[key]:.3e})")
-        log(f"  {key} kernel: {dev[key]!r} ms {src}; wrapper call "
-            f"{ms[('kernel', key)]!r} ms, plain version {ms[('plain', key)]!r} ms "
-            f"(CUDA events, median per call)  [{card}]")
+        log(f"  {key} kernel: {dev[key]!r} ms {src}; bound {bounds[key][0]!r} ms "
+            f"({bounds[key][1]}); wrapper call {ms[('kernel', key)]!r} ms, plain "
+            f"version {ms[('plain', key)]!r} ms (CUDA events, median per call)  [{card}]")
     source = "markovflow_tpu_torch/ops/csrc/"
-    rows = [("filter_pipeline_uniform", "uniform_scan.cuh", "pallas_scan.py:1036", ("serving",)),
-            ("smoother_pipeline_uniform", "uniform_scan.cuh", "pallas_scan.py:1457", ("serving",)),
-            ("adjoint_pipeline_uniform", "adjoint_scan.cuh", "pallas_scan.py:1229", ("training",)),
-            ("filter_pipeline", "general_scan.cuh", "pallas_scan.py:849", ("general",)),
-            ("smoother_scan", "general_scan.cuh", "pallas_scan.py:1313", ("general",))]
-    # the same wrappers at d = 9: the d = 7..12 kernels, on the d9 paths
+    # (name, source at d <= 6, source at d = 7..12, TPU kernel, paths at d = 2,
+    # paths at d = 9)
     d9_paths = ("d9 serving", "d9 training", "d9 jittered")
-    rows += [(name + " d=9", "wide_scan.cuh", rep, d9_paths)
-             for name, _, rep, _ in rows if name != "adjoint_pipeline_uniform"]
-    return [{"name": name, "route": "cuda", "source": source + src,
-             "replaces": "markovflow_tpu/ops/" + rep,
-             "launches": sum(counts[path][name.split(" ")[0]] for path in paths),
-             "max_abs_err": errs[name], "ms": dev[name],
-             "plain_ms": ms[("plain", name)]}
-            for name, src, rep, paths in rows]
+    rows = [("filter_pipeline_uniform", "uniform_scan.cuh", "wide_scan.cuh",
+             "pallas_scan.py:1036", ("serving",), d9_paths),
+            ("smoother_pipeline_uniform", "uniform_scan.cuh", "wide_scan.cuh",
+             "pallas_scan.py:1457", ("serving",), d9_paths),
+            ("adjoint_pipeline_uniform", "adjoint_scan.cuh", None,
+             "pallas_scan.py:1229", ("training",), ()),
+            ("filter_pipeline", "general_scan.cuh", "wide_scan.cuh",
+             "pallas_scan.py:849", ("general", "sparse"), d9_paths),
+            ("smoother_scan", "general_scan.cuh", "wide_scan.cuh",
+             "pallas_scan.py:1313", ("general",), d9_paths),
+            ("filter_scan", "general_scan.cuh", "wide_scan.cuh",
+             "pallas_scan.py:793", ("ops",), ("ops d9",)),
+            ("adjoint_pipeline", "general_adjoint.cuh", "general_adjoint.cuh",
+             "pallas_scan.py:681", ("general", "sparse"), d9_paths)]
+    out = []
+    for name, src, wide_src, rep, paths, wide_paths in rows:
+        for tag, file, run in (("", src, paths), (" d=9", wide_src, wide_paths)):
+            if file is None:
+                continue
+            key = name + tag
+            out.append({"name": key, "route": "cuda", "source": source + file,
+                        "replaces": "markovflow_tpu/ops/" + rep,
+                        "launches": sum(counts[path][name] for path in run),
+                        "max_abs_err": errs[key], "ms": dev[key],
+                        "plain_ms": ms[("plain", key)], "bound_ms": bounds[key][0],
+                        "bound_by": bounds[key][1], "library_ms": None})
+    return out
 
 
 def main() -> int:
@@ -965,6 +1158,7 @@ def main() -> int:
     counts["training"], _ = phase_training_uniform(cs, adj, training, npk)
     counts["general"], _ = phase_general(cs, adj, training, npk)
     counts.update(phase_d9(cs, adj, kf, training, npk))
+    counts.update(phase_ops(cs, adj, kf))
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels = phase_times(cs, adj, kf, card, counts)

@@ -1,8 +1,10 @@
 """Numerical constants (counterpart of ``markovflow_tpu/config.py``).
 
 The JAX package invents a dtype from ``jax_enable_x64``; the port never
-does: every constructor takes an explicit ``dtype`` and ``device``, and
-dtype-dependent constants are functions of that dtype.
+does: every constructor takes an explicit ``dtype``, and dtype-dependent
+constants are functions of that dtype.  Constructors build on the CUDA
+card unless they are given another ``device`` (the tests pass
+``device="cpu"``).
 """
 from __future__ import annotations
 

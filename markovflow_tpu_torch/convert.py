@@ -29,12 +29,13 @@ def _kernel(name: str, params, prefix: str, dtype, device):
 
 
 def gpr_from_numpy(params: Dict[str, np.ndarray], time_points: np.ndarray,
-                   observations: np.ndarray, *, device, dtype: torch.dtype,
-                   kernel: Union[str, Sequence[str]] = "Matern32"
+                   observations: np.ndarray, *, dtype: torch.dtype,
+                   device="cuda", kernel: Union[str, Sequence[str]] = "Matern32"
                    ) -> GaussianProcessRegression:
     """A :class:`GaussianProcessRegression` from numpy parameters under the
     JAX model's attribute paths: ``kernel.lengthscale`` and
-    ``kernel.variance`` (UNCONSTRAINED values) and ``chol_obs_covariance``.
+    ``kernel.variance`` (UNCONSTRAINED values) and ``chol_obs_covariance``,
+    on ``device`` (the CUDA card unless the caller names another).
     ``kernel`` names the kernel class, or is a sequence of names for a
     :class:`~markovflow_tpu_torch.kernels.Sum` of those kernels, whose
     parameters are ``kernel.kernels[i].lengthscale`` and so on, as in a JAX

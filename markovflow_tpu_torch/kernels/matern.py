@@ -22,7 +22,7 @@ SQRT5 = 2.23606797749979
 class _Matern(StationaryKernel):
     def __init__(self, lengthscale: float = 1.0, variance: float = 1.0,
                  output_dim: int = 1, jitter: float = 0.0, *,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device="cuda"):
         super().__init__(output_dim, jitter, dtype=dtype, device=device)
         self.lengthscale = Parameter(lengthscale, transform=positive(),
                                      dtype=dtype, device=device)

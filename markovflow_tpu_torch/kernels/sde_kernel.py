@@ -3,7 +3,9 @@
 
 Every tensor is built in the dtype and on the device of the kernel's
 parameters or of the time points it is given; nothing falls back to a
-global default dtype.
+global default dtype.  A kernel's parameters live on the CUDA card unless
+its constructor is given another ``device``; a :class:`Sum` holds no
+parameters of its own and lives where its children do.
 """
 from __future__ import annotations
 
@@ -64,7 +66,7 @@ class StationaryKernel(SDEKernel, abc.ABC):
     Q_k = P_inf - A_k P_inf A_k^T."""
 
     def __init__(self, output_dim: int = 1, jitter: float = 0.0, *,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device="cuda"):
         super().__init__(output_dim, jitter)
         self._state_mean = Parameter(np.zeros((self.state_dim,)),
                                      trainable=False, dtype=dtype,

@@ -14,10 +14,12 @@ derivation is in the JAX module's docstring.
   gradients on the device; for d > 6 the prior steps are materialised and
   take the general route below, as in the JAX package.
 * :func:`log_likelihood_koopman` (any grid, per-step prior steps): the
-  forward is the general filter kernel; the backward builds the elements in
-  plain torch (stage 1), scans them with the general smoother-scan kernel
-  and assembles the gradients in plain torch (stage 2), as the JAX package
-  does with XLA around ``pallas_smoother_scan``.
+  forward is the general filter kernel; the backward is the port of
+  ``pallas_adjoint_pipeline`` (:func:`adjoint_pipeline`), which builds the
+  elements (stage 1), scans them and assembles the per-step gradients
+  (stage 2) in one kernel.  The JAX package keeps the split form (XLA
+  stages around ``pallas_smoother_scan``), which the plain version
+  :func:`adjoint_pipeline_plain` computes.
 
 Both are ``torch.autograd.Function``s on every device: CPU tensors run the
 plain forward and backward, as the JAX ``custom_vjp`` does on every backend.
@@ -35,6 +37,7 @@ from .kalman import (_cat, _eye_tl, _inv_tl, _materialize_uniform, _mm_tl,
 
 __all__ = ["log_likelihood_koopman_uniform", "log_likelihood_koopman",
            "adjoint_pipeline_uniform", "adjoint_pipeline_uniform_plain",
+           "adjoint_pipeline", "adjoint_pipeline_plain",
            "adjoint_scan_elements", "adjoint_grads_from_scan",
            "UNIFORM_ADJOINT_MAX_STATE_DIM"]
 
@@ -90,17 +93,16 @@ def adjoint_grads_from_scan(F, c, Q, H, nu, lam, maskf, m_prev, p_prev,
     return g_f, g_c, g_q, g_h, g_nu, g_lam
 
 
-def _adjoint_grads(F, c, Q, H, nu, lam, maskf, m_f, p_f, scan):
-    """All six gradients from the saved filter results.  ``scan`` runs the
-    reverse smoothing scan: :func:`ops.kalman.smoother_scan_tl` (plain) or
-    the kernel wrapper :func:`ops.cuda_scan.smoother_scan`."""
+def _adjoint_grads(F, c, Q, H, nu, lam, maskf, m_f, p_f):
+    """All six gradients from the saved filter results, through the plain
+    reverse scan."""
     def zpad(x):
         return _cat([torch.zeros_like(x[..., :1]), x[..., :-1]], dim=-1)
     m_prev, p_prev = zpad(m_f), zpad(p_f)           # (m, P)_{k-1}, 0 at k = 0
     f_next = _cat([F[..., 1:], torch.zeros_like(F[..., :1])], dim=-1)
     a, pp, _, l_mat, g_elem, v_elem = adjoint_scan_elements(
         F, c, Q, H, nu, lam, m_prev, p_prev, f_next)
-    r, ndk = scan(_t_tl(l_mat), g_elem, v_elem)
+    r, ndk = smoother_scan_tl(_t_tl(l_mat), g_elem, v_elem)
     return adjoint_grads_from_scan(F, c, Q, H, nu, lam, maskf, m_prev, p_prev,
                                    a, pp, r, ndk)
 
@@ -128,7 +130,7 @@ def adjoint_pipeline_uniform_plain(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf,
     else:
         mk = maskf[..., 0, 0, :]
     g_f, g_c, g_q, g_h, g_nu, g_lam = _adjoint_grads(
-        F, c, Q, H, nu, lam, mk, m_f, p_f, scan=smoother_scan_tl)
+        F, c, Q, H, nu, lam, mk, m_f, p_f)
     gg = torch.as_tensor(gscale, dtype=nu.dtype,
                          device=nu.device)[..., None, None, None]
 
@@ -205,6 +207,78 @@ adjoint_pipeline_uniform.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Kernel 7: the general-grid Koopman backward
+# ---------------------------------------------------------------------------
+def adjoint_pipeline_plain(F, c, Q, H, nu, lam, maskf, m_f, p_f, gscale):
+    """Plain PyTorch version of :func:`adjoint_pipeline`: the plain stages
+    around the plain reverse scan (the JAX package's split form,
+    ``ops/adjoint.py:123-143``), scaled by ``gscale``.  Returns all six
+    gradients."""
+    _no_tf32(F)
+    n = F.shape[-1]
+    lead = torch.broadcast_shapes(*(x.shape[:-3] for x in
+                                    (F, c, Q, H, nu, lam, m_f)),
+                                  torch.as_tensor(gscale).shape)
+    mk = (torch.ones(lead + (n,), dtype=F.dtype, device=F.device)
+          if maskf is None else maskf[..., 0, 0, :])
+    gg = torch.as_tensor(gscale, dtype=F.dtype,
+                         device=F.device)[..., None, None, None]
+    return tuple(gg * g for g in
+                 _adjoint_grads(F, c, Q, H, nu, lam, mk, m_f, p_f))
+
+
+def adjoint_pipeline(F, c, Q, H, nu, lam, maskf, m_f, p_f, gscale,
+                     needs=(True,) * 6):
+    """Koopman backward for per-step prior steps on any grid (the port of
+    ``pallas_adjoint_pipeline``).
+
+    Inputs as :func:`ops.cuda_scan.filter_pipeline` (any strides), plus its
+    outputs m_f [..., d, 1, N], P_f [..., d, d, N] and the per-row cotangent
+    ``gscale`` [...].  Returns the per-step gradients (gF [..., d, d, N],
+    gc [..., d, 1, N], gQ [..., d, d, N], gH [..., o, d, N],
+    gnu [..., o, 1, N], glam [..., o, o, N]), scaled by ``gscale``; masked
+    steps (maskf <= 0.5) get zero gH, gnu and glam.  A CUDA call writes only
+    the gradients whose entry of ``needs`` is true and returns None for the
+    others; a CPU call returns all six.
+    """
+    if F.device.type == "cpu":
+        return adjoint_pipeline_plain(F, c, Q, H, nu, lam, maskf, m_f, p_f,
+                                      gscale)
+    if F.device.type != "cuda":
+        raise ValueError(f"no kernel for device {F.device}")
+    d, o, n = F.shape[-3], lam.shape[-3], F.shape[-1]
+    inputs = [F, c, Q, H, nu, lam, m_f, p_f]
+    if maskf is not None:
+        inputs.append(maskf)
+    sfx = cs._check_cuda(inputs + [gscale], d, o)
+    lead = torch.broadcast_shapes(*(x.shape[:-3] for x in inputs),
+                                  gscale.shape)
+    B = math.prod(lead)
+    cs._check_grid(B, n)
+    ptrs, strides = cs._general_views(lead, B, F, c, Q, H, nu, lam, maskf)
+    m_b = m_f.expand(lead + (d, 1, n)).reshape(B, d, 1, n).contiguous()
+    p_b = p_f.expand(lead + (d, d, n)).reshape(B, d, d, n).contiguous()
+    gs = gscale.expand(lead).reshape(B).contiguous()
+    kw = dict(dtype=F.dtype, device=F.device)
+    shapes = ((d, d, n), (d, 1, n), (d, d, n), (o, d, n), (o, 1, n), (o, o, n))
+    grads = [torch.empty((B,) + shape, **kw) if need else None
+             for shape, need in zip(shapes, needs)]
+    scratch = cs._scratch("smoother", sfx, d, B, n, F)
+    with torch.cuda.device(F.device):
+        err = getattr(cs.build_kernels(), f"mf_general_adjoint_{sfx}")(
+            *ptrs, strides, m_b.data_ptr(), p_b.data_ptr(), gs.data_ptr(),
+            *(None if g is None else g.data_ptr() for g in grads),
+            scratch.data_ptr(), B, n, d, cs._stream(F.device))
+    cs._raise_on(err, "adjoint_pipeline")
+    adjoint_pipeline.launches += 1
+    return tuple(None if g is None else g.reshape(lead + shape)
+                 for g, shape in zip(grads, shapes))
+
+
+adjoint_pipeline.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # The likelihoods
 # ---------------------------------------------------------------------------
 def _reduce_to(grad, like):
@@ -244,16 +318,10 @@ class _Koopman(torch.autograd.Function):
         needs = ctx.needs_input_grad
         if not any(needs[:6]):
             return (None,) * 7
-        F, c, Q, H, nu, lam, maskf, m_f, p_f = ctx.saved_tensors
-        n = F.shape[-1]
-        mk = (torch.ones(grad.shape + (n,), dtype=F.dtype, device=F.device)
-              if maskf is None else maskf[..., 0, 0, :])
-        grads = _adjoint_grads(F, c, Q, H, nu, lam, mk, m_f, p_f,
-                               scan=cs.smoother_scan)
-        gg = grad[..., None, None, None]
-        return tuple(_reduce_to(gg * g, x) if need else None
-                     for g, x, need in zip(grads, (F, c, Q, H, nu, lam),
-                                           needs)) + (None,)
+        inputs = ctx.saved_tensors
+        grads = adjoint_pipeline(*inputs, grad, needs=needs[:6])
+        return tuple(_reduce_to(g, x) if need else None
+                     for g, x, need in zip(grads, inputs, needs)) + (None,)
 
 
 def _float_mask(mask, lead, n, dtype):
@@ -273,8 +341,8 @@ def log_likelihood_koopman_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam,
     :data:`UNIFORM_ADJOINT_MAX_STATE_DIM` no [d, d, N] array is materialised
     on CUDA; above it, as in the JAX package, the prior steps are
     materialised and take :func:`log_likelihood_koopman` (the general filter
-    and smoother-scan kernels), whose per-step gradients autograd sums back
-    onto the constants.  Returns loglik [...]."""
+    and general backward kernels), whose per-step gradients autograd sums
+    back onto the constants.  Returns loglik [...]."""
     n = nu.shape[-1]
     lead = torch.broadcast_shapes(*(x.shape[:-3] for x in
                                     (Fc, cc, Qc, mu0, P0, Hc, nu, lam)))

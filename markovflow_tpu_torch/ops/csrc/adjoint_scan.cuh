@@ -66,10 +66,12 @@ struct AdjointStep {
   T a[D], pp[D * D];      // predicted moments of step k
 };
 
-// Stage 1: the step's inputs, predicted moments and smoothing element.
-template <typename T, int D, int O>
-MF_DEV void adjoint_stage1_body(const UniformRow<T, D, O>& u, const AdjointPrior<T>& p,
-                                int64_t b, int64_t k, int64_t n,
+// Stage 1: the step's inputs, predicted moments and smoothing element.  U
+// is the prior-step source (UniformRow here, GeneralRow for the per-step
+// backward of general_adjoint.cuh); P holds its prior (p.k), the sites and
+// the filtered moments.
+template <typename T, int D, int O, class U, class P>
+MF_DEV void adjoint_stage1_body(const U& u, const P& p, int64_t b, int64_t k, int64_t n,
                                 AdjointStep<T, D, O>& st, SElem<T, D>& out) {
   using E = SElem<T, D>;
   FilterStep<T, D, O>& s = st.s;
@@ -114,9 +116,7 @@ MF_DEV void adjoint_stage1_body(const UniformRow<T, D, O>& u, const AdjointPrior
 #pragma unroll
   for (int i = 0; i < D * D; ++i) ikh[i] = -ikh[i];
   add_eye<T, D>(ikh);
-  const bool last = k == n - 1;
-#pragma unroll
-  for (int i = 0; i < D * D; ++i) t[i] = last ? T(0) : u.f[i];  // F_{k+1}
+  u.next_f(p.k, b, k, n, t);  // F_{k+1}
   mm<T, D, D, D>(t, ikh, lmat);
   // element (E = L^T, g = H^T e, ell = sym(H^T W H))
 #pragma unroll
@@ -130,9 +130,8 @@ MF_DEV void adjoint_stage1_body(const UniformRow<T, D, O>& u, const AdjointPrior
   sym<T, D>(out.v + E::OL);
 }
 
-template <typename T, int D, int O>
-__device__ __noinline__ void adjoint_stage1_call(const UniformRow<T, D, O>& u,
-                                                 const AdjointPrior<T>& p, int64_t b,
+template <typename T, int D, int O, class U, class P>
+__device__ __noinline__ void adjoint_stage1_call(const U& u, const P& p, int64_t b,
                                                  int64_t k, int64_t n,
                                                  AdjointStep<T, D, O>& st,
                                                  SElem<T, D>& out) {
@@ -236,14 +235,15 @@ __device__ __noinline__ void adjoint_stage2_call(const AdjointStep<T, D, O>& st,
   adjoint_stage2_body<T, D, O>(st, suf, p, b, k, n, gs, acc);
 }
 
-// Element source of the reverse scan.  For d >= 4 both stages are calls,
-// as the compositions are (scan_core.cuh).
-template <typename T_, int D_, int O_>
+// Element source of the reverse scan, over the prior-step source U and the
+// arguments P.  For d >= 4 both stages are calls, as the compositions are
+// (scan_core.cuh).
+template <class U, class P>
 struct AdjointRow {
-  using T = T_;
-  static constexpr int D = D_, O = O_;
-  using Prior = AdjointPrior<T>;
-  UniformRow<T, D, O> u;
+  using T = typename U::T;
+  static constexpr int D = U::D, O = U::O;
+  using Prior = P;
+  U u;
 
   MF_DEV void load(const Prior& p, int64_t b) { u.load(p.k, b); }
 
@@ -263,7 +263,7 @@ struct AdjointRow {
 template <typename T, int D, int O>
 __global__ void __launch_bounds__(Tiling<D>::THREADS)
 adjoint_outputs(SmootherArgs<T> a, AdjointPrior<T> p) {
-  using Row = AdjointRow<T, D, O>;
+  using Row = AdjointRow<UniformRow<T, D, O>, AdjointPrior<T>>;
   using Op = SmootherOp<T, D>;
   using E = SElem<T, D>;
   constexpr int THREADS = Tiling<D>::THREADS, R = Tiling<D>::R;
@@ -308,7 +308,7 @@ int64_t adjoint_scratch(int64_t batch, int64_t n) {
 template <typename T, int D>
 int launch_adjoint(AdjointPrior<T> p, T* gsums, T* scratch, int64_t batch, int64_t n,
                    cudaStream_t stream) {
-  using Row = AdjointRow<T, D, 1>;
+  using Row = AdjointRow<UniformRow<T, D, 1>, AdjointPrior<T>>;
   constexpr int THREADS = Tiling<D>::THREADS, NV = AdjointSums<D, 1>::NV;
   SmootherArgs<T> a{nullptr, nullptr, scratch, n, num_blocks(n, Tiling<D>::TILE)};
   p.partials = scratch + batch * a.nblk * SElem<T, D>::SIZE;

@@ -1,9 +1,9 @@
 // C entry points of the scan kernels (see uniform_scan.cuh, general_scan.cuh,
-// adjoint_scan.cuh and wide_scan.cuh).  The kernels themselves are
-// instantiated in the *_inst.cu units, one per (kernel family, dtype, state
-// dimension) for d <= 6 and one per (kernel family, dtype) for d = 7..12.
-#include "adjoint_scan.cuh"
-#include "general_scan.cuh"
+// adjoint_scan.cuh, general_adjoint.cuh and wide_scan.cuh).  The kernels
+// themselves are instantiated in the *_inst.cu units, one per (kernel family,
+// dtype, state dimension) for d <= 6 and one per (kernel family, dtype) for
+// d = 7..12.
+#include "general_adjoint.cuh"
 
 #define MF_EXTERN(T, D)                                                                   \
   extern template int mf::launch_filter<mf::UniformRow<T, D, 1>>(                        \
@@ -15,7 +15,11 @@
   extern template int mf::launch_smoother<mf::PrebuiltRow<T, D>>(                        \
       mf::SmootherArgs<T>, mf::Prebuilt<T>, T*, int64_t, cudaStream_t);                   \
   extern template int mf::launch_adjoint<T, D>(mf::AdjointPrior<T>, T*, T*, int64_t,     \
-                                               int64_t, cudaStream_t);
+                                               int64_t, cudaStream_t);                    \
+  extern template int mf::launch_filter<mf::FilterPrebuiltRow<T, D>>(                    \
+      mf::FilterArgs<T>, mf::FilterPrebuilt<T>, T*, int64_t, cudaStream_t);               \
+  extern template int mf::launch_general_adjoint<T, D>(mf::GeneralAdjointPrior<T>, T*,   \
+                                                       int64_t, int64_t, cudaStream_t);
 #define MF_EXTERN_ALL_D(T) \
   MF_EXTERN(T, 1) MF_EXTERN(T, 2) MF_EXTERN(T, 3) MF_EXTERN(T, 4) MF_EXTERN(T, 5) MF_EXTERN(T, 6)
 
@@ -30,7 +34,12 @@ MF_EXTERN_ALL_D(double)
   extern template int mf::launch_wide_filter<mf::WideGeneralRow<T>>(                     \
       mf::FilterArgs<T>, mf::GeneralPrior<T>, T*, int64_t, int, cudaStream_t);            \
   extern template int mf::launch_wide_smoother<mf::WidePrebuiltRow<T>>(                   \
-      mf::SmootherArgs<T>, mf::Prebuilt<T>, T*, int64_t, int, cudaStream_t);
+      mf::SmootherArgs<T>, mf::Prebuilt<T>, T*, int64_t, int, cudaStream_t);              \
+  extern template int mf::launch_wide_filter<mf::WideFilterPrebuiltRow<T>>(               \
+      mf::FilterArgs<T>, mf::FilterPrebuilt<T>, T*, int64_t, int, cudaStream_t);          \
+  extern template int mf::launch_wide_general_adjoint<T>(mf::GeneralAdjointPrior<T>, T*,  \
+                                                         int64_t, int64_t, int,           \
+                                                         cudaStream_t);
 
 MF_EXTERN_WIDE(float)
 MF_EXTERN_WIDE(double)
@@ -59,3 +68,5 @@ MF_DEFINE_GENERAL_ENTRY_POINTS(float, f32)
 MF_DEFINE_GENERAL_ENTRY_POINTS(double, f64)
 MF_DEFINE_ADJOINT_ENTRY_POINTS(float, f32)
 MF_DEFINE_ADJOINT_ENTRY_POINTS(double, f64)
+MF_DEFINE_GENERAL_ADJOINT_ENTRY_POINTS(float, f32)
+MF_DEFINE_GENERAL_ADJOINT_ENTRY_POINTS(double, f64)

@@ -1,15 +1,22 @@
-// General-grid Kalman filter and smoother-scan kernels for Hopper (sm_90a).
+// General-grid Kalman filter, smoother-scan and filter-scan kernels for
+// Hopper (sm_90a).
 //
 // Replace the TPU kernels of markovflow_tpu/ops/pallas_scan.py:
-//   * filter:       pallas_filter_pipeline (_pipeline_kernel)
+//   * filter:        pallas_filter_pipeline (_pipeline_kernel)
 //   * smoother scan: pallas_smoother_scan (_smoother_kernel)
+//   * filter scan:   pallas_filter_scan (_filter_kernel)
 // The plain PyTorch versions are filter_pipeline_plain / smoother_scan_plain
-// in markovflow_tpu_torch/ops/cuda_scan.py.  The passes are those of
-// scan_core.cuh.  The filter reads per-step (F, c, Q, H) through their
-// strides (F_0 = 0 is the prior row; for GPR, H is a stride-0 expansion of
-// one row), so one kernel serves any time grid.  The smoother scan composes
-// prebuilt (E, g, L) elements: the RTS elements of the general smoother and
-// the Koopman adjoint elements of the general backward alike.
+// / filter_scan_plain in markovflow_tpu_torch/ops/cuda_scan.py.  The passes
+// are those of scan_core.cuh.  The filter reads per-step (F, c, Q, H) through
+// their strides (F_0 = 0 is the prior row; for GPR, H is a stride-0
+// expansion of one row), so one kernel serves any time grid.  The smoother
+// scan composes prebuilt (E, g, L) elements: the RTS elements of the general
+// smoother.  The filter scan composes prebuilt (A, b, C, J, eta) elements
+// (the ops filter API, ops.kalman.parallel_filter) with the filter's passes,
+// without sites or log-likelihood, and writes the b and C legs.  It moves
+// 3 d^2 + 2 d values a step in and d^2 + d out (88 B at d = 2, float32) and
+// does one composition a step with a d x d inverse, so it is bound as the
+// general filter is.
 //
 // What bounds them on an H100: the filter does the uniform filter's
 // arithmetic (~500 dependent flops a step at d = 2) and reads the prior
@@ -43,6 +50,7 @@ template <typename T_, int D_, int O_>
 struct GeneralRow {
   using T = T_;
   static constexpr int D = D_, O = O_;
+  static constexpr bool PREBUILT = false;
   using Prior = GeneralPrior<T>;
 
   MF_DEV void load(const Prior&, int64_t) {}
@@ -62,6 +70,52 @@ struct GeneralRow {
 #pragma unroll
       for (int j = 0; j < D; ++j)
         s.h[i * D + j] = a.h[b * a.h_sb + i * a.h_si + j * a.h_sj + k * a.h_st];
+    }
+  }
+
+  // F_{k+1}, 0 at the last step (the Koopman backward's L_k)
+  MF_DEV void next_f(const Prior& a, int64_t b, int64_t k, int64_t n, T* out) const {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        out[i * D + j] = k == n - 1
+                             ? T(0)
+                             : a.f[b * a.f_sb + i * a.f_si + j * a.f_sj + (k + 1) * a.f_st];
+    }
+  }
+};
+
+// prebuilt filtering elements, contiguous: A, C, J [B, d, d, N],
+// b, eta [B, d, 1, N]
+template <typename T>
+struct FilterPrebuilt {
+  const T *a, *b, *c, *j, *e;
+};
+
+template <typename T_, int D_>
+struct FilterPrebuiltRow {
+  using T = T_;
+  static constexpr int D = D_, O = 1;
+  static constexpr bool PREBUILT = true;
+  using Prior = FilterPrebuilt<T>;
+
+  MF_DEV void load(const Prior&, int64_t) {}
+
+  MF_DEV void elem(const Prior& a, int64_t b, int64_t k, int64_t n,
+                   FElem<T, D>& out) const {
+    using E = FElem<T, D>;
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      out.v[E::OB + i] = a.b[(b * D + i) * n + k];
+      out.v[E::OE + i] = a.e[(b * D + i) * n + k];
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        const int64_t at = ((b * D + i) * D + j) * n + k;
+        out.v[E::OA + i * D + j] = a.a[at];
+        out.v[E::OC + i * D + j] = a.c[at];
+        out.v[E::OJ + i * D + j] = a.j[at];
+      }
     }
   }
 };
@@ -96,10 +150,11 @@ struct PrebuiltRow {
   }
 };
 
-// The same two sources for d = 7..12 (wide_scan.cuh), all lanes together.
+// The same three sources for d = 7..12 (wide_scan.cuh), all lanes together.
 template <typename T_>
 struct WideGeneralRow {
   using T = T_;
+  static constexpr bool PREBUILT = false;
   using Prior = GeneralPrior<T>;
 
   static MF_DEV void step(const Prior& a, int64_t b, int64_t k, WideWork<T>& w, int d) {
@@ -129,6 +184,29 @@ struct WidePrebuiltRow {
       out[dd + d + e] = a.l[(b * dd + e) * n + k];
     }
     for (int e = lane_id(); e < d; e += 32) out[dd + e] = a.g[(b * d + e) * n + k];
+    __syncwarp();
+  }
+};
+
+template <typename T_>
+struct WideFilterPrebuiltRow {
+  using T = T_;
+  static constexpr bool PREBUILT = true;
+  using Prior = FilterPrebuilt<T>;
+
+  static MF_DEV void elem(const Prior& a, int64_t b, int64_t k, int64_t n, T* out,
+                          WideWork<T>&, int d) {
+    const int dd = d * d, OA = 0, OB = dd, OC = dd + d, OJ = 2 * dd + d, OE = 3 * dd + d;
+    for (int e = lane_id(); e < dd; e += 32) {
+      const int64_t at = (b * dd + e) * n + k;
+      out[OA + e] = a.a[at];
+      out[OC + e] = a.c[at];
+      out[OJ + e] = a.j[at];
+    }
+    for (int e = lane_id(); e < d; e += 32) {
+      out[OB + e] = a.b[(b * d + e) * n + k];
+      out[OE + e] = a.e[(b * d + e) * n + k];
+    }
     __syncwarp();
   }
 };
@@ -173,5 +251,20 @@ struct WidePrebuiltRow {
                                                               int(d), s);              \
     MF_SWITCH_D(d, (mf::launch_smoother<mf::PrebuiltRow<T, D_>>(a, p, scratch, batch,  \
                                                                 s)),                   \
+                int(cudaErrorInvalidValue))                                            \
+  }                                                                                    \
+  extern "C" int mf_filter_scan_##SUFFIX(                                              \
+      const T* fa, const T* fb, const T* fc, const T* fj, const T* fe, T* m_f, T* p_f, \
+      T* scratch, int64_t batch, int64_t n, int64_t d, void* stream) {                 \
+    if (batch < 1 || batch > 65535 || n < 1) return int(cudaErrorInvalidValue);        \
+    mf::FilterPrebuilt<T> p{fa, fb, fc, fj, fe};                                       \
+    mf::FilterArgs<T> a{};                                                             \
+    a.m_f = m_f; a.p_f = p_f; a.n = n;                                                 \
+    cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (d >= mf::WIDE_MIN_D)                                                           \
+      return mf::launch_wide_filter<mf::WideFilterPrebuiltRow<T>>(a, p, scratch, batch,  \
+                                                                  int(d), s);          \
+    MF_SWITCH_D(d, (mf::launch_filter<mf::FilterPrebuiltRow<T, D_>>(a, p, scratch,     \
+                                                                    batch, s)),        \
                 int(cudaErrorInvalidValue))                                            \
   }

@@ -19,8 +19,9 @@
 // No float atomics: a run repeats bit for bit.
 //
 // A source ("Row") supplies the elements of one batch row: the filter's
-// rows build (F, c, Q, H) and the sites of each step (FilterStep); the
-// smoother's rows build one smoothing element per step.  The prior element
+// rows build (F, c, Q, H) and the sites of each step (FilterStep), or, with
+// Row::PREBUILT, read a prebuilt filtering element (no sites, no
+// log-likelihood); the smoother's rows build one smoothing element per step.  The prior element
 // sits at global step 0 and a smoother's boundary element at global step
 // N-1; both are found from global indices, and steps past N are absent.
 #pragma once
@@ -477,9 +478,13 @@ MF_DEV void filter_thread_prefix(const FilterArgs<typename Row::T>& a,
   for (int r = 0; r < Tiling<D>::R; ++r) {
     const int64_t k = first_step + r;
     if (k >= a.n) break;
-    row.step(p, b, k, s);
-    s.load_sites(a, b, k);
-    make_filter_elem<T, D, O>(s, e);
+    if constexpr (Row::PREBUILT) {
+      row.elem(p, b, k, a.n, e);
+    } else {
+      row.step(p, b, k, s);
+      s.load_sites(a, b, k);
+      make_filter_elem<T, D, O>(s, e);
+    }
     Op::combine(run, e, t);
     run = t;
   }
@@ -525,12 +530,16 @@ filter_outputs(FilterArgs<typename Row::T> a, typename Row::Prior p) {
   for (int r = 0; r < R; ++r) {
     const int64_t k = first_step + r;
     if (k >= n) break;
-    row.step(p, b, k, s);
-    s.load_sites(a, b, k);
-    // run holds the filtered moments of step k - 1 (b = 0, C = 0 before
-    // step 0, where F = 0 makes them irrelevant)
-    ll[0] += step_loglik<T, D, O>(s, run.v + E::OB, run.v + E::OC);
-    make_filter_elem<T, D, O>(s, e);
+    if constexpr (Row::PREBUILT) {
+      row.elem(p, b, k, n, e);
+    } else {
+      row.step(p, b, k, s);
+      s.load_sites(a, b, k);
+      // run holds the filtered moments of step k - 1 (b = 0, C = 0 before
+      // step 0, where F = 0 makes them irrelevant)
+      ll[0] += step_loglik<T, D, O>(s, run.v + E::OB, run.v + E::OC);
+      make_filter_elem<T, D, O>(s, e);
+    }
     Op::combine(run, e, t);
     run = t;
 #pragma unroll
@@ -540,8 +549,10 @@ filter_outputs(FilterArgs<typename Row::T> a, typename Row::Prior p) {
       for (int j = 0; j < D; ++j) a.p_f[((b * D + i) * D + j) * n + k] = run.v[E::OC + i * D + j];
     }
   }
-  block_sum<T, THREADS, 1>(ll, red);
-  if (threadIdx.x == 0) a.partials[b * a.nblk + blk] = ll[0];
+  if constexpr (!Row::PREBUILT) {
+    block_sum<T, THREADS, 1>(ll, red);
+    if (threadIdx.x == 0) a.partials[b * a.nblk + blk] = ll[0];
+  }
 }
 
 #define MF_CHECK_LAUNCH()                      \
@@ -572,9 +583,11 @@ int launch_filter(FilterArgs<typename Row::T> a, typename Row::Prior p,
   MF_CHECK_LAUNCH();
   filter_outputs<Row><<<grid, THREADS, 0, stream>>>(a, p);
   MF_CHECK_LAUNCH();
-  sum_partials<T, THREADS><<<dim3(1u, unsigned(batch)), THREADS, 0, stream>>>(
-      a.partials, a.nblk, 1, nullptr, a.loglik);
-  MF_CHECK_LAUNCH();
+  if constexpr (!Row::PREBUILT) {
+    sum_partials<T, THREADS><<<dim3(1u, unsigned(batch)), THREADS, 0, stream>>>(
+        a.partials, a.nblk, 1, nullptr, a.loglik);
+    MF_CHECK_LAUNCH();
+  }
   return 0;
 }
 

@@ -45,6 +45,7 @@ template <typename T_, int D_, int O_>
 struct UniformRow {
   using T = T_;
   static constexpr int D = D_, O = O_;
+  static constexpr bool PREBUILT = false;
   using Prior = UniformPrior<T>;
   T f[D * D], c[D], q[D * D], m0[D], p0[D * D], h[O * D];
 
@@ -76,6 +77,12 @@ struct UniformRow {
     for (int i = 0; i < D; ++i) s.c[i] = first ? m0[i] : c[i];
 #pragma unroll
     for (int i = 0; i < O * D; ++i) s.h[i] = h[i];
+  }
+
+  // F_{k+1}, 0 at the last step (the Koopman backward's L_k)
+  MF_DEV void next_f(const Prior&, int64_t, int64_t k, int64_t n, T* out) const {
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) out[i] = k == n - 1 ? T(0) : f[i];
   }
 };
 
@@ -155,6 +162,7 @@ struct UniformRtsRow {
 template <typename T_>
 struct WideUniformRow {
   using T = T_;
+  static constexpr bool PREBUILT = false;
   using Prior = UniformPrior<T>;
 
   static MF_DEV void step(const Prior& a, int64_t b, int64_t k, WideWork<T>& w, int d) {

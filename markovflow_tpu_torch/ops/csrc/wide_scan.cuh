@@ -274,9 +274,10 @@ struct WideSmootherOp {
   }
 };
 
-// The step's sites into w (FilterStep::load_sites, o = 1).
-template <typename T>
-MF_DEV void wide_sites(const FilterArgs<T>& a, int64_t b, int64_t k, WideWork<T>& w) {
+// The step's sites into w (FilterStep::load_sites, o = 1), from FilterArgs
+// or any struct with the same site fields.
+template <typename T, class A>
+MF_DEV void wide_sites(const A& a, int64_t b, int64_t k, WideWork<T>& w) {
   w.nu = a.nu[b * a.nu_sb + k * a.nu_st];
   w.lam = a.lam[b * a.lam_sb + k * a.lam_st];
   w.keep = a.mask == nullptr || a.mask[b * a.mask_sb + k * a.mask_st] > T(0.5);
@@ -408,7 +409,9 @@ wide_scan_totals(T* totals, int64_t nblk, int d) {
 
 // ---------------------------------------------------------------------------
 // Filter passes 1 and 3, for any Row with a static
-// step(prior, b, k, WideWork&, d) that writes the step's F, Q, c and h.
+// step(prior, b, k, WideWork&, d) that writes the step's F, Q, c and h, or,
+// with Row::PREBUILT, a static elem(prior, b, k, n, out, WideWork&, d) that
+// reads a prebuilt filtering element (no sites, no log-likelihood).
 // ---------------------------------------------------------------------------
 
 template <class Row>
@@ -424,9 +427,13 @@ wide_filter_totals(FilterArgs<typename Row::T> a, typename Row::Prior p, int d,
   wide_identity(run, size, d);
   const int64_t k1 = imin((u + 1) * steps, a.n);
   for (int64_t k = u * steps; k < k1; ++k) {
-    Row::step(p, b, k, w, d);
-    wide_sites(a, b, k, w);
-    wide_filter_elem(w, e, d);
+    if constexpr (Row::PREBUILT) {
+      Row::elem(p, b, k, a.n, e, w, d);
+    } else {
+      Row::step(p, b, k, w, d);
+      wide_sites(a, b, k, w);
+      wide_filter_elem(w, e, d);
+    }
     WideFilterOp<T>::combine(run, e, nxt, w, d);
     T* s = run; run = nxt; nxt = s;
   }
@@ -448,19 +455,23 @@ wide_filter_outputs(FilterArgs<typename Row::T> a, typename Row::Prior p, int d,
   T ll = T(0);
   const int64_t k1 = imin((u + 1) * steps, n);
   for (int64_t k = u * steps; k < k1; ++k) {
-    Row::step(p, b, k, w, d);
-    wide_sites(a, b, k, w);
-    // run holds the filtered moments of step k - 1 (b = 0, C = 0 before
-    // step 0, where F = 0 makes them irrelevant)
-    ll += wide_step_loglik(w, run + OB, run + OC, d);
-    wide_filter_elem(w, e, d);
+    if constexpr (Row::PREBUILT) {
+      Row::elem(p, b, k, n, e, w, d);
+    } else {
+      Row::step(p, b, k, w, d);
+      wide_sites(a, b, k, w);
+      // run holds the filtered moments of step k - 1 (b = 0, C = 0 before
+      // step 0, where F = 0 makes them irrelevant)
+      ll += wide_step_loglik(w, run + OB, run + OC, d);
+      wide_filter_elem(w, e, d);
+    }
     WideFilterOp<T>::combine(run, e, nxt, w, d);
     T* s = run; run = nxt; nxt = s;
     for (int i = lane; i < d; i += 32) a.m_f[(b * d + i) * n + k] = run[OB + i];
     for (int i = lane; i < dd; i += 32) a.p_f[(b * dd + i) * n + k] = run[OC + i];
     __syncwarp();
   }
-  if (lane == 0) a.partials[b * a.nblk + u] = ll;
+  if (!Row::PREBUILT && lane == 0) a.partials[b * a.nblk + u] = ll;
 }
 
 template <typename T>
@@ -519,9 +530,11 @@ int launch_wide_filter(FilterArgs<typename Row::T> a, typename Row::Prior p,
   if (err != 0) return err;
   wide_filter_outputs<Row><<<grid, WIDE_WARPS * 32, bytes, stream>>>(a, p, d, steps);
   MF_CHECK_LAUNCH();
-  sum_partials<T, 128><<<dim3(1u, unsigned(batch)), 128, 0, stream>>>(
-      a.partials, a.nblk, 1, nullptr, a.loglik);
-  MF_CHECK_LAUNCH();
+  if constexpr (!Row::PREBUILT) {
+    sum_partials<T, 128><<<dim3(1u, unsigned(batch)), 128, 0, stream>>>(
+        a.partials, a.nblk, 1, nullptr, a.loglik);
+    MF_CHECK_LAUNCH();
+  }
   return 0;
 }
 

@@ -7,13 +7,15 @@ Kernels written by hand for Hopper (``sm_90a``), in ``ops/csrc/``:
 * :func:`smoother_pipeline_uniform` replaces
   ``markovflow_tpu/ops/pallas_scan.py::pallas_smoother_pipeline_uniform``
   (both in ``csrc/uniform_scan.cuh``);
-* :func:`filter_pipeline` replaces ``pallas_filter_pipeline`` and
-  :func:`smoother_scan` replaces ``pallas_smoother_scan`` (both in
+* :func:`filter_pipeline` replaces ``pallas_filter_pipeline``,
+  :func:`smoother_scan` replaces ``pallas_smoother_scan`` and
+  :func:`filter_scan` replaces ``pallas_filter_scan`` (all three in
   ``csrc/general_scan.cuh``).
 
-The Koopman backward kernel, the port of ``pallas_adjoint_pipeline_uniform``,
-has its wrapper in :mod:`markovflow_tpu_torch.ops.adjoint` beside its plain
-version; it is built into the same library.
+The Koopman backward kernels, the ports of ``pallas_adjoint_pipeline_uniform``
+and ``pallas_adjoint_pipeline``, have their wrappers in
+:mod:`markovflow_tpu_torch.ops.adjoint` beside their plain versions; they are
+built into the same library.
 
 Each wrapper takes its plain PyTorch version (``*_plain``) only when the
 tensors lie on the CPU.  For CUDA tensors it launches the kernel, or raises
@@ -40,13 +42,13 @@ from typing import Optional
 
 import torch
 
-from .kalman import (_materialize_uniform, filter_pipeline_tl,
+from .kalman import (_materialize_uniform, filter_pipeline_tl, filter_scan_tl,
                      smoother_pipeline_tl, smoother_scan_tl)
 
 __all__ = ["filter_pipeline_uniform", "smoother_pipeline_uniform",
-           "filter_pipeline", "smoother_scan",
+           "filter_pipeline", "smoother_scan", "filter_scan",
            "filter_pipeline_uniform_plain", "smoother_pipeline_uniform_plain",
-           "filter_pipeline_plain", "smoother_scan_plain",
+           "filter_pipeline_plain", "smoother_scan_plain", "filter_scan_plain",
            "build_kernels", "MAX_STATE_DIM"]
 
 #: the filter and smoother kernels take state dims 1..12 and output dim 1:
@@ -97,6 +99,12 @@ def smoother_scan_plain(E, g, L):
     return smoother_scan_tl(E, g, L)
 
 
+def filter_scan_plain(A, b, C, J, eta):
+    """Plain PyTorch version of :func:`filter_scan`:
+    :func:`ops.scans.scan_tl` over the filtering composition."""
+    return filter_scan_tl(A, b, C, J, eta)
+
+
 # ---------------------------------------------------------------------------
 # Build and load
 # ---------------------------------------------------------------------------
@@ -120,14 +128,14 @@ def _find_nvcc() -> str:
 #: dtype, state dim) instantiation of the unrolled kernels for d = 1..6 and
 #: one per (family, dtype) of the runtime-d kernels for d = 7..12, so that
 #: nvcc runs them in parallel; the largest state dims, the slowest to build,
-#: start first
-_FAMILIES = ("uniform", "general", "adjoint")
+#: start first.  "gadjoint" is the general-grid Koopman backward.
+_FAMILIES = ("uniform", "general", "adjoint", "gadjoint")
 _UNITS = [("entry_points.cu", [])] + [
     (f"{fam}_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}"])
     for fam in _FAMILIES for t in ("float", "double")
     for d in range(6, 0, -1)] + [
     ("wide_inst.cu", [f"-DMF_T={t}", f"-DMF_{fam.upper()}"])
-    for fam in ("uniform", "general") for t in ("float", "double")]
+    for fam in ("uniform", "general", "gadjoint") for t in ("float", "double")]
 
 
 def _source_hash() -> str:
@@ -177,6 +185,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"mf_uniform_adjoint_{sfx}")
         fn.argtypes = [p] * 10 + [p] * 3 + [p] * 6 + [i64] * 3 + [p]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"mf_filter_scan_{sfx}")
+        fn.argtypes = [p] * 5 + [p] * 3 + [i64] * 3 + [p]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"mf_general_adjoint_{sfx}")
+        fn.argtypes = [p] * 8 + [p] * 3 + [p] * 7 + [i64] * 3 + [p]
         fn.restype = ctypes.c_int
 
 
@@ -280,6 +294,21 @@ def _site_views(lead, B, o, n, nu, lam, maskf):
     ptrs = (nu_b.data_ptr(), lam_b.data_ptr(),
             None if mask_b is None else mask_b.data_ptr())
     return ptrs, strides
+
+
+def _general_views(lead, B, F, c, Q, H, nu, lam, maskf):
+    """The per-step prior and emission and the sites as [B, ...] views:
+    their pointers (F, c, Q, H, nu, lam, mask) and the C array of strides in
+    the order the general entry points take them: F (batch, row, column,
+    step), c (batch, row, step), Q and H as F, then the sites."""
+    d, o, n = F.shape[-3], lam.shape[-3], F.shape[-1]
+    prior = [_flat_steps(lead, B, x, shape) for x, shape in
+             ((F, (d, d, n)), (c, (d, 1, n)), (Q, (d, d, n)), (H, (o, d, n)))]
+    sites, site_strides = _site_views(lead, B, o, n, nu, lam, maskf)
+    strides = _strides((prior[0], (0, 1, 2, 3)), (prior[1], (0, 1, 3)),
+                       (prior[2], (0, 1, 2, 3)), (prior[3], (0, 1, 2, 3)),
+                       *site_strides)
+    return [x.data_ptr() for x in prior] + list(sites), strides
 
 
 def _scratch(kind: str, sfx: str, d: int, B: int, n: int, like):
@@ -403,12 +432,7 @@ def filter_pipeline(F, c, Q, H, nu, lam, maskf=None):
     lead = torch.broadcast_shapes(*(x.shape[:-3] for x in inputs))
     B = math.prod(lead)
     _check_grid(B, n)
-    prior = [_flat_steps(lead, B, x, shape) for x, shape in
-             ((F, (d, d, n)), (c, (d, 1, n)), (Q, (d, d, n)), (H, (o, d, n)))]
-    sites, site_strides = _site_views(lead, B, o, n, nu, lam, maskf)
-    strides = _strides((prior[0], (0, 1, 2, 3)), (prior[1], (0, 1, 3)),
-                       (prior[2], (0, 1, 2, 3)), (prior[3], (0, 1, 2, 3)),
-                       *site_strides)
+    ptrs, strides = _general_views(lead, B, F, c, Q, H, nu, lam, maskf)
     kw = dict(dtype=F.dtype, device=F.device)
     m_f = torch.empty((B, d, 1, n), **kw)
     p_f = torch.empty((B, d, d, n), **kw)
@@ -416,8 +440,7 @@ def filter_pipeline(F, c, Q, H, nu, lam, maskf=None):
     scratch = _scratch("filter", sfx, d, B, n, F)
     with torch.cuda.device(F.device):
         err = getattr(build_kernels(), f"mf_general_filter_{sfx}")(
-            *(x.data_ptr() for x in prior), *sites, strides,
-            m_f.data_ptr(), p_f.data_ptr(), loglik.data_ptr(),
+            *ptrs, strides, m_f.data_ptr(), p_f.data_ptr(), loglik.data_ptr(),
             scratch.data_ptr(), B, n, d, _stream(F.device))
     _raise_on(err, "filter_pipeline")
     filter_pipeline.launches += 1
@@ -458,3 +481,42 @@ def smoother_scan(E, g, L):
 
 
 smoother_scan.launches = 0
+
+
+def filter_scan(A, b, C, J, eta):
+    """Prefix scan of prebuilt filtering elements A [..., d, d, N],
+    b [..., d, 1, N], C [..., d, d, N], J [..., d, d, N], eta [..., d, 1, N]
+    (leading shapes broadcast) with the filtering composition.  Returns the
+    b and C legs of every prefix: (m_f [..., d, 1, N], P_f [..., d, d, N])
+    for the elements of :func:`ops.kalman.make_filter_elements_tl`.  The
+    kernel takes one column in b and eta."""
+    if A.device.type == "cpu":
+        return filter_scan_plain(A, b, C, J, eta)
+    if A.device.type != "cuda":
+        raise ValueError(f"no kernel for device {A.device}")
+    d, n = A.shape[-3], A.shape[-1]
+    if b.shape[-2] != 1 or eta.shape[-2] != 1:
+        raise NotImplementedError(
+            f"the CUDA filter scan takes one column in b and eta, got "
+            f"{b.shape[-2]} and {eta.shape[-2]}")
+    sfx = _check_cuda([A, b, C, J, eta], d, 1)
+    lead = torch.broadcast_shapes(*(x.shape[:-3] for x in (A, b, C, J, eta)))
+    B = math.prod(lead)
+    _check_grid(B, n)
+    elems = [x.expand(lead + shape).reshape((B,) + shape).contiguous()
+             for x, shape in ((A, (d, d, n)), (b, (d, 1, n)), (C, (d, d, n)),
+                              (J, (d, d, n)), (eta, (d, 1, n)))]
+    kw = dict(dtype=A.dtype, device=A.device)
+    m_f = torch.empty((B, d, 1, n), **kw)
+    p_f = torch.empty((B, d, d, n), **kw)
+    scratch = _scratch("filter", sfx, d, B, n, A)
+    with torch.cuda.device(A.device):
+        err = getattr(build_kernels(), f"mf_filter_scan_{sfx}")(
+            *(x.data_ptr() for x in elems), m_f.data_ptr(), p_f.data_ptr(),
+            scratch.data_ptr(), B, n, d, _stream(A.device))
+    _raise_on(err, "filter_scan")
+    filter_scan.launches += 1
+    return m_f.reshape(lead + (d, 1, n)), p_f.reshape(lead + (d, d, n))
+
+
+filter_scan.launches = 0

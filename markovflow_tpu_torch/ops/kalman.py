@@ -9,18 +9,32 @@ Conventions: N states; the prior-step arrays (F, c, Q) hold the initial
 distribution at element 0 (F_0 = 0, c_0 = mu0, Q_0 = P0) and the transition
 x_k = F_k x_{k-1} + c_k + N(0, Q_k) at k >= 1.  Matrices are [..., d1, d2, N]
 with any leading batch shape; sites enter in natural form (nu, lam).
+
+The JAX package's public time-middle API ([..., N, d, d] arrays:
+:class:`FilterElements`, :func:`make_filter_elements`,
+:func:`parallel_filter`, :func:`parallel_smoother`, ...) sits at the end of
+the module, on top of the time-last core.  Its two scans run through the
+kernel wrappers :func:`ops.cuda_scan.filter_scan` and
+:func:`ops.cuda_scan.smoother_scan`: the CUDA kernels on CUDA tensors, the
+plain scans here on CPU tensors.  The ``sequential_*`` versions compose one
+step after another, in plain torch: they are the test oracles.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .scans import scan_tl
 
-__all__ = ["make_filter_elements_tl", "filter_pipeline_tl",
-           "smoother_elements_tl", "smoother_scan_tl", "smoother_pipeline_tl"]
+__all__ = ["make_filter_elements_tl", "filter_scan_tl", "filter_pipeline_tl",
+           "smoother_elements_tl", "smoother_scan_tl", "smoother_pipeline_tl",
+           "posterior_ssm_params_tl",
+           "FilterElements", "make_filter_elements", "parallel_filter",
+           "sequential_filter", "predicted_moments", "log_likelihood_sites",
+           "SmootherElements", "parallel_smoother", "sequential_smoother",
+           "posterior_ssm_params"]
 
 
 def _no_tf32(x: torch.Tensor) -> None:
@@ -181,6 +195,27 @@ def _combine_smoother_tl(later, earlier):
     return e, g, _sym_tl(ell)
 
 
+def filter_scan_tl(A, b, C, J, eta):
+    """Prefix scan of filtering elements A [..., d, d, N], b [..., d, 1, N],
+    C [..., d, d, N], J [..., d, d, N], eta [..., d, 1, N] with the filtering
+    composition.  Returns the b and C legs of every prefix: the filtered
+    moments (m_f [..., d, 1, N], P_f [..., d, d, N]) for the elements of
+    :func:`make_filter_elements_tl`."""
+    _no_tf32(A)
+    _, m_f, p_f, _, _ = scan_tl(_combine_filter_tl, (A, b, C, J, eta))
+    return m_f, p_f
+
+
+def _predicted_moments_tl(F, c, Q, m_f, p_f):
+    """One-step-ahead predictive moments of every step from the filtered
+    ones; index 0 is the prior (c_0, Q_0)."""
+    fm = _mm_tl(F[..., 1:], m_f[..., :-1]) + c[..., 1:]
+    fp = _mm_tl(F[..., 1:], _mm_tl(p_f[..., :-1], _t_tl(F[..., 1:]))) + Q[..., 1:]
+    m_pred = _cat([c[..., :1], fm], dim=-1)
+    p_pred = _sym_tl(_cat([Q[..., :1], fp], dim=-1))
+    return m_pred, p_pred
+
+
 def filter_pipeline_tl(F, c, Q, H, nu, lam,
                        mask: Optional[torch.Tensor] = None):
     """Elements -> parallel filter -> predicted moments -> site
@@ -190,20 +225,20 @@ def filter_pipeline_tl(F, c, Q, H, nu, lam,
     Returns (m_f [..., d, 1, N], P_f [..., d, d, N], loglik [...]).
     """
     _no_tf32(F)
-    elems = make_filter_elements_tl(F, c, Q, H, nu, lam)
-    _, m_f, p_f, _, _ = scan_tl(_combine_filter_tl, elems)
-    # predicted moments: index 0 is the prior (c_0, Q_0)
-    fm = _mm_tl(F[..., 1:], m_f[..., :-1]) + c[..., 1:]
-    fp = _mm_tl(F[..., 1:], _mm_tl(p_f[..., :-1], _t_tl(F[..., 1:]))) + Q[..., 1:]
-    m_pred = _cat([c[..., :1], fm], dim=-1)
-    p_pred = _sym_tl(_cat([Q[..., :1], fp], dim=-1))
-    # site log-likelihood in lam form
+    m_f, p_f = filter_scan_tl(*make_filter_elements_tl(F, c, Q, H, nu, lam))
+    m_pred, p_pred = _predicted_moments_tl(F, c, Q, m_f, p_f)
+    return m_f, p_f, _log_likelihood_sites_tl(H, nu, lam, m_pred, p_pred, mask)
+
+
+def _log_likelihood_sites_tl(H, nu, lam, m_pred, p_pred, mask=None):
+    """Sum over steps of log N(y_k; H m_k|k-1, H P_k|k-1 H^T + lam^-1) in
+    lam form (y = lam^-1 nu); masked steps add 0."""
     o = lam.shape[-3]
     hm = _mm_tl(H, m_pred)                          # [o, 1, N]
     hpht = _mm_tl(H, _mm_tl(p_pred, _t_tl(H)))      # [o, o, N]
     w = nu - _mm_tl(lam, hm)
     m_mat = lam + _mm_tl(lam, _mm_tl(hpht, lam))
-    eye_o = _eye_tl(o, F)
+    eye_o = _eye_tl(o, lam)
     lam_safe = lam
     if mask is not None:
         keep = mask[..., None, None, :]
@@ -216,7 +251,7 @@ def filter_pipeline_tl(F, c, Q, H, nu, lam,
     if mask is not None:
         ll = torch.where(mask, ll, torch.zeros((), dtype=ll.dtype,
                                                device=ll.device))
-    return m_f, p_f, ll.sum(-1)
+    return ll.sum(-1)
 
 
 def smoother_elements_tl(F, c, Q, m_f, p_f):
@@ -275,3 +310,162 @@ def _materialize_uniform(Fc, cc, Qc, mu0, P0, Hc, n: int):
     Q = _cat([P0, rep(Qc)], dim=-1)
     H = Hc.expand(Hc.shape[:-1] + (n,))
     return F, c, Q, H
+
+
+def _posterior_ssm_tl(m_s, p_s, gains):
+    """(A, b, Q) of the smoothing posterior's forward SSM over the
+    transitions, and Cov(x_k, x_{k+1}) = G_k P^s_{k+1}."""
+    cross = _mm_tl(gains, p_s[..., 1:])
+    a_post = _t_tl(_mm_tl(_inv_tl(p_s[..., :-1]), cross))
+    b_post = m_s[..., 1:] - _mm_tl(a_post, m_s[..., :-1])
+    q_post = _sym_tl(p_s[..., 1:] - _mm_tl(a_post, cross))
+    return a_post, b_post, q_post, cross
+
+
+def posterior_ssm_params_tl(m_s, p_s, gains):
+    """Time-last :func:`posterior_ssm_params`: m_s [..., d, 1, N],
+    p_s [..., d, d, N], gains [..., d, d, N-1].  Returns (mu0 [..., d, 1],
+    P0 [..., d, d], A [..., d, d, N-1], b [..., d, 1, N-1],
+    Q [..., d, d, N-1])."""
+    a_post, b_post, q_post, _ = _posterior_ssm_tl(m_s, p_s, gains)
+    return m_s[..., 0], p_s[..., 0], a_post, b_post, q_post
+
+
+# ---------------------------------------------------------------------------
+# The time-middle API (counterpart of markovflow_tpu/ops/kalman.py:436-700)
+# ---------------------------------------------------------------------------
+def _to_tl(x):
+    """[..., N, d1, d2] -> [..., d1, d2, N]."""
+    return x.movedim(-3, -1)
+
+
+def _from_tl(x):
+    return x.movedim(-1, -3)
+
+
+def _vec_to_tl(x):
+    """[..., N, d] -> [..., d, 1, N]."""
+    return _to_tl(x[..., None])
+
+
+def _vec_from_tl(x):
+    """[..., d, 1, N] -> [..., N, d]."""
+    return x[..., 0, :].movedim(-1, -2)
+
+
+class FilterElements(NamedTuple):
+    """Associative filtering elements (Sarkka & Garcia-Fernandez 2021,
+    eq. 10), time-middle."""
+
+    A: torch.Tensor    # [..., N, d, d]
+    b: torch.Tensor    # [..., N, d, 1]
+    C: torch.Tensor    # [..., N, d, d]
+    J: torch.Tensor    # [..., N, d, d]
+    eta: torch.Tensor  # [..., N, d, 1]
+
+
+class SmootherElements(NamedTuple):
+    """Associative RTS smoothing elements, time-middle."""
+
+    E: torch.Tensor  # [..., N, d, d]
+    g: torch.Tensor  # [..., N, d, 1]
+    L: torch.Tensor  # [..., N, d, d]
+
+
+def make_filter_elements(F, c, Q, H, nu, lam) -> FilterElements:
+    """Per-step filtering elements from prior steps and sites, in lam form
+    (exact for a singular lam): F [..., N, d, d], c [..., N, d],
+    Q [..., N, d, d]; H [..., N, o, d] (N may be 1, broadcast over the
+    steps), nu [..., N, o], lam [..., N, o, o]."""
+    elems = make_filter_elements_tl(_to_tl(F), _vec_to_tl(c), _to_tl(Q),
+                                    _to_tl(H), _vec_to_tl(nu), _to_tl(lam))
+    return FilterElements(*(_from_tl(x) for x in elems))
+
+
+def parallel_filter(elems: FilterElements):
+    """Filtered means and covariances ([..., N, d], [..., N, d, d]) by the
+    prefix scan of the elements: on CUDA tensors the filter-scan kernel
+    (:func:`ops.cuda_scan.filter_scan`), on CPU tensors its plain version."""
+    from .cuda_scan import filter_scan
+    m_f, p_f = filter_scan(*(_to_tl(x) for x in elems))
+    return _vec_from_tl(m_f), _from_tl(p_f)
+
+
+def sequential_filter(elems: FilterElements):
+    """The same result as :func:`parallel_filter` by composing the
+    elements one step after another (O(N) depth; the test oracle)."""
+    tl = tuple(_to_tl(x) for x in elems)
+    acc = tuple(x[..., :1] for x in tl)
+    ms, ps = [acc[1]], [acc[2]]
+    for k in range(1, tl[0].shape[-1]):
+        acc = _combine_filter_tl(acc, tuple(x[..., k:k + 1] for x in tl))
+        ms.append(acc[1])
+        ps.append(acc[2])
+    return _vec_from_tl(_cat(ms, dim=-1)), _from_tl(_cat(ps, dim=-1))
+
+
+def predicted_moments(F, c, Q, m_f, P_f):
+    """One-step-ahead predictive moments m_k|k-1 [..., N, d] and
+    P_k|k-1 [..., N, d, d] for every k; index 0 is the prior (c_0 = mu0,
+    Q_0 = P0)."""
+    m_pred, p_pred = _predicted_moments_tl(_to_tl(F), _vec_to_tl(c), _to_tl(Q),
+                                           _vec_to_tl(m_f), _to_tl(P_f))
+    return _vec_from_tl(m_pred), _from_tl(p_pred)
+
+
+def log_likelihood_sites(H, nu, lam, m_pred, p_pred, mask=None):
+    """Sum over k of log N(y_k; H m_k|k-1, H P_k|k-1 H^T + lam^-1) with
+    y = lam^-1 nu, in lam form: H [..., N, o, d], nu [..., N, o],
+    lam [..., N, o, o], the predictive moments of :func:`predicted_moments`
+    and an optional boolean ``mask`` [..., N] (masked steps add 0)."""
+    return _log_likelihood_sites_tl(_to_tl(H), _vec_to_tl(nu), _to_tl(lam),
+                                    _vec_to_tl(m_pred), _to_tl(p_pred), mask)
+
+
+def _smoother_elements(F, c, Q, m_f, P_f):
+    """Time-middle inputs -> time-last (E, g, L, gains) of
+    :func:`smoother_elements_tl`."""
+    return smoother_elements_tl(_to_tl(F), _vec_to_tl(c), _to_tl(Q),
+                                _vec_to_tl(m_f), _to_tl(P_f))
+
+
+def parallel_smoother(F, c, Q, m_f, P_f):
+    """Smoothed means and covariances and the RTS gains by the reverse scan
+    of the smoothing elements: on CUDA tensors the smoother-scan kernel
+    (:func:`ops.cuda_scan.smoother_scan`), on CPU tensors its plain version.
+    F [..., N, d, d], c [..., N, d], Q [..., N, d, d], m_f [..., N, d],
+    P_f [..., N, d, d].  Returns (m_s [..., N, d], P_s [..., N, d, d],
+    gains [..., N-1, d, d])."""
+    from .cuda_scan import smoother_scan
+    e, g, ell, gains = _smoother_elements(F, c, Q, m_f, P_f)
+    m_s, p_s = smoother_scan(e, g, ell)
+    return _vec_from_tl(m_s), _from_tl(p_s), _from_tl(gains)
+
+
+def sequential_smoother(F, c, Q, m_f, P_f):
+    """The same result as :func:`parallel_smoother` by the backward RTS
+    recursion, one step after another (the test oracle)."""
+    e, g, ell, gains = _smoother_elements(F, c, Q, m_f, P_f)
+    elems = SmootherElements(e, g, ell)
+    acc = tuple(x[..., -1:] for x in elems)
+    ms, ps = [acc[1]], [acc[2]]
+    for k in range(e.shape[-1] - 2, -1, -1):
+        acc = _combine_smoother_tl(acc, tuple(x[..., k:k + 1] for x in elems))
+        ms.append(acc[1])
+        ps.append(acc[2])
+    return (_vec_from_tl(_cat(ms[::-1], dim=-1)), _from_tl(_cat(ps[::-1], dim=-1)),
+            _from_tl(gains))
+
+
+def posterior_ssm_params(m_s, P_s, gains):
+    """Forward-SSM parameters of the smoothing posterior, from the smoothed
+    moments m_s [..., N, d], P_s [..., N, d, d] and the RTS gains
+    [..., N-1, d, d]: with Cov(x_k, x_{k+1} | Y) = G_k P^s_{k+1},
+    A_k = (P^s_k^-1 G_k P^s_{k+1})^T, b_k = m^s_{k+1} - A_k m^s_k and
+    Q_k = P^s_{k+1} - A_k G_k P^s_{k+1}.  Returns (mu0 [..., d],
+    P0 [..., d, d], A, b [..., N-1, d], Q, and the cross covariances
+    transposed, Cov(x_k, x_{k+1})^T [..., N-1, d, d])."""
+    a_post, b_post, q_post, cross = _posterior_ssm_tl(
+        _vec_to_tl(m_s), _to_tl(P_s), _to_tl(gains))
+    return (m_s[..., 0, :], P_s[..., 0, :, :], _from_tl(a_post),
+            _vec_from_tl(b_post), _from_tl(q_post), _from_tl(_t_tl(cross)))

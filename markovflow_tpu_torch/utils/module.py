@@ -18,9 +18,10 @@ __all__ = ["Parameter"]
 
 class Parameter(nn.Module):
     def __init__(self, value, transform: Bijector | None = None,
-                 trainable: bool = True, *, dtype: torch.dtype, device=None):
+                 trainable: bool = True, *, dtype: torch.dtype, device="cuda"):
         """``value`` is the constrained value (a numpy array, Python scalar
-        or tensor)."""
+        or tensor).  The parameter lives on ``device``: the CUDA card unless
+        the caller names another."""
         super().__init__()
         self.transform = transform if transform is not None else Identity()
         if isinstance(value, torch.Tensor):

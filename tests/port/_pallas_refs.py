@@ -12,7 +12,13 @@ tests/unit/test_uniform_path.py runs them; chunk=1, r_blk=1 for state dims
   :func:`case_gscale`;
 * a case of :data:`GENERAL_CASES` or :data:`WIDE_GENERAL_CASES` runs
   ``pallas_filter_pipeline`` on per-step prior steps and
-  ``pallas_smoother_scan`` on prebuilt elements.
+  ``pallas_smoother_scan`` on prebuilt elements;
+* ``fscan:CASE`` (a general case) builds the filtering elements of the
+  case's inputs with the JAX package's ``make_filter_elements_tl`` and runs
+  ``pallas_filter_scan`` on them, saving the elements too;
+* ``gadjoint:CASE`` (a general case) runs ``pallas_filter_pipeline`` and,
+  on its output, ``pallas_adjoint_pipeline`` (the fused general-grid
+  Koopman backward) with the per-row cotangent :func:`general_gscale`.
 
 The port's tests run it in fresh processes (:func:`run_refs`):
 interpret-mode Pallas programs can crash XLA:CPU in a process that has
@@ -69,6 +75,8 @@ OUTPUT_NAMES = ("m_f", "p_f", "loglik", "m_s", "p_s")
 ADJOINT_NAMES = ("gFc", "gcc", "gQc", "gmu0", "gP0", "gHc", "gnu", "glam")
 GENERAL_INPUT_NAMES = ("F", "c", "Q", "H", "nu", "lam", "maskf")
 GENERAL_OUTPUT_NAMES = ("m_f", "p_f", "loglik", "m_s", "p_s")
+ELEMENT_NAMES = ("A", "b", "C", "J", "eta")
+GADJOINT_NAMES = ("gF", "gc", "gQ", "gH", "gnu", "glam")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
@@ -109,6 +117,12 @@ def case_inputs(name: str) -> dict:
 def case_gscale(name: str) -> np.ndarray:
     """The per-row cotangent of a case's log-likelihood."""
     batch = _UNIFORM[name][2]
+    return np.linspace(0.7, -1.3, int(np.prod(batch))).reshape(batch)
+
+
+def general_gscale(name: str) -> np.ndarray:
+    """The per-row cotangent of a general case's log-likelihood."""
+    batch = _GENERAL[name][2]
     return np.linspace(0.7, -1.3, int(np.prod(batch))).reshape(batch)
 
 
@@ -156,9 +170,11 @@ def main(out_path: str, names) -> None:
     import jax.numpy as jnp
 
     from markovflow_tpu.config import setup_compilation_cache
+    from markovflow_tpu.ops.kalman import make_filter_elements_tl
     from markovflow_tpu.ops.pallas_scan import (
-        pallas_adjoint_pipeline_uniform, pallas_filter_pipeline,
-        pallas_filter_pipeline_uniform, pallas_smoother_pipeline_uniform,
+        pallas_adjoint_pipeline, pallas_adjoint_pipeline_uniform,
+        pallas_filter_pipeline, pallas_filter_pipeline_uniform,
+        pallas_filter_scan, pallas_smoother_pipeline_uniform,
         pallas_smoother_scan)
 
     # the persistent compilation cache the test suite uses (tests/conftest.py)
@@ -166,14 +182,29 @@ def main(out_path: str, names) -> None:
         "MFTPU_TEST_CACHE_DIR", os.path.join(ROOT, ".jax_cache")))
     out = {}
     for name in names:
-        case = name.split(":")[-1]
-        kw = interpret_kw((_GENERAL if name in _GENERAL else _UNIFORM)[case][0])
+        kind, case = name.split(":") if ":" in name else ("", name)
+        kw = interpret_kw((_GENERAL if case in _GENERAL else _UNIFORM)[case][0])
         filt = jax.jit(lambda *a: pallas_filter_pipeline_uniform(*a, **kw))
         smooth = jax.jit(lambda *a: pallas_smoother_pipeline_uniform(*a, **kw))
         adjoint = jax.jit(lambda *a: pallas_adjoint_pipeline_uniform(*a, **kw))
         gfilt = jax.jit(lambda *a: pallas_filter_pipeline(*a, **kw))
         gscan = jax.jit(lambda e: pallas_smoother_scan(e, **kw))
-        if name in _GENERAL:
+        fscan = jax.jit(lambda e: pallas_filter_scan(e, **kw))
+        gadjoint = jax.jit(lambda *a: pallas_adjoint_pipeline(*a, **kw))
+        if kind in ("fscan", "gadjoint"):
+            x = {k: None if v is None else jnp.asarray(v)
+                 for k, v in general_inputs(case).items()}
+            args = [x[k] for k in GENERAL_INPUT_NAMES]
+            if kind == "fscan":
+                elems = make_filter_elements_tl(*args[:6])
+                vals = dict(zip(ELEMENT_NAMES, elems))
+                vals["m_f"], vals["p_f"] = fscan(elems)
+            else:
+                m_f, p_f, _ = gfilt(*args)
+                vals = dict(zip(GADJOINT_NAMES, gadjoint(
+                    *args, m_f, p_f, jnp.asarray(general_gscale(case)))),
+                    m_f=m_f, p_f=p_f)
+        elif name in _GENERAL:
             x = {k: None if v is None else jnp.asarray(v)
                  for k, v in general_inputs(name).items()}
             m_f, p_f, ll = gfilt(*(x[k] for k in GENERAL_INPUT_NAMES))

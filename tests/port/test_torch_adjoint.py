@@ -144,11 +144,11 @@ def test_uniform_likelihood_routes_by_state_dim(monkeypatch, d):
     """Up to d = 6 the uniform likelihood runs the uniform filter forward
     and the uniform Koopman backward.  Above it, as the JAX package's
     ``_uniform_engine`` routes d > 6, the prior steps are materialised and
-    take the general filter forward and the smoother scan backward (before
-    this route, a d = 9 model raised on CUDA, where the uniform backward
-    kernel takes d <= 6).  Counted by calls into the wrappers, which run
-    the plain versions on these CPU tensors; the value is the plain
-    filter's either way."""
+    take the general filter forward and the general Koopman backward
+    (before this route, a d = 9 model raised on CUDA, where the uniform
+    backward kernel takes d <= 6).  Counted by calls into the wrappers,
+    which run the plain versions on these CPU tensors; the value is the
+    plain filter's either way."""
     calls = collections.Counter()
 
     def counting(module, name):
@@ -161,13 +161,14 @@ def test_uniform_likelihood_routes_by_state_dim(monkeypatch, d):
 
     for name in ("filter_pipeline_uniform", "filter_pipeline", "smoother_scan"):
         counting(cs, name)
-    counting(adj, "adjoint_pipeline_uniform")
+    for name in ("adjoint_pipeline_uniform", "adjoint_pipeline"):
+        counting(adj, name)
     x = _constant_ssm(d, 41)
     ll = adj.log_likelihood_koopman_uniform(*x)
     ll.backward()
     assert all(v.grad is not None for v in x)
     general = d > adj.UNIFORM_ADJOINT_MAX_STATE_DIM
-    assert dict(calls) == ({"filter_pipeline": 1, "smoother_scan": 1} if general
+    assert dict(calls) == ({"filter_pipeline": 1, "adjoint_pipeline": 1} if general
                            else {"filter_pipeline_uniform": 1,
                                  "adjoint_pipeline_uniform": 1})
     with torch.no_grad():

@@ -14,11 +14,15 @@ import numpy as np
 import pytest
 import torch
 
+from markovflow_tpu_torch import kalman_filter as kf
 from markovflow_tpu_torch import training
 from markovflow_tpu_torch.convert import gpr_from_numpy
+from markovflow_tpu_torch.emission_model import EmissionModel
 from markovflow_tpu_torch.ops import adjoint as adj
 from markovflow_tpu_torch.ops import cuda_scan as ops
-from markovflow_tpu_torch.ops.kalman import smoother_elements_tl
+from markovflow_tpu_torch.ops import kalman
+from markovflow_tpu_torch.ops.kalman import (make_filter_elements_tl,
+                                             smoother_elements_tl)
 
 pytestmark = pytest.mark.cuda
 
@@ -81,8 +85,9 @@ def _general(d, n, batch, device, dtype=torch.float64, masked=True, seed=0):
 def _check_all_kernels(args, gargs, tol, tol_ll):
     """Every kernel against its plain version on one uniform problem and one
     general problem (the uniform adjoint up to its largest state dim, 6);
-    the smoothers and the adjoint read the plain filter's moments, so each
-    kernel is held on its own."""
+    the smoothers and the adjoints read the plain filter's moments and the
+    filter scan the general problem's elements, so each kernel is held on
+    its own."""
     fc, cc, qc = args[:3]
     m_k, p_k, ll_k = ops.filter_pipeline_uniform(*args)
     m_p, p_p, ll_p = ops.filter_pipeline_uniform_plain(*args)
@@ -99,10 +104,16 @@ def _check_all_kernels(args, gargs, tol, tol_ll):
     elems = smoother_elements_tl(*gargs[:3], gm_p, gp_p)[:3]
     sm_k, sp_k = ops.smoother_scan(*elems)
     sm_p, sp_p = ops.smoother_scan_plain(*elems)
+    felems = make_filter_elements_tl(*gargs[:6])
+    fs_k, fs_p = ops.filter_scan(*felems), ops.filter_scan_plain(*felems)
+    gs = torch.linspace(0.5, -1.5, math.prod(gm_p.shape[:-3]), dtype=gm_p.dtype,
+                        device=gm_p.device).reshape(gm_p.shape[:-3])
+    gadj_k = adj.adjoint_pipeline(*gargs, gm_p, gp_p, gs)
+    gadj_p = adj.adjoint_pipeline_plain(*gargs, gm_p, gp_p, gs)
     torch.cuda.synchronize()
     pairs = [(m_k, m_p), (p_k, p_p), (ms_k, ms_p), (ps_k, ps_p),
              *zip(adj_k, adj_p), (gm_k, gm_p), (gp_k, gp_p), (sm_k, sm_p),
-             (sp_k, sp_p)]
+             (sp_k, sp_p), *zip(fs_k, fs_p), *zip(gadj_k, gadj_p)]
     for i, (got, want) in enumerate(pairs):
         assert _rel(got, want) <= tol, (i, _rel(got, want))
     for got, want in ((ll_k, ll_p), (gll_k, gll_p)):
@@ -211,6 +222,19 @@ def test_general_pair_raises_above_d12(cuda_device):
     d13 = torch.eye(13, dtype=torch.float64, device=cuda_device)[..., None].expand(13, 13, 64)
     with pytest.raises(NotImplementedError):
         ops.smoother_scan(d13, d13[:, :1], d13)
+    with pytest.raises(NotImplementedError):
+        ops.filter_scan(d13, d13[:, :1], d13, d13, d13[:, :1])
+    gs = torch.ones((), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        adj.adjoint_pipeline(*gargs, d13[:, :1], d13, gs)
+
+
+def test_filter_scan_raises_on_a_second_column(cuda_device):
+    felems = make_filter_elements_tl(*_general(2, 64, (), cuda_device)[:6])
+    two = [x.expand(x.shape[:-2] + (2, x.shape[-1])) if x.shape[-2] == 1 else x
+           for x in felems]
+    with pytest.raises(NotImplementedError):
+        ops.filter_scan(*two)
 
 
 def test_gpr_requests_run_through_the_kernels(cuda_device):
@@ -251,21 +275,21 @@ def _gpr_pair(uniform, device, n=300):
 
 @pytest.mark.parametrize("uniform", [True, False])
 def test_gradients_on_cuda_match_cpu(cuda_device, uniform):
-    """loss().backward() on CUDA runs the adjoint kernel (uniform grid) or
-    the general filter and smoother-scan kernels (irregular grid), and gives
-    the CPU's Koopman gradients."""
+    """loss().backward() on CUDA runs the uniform filter and adjoint kernels
+    (uniform grid) or the general filter and general adjoint kernels
+    (irregular grid), and gives the CPU's Koopman gradients."""
     gpu, cpu = _gpr_pair(uniform, cuda_device)
     assert gpu._uniform_grid == uniform
-    before = (adj.adjoint_pipeline_uniform.launches, ops.filter_pipeline.launches,
-              ops.smoother_scan.launches)
+    before = _launches()
     loss = gpu.loss()
     loss.backward()
+    got = {k: v - before[k] for k, v in _launches().items()}
     cpu_loss = cpu.loss()
     cpu_loss.backward()
-    after = (adj.adjoint_pipeline_uniform.launches, ops.filter_pipeline.launches,
-             ops.smoother_scan.launches)
-    want = (1, 0, 0) if uniform else (0, 1, 1)
-    assert tuple(a - b for a, b in zip(after, before)) == want
+    want = dict.fromkeys(got, 0)
+    want.update({"filter_pipeline_uniform": 1, "adjoint_pipeline_uniform": 1}
+                if uniform else {"filter_pipeline": 1, "adjoint_pipeline": 1})
+    assert got == want
     np.testing.assert_allclose(loss.item(), cpu_loss.item(), rtol=1e-10)
     for name in ("lengthscale", "variance"):
         got = getattr(gpu.kernel, name).unconstrained.grad.cpu().numpy()
@@ -309,16 +333,18 @@ def _launches():
             "smoother_pipeline_uniform": ops.smoother_pipeline_uniform.launches,
             "adjoint_pipeline_uniform": adj.adjoint_pipeline_uniform.launches,
             "filter_pipeline": ops.filter_pipeline.launches,
-            "smoother_scan": ops.smoother_scan.launches}
+            "smoother_scan": ops.smoother_scan.launches,
+            "filter_scan": ops.filter_scan.launches,
+            "adjoint_pipeline": adj.adjoint_pipeline.launches}
 
 
 @pytest.mark.parametrize("uniform", [True, False])
 def test_d9_loss_backward_and_marginals_on_cuda(cuda_device, uniform):
-    """d = 9: loss().backward() takes the general filter and smoother-scan
+    """d = 9: loss().backward() takes the general filter and general adjoint
     kernels on both grids (above d = 6 the uniform grid's prior steps are
     materialised, as in the JAX package); posterior_marginals() takes the
-    uniform filter and smoother on a uniform grid, the general pair
-    otherwise.  Values and gradients are the CPU's."""
+    uniform filter and smoother on a uniform grid, the general filter and
+    smoother scan otherwise.  Values and gradients are the CPU's."""
     gpu, cpu = _d9_pair(uniform, cuda_device)
     assert gpu.kernel.state_dim == 9 and gpu._uniform_grid == uniform
     before = _launches()
@@ -331,7 +357,9 @@ def test_d9_loss_backward_and_marginals_on_cuda(cuda_device, uniform):
             "smoother_pipeline_uniform": int(uniform),
             "adjoint_pipeline_uniform": 0,
             "filter_pipeline": 1 + int(not uniform),
-            "smoother_scan": 1 + int(not uniform)}
+            "smoother_scan": int(not uniform),
+            "filter_scan": 0,
+            "adjoint_pipeline": 1}
     assert got == want
     cpu_loss = cpu.loss()
     cpu_loss.backward()
@@ -345,3 +373,69 @@ def test_d9_loss_backward_and_marginals_on_cuda(cuda_device, uniform):
             g = getattr(gpu.kernel.kernels[i], name).unconstrained.grad.cpu().numpy()
             r = getattr(cpu.kernel.kernels[i], name).unconstrained.grad.numpy()
             np.testing.assert_allclose(g, r, rtol=1e-9, err_msg=f"{i} {name}")
+
+
+@pytest.mark.parametrize("d", [2, 9])
+def test_ops_filter_api_runs_the_filter_scan_kernel(cuda_device, d):
+    """ops.kalman.parallel_filter launches the filter-scan kernel once and
+    gives the CPU's filtered moments, which the general filter kernel gives
+    too (one function, two kernels); parallel_smoother launches the
+    smoother scan."""
+    F, c, Q, H, nu, lam, _ = _general(d, 500, (2,), cuda_device, masked=False)
+    tm = [x.movedim(-1, -3) for x in (F, Q, H, lam)]
+    args = (tm[0], c[..., 0, :].movedim(-1, -2), tm[1], tm[2],
+            nu[..., 0, :].movedim(-1, -2), tm[3])
+    before = _launches()
+    m_f, p_f = kalman.parallel_filter(kalman.make_filter_elements(*args))
+    m_s, p_s, _ = kalman.parallel_smoother(args[0], args[1], args[2], m_f, p_f)
+    got = {k: v - before[k] for k, v in _launches().items() if v != before[k]}
+    assert got == {"filter_scan": 1, "smoother_scan": 1}
+    cpu = [x.cpu() for x in args]
+    want_m, want_p = kalman.parallel_filter(kalman.make_filter_elements(*cpu))
+    want_ms, want_ps, _ = kalman.parallel_smoother(cpu[0], cpu[1], cpu[2], want_m,
+                                                   want_p)
+    gm, gp, _ = ops.filter_pipeline(F, c, Q, H, nu, lam)
+    for got_x, want_x in ((m_f, want_m), (p_f, want_p), (m_s, want_ms), (p_s, want_ps),
+                          (gm[..., 0, :].movedim(-1, -2), want_m),
+                          (gp.movedim(-1, -3), want_p)):
+        assert _rel(got_x.cpu(), want_x) <= F64_TOL
+
+
+def test_sparse_sites_gradients_on_cuda_match_cpu(cuda_device):
+    """KalmanFilterWithSparseSites with 30% of a jittered grid unobserved:
+    -log_likelihood().backward() runs the general filter and the general
+    adjoint kernel once each, with the mask, and gives the CPU's value and
+    gradients (prior hyperparameters and the sites' naturals)."""
+    from markovflow_tpu_torch import kernels
+    rng = np.random.default_rng(3)
+    n = 400
+    x = np.linspace(0.0, 10.0, n)
+    x = x + 0.4 * (x[1] - x[0]) * rng.uniform(-1.0, 1.0, n)
+    idx = np.sort(rng.choice(n, int(0.7 * n), replace=False))
+    y = np.sin(2.0 * x[idx]) + 0.2 * rng.standard_normal(idx.size)
+
+    def run(device):
+        k = kernels.Matern32(lengthscale=0.7, variance=1.3, dtype=torch.float64,
+                             device=device)
+        tp = torch.as_tensor(x, device=device)
+        nat1 = torch.as_tensor(y[:, None] / 0.04, device=device).requires_grad_(True)
+        nat2 = torch.full((idx.size, 1, 1), -0.5 / 0.04, dtype=torch.float64,
+                          device=device).requires_grad_(True)
+        f = kf.KalmanFilterWithSparseSites(
+            k.generate_emission_model(tp), kf.UnivariateGaussianSitesNat(nat1, nat2),
+            n, torch.as_tensor(idx, device=device), None,
+            prior_tl=k.prior_arrays_tl(tp))
+        loss = -f.log_likelihood()
+        loss.backward()
+        grads = [k.lengthscale.unconstrained.grad, k.variance.unconstrained.grad,
+                 nat1.grad, nat2.grad]
+        return loss.item(), [g.cpu().numpy() for g in grads]
+
+    before = _launches()
+    val, grads = run(cuda_device)
+    got = {k: v - before[k] for k, v in _launches().items() if v != before[k]}
+    assert got == {"filter_pipeline": 1, "adjoint_pipeline": 1}
+    want_val, want_grads = run("cpu")
+    np.testing.assert_allclose(val, want_val, rtol=1e-10)
+    for g, w in zip(grads, want_grads):
+        np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-9 * np.abs(w).max())

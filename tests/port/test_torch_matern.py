@@ -21,7 +21,7 @@ RTOL, ATOL = 1e-12, 1e-14
 def _pair(name, dtype=torch.float64, lengthscale=0.5, variance=1.3):
     """A JAX kernel and the port's, with the same unconstrained values."""
     jax_k = getattr(jk, name)(lengthscale=lengthscale, variance=variance)
-    port_k = getattr(tk, name)(dtype=dtype)
+    port_k = getattr(tk, name)(dtype=dtype, device="cpu")
     with torch.no_grad():
         for p in ("lengthscale", "variance"):
             getattr(port_k, p).unconstrained.copy_(torch.as_tensor(
@@ -84,7 +84,7 @@ def test_positive_bijector_matches_jax():
 
 def test_emission_row_takes_the_time_points_dtype():
     """H is built in the data's dtype and device, not a global default."""
-    k = tk.Matern52(dtype=torch.float64)
+    k = tk.Matern52(dtype=torch.float64, device="cpu")
     tp = torch.linspace(0.0, 1.0, 5, dtype=torch.float32)
     h = k.generate_emission_model(tp).emission_matrix
     assert h.dtype == torch.float32 and h.shape == (5, 1, 3)

@@ -30,7 +30,7 @@ def _pair(d):
                     for name, ell, var in SUMS[d]])
     children = []
     for jax_child, (name, _, _) in zip(jax_k.kernels, SUMS[d]):
-        child = getattr(tk, name)(dtype=torch.float64)
+        child = getattr(tk, name)(dtype=torch.float64, device="cpu")
         with torch.no_grad():
             for p in ("lengthscale", "variance"):
                 getattr(child, p).unconstrained.copy_(torch.as_tensor(
