@@ -18,7 +18,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    same at d = 7..12 (Sums of Matern kernels, the d = 7..12 kernels of
    csrc/wide_scan.cuh and csrc/general_adjoint.cuh): float64 at N = 4099,
    batch (3,), and float32 at d = 9, N = 1e5 (the uniform Koopman backward
-   takes d <= 6 only);
+   takes d <= 6 only); and the shapes of the multi-level scan of the warp
+   totals, in float64: d = 9 at N = 1e5 (2,084 totals, five levels) and at
+   N = 50 (seven totals: a full and a partial group), d = 7 and d = 12 with
+   batch (3,) and a mask;
 4. the slice at full size, T = 1e6, float32, flagship GPR (Matern32(0.5,
    1.0), noise Cholesky 0.2), each path with the launch counters set to 0
    just before it and read just after:
@@ -60,7 +63,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    d9 model's d = 9, beside its bound: the least time an H100 needs for
    the bytes the call must move (each input read once, each output written
    once) or for the operations of the sequential Kalman recursion it
-   computes, whichever is larger.
+   computes, whichever is larger; and each kernel route's device time per
+   pass (the profiler's rows under ``mf::``, one JSON line).
 
 The plain path swaps every kernel wrapper for its plain version
 (``plain_path``).  The line before the last is a JSON summary of the
@@ -363,95 +367,106 @@ GADJ_OUT = ("gF", "gc", "gQ", "gH", "gnu", "glam")
 
 
 def phase_kernels_vs_plain(cs, adj):
-    from markovflow_tpu_torch.ops.kalman import (make_filter_elements_tl,
-                                                 smoother_elements_tl)
-
     log("phase 3: kernels against their plain versions on the card")
     cases = [(n, batch, d, dtype, False)
              for dtype in (torch.float64, torch.float32)
              for n in (4099, T_FULL) for batch in ((), (3,)) for d in (1, 2, 3)]
     cases.append((4099, (3,), 2, torch.float64, True))
     cases.append((4099, (3,), 2, torch.float32, True))
-    # the d = 7..12 kernels: float64 at N = 4099, float32 at d = 9, N = 1e5
+    # the d = 7..12 kernels: float64 at N = 4099, float32 at d = 9, N = 1e5;
+    # then the shapes of the multi-level pass 2 (csrc/wide_scan.cuh): 2,084
+    # warp totals at d = 9, N = 1e5; a partial group at N = 50; a batch
+    # and a mask at d = 7 and d = 12
     cases += [(4099, (3,), d, torch.float64, False) for d in range(7, 13)]
     cases.append((T_D9, (), 9, torch.float32, False))
+    cases += [(T_D9, (), 9, torch.float64, False), (50, (), 9, torch.float64, False),
+              (4099, (3,), 7, torch.float64, True), (4099, (3,), 12, torch.float64, True)]
     for i, (n, batch, d, dtype, masked) in enumerate(cases):
-        f64 = dtype == torch.float64
-        tol_m = TOL_F64 if f64 else TOL_F32_MOMENTS
-        tol_ll = TOL_F64 if f64 else TOL_F32_LOGLIK
-        tag = (f"N={n} batch={batch} d={d} {str(dtype)[6:]}"
-               + (" masked" if masked else ""))
-        # kernels 1-3 on a uniform grid
-        args = uniform_problem(d, n, batch, dtype, seed=i, masked=masked)
-        fc, cc, qc = args[:3]
-        gscale = torch.linspace(1.0, -0.5, max(1, int(np.prod(batch))),
-                                dtype=dtype, device=DEVICE).reshape(batch)
-        with_adjoint = d <= adj.UNIFORM_ADJOINT_MAX_STATE_DIM
+        kernels_vs_plain_case(cs, adj, i, n, batch, d, dtype, masked)
+
+
+def kernels_vs_plain_case(cs, adj, i, n, batch, d, dtype, masked):
+    """Every kernel against its plain version on the problems of case i:
+    a uniform-grid and a jittered-grid problem of state dim d, N = n."""
+    from markovflow_tpu_torch.ops.kalman import (make_filter_elements_tl,
+                                                 smoother_elements_tl)
+
+    f64 = dtype == torch.float64
+    tol_m = TOL_F64 if f64 else TOL_F32_MOMENTS
+    tol_ll = TOL_F64 if f64 else TOL_F32_LOGLIK
+    tag = (f"N={n} batch={batch} d={d} {str(dtype)[6:]}"
+           + (" masked" if masked else ""))
+    # kernels 1-3 on a uniform grid
+    args = uniform_problem(d, n, batch, dtype, seed=i, masked=masked)
+    fc, cc, qc = args[:3]
+    gscale = torch.linspace(1.0, -0.5, max(1, int(np.prod(batch))),
+                            dtype=dtype, device=DEVICE).reshape(batch)
+    with_adjoint = d <= adj.UNIFORM_ADJOINT_MAX_STATE_DIM
+    with torch.no_grad():
+        m_k, p_k, ll_k = cs.filter_pipeline_uniform(*args)
+        m_p, p_p, ll_p = cs.filter_pipeline_uniform_plain(*args)
+        ms_k, ps_k = cs.smoother_pipeline_uniform(fc, cc, qc, m_p, p_p)
+        ms_p, ps_p = cs.smoother_pipeline_uniform_plain(fc, cc, qc, m_p, p_p)
+        a_k = a_p = scales = ()
+        if with_adjoint:
+            a_k = adj.adjoint_pipeline_uniform(*args, m_p, p_p, gscale)
+            a_p = adj.adjoint_pipeline_uniform_plain(*args, m_p, p_p, gscale)
+            scales = adjoint_sum_scales(adj, args, m_p, p_p, gscale) + (None, None)
+    torch.cuda.synchronize()
+    diffs = {"m_f": rel_diff(m_k, m_p), "P_f": rel_diff(p_k, p_p),
+             "loglik": rel_diff(ll_k, ll_p), "m_s": rel_diff(ms_k, ms_p),
+             "P_s": rel_diff(ps_k, ps_p)}
+    diffs.update({name: rel_diff(g, w, s) for name, g, w, s in
+                  zip(ADJ_OUT, a_k, a_p, scales)})
+    tols = {k: tol_m for k in diffs}
+    tols["loglik"] = tol_ll
+    wide32 = d > adj.UNIFORM_ADJOINT_MAX_STATE_DIM and not f64
+    if wide32:
+        a64 = [None if x is None else x.double() for x in args]
         with torch.no_grad():
-            m_k, p_k, ll_k = cs.filter_pipeline_uniform(*args)
-            m_p, p_p, ll_p = cs.filter_pipeline_uniform_plain(*args)
-            ms_k, ps_k = cs.smoother_pipeline_uniform(fc, cc, qc, m_p, p_p)
-            ms_p, ps_p = cs.smoother_pipeline_uniform_plain(fc, cc, qc, m_p, p_p)
-            a_k = a_p = scales = ()
-            if with_adjoint:
-                a_k = adj.adjoint_pipeline_uniform(*args, m_p, p_p, gscale)
-                a_p = adj.adjoint_pipeline_uniform_plain(*args, m_p, p_p, gscale)
-                scales = adjoint_sum_scales(adj, args, m_p, p_p, gscale) + (None, None)
-        torch.cuda.synchronize()
-        diffs = {"m_f": rel_diff(m_k, m_p), "P_f": rel_diff(p_k, p_p),
-                 "loglik": rel_diff(ll_k, ll_p), "m_s": rel_diff(ms_k, ms_p),
-                 "P_s": rel_diff(ps_k, ps_p)}
-        diffs.update({name: rel_diff(g, w, s) for name, g, w, s in
-                      zip(ADJ_OUT, a_k, a_p, scales)})
-        tols = {k: tol_m for k in diffs}
-        tols["loglik"] = tol_ll
-        wide32 = d > adj.UNIFORM_ADJOINT_MAX_STATE_DIM and not f64
-        if wide32:
-            a64 = [None if x is None else x.double() for x in args]
-            with torch.no_grad():
-                r_m, r_p, r_ll = cs.filter_pipeline_uniform_plain(*a64)
-                r_ms, r_ps = cs.smoother_pipeline_uniform_plain(
-                    *a64[:3], m_p.double(), p_p.double())
-            check_f32_wide("uniform " + tag, {
-                "m_f": (m_k, m_p, r_m), "P_f": (p_k, p_p, r_p),
-                "loglik": (ll_k, ll_p, r_ll), "m_s": (ms_k, ms_p, r_ms),
-                "P_s": (ps_k, ps_p, r_ps)}, tols)
-        else:
-            check("uniform " + tag, diffs, tols)
-        del args, m_k, p_k, m_p, p_p, ms_k, ps_k, ms_p, ps_p, a_k, a_p, scales
-        # kernels 4-7 on a jittered grid: the general filter, the smoother
-        # scan, the filter scan (of the problem's filtering elements) and the
-        # general Koopman backward (all six gradients)
-        gargs = general_problem(d, n, batch, dtype, seed=i, masked=masked)
+            r_m, r_p, r_ll = cs.filter_pipeline_uniform_plain(*a64)
+            r_ms, r_ps = cs.smoother_pipeline_uniform_plain(
+                *a64[:3], m_p.double(), p_p.double())
+        check_f32_wide("uniform " + tag, {
+            "m_f": (m_k, m_p, r_m), "P_f": (p_k, p_p, r_p),
+            "loglik": (ll_k, ll_p, r_ll), "m_s": (ms_k, ms_p, r_ms),
+            "P_s": (ps_k, ps_p, r_ps)}, tols)
+    else:
+        check("uniform " + tag, diffs, tols)
+    del args, m_k, p_k, m_p, p_p, ms_k, ps_k, ms_p, ps_p, a_k, a_p, scales
+    # kernels 4-7 on a jittered grid: the general filter, the smoother
+    # scan, the filter scan (of the problem's filtering elements) and the
+    # general Koopman backward (all six gradients)
+    gargs = general_problem(d, n, batch, dtype, seed=i, masked=masked)
+    with torch.no_grad():
+        m_k, p_k, ll_k = cs.filter_pipeline(*gargs)
+        m_p, p_p, ll_p = cs.filter_pipeline_plain(*gargs)
+        elems = smoother_elements_tl(*gargs[:3], m_p, p_p)[:3]
+        ms_k, ps_k = cs.smoother_scan(*elems)
+        ms_p, ps_p = cs.smoother_scan_plain(*elems)
+        felems = make_filter_elements_tl(*gargs[:6])
+        fs_k, fs_p = cs.filter_scan(*felems), cs.filter_scan_plain(*felems)
+        ga_k = adj.adjoint_pipeline(*gargs, m_p, p_p, gscale)
+        ga_p = adj.adjoint_pipeline_plain(*gargs, m_p, p_p, gscale)
+    torch.cuda.synchronize()
+    outs = {"m_f": (m_k, m_p), "P_f": (p_k, p_p), "loglik": (ll_k, ll_p),
+            "m_s": (ms_k, ms_p), "P_s": (ps_k, ps_p), "scan m_f": (fs_k[0], fs_p[0]),
+            "scan P_f": (fs_k[1], fs_p[1]), **dict(zip(GADJ_OUT, zip(ga_k, ga_p)))}
+    tols = {k: tol_m for k in outs}
+    tols["loglik"] = tol_ll
+    if wide32:
+        g64 = [None if x is None else x.double() for x in gargs]
         with torch.no_grad():
-            m_k, p_k, ll_k = cs.filter_pipeline(*gargs)
-            m_p, p_p, ll_p = cs.filter_pipeline_plain(*gargs)
-            elems = smoother_elements_tl(*gargs[:3], m_p, p_p)[:3]
-            ms_k, ps_k = cs.smoother_scan(*elems)
-            ms_p, ps_p = cs.smoother_scan_plain(*elems)
-            felems = make_filter_elements_tl(*gargs[:6])
-            fs_k, fs_p = cs.filter_scan(*felems), cs.filter_scan_plain(*felems)
-            ga_k = adj.adjoint_pipeline(*gargs, m_p, p_p, gscale)
-            ga_p = adj.adjoint_pipeline_plain(*gargs, m_p, p_p, gscale)
-        torch.cuda.synchronize()
-        outs = {"m_f": (m_k, m_p), "P_f": (p_k, p_p), "loglik": (ll_k, ll_p),
-                "m_s": (ms_k, ms_p), "P_s": (ps_k, ps_p), "scan m_f": (fs_k[0], fs_p[0]),
-                "scan P_f": (fs_k[1], fs_p[1]), **dict(zip(GADJ_OUT, zip(ga_k, ga_p)))}
-        tols = {k: tol_m for k in outs}
-        tols["loglik"] = tol_ll
-        if wide32:
-            g64 = [None if x is None else x.double() for x in gargs]
-            with torch.no_grad():
-                r_m, r_p, r_ll = cs.filter_pipeline_plain(*g64)
-                refs = [r_m, r_p, r_ll, *cs.smoother_scan_plain(*(e.double() for e in elems)),
-                        *cs.filter_scan_plain(*(e.double() for e in felems)),
-                        *adj.adjoint_pipeline_plain(*g64, m_p.double(), p_p.double(),
-                                                    gscale.double())]
-            check_f32_wide("general " + tag, {k: (kk, pp, r) for (k, (kk, pp)), r
-                                              in zip(outs.items(), refs)}, tols)
-        else:
-            check("general " + tag, {k: rel_diff(kk, pp) for k, (kk, pp) in outs.items()},
-                  tols)
+            r_m, r_p, r_ll = cs.filter_pipeline_plain(*g64)
+            refs = [r_m, r_p, r_ll, *cs.smoother_scan_plain(*(e.double() for e in elems)),
+                    *cs.filter_scan_plain(*(e.double() for e in felems)),
+                    *adj.adjoint_pipeline_plain(*g64, m_p.double(), p_p.double(),
+                                                gscale.double())]
+        check_f32_wide("general " + tag, {k: (kk, pp, r) for (k, (kk, pp)), r
+                                          in zip(outs.items(), refs)}, tols)
+    else:
+        check("general " + tag, {k: rel_diff(kk, pp) for k, (kk, pp) in outs.items()},
+              tols)
 
 
 # ---------------------------------------------------------------------------
@@ -900,10 +915,24 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, reps: int = 20) -> float:
+def pass_label(key: str) -> str:
+    """A kernel's profiler name without its return type, arguments and
+    namespaces: ``wide_scan_level<WideFilterOp<float>, false, true, float>``."""
+    key = key.removeprefix("void ").replace("mf::", "")
+    depth = 0
+    for i, ch in enumerate(key):
+        depth += ch == "<"
+        depth -= ch == ">"
+        if ch == "(" and depth == 0:
+            return key[:i]
+    return key
+
+
+def kernel_device_ms(fn, reps: int = 20):
     """Device milliseconds per call spent in the port's own CUDA kernels
-    (namespace ``mf::``), from a torch.profiler trace of ``reps`` calls;
-    0.0 when the trace holds no device time."""
+    (namespace ``mf::``), from a torch.profiler trace of ``reps`` calls (0.0
+    when the trace holds no device time), and per kernel of those (a pass):
+    label -> (device ms per call, launches per call)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -912,14 +941,16 @@ def kernel_device_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
+    us, passes = 0.0, {}
     for evt in prof.key_averages():
         if "mf::" in evt.key:
             for name in ("self_device_time_total", "self_cuda_time_total"):
                 if hasattr(evt, name):
-                    us += getattr(evt, name)
+                    t = getattr(evt, name)
+                    us += t
+                    passes[pass_label(evt.key)] = (t / reps / 1e3, evt.count / reps)
                     break
-    return us / reps / 1e3
+    return us / reps / 1e3, passes
 
 
 def train_step(model):
@@ -1083,12 +1114,12 @@ def phase_times(cs, adj, kf, card, counts):
     for key in list(requests) + list(steps):
         log(f"  {key}: kernel path {ms[('kernel', key)]!r} ms, plain path "
             f"{ms[('plain', key)]!r} ms (CUDA events, median)  [{card}]")
-    dev, errs, largest, bounds = {}, {}, {}, {}
+    dev, passes, errs, largest, bounds = {}, {}, {}, {}, {}
     for tag, (c, d, n) in sets.items():
         for name, (kfn, pfn, inputs) in c.items():
             key = name + tag
             with torch.no_grad():
-                dev[key] = kernel_device_ms(kfn)
+                dev[key], passes[key] = kernel_device_ms(kfn)
             errs[key], largest[key], outputs = compare_call(kfn, pfn)
             bounds[key] = bound(name, inputs, outputs, d, n)
     for key in calls:
@@ -1101,6 +1132,11 @@ def phase_times(cs, adj, kf, card, counts):
         log(f"  {key} kernel: {dev[key]!r} ms {src}; bound {bounds[key][0]!r} ms "
             f"({bounds[key][1]}); wrapper call {ms[('kernel', key)]!r} ms, plain "
             f"version {ms[('plain', key)]!r} ms (CUDA events, median per call)  [{card}]")
+        log(f"  {key} kernel per pass: " + "; ".join(
+            f"{label} {t!r} ms x{count:g}" for label, (t, count) in passes[key].items()))
+    log(json.dumps({"passes": {key: {label: {"ms": t, "launches": count}
+                                     for label, (t, count) in passes[key].items()}
+                               for key in calls}, "card": card}))
     source = "markovflow_tpu_torch/ops/csrc/"
     # (name, source at d <= 6, source at d = 7..12, TPU kernel, paths at d = 2,
     # paths at d = 9)
@@ -1134,6 +1170,16 @@ def phase_times(cs, adj, kf, card, counts):
     return out
 
 
+def log_unit_seconds(cs) -> None:
+    """The slowest nvcc units of the build, when this run built the library."""
+    path = cs._BUILD_ROOT / cs._source_hash() / "unit_seconds.json"
+    if path.is_file():
+        secs = json.loads(path.read_text())
+        slow = sorted(secs.items(), key=lambda kv: -kv[1])[:8]
+        log(f"  {len(secs)} units, {sum(secs.values()):.1f} s of nvcc in all; slowest: "
+            + "; ".join(f"{unit} {t:.1f} s" for unit, t in slow))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1149,6 +1195,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cs.build_kernels()
     log(f"phase 2: kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    log_unit_seconds(cs)
     t0 = time.perf_counter()
     phase_kernels_vs_plain(cs, adj)
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")

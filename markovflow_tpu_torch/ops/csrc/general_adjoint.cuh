@@ -24,15 +24,19 @@
 // (block totals of the reverse reduce, then scan_totals), then
 // gadjoint_outputs, which rebuilds the elements, folds in the suffix of all
 // later steps and writes every step's gradients.  d = 7..12 run the same
-// passes a warp per element (wide_scan.cuh), with stage 1 and stage 2
-// composed warp-cooperatively in the warp's workspace.
+// three passes a warp per element (wide_gadjoint_pass and the pass 2 of
+// wide_scan.cuh), with stage 1 and stage 2 composed warp-cooperatively in
+// the warp's workspace (see the notes above wide_gadjoint_pass).
 //
 // What bounds it on an H100: per step it reads F, c, Q (2 d^2 + d values),
 // the sites (one expanded value each for GPR) and (m, P)_{k-1} (d^2 + d)
 // twice, and writes gF, gc, gQ (2 d^2 + d): ~108 B a step at d = 2, float32,
-// a 32 us floor at N = 1e6.  It does ~3x the smoother scan's arithmetic per
-// step (stage 1 twice, stage 2, two compositions), so it is bound by
-// arithmetic latency as the filter is.
+// a 32 us floor at N = 1e6 (52 us at d = 9, N = 1e5).  It does ~3x the
+// smoother scan's arithmetic per step (stage 1 twice, stage 2, two
+// compositions), so it is bound by arithmetic latency as the filter is: at
+// d = 7..12 by the chain of a warp's steps, each a few shared-memory
+// products of d x d matrices, which the wide route shortens (rank-one
+// stage 1, no E product in pass 3, a pass 2 over many SMs).
 #pragma once
 
 #include "adjoint_scan.cuh"
@@ -207,169 +211,261 @@ int launch_general_adjoint(GeneralAdjointPrior<T> p, T* scratch, int64_t batch, 
 
 // ---------------------------------------------------------------------------
 // d = 7..12: a warp per element (wide_scan.cuh), o = 1.
+//
+// Both passes walk a warp's steps from the last to the first.  Stage 1 at
+// o = 1 needs no inverse (Zt, W and e are scalars), and its L_k is a
+// rank-one update of F_{k+1}: L_k = F_{k+1} (I - Pp H^T W H) =
+// F_{k+1} - (F_{k+1} Pp H^T)(W H), so a step's stage 1 is two d^3 products
+// (F P_{k-1} F^T).  F P_{k-1} is also what stage 2's gF needs, so pass 3
+// keeps it.  Pass 3 folds each element into the suffix's g and L legs only:
+// stage 2 reads r = g and NDK = L, and no E product is formed.  F_{k+1} of a
+// step is F_k of the step after it, so each step fetches F, Q, c, h,
+// m_{k-1} and P_{k-1} once, with cp.async, while the step before computes.
+// Stage 1 is recomputed in pass 3, not kept from pass 1: kept, each step's
+// element (2 d^2 + d values, 68 MB at d = 9, T = 1e5 in float32) would be
+// written and read again to save one d^3 product and the reads of Q_k and
+// F_{k+1}, which cost about as many bytes as the element.
 // ---------------------------------------------------------------------------
 
-// Stage 1 of step k into out (adjoint_stage1_body, o = 1: Zt, W and e are
-// scalars, so no inverse).  What stage 2 reads stays in the warp's
-// workspace, where the smoothing composition does not write: F_k in w.f,
-// the sites in w, P_{k-1} and Pp in w.aug, m_{k-1} in w.v[5], a in w.v[4].
-template <typename T_>
-struct WideGeneralAdjointRow {
-  using T = T_;
-  using Prior = GeneralAdjointPrior<T>;
+// A warp's workspace: the run (a smoothing element; pass 3 uses its g and L
+// legs) and the next run, two chunks of CH step slots [F, Q, c, h, P_{k-1},
+// m_{k-1}] (the chunk being folded in and the one before it in time, in
+// flight; pass 3 writes each step's gradients over its inputs, [gQ, gc, gH,
+// gF, gnu, glam] over [Q, c, h, P_{k-1}, m_{k-1}], and the chunk goes out
+// from there), F_{k+1} of the chunk's last step, six d x d temporaries and
+// five vectors.
+template <typename T>
+struct WideAdjWork {
+  static constexpr int CH = 16 / sizeof(T);  // steps a chunk: 16 bytes a value
+  T *run, *nxt, *chunk[2], *fn;
+  T *fp, *pp, *lk, *t0, *t1, *t2, *a, *ph, *fph, *v0, *v1;
 
-  static MF_DEV void elem(const Prior& p, int64_t b, int64_t k, int64_t n, T* out,
-                          WideWork<T>& w, int d) {
-    const int dd = d * d, OE = 0, OG = dd, OL = dd + d, lane = lane_id();
-    T *mp = w.v[5], *a = w.v[4], *pprev = w.aug, *pp = w.aug + dd, *ph = w.v[0];
-    T *htwh = w.m[1], *ikh = w.m[2], *fnext = w.m[3], *lmat = w.m[0];
-    WideGeneralRow<T>::step(p.k, b, k, w, d);
-    wide_sites(p, b, k, w);
-    for (int e = lane; e < d; e += 32) mp[e] = k > 0 ? p.m_f[(b * d + e) * n + k - 1] : T(0);
-    for (int e = lane; e < dd; e += 32) {
-      const int i = e / d, j = e - i * d;
-      pprev[e] = k > 0 ? p.p_f[(b * dd + e) * n + k - 1] : T(0);
-      fnext[e] = k == n - 1 ? T(0)
-                            : p.k.f[b * p.k.f_sb + i * p.k.f_si + j * p.k.f_sj +
-                                    (k + 1) * p.k.f_st];
-    }
-    __syncwarp();
-    // a = F m + c, Pp = sym(F P F^T + Q)
-    wmm(w.f, mp, a, d, d, 1);
-    wadd(a, w.c, d);
-    wmm<T, false, true>(pprev, w.f, lmat, d, d, d);
-    wmm(w.f, lmat, pp, d, d, d);
-    wadd(pp, w.q, dd);
-    wsym(pp, d);
-    // Zt = 1 / (1 + Lam H Pp H^T), W = Zt Lam, e = Zt (nu - Lam H a)
-    wmm<T, false, true>(pp, w.h, ph, d, d, 1);
-    const T zt = T(1) / (w.lam * wdot(w.h, ph, d) + T(1));
-    const T wv = zt * w.lam;
-    const T ev = zt * (w.nu - w.lam * wdot(w.h, a, d));
-    // H^T W H; L = F_{k+1} (I - Pp H^T W H)
-    for (int e = lane; e < dd; e += 32) {
-      const int i = e / d, j = e - i * d;
-      htwh[e] = w.h[i] * (wv * w.h[j]);
-    }
-    __syncwarp();
-    wmm(pp, htwh, ikh, d, d, d);
-    for (int e = lane; e < dd; e += 32) {
-      const int i = e / d, j = e - i * d;
-      ikh[e] = (i == j ? T(1) : T(0)) - ikh[e];
-    }
-    __syncwarp();
-    wmm(fnext, ikh, lmat, d, d, d);
-    // element (E = L^T, g = H^T e, ell = sym(H^T W H))
-    for (int e = lane; e < dd; e += 32) {
-      const int i = e / d, j = e - i * d;
-      out[OE + e] = lmat[j * d + i];
-      out[OL + e] = htwh[e];
-    }
-    for (int e = lane; e < d; e += 32) out[OG + e] = w.h[e] * ev;
-    __syncwarp();
-    wsym(out + OL, d);
+  static __host__ __device__ int per(int d) { return 3 * d * d + 3 * d; }
+  static __host__ __device__ int floats(int d) {
+    return 2 * wide_smoother_size(d) + 2 * CH * per(d) + 7 * d * d + 5 * d;
+  }
+
+  MF_DEV WideAdjWork(T* p, int d) {
+    const int dd = d * d;
+    run = p; p += wide_smoother_size(d);
+    nxt = p; p += wide_smoother_size(d);
+    chunk[0] = p; p += CH * per(d);
+    chunk[1] = p; p += CH * per(d);
+    fn = p; p += dd;
+    fp = p; p += dd;
+    pp = p; p += dd;
+    lk = p; p += dd;
+    t0 = p; p += dd;
+    t1 = p; p += dd;
+    t2 = p; p += dd;
+    a = p; p += d;
+    ph = p; p += d;
+    fph = p; p += d;
+    v0 = p; p += d;
+    v1 = p;
   }
 };
 
-// Stage 2 of the step in w (gadjoint_stage2_body, o = 1) from the suffix
-// suf = (E, r, NDK).
+// Value v of step k's slot [F, Q, c, h, P_{k-1}, m_{k-1}] (null: 0, the
+// moments before step 0).
 template <typename T>
-MF_DEV void wide_gadjoint_stage2(const GeneralAdjointPrior<T>& p, const T* suf,
-                                 WideWork<T>& w, int64_t b, int64_t k, int64_t n, T gs,
-                                 int d) {
+MF_DEV const T* wide_gadjoint_src(const GeneralAdjointPrior<T>& p, int64_t b, int v,
+                                  int64_t k, int64_t n, int d) {
+  const int dd = d * d;
+  if (v < 2 * dd + 2 * d) return WideGeneralRow<T>::src(p.k, b, v, k, d);
+  v -= 2 * dd + 2 * d;
+  if (k == 0) return nullptr;
+  return v < dd ? p.p_f + ((b * dd + v) * n + k - 1) : p.m_f + ((b * d + v - dd) * n + k - 1);
+}
+
+// Stage 1 of the step in slot st with F_{k+1} = fnext
+// (adjoint_stage1_body, o = 1): fp = F P_{k-1}, Pp = sym(F P_{k-1} F^T + Q),
+// a = F m_{k-1} + c, ph = Pp H^T, lk = L_k and t1 = H^T W H; the element is
+// (E = L_k^T, g = H^T ev, ell = H^T W H).
+template <typename T>
+MF_DEV void wide_gadjoint_stage1(WideAdjWork<T>& w, const T* st, const T* fnext,
+                                 const WideSite<T>& site, T& ev, int d) {
+  const int dd = d * d;
+  const T *f = st, *q = st + dd, *c = st + 2 * dd, *h = st + 2 * dd + d,
+          *pprev = st + 2 * dd + 2 * d, *mprev = st + 3 * dd + 2 * d;
+  WProd<T> p1[] = {wnn(f, pprev, w.fp, d), wnv(f, mprev, w.a, d, c)};
+  wprods(p1);
+  WProd<T> p2[] = {wsym_nt(w.fp, f, w.pp, d, q)};
+  wprods(p2);
+  WProd<T> p3[] = {wnv(w.pp, h, w.ph, d)};
+  wprods(p3);
+  // Zt = 1 / (1 + Lam H Pp H^T), W = Zt Lam, e = Zt (nu - Lam H a)
+  const T zt = T(1) / (site.lam * wdot(h, w.ph, d) + T(1));
+  const T wv = zt * site.lam;
+  ev = zt * (site.nu - site.lam * wdot(h, w.a, d));
+  WProd<T> p4[] = {wnv(fnext, w.ph, w.fph, d)};
+  wprods(p4);
+  for (int e = lane_id(); e < dd; e += 32) {
+    const int i = e / d, j = e - i * d;
+    w.lk[e] = fnext[e] - w.fph[i] * (wv * h[j]);
+    w.t1[e] = wv * (h[i] * h[j]);
+  }
+  for (int e = lane_id(); e < d; e += 32) w.v1[e] = h[e] * ev;
+  __syncwarp();
+}
+
+// nxt = (E, g, L) of the step's element (E = L_k^T, g = H^T ev in v1,
+// ell = t1) composed with the suffix run, then swapped into run; the E leg
+// only when FULL (pass 1).
+template <typename T, bool FULL>
+MF_DEV void wide_gadjoint_fold(WideAdjWork<T>& w, int d) {
+  const int dd = d * d, OE = 0, OG = dd, OL = dd + d;
+  // g = L_k^T g + H^T ev, L L_k, E = L_k^T E
+  const WProd<T> g = wtv(w.lk, w.run + OG, w.nxt + OG, d, w.v1),
+                 l = wnn(w.run + OL, w.lk, w.t0, d);
+  if constexpr (FULL) {
+    WProd<T> p1[] = {g, l, wtn(w.lk, w.run + OE, w.nxt + OE, d)};
+    wprods(p1);
+  } else {
+    WProd<T> p1[] = {g, l};
+    wprods(p1);
+  }
+  WProd<T> p2[] = {wtn(w.lk, w.t0, w.nxt + OL, d, w.t1)};  // sym(L_k^T L L_k + ell)
+  p2[0].sym = true;
+  wprods(p2);
+  T* t = w.run; w.run = w.nxt; w.nxt = t;
+}
+
+// Stage 2 of the step in slot st (gadjoint_stage2_body, o = 1) from
+// r = run.g and NDK = run.L, scaled by gs; the gradients go over the slot's
+// inputs: gQ over Q, gc over c, gH over h, gF over P_{k-1}, gnu and glam
+// over m_{k-1}.
+template <typename T>
+MF_DEV void wide_gadjoint_stage2(const GeneralAdjointPrior<T>& p, WideAdjWork<T>& w, T* st,
+                                 const WideSite<T>& site, T gs, int d) {
   const int dd = d * d, lane = lane_id();
-  const T *r = suf + dd, *ndk = suf + dd + d;
-  const T *mp = w.v[5], *a = w.v[4], *pprev = w.aug, *pp = w.aug + dd;
-  T *nm = w.m[1], *fp = w.m[2], *nfp = w.m[3];
+  const T *r = w.run + dd, *ndk = w.run + dd + d;
+  T *gq = st + dd, *gc = st + 2 * dd, *h = st + 2 * dd + d, *gf = st + 2 * dd + 2 * d,
+    *mp = st + 3 * dd + 2 * d;
+  T *nm = w.t0, *nfp = w.t2;
   for (int e = lane; e < dd; e += 32) {
     const int i = e / d, j = e - i * d;
     nm[e] = T(0.5) * (r[i] * r[j] - ndk[e]);
   }
   __syncwarp();
   if (p.gf != nullptr) {
-    wmm(w.f, pprev, fp, d, d, d);
-    wmm(nm, fp, nfp, d, d, d);
+    WProd<T> pn[] = {wnn(nm, w.fp, nfp, d)};
+    wprods(pn);
     for (int e = lane; e < dd; e += 32) {
       const int i = e / d, j = e - i * d;
-      p.gf[(b * dd + e) * n + k] = gs * (r[i] * mp[j] + T(2) * nfp[e]);
+      gf[e] = gs * (r[i] * mp[j] + T(2) * nfp[e]);
     }
   }
-  if (p.gc != nullptr)
-    for (int e = lane; e < d; e += 32) p.gc[(b * d + e) * n + k] = gs * r[e];
-  if (p.gq != nullptr)
-    for (int e = lane; e < dd; e += 32) p.gq[(b * dd + e) * n + k] = gs * nm[e];
+  for (int e = lane; e < d; e += 32) gc[e] = gs * r[e];
+  for (int e = lane; e < dd; e += 32) gq[e] = gs * nm[e];
   __syncwarp();
   if (p.gh == nullptr && p.gnu == nullptr && p.glam == nullptr) return;
-  if (!w.keep) {  // masked steps: zero observation gradients
-    if (p.gh != nullptr)
-      for (int e = lane; e < d; e += 32) p.gh[(b * d + e) * n + k] = T(0);
-    if (lane == 0 && p.gnu != nullptr) p.gnu[b * n + k] = T(0);
-    if (lane == 0 && p.glam != nullptr) p.glam[b * n + k] = T(0);
+  T gnu = T(0), glam = T(0);
+  if (site.keep) {
+    // smoothed moments m_s = a + Pp r, A = sym(Pp - Pp NDK Pp) + m_s m_s^T
+    T *ms = w.v0, *hak = w.v1, *npp = w.lk, *ps = w.t2;
+    WProd<T> p1[] = {wnv(w.pp, r, ms, d, w.a), wnn(ndk, w.pp, npp, d)};
+    wprods(p1);
+    WProd<T> p2[] = {wnn(w.pp, npp, ps, d, w.pp)};  // sym(Pp - Pp NDK Pp)
+    p2[0].alpha = T(-1);
+    p2[0].sym = true;
+    wprods(p2);
+    for (int e = lane; e < dd; e += 32) {
+      const int i = e / d, j = e - i * d;
+      ps[e] += ms[i] * ms[j];
+    }
     __syncwarp();
-    return;
+    const T li = T(1) / site.lam, y = li * site.nu;
+    WProd<T> p3[] = {wtv(ps, h, hak, d)};  // H A
+    wprods(p3);
+    const T hakh = wdot(hak, h, d), hm = wdot(h, ms, d);
+    gnu = gs * (hm - y);
+    glam = gs * (T(0.5) * (y * y - hakh + li));
+    __syncwarp();  // every lane has read h
+    for (int e = lane; e < d; e += 32) h[e] = gs * (site.nu * ms[e] - site.lam * hak[e]);
+  } else {  // masked steps: zero observation gradients
+    for (int e = lane; e < d; e += 32) h[e] = T(0);
   }
-  // smoothed moments m_s = a + Pp r, A = sym(Pp - Pp NDK Pp) + m_s m_s^T
-  T *ms = w.v[0], *hak = w.v[1], *t1 = w.m[0], *ps = w.m[2];
-  wmm(pp, r, ms, d, d, 1);
-  wadd(ms, a, d);
-  wmm(ndk, pp, t1, d, d, d);
-  wmm(pp, t1, ps, d, d, d);
-  for (int e = lane; e < dd; e += 32) ps[e] = pp[e] - ps[e];
-  __syncwarp();
-  wsym(ps, d);
-  for (int e = lane; e < dd; e += 32) {
-    const int i = e / d, j = e - i * d;
-    ps[e] += ms[i] * ms[j];
+  if (lane == 0) {
+    mp[0] = gnu;
+    mp[1] = glam;
   }
-  __syncwarp();
-  const T li = T(1) / w.lam, y = li * w.nu;
-  wmm(w.h, ps, hak, 1, d, d);  // H A
-  const T hakh = wdot(hak, w.h, d), hm = wdot(w.h, ms, d);
-  if (p.gh != nullptr)
-    for (int e = lane; e < d; e += 32)
-      p.gh[(b * d + e) * n + k] = gs * (w.nu * ms[e] - w.lam * hak[e]);
-  if (lane == 0 && p.gnu != nullptr) p.gnu[b * n + k] = gs * (hm - y);
-  if (lane == 0 && p.glam != nullptr)
-    p.glam[b * n + k] = gs * (T(0.5) * (y * y - hakh + li));
   __syncwarp();
 }
 
-template <typename T>
+// Passes 1 (OUTPUTS = false: fold the warp's steps into its suffix total)
+// and 3 (OUTPUTS: fold them into the suffix of all later warps, g and L
+// only, and write each step's gradients), a chunk of CH steps at a time,
+// last chunk first.
+template <typename T, bool OUTPUTS>
 __global__ void __launch_bounds__(WIDE_WARPS * 32)
-wide_gadjoint_outputs(SmootherArgs<T> a, GeneralAdjointPrior<T> p, int d, int64_t steps) {
-  const int warp = threadIdx.x >> 5, size = wide_smoother_size(d);
+wide_gadjoint_pass(SmootherArgs<T> a, GeneralAdjointPrior<T> p, int d, int64_t steps) {
+  using W = WideAdjWork<T>;
+  constexpr int CH = W::CH;
+  const int warp = threadIdx.x >> 5, size = wide_smoother_size(d), dd = d * d;
   const int64_t b = blockIdx.y, u = int64_t(blockIdx.x) * WIDE_WARPS + warp, n = a.n;
-  if (u >= a.nblk) return;
-  WideWork<T> w = wide_work<T>(reinterpret_cast<T*>(mf_wide_smem) + warp * wide_floats(d), d);
-  T *run = w.slot[0], *nxt = w.slot[1], *e = w.slot[2];
-  wcopy(run, a.totals + (b * a.nblk + u) * size, size);  // suffix of all later warps
-  const T gs = p.gscale[b];
+  if (u >= a.nblk) return;  // the whole warp; this kernel has no block barrier
+  W w(reinterpret_cast<T*>(mf_wide_smem) + warp * W::floats(d), d);
+  const int per = W::per(d);
+  const auto src = [&](int v, int64_t k) { return wide_gadjoint_src(p, b, v, k, n, d); };
+  // [gQ, gc, gH, gF, gnu, glam] from slot offset dd
+  const auto dst = [&](int v, int64_t k) -> T* {
+    if (v < dd) return p.gq == nullptr ? nullptr : p.gq + ((b * dd + v) * n + k);
+    if ((v -= dd) < d) return p.gc == nullptr ? nullptr : p.gc + ((b * d + v) * n + k);
+    if ((v -= d) < d) return p.gh == nullptr ? nullptr : p.gh + ((b * d + v) * n + k);
+    if ((v -= d) < dd) return p.gf == nullptr ? nullptr : p.gf + ((b * dd + v) * n + k);
+    if ((v -= dd) == 0) return p.gnu == nullptr ? nullptr : p.gnu + (b * n + k);
+    return v == 1 && p.glam != nullptr ? p.glam + (b * n + k) : nullptr;
+  };
+  T* total = a.totals + (b * a.nblk + u) * size;
+  if (OUTPUTS) wcopy(w.run + dd, total + dd, d + dd);  // g, L of all later warps
+  else wide_identity(w.run, size, d);
+  const T gs = OUTPUTS ? p.gscale[b] : T(0);
   const int64_t k0 = u * steps, k1 = imin(k0 + steps, n);
-  for (int64_t k = k1 - 1; k >= k0; --k) {
-    WideGeneralAdjointRow<T>::elem(p, b, k, n, e, w, d);
-    WideSmootherOp<T>::combine(e, run, nxt, w, d);
-    T* s = run; run = nxt; nxt = s;
-    wide_gadjoint_stage2(p, run, w, b, k, n, gs, d);
+  int64_t kc = k0 + (k1 - 1 - k0) / CH * CH;  // k0 is a multiple of CH
+  fetch_chunk<1>(w.fn, dd, k1, 1, [&](int v, int64_t k) {  // F_{k1}, 0 past the grid
+    return k < n ? WideGeneralRow<T>::src(p.k, b, v, k, d) : nullptr;
+  });
+  fetch_chunk<CH>(w.chunk[0], per, kc, int(k1 - kc), src);
+  WideSite<T> site = wide_site<T>(p, b, k1 - 1);
+  wide_fetch_wait();
+  for (int cur = 0; kc >= k0; kc -= CH, cur ^= 1) {
+    const int cnt = int(imin(CH, k1 - kc));
+    if (kc > k0) fetch_chunk<CH>(w.chunk[cur ^ 1], per, kc - CH, CH, src);
+    for (int s = cnt - 1; s >= 0; --s) {
+      const int64_t k = kc + s;
+      const WideSite<T> next = k > k0 ? wide_site<T>(p, b, k - 1) : site;
+      T* st = w.chunk[cur] + s * per;
+      T ev;
+      wide_gadjoint_stage1(w, st, s + 1 < cnt ? st + per : w.fn, site, ev, d);
+      wide_gadjoint_fold<T, !OUTPUTS>(w, d);
+      if (OUTPUTS) wide_gadjoint_stage2(p, w, st, site, gs, d);
+      site = next;
+    }
+    if (OUTPUTS) store_chunk<CH>(w.chunk[cur], per, dd, 2 * dd + 3 * d, kc, cnt, dst);
+    wcopy(w.fn, w.chunk[cur], dd);  // F_kc: F_{k+1} of step kc - 1
+    wide_fetch_wait();
   }
+  if (!OUTPUTS) wcopy(total, w.run, size);
 }
 
 template <typename T>
 int launch_wide_general_adjoint(GeneralAdjointPrior<T> p, T* scratch, int64_t batch,
                                 int64_t n, int d, cudaStream_t stream) {
-  using Row = WideGeneralAdjointRow<T>;
   if (d < WIDE_MIN_D || d > WIDE_MAX_D) return int(cudaErrorInvalidValue);
   const int64_t steps = wide_steps(n);
   SmootherArgs<T> a{nullptr, nullptr, scratch, n, num_blocks(n, steps)};
   const dim3 grid(unsigned(num_blocks(a.nblk, WIDE_WARPS)), unsigned(batch));
-  const size_t bytes = size_t(WIDE_WARPS) * wide_floats(d) * sizeof(T);
-  int err = wide_smem_bytes(wide_smoother_totals<Row>, bytes);
-  if (err == 0) err = wide_smem_bytes(wide_gadjoint_outputs<T>, bytes);
+  const size_t bytes = size_t(WIDE_WARPS) * WideAdjWork<T>::floats(d) * sizeof(T);
+  int err = wide_smem_bytes(wide_gadjoint_pass<T, false>, bytes);
+  if (err == 0) err = wide_smem_bytes(wide_gadjoint_pass<T, true>, bytes);
   if (err != 0) return err;
-  wide_smoother_totals<Row><<<grid, WIDE_WARPS * 32, bytes, stream>>>(a, p, d, steps);
+  wide_gadjoint_pass<T, false><<<grid, WIDE_WARPS * 32, bytes, stream>>>(a, p, d, steps);
   MF_CHECK_LAUNCH();
-  err = launch_wide_scan<WideSmootherOp<T>, true, T>(a.totals, a.nblk, batch, d, stream);
+  err = launch_wide_scan<WideSmootherOp<T>, true, T>(
+      a.totals, a.nblk, batch, d, a.totals + batch * a.nblk * wide_smoother_size(d), stream);
   if (err != 0) return err;
-  wide_gadjoint_outputs<T><<<grid, WIDE_WARPS * 32, bytes, stream>>>(a, p, d, steps);
+  wide_gadjoint_pass<T, true><<<grid, WIDE_WARPS * 32, bytes, stream>>>(a, p, d, steps);
   MF_CHECK_LAUNCH();
   return 0;
 }

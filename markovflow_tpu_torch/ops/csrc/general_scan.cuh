@@ -157,17 +157,17 @@ struct WideGeneralRow {
   static constexpr bool PREBUILT = false;
   using Prior = GeneralPrior<T>;
 
-  static MF_DEV void step(const Prior& a, int64_t b, int64_t k, WideWork<T>& w, int d) {
-    for (int e = lane_id(); e < d * d; e += 32) {
-      const int i = e / d, j = e - i * d;
-      w.f[e] = a.f[b * a.f_sb + i * a.f_si + j * a.f_sj + k * a.f_st];
-      w.q[e] = a.q[b * a.q_sb + i * a.q_si + j * a.q_sj + k * a.q_st];
+  // value v of step k's [F, Q, c, H]
+  static MF_DEV const T* src(const Prior& a, int64_t b, int v, int64_t k, int d) {
+    const int dd = d * d;
+    if (v < 2 * dd) {
+      const int e = v < dd ? v : v - dd, i = e / d, j = e - i * d;
+      return v < dd ? a.f + (b * a.f_sb + i * a.f_si + j * a.f_sj + k * a.f_st)
+                    : a.q + (b * a.q_sb + i * a.q_si + j * a.q_sj + k * a.q_st);
     }
-    for (int e = lane_id(); e < d; e += 32) {
-      w.c[e] = a.c[b * a.c_sb + e * a.c_si + k * a.c_st];
-      w.h[e] = a.h[b * a.h_sb + e * a.h_sj + k * a.h_st];
-    }
-    __syncwarp();
+    v -= 2 * dd;
+    return v < d ? a.c + (b * a.c_sb + v * a.c_si + k * a.c_st)
+                 : a.h + (b * a.h_sb + (v - d) * a.h_sj + k * a.h_st);
   }
 };
 

@@ -165,18 +165,14 @@ struct WideUniformRow {
   static constexpr bool PREBUILT = false;
   using Prior = UniformPrior<T>;
 
-  static MF_DEV void step(const Prior& a, int64_t b, int64_t k, WideWork<T>& w, int d) {
+  // value v of step k's [F, Q, c, H]: the prior (0, P0, mu0) at k = 0
+  static MF_DEV const T* src(const Prior& a, int64_t b, int v, int64_t k, int d) {
     const bool first = k == 0;
     const int dd = d * d;
-    for (int e = lane_id(); e < dd; e += 32) {
-      w.f[e] = first ? T(0) : a.fc[b * dd + e];
-      w.q[e] = first ? a.p0[b * dd + e] : a.qc[b * dd + e];
-    }
-    for (int e = lane_id(); e < d; e += 32) {
-      w.c[e] = first ? a.mu0[b * d + e] : a.cc[b * d + e];
-      w.h[e] = a.hc[b * d + e];
-    }
-    __syncwarp();
+    if (v < dd) return first ? nullptr : a.fc + (b * dd + v);
+    if (v < 2 * dd) return (first ? a.p0 : a.qc) + (b * dd + v - dd);
+    v -= 2 * dd;
+    return v < d ? (first ? a.mu0 : a.cc) + (b * d + v) : a.hc + (b * d + v - d);
   }
 };
 
@@ -209,22 +205,23 @@ struct WideUniformRtsRow {
     }
     for (int e = lane; e < d; e += 32) w.c[e] = a.cc[b * d + e];
     __syncwarp();
-    wmm<T, false, true>(pk, w.f, pft, d, d, d);  // P F^T
-    wmm(w.f, pft, pp, d, d, d);
-    wadd(pp, w.q, dd);
-    wsym(pp, d);
-    winv(pp, pinv, w.aug, w.v[6], d);
-    wmm(pft, pinv, out + OE, d, d, d);
-    wmm(w.f, mk, fm, d, d, 1);
-    wadd(fm, w.c, d);
-    wmm(out + OE, fm, gfm, d, d, 1);
+    T* fpk = w.m[4];
+    // P F^T, F m + c, F P; then Pp = sym(F P F^T + Q), its inverse, the gain
+    WProd<T> p1[] = {wnt(pk, w.f, pft, d), wnv(w.f, mk, fm, d, w.c), wnn(w.f, pk, fpk, d)};
+    wprods(p1);
+    WProd<T> p2[] = {wnn(w.f, pft, pp, d, w.q)};
+    p2[0].sym = true;
+    wprods(p2);
+    winv(pp, pinv, d);
+    WProd<T> p3[] = {wnn(pft, pinv, out + OE, d)};
+    wprods(p3);
+    // gain (F m + c), L = sym(P - gain F P)
+    WProd<T> p4[] = {wnv(out + OE, fm, gfm, d), wnn(out + OE, fpk, out + OL, d, pk)};
+    p4[1].alpha = T(-1);
+    p4[1].sym = true;
+    wprods(p4);
     for (int e = lane; e < d; e += 32) out[OG + e] = mk[e] - gfm[e];
     __syncwarp();
-    wmm(w.f, pk, pft, d, d, d);  // F P
-    wmm(out + OE, pft, pp, d, d, d);
-    for (int e = lane; e < dd; e += 32) out[OL + e] = pk[e] - pp[e];
-    __syncwarp();
-    wsym(out + OL, d);
   }
 };
 

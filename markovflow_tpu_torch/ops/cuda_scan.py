@@ -31,11 +31,13 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import math
 import os
 import shutil
 import subprocess
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
@@ -124,18 +126,19 @@ def _find_nvcc() -> str:
     return nvcc
 
 
-#: compilation units: the C entry points, then one unit per (kernel family,
-#: dtype, state dim) instantiation of the unrolled kernels for d = 1..6 and
-#: one per (family, dtype) of the runtime-d kernels for d = 7..12, so that
-#: nvcc runs them in parallel; the largest state dims, the slowest to build,
-#: start first.  "gadjoint" is the general-grid Koopman backward.
+#: compilation units: one per (family, dtype) of the runtime-d kernels for
+#: d = 7..12, one per (kernel family, dtype, state dim) instantiation of the
+#: unrolled kernels for d = 1..6, and the C entry points, so that nvcc runs
+#: them in parallel; the slowest to build (the runtime-d units, then the
+#: largest state dims) start first.  "gadjoint" is the general-grid Koopman
+#: backward.
 _FAMILIES = ("uniform", "general", "adjoint", "gadjoint")
-_UNITS = [("entry_points.cu", [])] + [
-    (f"{fam}_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}"])
-    for fam in _FAMILIES for t in ("float", "double")
-    for d in range(6, 0, -1)] + [
+_UNITS = [
     ("wide_inst.cu", [f"-DMF_T={t}", f"-DMF_{fam.upper()}"])
-    for fam in ("uniform", "general", "gadjoint") for t in ("float", "double")]
+    for fam in ("general", "gadjoint", "uniform") for t in ("double", "float")] + [
+    (f"{fam}_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}"])
+    for d in range(6, 0, -1) for fam in _FAMILIES
+    for t in ("double", "float")] + [("entry_points.cu", [])]
 
 
 def _source_hash() -> str:
@@ -148,16 +151,22 @@ def _source_hash() -> str:
 
 def _compile(nvcc: str, out_dir: Path) -> Path:
     """Compile the units in parallel, then link one shared library with a
-    plain C interface."""
+    plain C interface.  Each unit's seconds go to ``unit_seconds.json``
+    beside the library."""
+    seconds = {}
+
     def obj(i: int) -> str:
         src, defines = _UNITS[i]
         o = str(out_dir / f"unit{i}.o")
+        start = time.perf_counter()
         subprocess.run([nvcc, *_NVCC_FLAGS, *defines, "-c", str(_CSRC / src),
                         "-o", o], check=True, capture_output=True, text=True)
+        seconds[" ".join([src, *defines])] = time.perf_counter() - start
         return o
 
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
         objs = list(pool.map(obj, range(len(_UNITS))))
+    (out_dir / "unit_seconds.json").write_text(json.dumps(seconds, indent=1))
     lib = out_dir / _LIB_NAME
     subprocess.run([nvcc, *_NVCC_FLAGS, "-shared", "-o", str(lib), *objs],
                    check=True, capture_output=True, text=True)
@@ -210,6 +219,7 @@ def build_kernels() -> ctypes.CDLL:
             except subprocess.CalledProcessError as err:
                 raise RuntimeError(f"nvcc failed:\n{err.stderr}") from err
             lib_dir.mkdir(exist_ok=True)
+            os.replace(built.parent / "unit_seconds.json", lib_dir / "unit_seconds.json")
             os.replace(built, lib_path)  # atomic: a reader never sees half a file
     lib = ctypes.CDLL(str(lib_path))
     _declare(lib)

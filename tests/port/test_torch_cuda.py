@@ -155,6 +155,38 @@ def test_kernels_match_plain_float32_at_d9(cuda_device):
         1e-3, 1e-4)
 
 
+@pytest.mark.parametrize("d, n, batch, masked, dtype", [
+    # 2,084 warp totals: five levels of pass 2 (float32:
+    # test_kernels_match_plain_float32_at_d9)
+    (9, 100_000, (), False, torch.float64),
+    # seven totals: a full and a partial group
+    (9, 50, (), False, torch.float64), (9, 50, (), False, torch.float32),
+    (7, 4099, (3,), True, torch.float64), (7, 4099, (3,), True, torch.float32),
+    (12, 4099, (3,), True, torch.float64), (12, 4099, (3,), True, torch.float32),
+])
+def test_wide_kernels_across_the_levels_of_pass_2(cuda_device, d, n, batch, masked, dtype):
+    """The d = 7..12 kernels (csrc/wide_scan.cuh, csrc/general_adjoint.cuh)
+    at the shapes of the multi-level scan of the warp totals, against their
+    plain versions: float64 within F64_TOL, float32 at the tolerances of
+    test_kernels_match_plain_float32."""
+    tol, tol_ll = (F64_TOL, F64_TOL) if dtype == torch.float64 else (1e-3, 1e-4)
+    _check_all_kernels(_problem(d, n, batch, cuda_device, dtype=dtype, masked=masked),
+                       _general(d, n, batch, cuda_device, dtype=dtype, masked=masked),
+                       tol, tol_ll)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_wide_kernels_with_sparse_sites(cuda_device, dtype):
+    """lam = 0 and nu = 0 at the masked steps (KalmanFilterWithSparseSites'
+    sites), d = 9: the rank-one site step degenerates to a pure prediction."""
+    args = _problem(9, 4099, (2,), cuda_device, dtype=dtype)
+    gargs = _general(9, 4099, (2,), cuda_device, dtype=dtype)
+    for a in (args, gargs):
+        a[-3], a[-2] = a[-3] * a[-1], a[-2] * a[-1]
+    tol, tol_ll = (F64_TOL, F64_TOL) if dtype == torch.float64 else (1e-3, 1e-4)
+    _check_all_kernels(args, gargs, tol, tol_ll)
+
+
 def _near_singular_moments(d, n, device):
     """Symmetric, well-conditioned P [d, d] whose leading d // 2 block is
     rank one plus 1e-13 (as test_pivoted_inverse_with_a_near_singular_leading_block
