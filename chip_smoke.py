@@ -21,7 +21,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    takes d <= 6 only); and the shapes of the multi-level scan of the warp
    totals, in float64: d = 9 at N = 1e5 (2,084 totals, five levels) and at
    N = 50 (seven totals: a full and a partial group), d = 7 and d = 12 with
-   batch (3,) and a mask;
+   batch (3,) and a mask; then the chunk edges of the staged passes (d = 9
+   at N = 1, 5, 9, 47, 50 in float64 and float32; d = 12 at N = 50 in
+   float64, batch (3,)) and the filter scan on random prebuilt elements
+   (nonzero A and J at step 0; d = 7, 9, 12, float64);
 4. the slice at full size, T = 1e6, float32, flagship GPR (Matern32(0.5,
    1.0), noise Cholesky 0.2), each path with the launch counters set to 0
    just before it and read just after:
@@ -133,6 +136,10 @@ FD_STEP = 1e-5
 TOL_D9_F32_VS_F64_LOSS = 1e-4
 TOL_D9_F32_VS_F64_GRAD = 2e-3
 TOL_D9_F32_MOMENTS = 3e-2
+#: phase-3 step counts at the chunk edges of the staged d = 7..12 passes
+#: (8 steps a warp at these N): one step; a run that ends inside a chunk;
+#: a second warp of one step; runs of six and seven warps
+CHUNK_EDGES = (1, 5, 9, 47, 50)
 KERNEL_NAMES = {1: "Matern12", 2: "Matern32", 3: "Matern52"}
 #: children past the d9 model's Matern52s for the phase-3 Sums at d = 7..12
 WIDE_EXTRA = {7: ("Matern12",), 8: ("Matern32",), 9: (), 10: ("Matern12",),
@@ -259,7 +266,7 @@ def jittered_grid(n, seed=0):
     """linspace(0, 100, n), each point moved by up to 0.4 of the spacing."""
     rng = np.random.default_rng(seed)
     x = np.linspace(0.0, 100.0, n)
-    return x + 0.4 * (x[1] - x[0]) * rng.uniform(-1.0, 1.0, n)
+    return x + 0.4 * (100.0 / max(n - 1, 1)) * rng.uniform(-1.0, 1.0, n)
 
 
 def sites(n, batch, dtype, rng, masked):
@@ -313,7 +320,7 @@ def uniform_problem(d, n, batch, dtype, seed, masked=False):
     k = (getattr(kernels, KERNEL_NAMES[d])(lengthscale=0.5, variance=1.0,
                                           dtype=kdtype, device=dev)
          if d <= 3 else wide_kernel(d, kdtype))
-    dt = torch.full((1,), 100.0 / (n - 1), dtype=kdtype, device=dev)
+    dt = torch.full((1,), 100.0 / max(n - 1, 1), dtype=kdtype, device=dev)
     with torch.no_grad():
         fc, cc, qc, mu0, p0 = (x.to(dtype) for x in k.prior_const_tl(dt))
     hc = emission_row(k, d, dtype)
@@ -381,8 +388,46 @@ def phase_kernels_vs_plain(cs, adj):
     cases.append((T_D9, (), 9, torch.float32, False))
     cases += [(T_D9, (), 9, torch.float64, False), (50, (), 9, torch.float64, False),
               (4099, (3,), 7, torch.float64, True), (4099, (3,), 12, torch.float64, True)]
+    # the staged passes of kernels 2, 5 and 6 at d = 7..12: runs of steps
+    # that end inside a chunk (CH = 4 in float32, 2 in float64) and N below
+    # CH; d = 12 in float64 with a batch, the most shared memory a warp
+    cases += [(n, (), 9, dtype, False) for n in CHUNK_EDGES
+              for dtype in (torch.float64, torch.float32)]
+    cases.append((50, (3,), 12, torch.float64, False))
     for i, (n, batch, d, dtype, masked) in enumerate(cases):
         kernels_vs_plain_case(cs, adj, i, n, batch, d, dtype, masked)
+    # the filter scan's moments-only pass 3 on elements no model makes
+    for n, batch, d in ((4099, (3,), 7), (4099, (3,), 9), (4099, (3,), 12), (47, (), 9)):
+        filter_scan_random_case(cs, n, batch, d)
+
+
+def random_filter_elements(d, n, batch, dtype, device=DEVICE, seed=0):
+    """Prebuilt filtering elements that no model makes: a random contraction A
+    and random PSD C and J at every step, step 0 included (where
+    make_filter_elements_tl has A = 0 and J = 0), random b and eta.  The
+    cuda tests and the CPU shim run (tests/) take them from here."""
+    rng = np.random.default_rng(seed + 11 * d)
+    a = 0.8 * np.eye(d) + 0.3 * rng.standard_normal(batch + (n, d, d)) / np.sqrt(d)
+    a *= 0.95 / np.maximum(np.abs(np.linalg.eigvals(a)).max(-1), 0.95)[..., None, None]
+    lc = 0.3 * rng.standard_normal(batch + (n, d, d)) + np.eye(d)
+    lj = 0.3 * rng.standard_normal(batch + (n, d, d)) / np.sqrt(d)
+    psd = lambda x: x @ np.swapaxes(x, -1, -2)  # noqa: E731
+    t = lambda x: torch.as_tensor(np.moveaxis(x, -3, -1), dtype=dtype,  # noqa: E731
+                                  device=device)
+    return (t(a), t(rng.standard_normal(batch + (n, d, 1))), t(psd(lc)), t(psd(lj)),
+            t(rng.standard_normal(batch + (n, d, 1))))
+
+
+def filter_scan_random_case(cs, n, batch, d):
+    """The filter-scan kernel against its plain version on random prebuilt
+    elements, float64."""
+    elems = random_filter_elements(d, n, batch, torch.float64)
+    with torch.no_grad():
+        got, want = cs.filter_scan(*elems), cs.filter_scan_plain(*elems)
+    torch.cuda.synchronize()
+    check(f"filter scan, random elements N={n} batch={batch} d={d} float64",
+          {"m_f": rel_diff(got[0], want[0]), "P_f": rel_diff(got[1], want[1])},
+          {"m_f": TOL_F64, "P_f": TOL_F64})
 
 
 def kernels_vs_plain_case(cs, adj, i, n, batch, d, dtype, masked):

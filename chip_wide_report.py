@@ -1,0 +1,143 @@
+"""Report on one CUDA card what chip_smoke.py does not measure for the
+d = 7..12 kernels (markovflow_tpu_torch/ops/csrc/wide_scan.cuh):
+
+    python3 chip_wide_report.py
+
+1. ptxas's registers, stack and spills of every kernel of the runtime-d
+   units (nvcc -Xptxas -v on csrc/wide_inst.cu, one unit per family and
+   dtype, compiled in parallel), and the static count of its SASS
+   instructions by kind (cuobjdump -sass): shared-memory loads (LDS),
+   generic loads (LD), local-memory loads and stores (LDL, STL), FMAs,
+   shuffles, all;
+2. the shared memory a warp of passes 1, 3 and 2 of kernels 2, 5 and 6
+   (the staged passes), and the warps an SM keeps resident, as the library
+   configures the launches and the occupancy calculator counts them
+   (mf_wide_occupancy_*), at d = 9 in float32 and d = 12 in float64.
+
+The last line is one JSON object of all of it.  Needs a CUDA card and nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+import chip_smoke
+
+CASES = ((9, torch.float32), (12, torch.float64))
+KERNELS = {2: "uniform RTS smoother", 5: "smoother scan", 6: "filter scan"}
+
+
+#: SASS opcodes counted, by kind
+SASS_KINDS = {"LDS": ("LDS",), "LD": ("LD",), "LDL/STL": ("LDL", "STL"),
+              "FMA": ("FFMA", "DFMA"), "SHFL": ("SHFL",)}
+
+
+def sass_counts(sass: str, demangle) -> dict:
+    """label -> {kind: static count, "all": every instruction} per function
+    of a cuobjdump -sass listing."""
+    out, counts = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            counts = out.setdefault(demangle(m.group(1)), dict.fromkeys([*SASS_KINDS, "all"], 0))
+        elif counts is not None and (m := re.search(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)):
+            counts["all"] += 1
+            for kind, ops in SASS_KINDS.items():
+                counts[kind] += m.group(1) in ops
+    return out
+
+
+def ptxas(cs) -> tuple:
+    """label -> (registers, stack bytes, spill store bytes, spill load
+    bytes) of every kernel of the wide units, and label -> SASS counts."""
+    nvcc = cs._find_nvcc()
+    bindir = str(Path(nvcc).parent)
+    filt = shutil.which("cu++filt", path=bindir) or shutil.which("c++filt")
+    dump = shutil.which("cuobjdump", path=bindir)
+    units = [defines for src, defines in cs._UNITS if src == "wide_inst.cu"]
+
+    def demangle(name):
+        if filt is None:
+            return name
+        return chip_smoke.pass_label(subprocess.run([filt, name], capture_output=True,
+                                                    text=True).stdout.strip())
+
+    def one(defines):
+        with tempfile.TemporaryDirectory() as tmp:
+            run = subprocess.run([nvcc, *cs._NVCC_FLAGS, "-Xptxas", "-v", *defines, "-c",
+                                  str(cs._CSRC / "wide_inst.cu"), "-o", f"{tmp}/u.o"],
+                                 check=True, capture_output=True, text=True)
+            sass = "" if dump is None else subprocess.run(
+                [dump, "-sass", f"{tmp}/u.o"], capture_output=True, text=True).stdout
+        return run.stderr, sass
+
+    with ThreadPoolExecutor(max_workers=len(units)) as pool:
+        results = list(pool.map(one, units))
+    sass = {}
+    for _, listing in results:
+        sass.update(sass_counts(listing, demangle))
+    out, name, frame = {}, None, None
+    for line in "\n".join(log for log, _ in results).splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            frame = tuple(int(x) for x in m.groups())
+        elif (m := re.search(r"Used (\d+) registers", line)) and name is not None:
+            out[demangle(name)] = (int(m.group(1)), *(frame or (0, 0, 0)))
+            name = frame = None
+    return out, sass
+
+
+def occupancy(cs) -> list:
+    """Per kernel, case and pass: shared memory a warp and the warps an SM
+    keeps resident, from the library."""
+    lib, rows = cs.build_kernels(), []
+    for d, dtype in CASES:
+        sfx = "f32" if dtype == torch.float32 else "f64"
+        for kernel, name in KERNELS.items():
+            out = (ctypes.c_int64 * 6)()
+            err = getattr(lib, f"mf_wide_occupancy_{sfx}")(kernel, d, out)
+            if err != 0:
+                raise RuntimeError(f"mf_wide_occupancy_{sfx}({kernel}, {d}): CUDA error {err}")
+            for i, label in enumerate(("pass 1", "pass 3", "pass 2")):
+                row = {"kernel": kernel, "pass": label, "d": d, "dtype": sfx,
+                       "smem_bytes_a_warp": out[2 * i], "resident_warps": out[2 * i + 1]}
+                rows.append(row)
+                print(f"  kernel {kernel} ({name}) d={d} {sfx} {label}: {row['smem_bytes_a_warp']} "
+                      f"B a warp; {row['resident_warps']} warps an SM resident", flush=True)
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_wide_report: no CUDA device", file=sys.stderr)
+        return 1
+    from markovflow_tpu_torch.ops import cuda_scan as cs
+
+    card = chip_smoke.card_line()
+    print(f"device {torch.cuda.get_device_name(0)}; nvidia-smi: {card}", flush=True)
+    print("1. ptxas (registers, stack, spill stores, spill loads):", flush=True)
+    regs, sass = ptxas(cs)
+    for label, vals in sorted(regs.items()):
+        print(f"  {label}: {vals[0]} registers, {vals[1]} B stack, {vals[2]} B spill stores, "
+              f"{vals[3]} B spill loads; SASS "
+              + " ".join(f"{k} {v}" for k, v in sass.get(label, {}).items()), flush=True)
+    print("2. shared memory and resident warps:", flush=True)
+    occ = occupancy(cs)
+    print(json.dumps({"card": card, "ptxas": regs, "sass": sass, "occupancy": occ}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

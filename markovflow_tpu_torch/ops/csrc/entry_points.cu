@@ -39,12 +39,18 @@ MF_EXTERN_ALL_D(double)
       mf::FilterArgs<T>, mf::FilterPrebuilt<T>, T*, int64_t, int, cudaStream_t);          \
   extern template int mf::launch_wide_general_adjoint<T>(mf::GeneralAdjointPrior<T>, T*,  \
                                                          int64_t, int64_t, int,           \
-                                                         cudaStream_t);
+                                                         cudaStream_t);                   \
+  extern template int mf::wide_smoother_occupancy<mf::WideUniformRtsRow<T>>(int,          \
+                                                                            int64_t*);    \
+  extern template int mf::wide_smoother_occupancy<mf::WidePrebuiltRow<T>>(int, int64_t*);  \
+  extern template int mf::wide_filter_occupancy<mf::WideFilterPrebuiltRow<T>>(int,        \
+                                                                              int64_t*);
 
 MF_EXTERN_WIDE(float)
 MF_EXTERN_WIDE(double)
 
-// Scratch sizes in elements of T (-1 for a state dimension with no kernel).
+// Scratch sizes in elements of T (-1 for a state dimension with no kernel); the
+// uniform smoother's keeps the E legs of its elements at d = 7..12.
 #define MF_DEFINE_SCRATCH(T, SUFFIX)                                                    \
   extern "C" int64_t mf_filter_scratch_##SUFFIX(int64_t d, int64_t batch, int64_t n) {  \
     if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
@@ -56,8 +62,27 @@ MF_EXTERN_WIDE(double)
       return mf::wide_smoother_scratch<T>(int(d), batch, n);                            \
     MF_SWITCH_D(d, (mf::smoother_scratch<T, D_>(batch, n)), -1)                         \
   }                                                                                     \
+  extern "C" int64_t mf_uniform_smoother_scratch_##SUFFIX(int64_t d, int64_t batch,     \
+                                                          int64_t n) {                  \
+    if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
+      return mf::wide_smoother_scratch<T>(int(d), batch, n,                             \
+                                          mf::WideUniformRtsRow<T>::BUILD);             \
+    MF_SWITCH_D(d, (mf::smoother_scratch<T, D_>(batch, n)), -1)                         \
+  }                                                                                     \
   extern "C" int64_t mf_adjoint_scratch_##SUFFIX(int64_t d, int64_t batch, int64_t n) { \
     MF_SWITCH_D(d, (mf::adjoint_scratch<T, D_>(batch, n)), -1)                          \
+  }                                                                                     \
+  /* the shared memory a warp and the warps an SM keeps resident of passes */           \
+  /* 1, 3 and 2 (out[0..5]) of kernel 2, 5 or 6 at d = 7..12 */                         \
+  extern "C" int mf_wide_occupancy_##SUFFIX(int64_t kernel, int64_t d, int64_t* out) {  \
+    if (d < mf::WIDE_MIN_D || d > mf::WIDE_MAX_D) return int(cudaErrorInvalidValue);    \
+    if (kernel == 2)                                                                    \
+      return mf::wide_smoother_occupancy<mf::WideUniformRtsRow<T>>(int(d), out);        \
+    if (kernel == 5)                                                                    \
+      return mf::wide_smoother_occupancy<mf::WidePrebuiltRow<T>>(int(d), out);          \
+    if (kernel == 6)                                                                    \
+      return mf::wide_filter_occupancy<mf::WideFilterPrebuiltRow<T>>(int(d), out);      \
+    return int(cudaErrorInvalidValue);                                                  \
   }
 
 MF_DEFINE_SCRATCH(float, f32)

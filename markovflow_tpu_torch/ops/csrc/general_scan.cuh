@@ -120,13 +120,7 @@ struct FilterPrebuiltRow {
   }
 };
 
-// prebuilt smoothing elements, contiguous: E [B, d, d, N], g [B, d, 1, N],
-// L [B, d, d, N]
-template <typename T>
-struct Prebuilt {
-  const T *e, *g, *l;
-};
-
+// prebuilt smoothing elements: Prebuilt (wide_scan.cuh)
 template <typename T_, int D_>
 struct PrebuiltRow {
   using T = T_;
@@ -172,19 +166,11 @@ struct WideGeneralRow {
 };
 
 template <typename T_>
-struct WidePrebuiltRow {
-  using T = T_;
-  using Prior = Prebuilt<T>;
+struct WidePrebuiltRow : WideReadRow<T_> {
+  using Prior = Prebuilt<T_>;
 
-  static MF_DEV void elem(const Prior& a, int64_t b, int64_t k, int64_t n, T* out,
-                          WideWork<T>& w, int d) {
-    const int dd = d * d;
-    for (int e = lane_id(); e < dd; e += 32) {
-      out[e] = a.e[(b * dd + e) * n + k];
-      out[dd + d + e] = a.l[(b * dd + e) * n + k];
-    }
-    for (int e = lane_id(); e < d; e += 32) out[dd + e] = a.g[(b * d + e) * n + k];
-    __syncwarp();
+  static MF_DEV WideRows<const T_*> rows(const Prior& a, int d) {
+    return wide_element_rows(a, d);
   }
 };
 
@@ -194,20 +180,10 @@ struct WideFilterPrebuiltRow {
   static constexpr bool PREBUILT = true;
   using Prior = FilterPrebuilt<T>;
 
-  static MF_DEV void elem(const Prior& a, int64_t b, int64_t k, int64_t n, T* out,
-                          WideWork<T>&, int d) {
-    const int dd = d * d, OA = 0, OB = dd, OC = dd + d, OJ = 2 * dd + d, OE = 3 * dd + d;
-    for (int e = lane_id(); e < dd; e += 32) {
-      const int64_t at = (b * dd + e) * n + k;
-      out[OA + e] = a.a[at];
-      out[OC + e] = a.c[at];
-      out[OJ + e] = a.j[at];
-    }
-    for (int e = lane_id(); e < d; e += 32) {
-      out[OB + e] = a.b[(b * d + e) * n + k];
-      out[OE + e] = a.e[(b * d + e) * n + k];
-    }
-    __syncwarp();
+  // the element [A, b, C, J, eta]
+  static MF_DEV WideRows<const T*> rows(const Prior& a, int d) {
+    const int dd = d * d;
+    return {{a.a, a.b, a.c, a.j, a.e}, {dd, d, dd, dd, d}};
   }
 };
 

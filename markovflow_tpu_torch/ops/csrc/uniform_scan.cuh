@@ -157,8 +157,7 @@ struct UniformRtsRow {
   }
 };
 
-// The same two sources for d = 7..12 (wide_scan.cuh): each builds its step
-// into the warp's workspace, all lanes together.
+// The same two sources for d = 7..12 (wide_scan.cuh), all lanes together.
 template <typename T_>
 struct WideUniformRow {
   using T = T_;
@@ -176,52 +175,60 @@ struct WideUniformRow {
   }
 };
 
+// The RTS source of the d = 7..12 smoother passes: a step's filtered
+// moments land in its slot where the element's g and L legs go, and build
+// turns them into the element in place.
 template <typename T_>
 struct WideUniformRtsRow {
   using T = T_;
   using Prior = UniformRts<T>;
+  // Pass 1 builds the elements and keeps them for pass 3, which reads them
+  // back rather than building them again (PERF.md: store or recompute).
+  static constexpr bool BUILD = true;
 
-  // UniformRtsRow::elem, with the temporaries in the workspace
-  static MF_DEV void elem(const Prior& a, int64_t b, int64_t k, int64_t n, T* out,
-                          WideWork<T>& w, int d) {
-    const int dd = d * d, OE = 0, OG = dd, OL = dd + d, lane = lane_id();
-    T *mk = w.v[5], *pk = w.m[3], *pft = w.m[0], *pp = w.m[1], *pinv = w.m[2];
-    T *fm = w.v[0], *gfm = w.v[1];
-    for (int e = lane; e < d; e += 32) mk[e] = a.m_f[(b * d + e) * n + k];
-    for (int e = lane; e < dd; e += 32) pk[e] = a.p_f[(b * dd + e) * n + k];
+  static __host__ __device__ int consts(int d) { return 2 * d * d + d; }
+
+  // Fc, Qc, cc of batch row b, once a warp
+  static MF_DEV void load(const Prior& a, int64_t b, T* cst, int d) {
+    const int dd = d * d;
+    for (int e = lane_id(); e < dd; e += 32) {
+      cst[e] = a.fc[b * dd + e];
+      cst[dd + e] = a.qc[b * dd + e];
+    }
+    for (int e = lane_id(); e < d; e += 32) cst[2 * dd + e] = a.cc[b * d + e];
     __syncwarp();
-    if (k == n - 1) {
-      for (int e = lane; e < dd; e += 32) {
-        out[OE + e] = T(0);
-        out[OL + e] = pk[e];
-      }
-      for (int e = lane; e < d; e += 32) out[OG + e] = mk[e];
+  }
+
+  static MF_DEV int offset(int d) { return d * d; }
+
+  // [m_f, P_f]
+  static MF_DEV WideRows<const T*> rows(const Prior& a, int d) {
+    return {{a.m_f, a.p_f}, {d, d * d}};
+  }
+
+  // UniformRtsRow::elem over the slot st = [E, m, P]: the gain from the
+  // pivoted solve Pp G^T = F P (winv's pivoting, d right-hand sides), as
+  // E = G = P F^T Pp^-1; F P formed once, P F^T read as its transpose.
+  static MF_DEV void build(const T* cst, T* st, int64_t k, int64_t n, WideTemps<T>& w,
+                           int d) {
+    const int dd = d * d, OG = dd, OL = dd + d;
+    if (k == n - 1) {  // the boundary element (0, m_f, P_f)
+      for (int e = lane_id(); e < dd; e += 32) st[e] = T(0);
       __syncwarp();
       return;
     }
-    for (int e = lane; e < dd; e += 32) {
-      w.f[e] = a.fc[b * dd + e];
-      w.q[e] = a.qc[b * dd + e];
-    }
-    for (int e = lane; e < d; e += 32) w.c[e] = a.cc[b * d + e];
-    __syncwarp();
-    T* fpk = w.m[4];
-    // P F^T, F m + c, F P; then Pp = sym(F P F^T + Q), its inverse, the gain
-    WProd<T> p1[] = {wnt(pk, w.f, pft, d), wnv(w.f, mk, fm, d, w.c), wnn(w.f, pk, fpk, d)};
+    const T *f = cst, *q = cst + dd, *c = cst + 2 * dd;
+    T *fp = w.m[0], *pp = w.m[1], *fm = w.v[0];
+    WProd<T> p1[] = {wnn(f, st + OL, fp, d), wnv(f, st + OG, fm, d, c)};  // F P, F m + c
     wprods(p1);
-    WProd<T> p2[] = {wnn(w.f, pft, pp, d, w.q)};
-    p2[0].sym = true;
+    WProd<T> p2[] = {wsym_nt(fp, f, pp, d, q)};  // Pp = sym(F P F^T + Q)
     wprods(p2);
-    winv(pp, pinv, d);
-    WProd<T> p3[] = {wnn(pft, pinv, out + OE, d)};
+    wsolve<T, true>(pp, fp, nullptr, st, nullptr, d);
+    // L = sym(P - E F P), g = m - E (F m + c)
+    WProd<T> p3[] = {wnn(st, fp, st + OL, d, st + OL), wnv(st, fm, st + OG, d, st + OG)};
+    p3[0].alpha = p3[1].alpha = T(-1);
+    p3[0].sym = true;
     wprods(p3);
-    // gain (F m + c), L = sym(P - gain F P)
-    WProd<T> p4[] = {wnv(out + OE, fm, gfm, d), wnn(out + OE, fpk, out + OL, d, pk)};
-    p4[1].alpha = T(-1);
-    p4[1].sym = true;
-    wprods(p4);
-    for (int e = lane; e < d; e += 32) out[OG + e] = mk[e] - gfm[e];
-    __syncwarp();
   }
 };
 

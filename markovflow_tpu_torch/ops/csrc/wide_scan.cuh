@@ -60,18 +60,27 @@
 //     prediction is the one the log-likelihood needs anyway;
 //   * a step's inputs (F, Q, c, h: 2 d^2 + 2 d values) lie N apart in the
 //     time-last layout, so one step at a time reads a 32-byte sector per
-//     value.  The passes of kernels 1, 4 and 7 fetch a chunk of CH steps
-//     with cp.async (fetch_chunk: the lanes of one copy take neighbouring
-//     steps of a value), into slots in shared memory, while the chunk before
-//     computes; outputs go over the consumed inputs of their slot and out a
-//     chunk at a time (store_chunk);
-//   * the general composition (pass 2, and the prebuilt sources) runs in
-//     four phases of independent products (wprods) around a register
-//     Gauss-Jordan inverse whose lanes trade pivots and factors by shuffles,
-//     where one product a __syncwarp() and a shared-memory pivot search
-//     took ~25 phases and ~45 __syncwarp()s.
-// Prebuilt elements (the filter scan) are not rank one: they keep the
-// general composition in passes 1 and 3.
+//     value.  The passes fetch a chunk of CH steps with cp.async (the lanes
+//     of one copy take neighbouring steps of a value: fetch_chunk for the
+//     strided inputs of kernels 1, 4 and 7, fetch_rows for the contiguous
+//     elements and moments of kernels 2, 5 and 6), into slots in shared
+//     memory, while the chunk before computes; outputs go over the consumed
+//     inputs of their slot and out a chunk at a time (store_chunk,
+//     store_rows);
+//   * the general composition (pass 2, and pass 1 of the filter scan and
+//     the smoothers) runs in four phases of independent products (wprods)
+//     around a register Gauss-Jordan inverse whose lanes trade pivots and
+//     factors by shuffles, where one product a __syncwarp() and a
+//     shared-memory pivot search took ~25 phases and ~45 __syncwarp()s.
+// Prebuilt elements (the filter scan) are not rank one: pass 1 folds them
+// with the general composition, since a run total is a whole element, but
+// pass 3 needs only the b and C legs of the prefix, which read nothing of
+// the earlier element but its own b and C (wide_filter_moments: a pivoted
+// solve on d + 1 right-hand sides and three products a step).  The
+// smoothers' pass 3 likewise carries only the g and L legs
+// (wide_smoother_moments); the uniform RTS source builds each element once,
+// in pass 1, and keeps it for pass 3: its E leg in the scratch, its g and L
+// legs in m_s and P_s, which pass 3 overwrites with the moments.
 #pragma once
 
 #include "scan_core.cuh"
@@ -95,41 +104,48 @@ inline int64_t wide_steps(int64_t n) {
 __host__ __device__ inline int wide_filter_size(int d) { return 3 * d * d + 2 * d; }
 __host__ __device__ inline int wide_smoother_size(int d) { return 2 * d * d + d; }
 
-// Values of T in one warp's workspace for the general compositions: three
-// element slots, the step's F, Q, c, h, six d x d temporaries and seven
-// vectors.
+// The temporaries of the general compositions and of the steps of the
+// staged passes: six d x d matrices and four vectors.
+__host__ __device__ inline int wide_temps_floats(int d) { return 6 * d * d + 4 * d; }
+
+template <typename T>
+struct WideTemps {
+  T* m[6];
+  T* v[4];
+
+  MF_DEV WideTemps(T* p, int d) {
+    for (int i = 0; i < 6; ++i) { m[i] = p; p += d * d; }
+    for (int i = 0; i < 4; ++i) { v[i] = p; p += d; }
+  }
+};
+
+// Values of T in one warp's workspace of pass 2: three element slots, 2 d^2
+// + 2 d unused, the temporaries and 3 d unused.  The unused values keep the
+// temporaries where they lay before the staged passes shared WideTemps:
+// without them one call's pass 2 took up to 0.013 ms more at d = 9 in
+// float32 (PERF.md).  A fused phase of products (wprods) reads several
+// matrices in one instruction, so their offsets may set its bank conflicts.
 __host__ __device__ inline int wide_floats(int d) {
-  return 3 * wide_filter_size(d) + 2 * d * d + 2 * d + 6 * d * d + 7 * d;
+  return 3 * wide_filter_size(d) + 2 * d * d + 2 * d + wide_temps_floats(d) + 3 * d;
 }
 
 template <typename T>
 struct WideWork {
   T* slot[3];
-  T *f, *q, *c, *h;  // the step: F [d, d], Q [d, d], c [d], H [1, d]
-  T* m[6];           // d x d temporaries
-  T* v[7];           // d vectors
-};
+  WideTemps<T> t;
 
-template <typename T>
-MF_DEV WideWork<T> wide_work(T* base, int d) {
-  WideWork<T> w;
-  const int dd = d * d;
-  for (int i = 0; i < 3; ++i) { w.slot[i] = base; base += wide_filter_size(d); }
-  w.f = base; base += dd;
-  w.q = base; base += dd;
-  w.c = base; base += d;
-  w.h = base; base += d;
-  for (int i = 0; i < 6; ++i) { w.m[i] = base; base += dd; }
-  for (int i = 0; i < 7; ++i) { w.v[i] = base; base += d; }
-  return w;
-}
+  MF_DEV WideWork(T* p, int d) : t(p + 3 * wide_filter_size(d) + 2 * d * d + 2 * d, d) {
+    for (int i = 0; i < 3; ++i) slot[i] = p + i * wide_filter_size(d);
+  }
+};
 
 MF_DEV int lane_id() { return threadIdx.x & 31; }
 
 // ---------------------------------------------------------------------------
 // Warp-cooperative small linear algebra on row-major matrices.  Every
 // function is called by all 32 lanes and ends with __syncwarp(), so the next
-// one sees its writes.  No output may alias an input.
+// one sees its writes.  No output may alias an input, but for the add of a
+// product (WProd), which each lane reads only at the entries it writes.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -153,23 +169,28 @@ MF_DEV void tri_index(int e, int d, int& i, int& j) {
   j = i + e;
 }
 
-// Inverse of m [d x d] into out by Gauss-Jordan elimination on [m | I] with
-// partial pivoting: at column j the pivot is the first of rows j.. with the
-// largest magnitude, swapped into row j.  The plain _gauss_jordan_tl
-// (ops/kalman.py) reaches the same pivot row by a chain of swaps: the other
-// rows end in another order, which changes no value.  Lane c < 2d holds
-// column c of [m | I] in registers (the loops over rows are unrolled to
-// WIDE_MAX_D), so a row swap, the scaling and the elimination are register
-// operations; lane j's column gives the pivot row and the factors by
-// shuffles.  No shared memory and no __syncwarp() until the inverse goes
-// out.
-template <typename T>
-MF_DEV void winv(const T* m, T* out, int d) {
+// Solves m [X | x] = [B | v] for m, B [d x d] and v [d] by Gauss-Jordan
+// elimination with partial pivoting: at column j the pivot is the first of
+// rows j.. with the largest magnitude, swapped into row j.  The plain
+// _gauss_jordan_tl (ops/kalman.py) reaches the same pivot row by a chain of
+// swaps: the other rows end in another order, which changes no value.  Lane
+// c < d holds column c of m in registers (the loops over rows are unrolled
+// to WIDE_MAX_D), lane d + c column c of B (of I when B is null), lane 2d
+// the vector v (none when v is null), so a row swap, the scaling and the
+// elimination are register operations; lane j's column gives the pivot row
+// and the factors by shuffles.  No shared memory and no __syncwarp() until
+// X goes to out (X^T when TRANS) and x to xo.
+template <typename T, bool TRANS = false>
+MF_DEV void wsolve(const T* m, const T* bm, const T* v, T* out, T* xo, int d) {
   const int lane = lane_id();
   T col[WIDE_MAX_D];
 #pragma unroll
   for (int i = 0; i < WIDE_MAX_D; ++i)
-    col[i] = i >= d ? T(0) : lane < d ? m[i * d + lane] : T(lane - d == i ? 1 : 0);
+    col[i] = i >= d                  ? T(0)
+             : lane < d              ? m[i * d + lane]
+             : lane >= 2 * d         ? (lane == 2 * d && v != nullptr ? v[i] : T(0))
+             : bm != nullptr         ? bm[i * d + lane - d]
+                                     : T(lane - d == i ? 1 : 0);
 #pragma unroll
   for (int j = 0; j < WIDE_MAX_D; ++j) {
     if (j >= d) break;
@@ -194,9 +215,19 @@ MF_DEV void winv(const T* m, T* out, int d) {
   if (lane >= d && lane < 2 * d) {
 #pragma unroll
     for (int i = 0; i < WIDE_MAX_D; ++i)
-      if (i < d) out[i * d + lane - d] = col[i];
+      if (i < d) out[TRANS ? (lane - d) * d + i : i * d + lane - d] = col[i];
+  } else if (lane == 2 * d && xo != nullptr) {
+#pragma unroll
+    for (int i = 0; i < WIDE_MAX_D; ++i)
+      if (i < d) xo[i] = col[i];
   }
   __syncwarp();
+}
+
+// Inverse of m [d x d] into out.
+template <typename T>
+MF_DEV void winv(const T* m, T* out, int d) {
+  wsolve<T>(m, nullptr, nullptr, out, nullptr, d);
 }
 
 // One product of a fused phase (wprods): out [r x c] = alpha op(a) op(b)
@@ -319,7 +350,8 @@ MF_DEV void wide_fetch_wait() {
 // per values: value v of step k + s lands at slots[s * per + v], from
 // src(v, k + s) (null: 0).  The lanes take (v, s) with s fastest, so one
 // copy instruction reads CH neighbouring steps of 32 / CH values: a sector
-// each in the time-last layout, where a step at a time reads 32 sectors.
+// (CH = 32 / sizeof(T)) or half of one each in the time-last layout, where
+// a step at a time reads 32 sectors.
 template <int CH, typename T, class Src>
 MF_DEV void fetch_chunk(T* slots, int per, int64_t k, int cnt, const Src& src) {
   for (int idx = lane_id(); idx < per * CH; idx += 32) {
@@ -346,6 +378,59 @@ MF_DEV void store_chunk(const T* slots, int per, int off, int nv, int64_t k, int
   __syncwarp();
 }
 
+// Up to five contiguous time-last arrays [B, rows, N] whose rows, one after
+// another, are the values of a staged slot: value v of batch row b at step
+// k is base[i][(b * rows[i] + v - (rows[0] + ... + rows[i - 1])) * n + k]
+// for the array i that holds v.
+template <typename P>
+struct WideRows {
+  P base[5];
+  int rows[5];
+};
+
+// Calls copy(v, s, address of value v at step k + s) for the (v, s), v <
+// nv, s < CH, of fetch_chunk's lane order.  32 % CH == 0, so a lane keeps
+// its s and steps v by 32 / CH: within an array the address moves by that
+// many rows, and it is computed afresh only at the start of each array,
+// where fetch_chunk's src computes it for every value.  The arrays are
+// walked with constant indices, so r stays in registers.
+template <int CH, typename P, class Copy>
+MF_DEV void walk_rows(const WideRows<P>& r, int nv, int64_t b, int64_t n, int64_t k,
+                      const Copy& copy) {
+  constexpr int STEP = 32 / CH;
+  const int s = lane_id() % CH, v0 = lane_id() / CH;
+  int start = 0;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const int end = imin(start + r.rows[i], nv);
+    int v = start + (v0 - start % STEP + STEP) % STEP;  // the lane's first value from start
+    P at = r.base[i] + ((b * r.rows[i] + v - start) * n + k + s);
+    for (; v < end; v += STEP, at += STEP * n) copy(v, s, at);
+    start += r.rows[i];
+  }
+}
+
+// fetch_chunk from the arrays of r: value v < nv of step k + s (s < cnt)
+// lands at slots[s * per + v].
+template <int CH, typename T>
+MF_DEV void fetch_rows(T* slots, int per, int nv, const WideRows<const T*>& r, int64_t b,
+                       int64_t n, int64_t k, int cnt) {
+  walk_rows<CH>(r, nv, b, n, k, [&](int v, int s, const T* at) {
+    if (s < cnt) cp_async(slots + s * per + v, at);
+  });
+}
+
+// store_chunk to the arrays of r: slots[s * per + v] goes to value v < nv
+// of step k + s (s < cnt); then __syncwarp().
+template <int CH, typename T>
+MF_DEV void store_rows(const T* slots, int per, int nv, const WideRows<T*>& r, int64_t b,
+                       int64_t n, int64_t k, int cnt) {
+  walk_rows<CH>(r, nv, b, n, k, [&](int v, int s, T* at) {
+    if (s < cnt) *at = slots[s * per + v];
+  });
+  __syncwarp();
+}
+
 // ---------------------------------------------------------------------------
 // Elements and compositions (the formulas of scan_core.cuh, o = 1).
 // ---------------------------------------------------------------------------
@@ -365,7 +450,7 @@ struct WideFilterOp {
 
   // out = x (earlier) composed with y (later); FilterOp::combine_body in
   // four phases of independent products around the inverse.
-  static MF_DEV void combine(const T* x, const T* y, T* out, WideWork<T>& w, int d) {
+  static MF_DEV void combine(const T* x, const T* y, T* out, WideTemps<T>& w, int d) {
     const int dd = d * d, OA = 0, OB = dd, OC = dd + d, OJ = 2 * dd + d, OE = 3 * dd + d;
     T *mm = w.m[0], *minv = w.m[1], *ma = w.m[2], *mc = w.m[3], *ja = w.m[4],
       *t2 = w.m[5];
@@ -401,7 +486,7 @@ struct WideSmootherOp {
 
   // out = e (earlier) composed with l (later, the suffix):
   // E = eE lE, g = eE lg + eg, L = sym(eE lL eE^T + eL)
-  static MF_DEV void combine(const T* e, const T* l, T* out, WideWork<T>& w, int d) {
+  static MF_DEV void combine(const T* e, const T* l, T* out, WideTemps<T>& w, int d) {
     const int dd = d * d, OE = 0, OG = dd, OL = dd + d;
     T* tmp = w.m[0];
     WProd<T> p1[] = {wnn(e + OE, l + OE, out + OE, d), wnv(e + OE, l + OG, out + OG, d, e + OG),
@@ -460,7 +545,7 @@ wide_scan_level(T* totals, T* up, int64_t nblk, int d) {
   const int64_t b = blockIdx.y, g = int64_t(blockIdx.x) * WIDE_WARPS + warp;
   const int64_t ngroups = (nblk + WIDE_GROUP - 1) / WIDE_GROUP;
   if (g >= ngroups) return;  // the whole warp; no block barrier follows
-  WideWork<T> w = wide_work<T>(reinterpret_cast<T*>(mf_wide_smem) + warp * wide_floats(d), d);
+  WideWork<T> w(reinterpret_cast<T*>(mf_wide_smem) + warp * wide_floats(d), d);
   T *acc = w.slot[0], *nxt = w.slot[1], *x = w.slot[2];
   T* row = totals + b * nblk * size;
   T* carry = up == nullptr ? nullptr : up + (b * ngroups + g) * size;
@@ -478,8 +563,8 @@ wide_scan_level(T* totals, T* up, int64_t nblk, int d) {
     T* ti = row + (REV ? i1 - 1 - s : i0 + s) * size;
     wcopy(x, ti, size);
     if (!REDUCE) wcopy(ti, acc, size);
-    if (REV) Op::combine(x, acc, nxt, w, d);
-    else Op::combine(acc, x, nxt, w, d);
+    if (REV) Op::combine(x, acc, nxt, w.t, d);
+    else Op::combine(acc, x, nxt, w.t, d);
     T* t = acc; acc = nxt; nxt = t;
   }
   if (REDUCE) wcopy(carry, acc, size);
@@ -501,12 +586,33 @@ inline int wide_smem_bytes(K kernel, size_t bytes) {
   return int(err);
 }
 
+// The shared memory a warp and the warps an SM keeps resident, by the
+// occupancy calculator (registers and each block's reserve included), of a
+// kernel launched with bytes of dynamic shared memory: out[0], out[1].
+template <class K>
+int wide_occupancy(K kernel, size_t bytes, int64_t* out) {
+  int blocks = 0;
+  int err = wide_smem_bytes(kernel, bytes);
+  if (err == 0)
+    err = int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, WIDE_WARPS * 32,
+                                                            bytes));
+  out[0] = int64_t(bytes / WIDE_WARPS);
+  out[1] = int64_t(blocks) * WIDE_WARPS;
+  return err;
+}
+
+// Dynamic shared memory of pass 2's launches.
+template <typename T>
+size_t wide_scan_bytes(int d) {
+  return size_t(WIDE_WARPS) * wide_floats(d) * sizeof(T);
+}
+
 // Exclusive scan of the totals [batch, nblk elements], in place; REV scans
 // suffixes.  levels: wide_scan_levels(nblk, size) values per batch row.
 template <class Op, bool REV, typename T>
 int launch_wide_scan(T* totals, int64_t nblk, int64_t batch, int d, T* levels,
                      cudaStream_t stream) {
-  const size_t bytes = size_t(WIDE_WARPS) * wide_floats(d) * sizeof(T);
+  const size_t bytes = wide_scan_bytes<T>(d);
   int err = wide_smem_bytes(wide_scan_level<Op, REV, true, T>, bytes);
   if (err == 0) err = wide_smem_bytes(wide_scan_level<Op, REV, false, T>, bytes);
   if (err != 0) return err;
@@ -531,11 +637,83 @@ int launch_wide_scan(T* totals, int64_t nblk, int64_t batch, int d, T* levels,
 }
 
 // ---------------------------------------------------------------------------
+// The staged passes of whole elements: the filter scan of prebuilt elements
+// and the smoothers.
+// ---------------------------------------------------------------------------
+
+// A warp's workspace there: the temporaries, the run and the next run (pass
+// 3 keeps the moments of the step next to the chunk in the run's b and C,
+// or g and L, legs), two chunks of CH slots of one element each (the chunk
+// being folded in and the next, in flight; pass 3 writes each step's
+// moments over its slot's b and C, or g and L, legs, and the chunk goes out
+// from there) and nconst constants of the element source.  CH = 16 / sizeof
+// (T): with 8 steps a chunk in float32 the filter scan would keep 8 warps an
+// SM resident at d = 9, not 16 (PERF.md).
+template <typename T>
+struct WideStageWork {
+  static constexpr int CH = 16 / sizeof(T);
+  WideTemps<T> t;
+  T *run, *nxt, *chunk[2], *cst;
+
+  static __host__ __device__ int floats(int d, int size, int nconst) {
+    return wide_temps_floats(d) + 2 * size + 2 * CH * size + nconst;
+  }
+
+  MF_DEV WideStageWork(T* p, int d, int size) : t(p, d) {
+    p += wide_temps_floats(d);
+    run = p; p += size;
+    nxt = p; p += size;
+    chunk[0] = p; p += CH * size;
+    chunk[1] = p; p += CH * size;
+    cst = p;
+  }
+};
+
+// Pass 3 of the filter scan: the filtered moments after the prebuilt
+// element in slot st from those before it (mp: m, then P), which are the b
+// and C legs of the elements composed so far; WideFilterOp::combine's b and
+// C legs read nothing else of the earlier element:
+//   M = I + P J, [X | x] = M^-1 [P | m + P eta] (wsolve),
+//   P' = sym(A X A^T + C), m' = A x + b,
+// written over the slot's b and C legs.
+template <typename T>
+MF_DEV void wide_filter_moments(T* st, const T* mp, WideTemps<T>& w, int d) {
+  const int dd = d * d, OB = dd, OC = dd + d, OJ = 2 * dd + d, OE = 3 * dd + d;
+  const T *m = mp, *P = mp + d;
+  T *mm = w.m[0], *X = w.m[1], *ax = w.m[2], *v = w.v[0], *x = w.v[1];
+  WProd<T> p1[] = {wnn(P, st + OJ, mm, d), wnv(P, st + OE, v, d, m)};
+  p1[0].eye = true;
+  wprods(p1);
+  wsolve(mm, P, v, X, x, d);
+  WProd<T> p2[] = {wnn(st, X, ax, d), wnv(st, x, st + OB, d, st + OB)};
+  wprods(p2);
+  WProd<T> p3[] = {wsym_nt(ax, st, st + OC, d, st + OC)};
+  wprods(p3);
+}
+
+// Pass 3 of the smoothers: the smoothed moments of a step from those of the
+// step after it (mp: m', then P'), which are the g and L legs of the
+// elements composed after it, through the step's element (E, g, L) in slot
+// st: m = E m' + g, P = sym(E P' E^T + L), written over the slot's g and L
+// legs.  The composition's E leg is never formed.
+template <typename T>
+MF_DEV void wide_smoother_moments(T* st, const T* mp, WideTemps<T>& w, int d) {
+  const int dd = d * d, OG = dd, OL = dd + d;
+  T* t = w.m[0];
+  WProd<T> p1[] = {wnt(mp + d, st, t, d), wnv(st, mp, st + OG, d, st + OG)};
+  wprods(p1);
+  WProd<T> p2[] = {wnn(st, t, st + OL, d, st + OL)};
+  p2[0].sym = true;
+  wprods(p2);
+}
+
+// ---------------------------------------------------------------------------
 // Filter passes 1 and 3, for any Row with a static
 // src(prior, b, v, k, d): the address of value v of step k's inputs
 // [F (d x d), Q (d x d), c (d), H (d)] (null for a 0), or, with
-// Row::PREBUILT, a static elem(prior, b, k, n, out, WideWork&, d) that reads
-// a prebuilt filtering element (no sites, no log-likelihood).
+// Row::PREBUILT, a static rows(prior, d): the arrays (WideRows) of the
+// prebuilt filtering elements [A, b, C, J, eta] (no sites, no
+// log-likelihood).
 // ---------------------------------------------------------------------------
 
 // A warp's workspace in the passes of a site source: the run element (pass
@@ -643,13 +821,25 @@ wide_filter_totals(FilterArgs<typename Row::T> a, typename Row::Prior p, int d,
   T* smem = reinterpret_cast<T*>(mf_wide_smem);
   const int64_t k0 = u * steps, k1 = imin(k0 + steps, a.n);
   if constexpr (Row::PREBUILT) {
-    WideWork<T> w = wide_work<T>(smem + warp * wide_floats(d), d);
-    T *run = w.slot[0], *nxt = w.slot[1], *e = w.slot[2];
+    // the general composition, since a run total is a whole element
+    using W = WideStageWork<T>;
+    constexpr int CH = W::CH;
+    W w(smem + warp * W::floats(d, size, 0), d, size);
+    const WideRows<const T*> in = Row::rows(p, d);
+    T *run = w.run, *nxt = w.nxt, *cur = w.chunk[0], *ahead = w.chunk[1];
     wide_identity(run, size, d);
-    for (int64_t k = k0; k < k1; ++k) {
-      Row::elem(p, b, k, a.n, e, w, d);
-      WideFilterOp<T>::combine(run, e, nxt, w, d);
-      T* s = run; run = nxt; nxt = s;
+    fetch_rows<CH>(cur, size, size, in, b, a.n, k0, int(imin(CH, k1 - k0)));
+    wide_fetch_wait();
+    for (int64_t kc = k0; kc < k1; kc += CH) {
+      const int cnt = int(imin(CH, k1 - kc));
+      if (kc + CH < k1)
+        fetch_rows<CH>(ahead, size, size, in, b, a.n, kc + CH, int(imin(CH, k1 - kc - CH)));
+      for (int s = 0; s < cnt; ++s) {
+        WideFilterOp<T>::combine(run, cur + s * size, nxt, w.t, d);
+        T* t = run; run = nxt; nxt = t;
+      }
+      wide_fetch_wait();
+      T* t = cur; cur = ahead; ahead = t;
     }
     wcopy(a.totals + (b * a.nblk + u) * size, run, size);
   } else {
@@ -691,16 +881,31 @@ wide_filter_outputs(FilterArgs<typename Row::T> a, typename Row::Prior p, int d,
   const T* carry = a.totals + (b * a.nblk + u) * size;  // all earlier warps
   const int64_t k0 = u * steps, k1 = imin(k0 + steps, n);
   if constexpr (Row::PREBUILT) {
-    WideWork<T> w = wide_work<T>(smem + warp * wide_floats(d), d);
-    T *run = w.slot[0], *nxt = w.slot[1], *e = w.slot[2];
-    wcopy(run, carry, size);
-    for (int64_t k = k0; k < k1; ++k) {
-      Row::elem(p, b, k, n, e, w, d);
-      WideFilterOp<T>::combine(run, e, nxt, w, d);
-      T* s = run; run = nxt; nxt = s;
-      for (int i = lane; i < d; i += 32) a.m_f[(b * d + i) * n + k] = run[OB + i];
-      for (int i = lane; i < dd; i += 32) a.p_f[(b * dd + i) * n + k] = run[OC + i];
-      __syncwarp();
+    // only the moments: the b and C legs of the carry, then of each step
+    using W = WideStageWork<T>;
+    constexpr int CH = W::CH;
+    W w(smem + warp * W::floats(d, size, 0), d, size);
+    const WideRows<const T*> in = Row::rows(p, d);
+    // m_f over b and P_f over C: values v < d + dd from slot offset OB
+    const WideRows<T*> out{{a.m_f, a.p_f}, {d, dd}};
+    T *cur = w.chunk[0], *ahead = w.chunk[1];
+    wcopy(w.run + OB, carry + OB, d + dd);
+    fetch_rows<CH>(cur, size, size, in, b, n, k0, int(imin(CH, k1 - k0)));
+    wide_fetch_wait();
+    for (int64_t kc = k0; kc < k1; kc += CH) {
+      const int cnt = int(imin(CH, k1 - kc));
+      if (kc + CH < k1)
+        fetch_rows<CH>(ahead, size, size, in, b, n, kc + CH, int(imin(CH, k1 - kc - CH)));
+      const T* mp = w.run + OB;
+      for (int s = 0; s < cnt; ++s) {
+        T* st = cur + s * size;
+        wide_filter_moments(st, mp, w.t, d);
+        mp = st + OB;
+      }
+      store_rows<CH>(cur + OB, size, d + dd, out, b, n, kc, cnt);
+      wcopy(w.run + OB, mp, d + dd);
+      wide_fetch_wait();
+      T* t = cur; cur = ahead; ahead = t;
     }
   } else {
     // The carry's b and C legs are the filtered moments of step k0 - 1
@@ -746,6 +951,15 @@ int64_t wide_filter_scratch(int d, int64_t batch, int64_t n) {
                   wide_scan_levels(nblk, wide_filter_size(d)));
 }
 
+// Dynamic shared memory of passes 1 and 3.
+template <class Row>
+size_t wide_filter_bytes(int d) {
+  using T = typename Row::T;
+  const int per = Row::PREBUILT ? WideStageWork<T>::floats(d, wide_filter_size(d), 0)
+                                : WideSeqWork<T>::floats(d);
+  return size_t(WIDE_WARPS) * per * sizeof(T);
+}
+
 template <class Row>
 int launch_wide_filter(FilterArgs<typename Row::T> a, typename Row::Prior p,
                        typename Row::T* scratch, int64_t batch, int d,
@@ -758,8 +972,7 @@ int launch_wide_filter(FilterArgs<typename Row::T> a, typename Row::Prior p,
   a.partials = scratch + batch * a.nblk * wide_filter_size(d);
   T* levels = a.partials + batch * a.nblk;
   const dim3 grid(unsigned(num_blocks(a.nblk, WIDE_WARPS)), unsigned(batch));
-  const int per = Row::PREBUILT ? wide_floats(d) : WideSeqWork<T>::floats(d);
-  const size_t bytes = size_t(WIDE_WARPS) * per * sizeof(T);
+  const size_t bytes = wide_filter_bytes<Row>(d);
   int err = wide_smem_bytes(wide_filter_totals<Row>, bytes);
   if (err == 0) err = wide_smem_bytes(wide_filter_outputs<Row>, bytes);
   if (err != 0) return err;
@@ -779,59 +992,144 @@ int launch_wide_filter(FilterArgs<typename Row::T> a, typename Row::Prior p,
 }
 
 // ---------------------------------------------------------------------------
-// Smoother passes 1 and 3, for any Row with a static
-// elem(prior, b, k, n, out, WideWork&, d) that builds the step's element.
+// Smoother passes 1 and 3.  Pass 1 folds the elements (E, g, L) of a Row
+// with static members:
+//   BUILD: whether pass 1 builds the elements (and keeps them for pass 3)
+//     or reads them whole;
+//   consts(d), load(prior, b, cst, d): constants of batch row b, loaded
+//     once a warp into cst (all lanes, then __syncwarp());
+//   offset(d), rows(prior, d): the arrays (WideRows) whose value v lands at
+//     slot offset offset(d) + v;
+//   build(cst, st, k, n, WideTemps&, d): turns slot st into step k's
+//     element, in place;
+// A source that builds its elements keeps E in the scratch and g and L in
+// m_s and P_s, where pass 3 writes each step's moments over them.  Pass 3
+// reads the elements whole and carries only the moments.
 // ---------------------------------------------------------------------------
 
+// A source that reads whole elements: nothing to load or build.
+template <typename T_>
+struct WideReadRow {
+  using T = T_;
+  static constexpr bool BUILD = false;
+  static __host__ __device__ int consts(int) { return 0; }
+  template <class P>
+  static MF_DEV void load(const P&, int64_t, T*, int) {}
+  static MF_DEV int offset(int) { return 0; }
+  static MF_DEV void build(const T*, T*, int64_t, int64_t, WideTemps<T>&, int) {}
+};
+
+// prebuilt smoothing elements, contiguous: E [B, d, d, N], g [B, d, 1, N],
+// L [B, d, d, N]
+template <typename T>
+struct Prebuilt {
+  const T *e, *g, *l;
+};
+
+// The arrays of prebuilt elements, value v of slot [E, g, L] in order.
+template <typename T>
+MF_DEV WideRows<const T*> wide_element_rows(const Prebuilt<T>& e, int d) {
+  return {{e.e, e.g, e.l}, {d * d, d, d * d}};
+}
+
+// Pass 1: fold the warp's steps, last first, into its suffix total, a chunk
+// of CH steps at a time (the last chunk first); with Row::BUILD each
+// chunk's elements also go out, E to e and g and L to m_s and P_s.
 template <class Row>
 __global__ void __launch_bounds__(WIDE_WARPS * 32)
 wide_smoother_totals(SmootherArgs<typename Row::T> a, typename Row::Prior p, int d,
-                     int64_t steps) {
+                     int64_t steps, typename Row::T* e) {
   using T = typename Row::T;
-  const int warp = threadIdx.x >> 5, size = wide_smoother_size(d);
-  const int64_t b = blockIdx.y, u = int64_t(blockIdx.x) * WIDE_WARPS + warp;
-  if (u >= a.nblk) return;
-  WideWork<T> w = wide_work<T>(reinterpret_cast<T*>(mf_wide_smem) + warp * wide_floats(d), d);
-  T *run = w.slot[0], *nxt = w.slot[1], *e = w.slot[2];
+  using W = WideStageWork<T>;
+  constexpr int CH = W::CH;
+  const int warp = threadIdx.x >> 5, size = wide_smoother_size(d), off = Row::offset(d);
+  const int dd = d * d;
+  const int64_t b = blockIdx.y, u = int64_t(blockIdx.x) * WIDE_WARPS + warp, n = a.n;
+  if (u >= a.nblk) return;  // the whole warp; this kernel has no block barrier
+  W w(reinterpret_cast<T*>(mf_wide_smem) + warp * W::floats(d, size, Row::consts(d)), d,
+      size);
+  const WideRows<const T*> in = Row::rows(p, d);
+  const WideRows<T*> kept{{e, a.m_s, a.p_s}, {dd, d, dd}};
+  T *run = w.run, *nxt = w.nxt, *cur = w.chunk[0], *ahead = w.chunk[1];
+  Row::load(p, b, w.cst, d);
   wide_identity(run, size, d);
-  const int64_t k0 = u * steps, k1 = imin(k0 + steps, a.n);
-  for (int64_t k = k1 - 1; k >= k0; --k) {
-    Row::elem(p, b, k, a.n, e, w, d);
-    WideSmootherOp<T>::combine(e, run, nxt, w, d);
-    T* s = run; run = nxt; nxt = s;
+  const int64_t k0 = u * steps, k1 = imin(k0 + steps, n);
+  int64_t kc = k0 + (k1 - 1 - k0) / CH * CH;  // k0 is a multiple of CH
+  fetch_rows<CH>(cur + off, size, size - off, in, b, n, kc, int(k1 - kc));
+  wide_fetch_wait();
+  for (; kc >= k0; kc -= CH) {
+    const int cnt = int(imin(CH, k1 - kc));
+    if (kc > k0) fetch_rows<CH>(ahead + off, size, size - off, in, b, n, kc - CH, CH);
+    for (int s = cnt - 1; s >= 0; --s) {
+      T* st = cur + s * size;
+      Row::build(w.cst, st, kc + s, n, w.t, d);
+      WideSmootherOp<T>::combine(st, run, nxt, w.t, d);
+      T* t = run; run = nxt; nxt = t;
+    }
+    if constexpr (Row::BUILD) store_rows<CH>(cur, size, size, kept, b, n, kc, cnt);
+    wide_fetch_wait();
+    T* t = cur; cur = ahead; ahead = t;
   }
   wcopy(a.totals + (b * a.nblk + u) * size, run, size);
 }
 
-template <class Row>
+// Pass 3: the smoothed moments of the warp's steps, last first, from the g
+// and L legs of its carry (the suffix of all later warps: the smoothed
+// moments of step k1; 0 after the last step, whose element has E = 0).  A
+// chunk's elements are fetched before its moments go out, so e's g and L
+// may be m_s and P_s.
+template <typename T>
 __global__ void __launch_bounds__(WIDE_WARPS * 32)
-wide_smoother_outputs(SmootherArgs<typename Row::T> a, typename Row::Prior p, int d,
-                      int64_t steps) {
-  using T = typename Row::T;
-  const int warp = threadIdx.x >> 5, lane = lane_id(), size = wide_smoother_size(d);
-  const int dd = d * d, OG = dd, OL = dd + d;
+wide_smoother_outputs(SmootherArgs<T> a, Prebuilt<T> e, int d, int64_t steps) {
+  using W = WideStageWork<T>;
+  constexpr int CH = W::CH;
+  const int warp = threadIdx.x >> 5, size = wide_smoother_size(d);
+  const int dd = d * d, OG = dd;
   const int64_t b = blockIdx.y, u = int64_t(blockIdx.x) * WIDE_WARPS + warp, n = a.n;
   if (u >= a.nblk) return;
-  WideWork<T> w = wide_work<T>(reinterpret_cast<T*>(mf_wide_smem) + warp * wide_floats(d), d);
-  T *run = w.slot[0], *nxt = w.slot[1], *e = w.slot[2];
-  wcopy(run, a.totals + (b * a.nblk + u) * size, size);  // suffix of all later warps
+  W w(reinterpret_cast<T*>(mf_wide_smem) + warp * W::floats(d, size, 0), d, size);
+  const WideRows<const T*> in = wide_element_rows(e, d);
+  // m_s over g and P_s over L: values v < d + dd from slot offset OG
+  const WideRows<T*> out{{a.m_s, a.p_s}, {d, dd}};
+  T *cur = w.chunk[0], *ahead = w.chunk[1];
+  wcopy(w.run + OG, a.totals + (b * a.nblk + u) * size + OG, d + dd);
   const int64_t k0 = u * steps, k1 = imin(k0 + steps, n);
-  for (int64_t k = k1 - 1; k >= k0; --k) {
-    Row::elem(p, b, k, n, e, w, d);
-    WideSmootherOp<T>::combine(e, run, nxt, w, d);
-    T* s = run; run = nxt; nxt = s;
-    for (int i = lane; i < d; i += 32) a.m_s[(b * d + i) * n + k] = run[OG + i];
-    for (int i = lane; i < dd; i += 32) a.p_s[(b * dd + i) * n + k] = run[OL + i];
-    __syncwarp();
+  int64_t kc = k0 + (k1 - 1 - k0) / CH * CH;
+  fetch_rows<CH>(cur, size, size, in, b, n, kc, int(k1 - kc));
+  wide_fetch_wait();
+  for (; kc >= k0; kc -= CH) {
+    const int cnt = int(imin(CH, k1 - kc));
+    if (kc > k0) fetch_rows<CH>(ahead, size, size, in, b, n, kc - CH, CH);
+    const T* mp = w.run + OG;
+    for (int s = cnt - 1; s >= 0; --s) {
+      T* st = cur + s * size;
+      wide_smoother_moments(st, mp, w.t, d);
+      mp = st + OG;
+    }
+    store_rows<CH>(cur + OG, size, d + dd, out, b, n, kc, cnt);
+    wcopy(w.run + OG, mp, d + dd);
+    wide_fetch_wait();
+    T* t = cur; cur = ahead; ahead = t;
   }
 }
 
-// The totals [batch, nblk] and the levels of pass 2.
+// The totals [batch, nblk], the levels of pass 2 and, for a source that
+// builds its elements, their E legs [batch, d^2, n]: d values a step fewer
+// than the moments the call writes.
 template <typename T>
-int64_t wide_smoother_scratch(int d, int64_t batch, int64_t n) {
+int64_t wide_smoother_scratch(int d, int64_t batch, int64_t n, bool build = false) {
   const int64_t nblk = num_blocks(n, wide_steps(n));
-  return batch * (nblk * wide_smoother_size(d) +
-                  wide_scan_levels(nblk, wide_smoother_size(d)));
+  return batch * (nblk * wide_smoother_size(d) + wide_scan_levels(nblk, wide_smoother_size(d)) +
+                  (build ? n * d * d : 0));
+}
+
+// Dynamic shared memory of passes 1 and 3 (out[0], out[1]).
+template <class Row>
+void wide_smoother_bytes(int d, size_t* out) {
+  using W = WideStageWork<typename Row::T>;
+  const int size = wide_smoother_size(d);
+  out[0] = size_t(WIDE_WARPS) * W::floats(d, size, Row::consts(d)) * sizeof(typename Row::T);
+  out[1] = size_t(WIDE_WARPS) * W::floats(d, size, 0) * sizeof(typename Row::T);
 }
 
 template <class Row>
@@ -840,22 +1138,57 @@ int launch_wide_smoother(SmootherArgs<typename Row::T> a, typename Row::Prior p,
                          cudaStream_t stream) {
   using T = typename Row::T;
   if (d < WIDE_MIN_D || d > WIDE_MAX_D) return int(cudaErrorInvalidValue);
+  const int size = wide_smoother_size(d);
   const int64_t steps = wide_steps(a.n);
   a.nblk = num_blocks(a.n, steps);
   a.totals = scratch;
+  T* levels = scratch + batch * a.nblk * size;
+  T* e = Row::BUILD ? levels + batch * wide_scan_levels(a.nblk, size) : nullptr;
+  Prebuilt<T> elems;
+  if constexpr (Row::BUILD) elems = {e, a.m_s, a.p_s};
+  else elems = p;
   const dim3 grid(unsigned(num_blocks(a.nblk, WIDE_WARPS)), unsigned(batch));
-  const size_t bytes = size_t(WIDE_WARPS) * wide_floats(d) * sizeof(T);
-  int err = wide_smem_bytes(wide_smoother_totals<Row>, bytes);
-  if (err == 0) err = wide_smem_bytes(wide_smoother_outputs<Row>, bytes);
+  size_t bytes[2];
+  wide_smoother_bytes<Row>(d, bytes);
+  int err = wide_smem_bytes(wide_smoother_totals<Row>, bytes[0]);
+  if (err == 0) err = wide_smem_bytes(wide_smoother_outputs<T>, bytes[1]);
   if (err != 0) return err;
-  wide_smoother_totals<Row><<<grid, WIDE_WARPS * 32, bytes, stream>>>(a, p, d, steps);
+  wide_smoother_totals<Row><<<grid, WIDE_WARPS * 32, bytes[0], stream>>>(a, p, d, steps, e);
   MF_CHECK_LAUNCH();
-  err = launch_wide_scan<WideSmootherOp<T>, true, T>(
-      a.totals, a.nblk, batch, d, a.totals + batch * a.nblk * wide_smoother_size(d), stream);
+  err = launch_wide_scan<WideSmootherOp<T>, true, T>(a.totals, a.nblk, batch, d, levels,
+                                                     stream);
   if (err != 0) return err;
-  wide_smoother_outputs<Row><<<grid, WIDE_WARPS * 32, bytes, stream>>>(a, p, d, steps);
+  wide_smoother_outputs<T><<<grid, WIDE_WARPS * 32, bytes[1], stream>>>(a, elems, d, steps);
   MF_CHECK_LAUNCH();
   return 0;
+}
+
+// wide_occupancy of pass 1, pass 3 and pass 2's launches of the smoother
+// of Row (out[0..5]).
+template <class Row>
+int wide_smoother_occupancy(int d, int64_t* out) {
+  using T = typename Row::T;
+  size_t bytes[2];
+  wide_smoother_bytes<Row>(d, bytes);
+  int err = wide_occupancy(wide_smoother_totals<Row>, bytes[0], out);
+  if (err == 0) err = wide_occupancy(wide_smoother_outputs<T>, bytes[1], out + 2);
+  if (err == 0)
+    err = wide_occupancy(wide_scan_level<WideSmootherOp<T>, true, true, T>,
+                         wide_scan_bytes<T>(d), out + 4);
+  return err;
+}
+
+// The same for the filter of Row.
+template <class Row>
+int wide_filter_occupancy(int d, int64_t* out) {
+  using T = typename Row::T;
+  const size_t bytes = wide_filter_bytes<Row>(d);
+  int err = wide_occupancy(wide_filter_totals<Row>, bytes, out);
+  if (err == 0) err = wide_occupancy(wide_filter_outputs<Row>, bytes, out + 2);
+  if (err == 0)
+    err = wide_occupancy(wide_scan_level<WideFilterOp<T>, false, true, T>,
+                         wide_scan_bytes<T>(d), out + 4);
+  return err;
 }
 
 }  // namespace mf

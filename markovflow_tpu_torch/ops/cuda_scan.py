@@ -176,7 +176,7 @@ def _compile(nvcc: str, out_dir: Path) -> Path:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     for sfx in ("f32", "f64"):
-        for kind in ("filter", "smoother", "adjoint"):
+        for kind in ("filter", "smoother", "uniform_smoother", "adjoint"):
             fn = getattr(lib, f"mf_{kind}_scratch_{sfx}")
             fn.argtypes = [i64, i64, i64]
             fn.restype = i64
@@ -200,6 +200,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"mf_general_adjoint_{sfx}")
         fn.argtypes = [p] * 8 + [p] * 3 + [p] * 7 + [i64] * 3 + [p]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"mf_wide_occupancy_{sfx}")
+        fn.argtypes = [i64, i64, p]
         fn.restype = ctypes.c_int
 
 
@@ -394,7 +397,7 @@ def smoother_pipeline_uniform(Fc, cc, Qc, m_f, p_f):
                                (Qc, (d, d, 1)))
     m_s = torch.empty_like(m_f)
     p_s = torch.empty_like(p_f)
-    scratch = _scratch("smoother", sfx, d, B, n, m_f)
+    scratch = _scratch("uniform_smoother", sfx, d, B, n, m_f)
     with torch.cuda.device(m_f.device):
         err = getattr(build_kernels(), f"mf_uniform_smoother_{sfx}")(
             fc.data_ptr(), ccf.data_ptr(), qc.data_ptr(), m_f.data_ptr(),

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from markovflow_tpu_torch import kalman_filter as kf
 from markovflow_tpu_torch import training
 from markovflow_tpu_torch.convert import gpr_from_numpy
@@ -173,6 +174,40 @@ def test_wide_kernels_across_the_levels_of_pass_2(cuda_device, d, n, batch, mask
     _check_all_kernels(_problem(d, n, batch, cuda_device, dtype=dtype, masked=masked),
                        _general(d, n, batch, cuda_device, dtype=dtype, masked=masked),
                        tol, tol_ll)
+
+
+@pytest.mark.parametrize("d, n, batch, dtype", [
+    # 8 steps a warp at these N, chunks of 4 (float32) or 2 (float64) steps:
+    # one step; a run that ends inside a chunk; a second warp of one step;
+    # six and seven warps
+    *[(9, n, (), dtype) for n in (1, 5, 9, 47, 50)
+      for dtype in (torch.float64, torch.float32)],
+    # the most shared memory a warp
+    (12, 50, (3,), torch.float64),
+])
+def test_wide_kernels_at_the_chunk_edges_of_the_staged_passes(cuda_device, d, n, batch,
+                                                              dtype):
+    """The staged passes of the filter scan and the smoothers (chunks of
+    steps fetched and stored a chunk at a time, moments-only pass 3) where
+    a warp's run ends inside a chunk or N is below a chunk, against the
+    plain versions."""
+    tol, tol_ll = (F64_TOL, F64_TOL) if dtype == torch.float64 else (1e-3, 1e-4)
+    _check_all_kernels(_problem(d, n, batch, cuda_device, dtype=dtype, masked=False),
+                       _general(d, n, batch, cuda_device, dtype=dtype, masked=False),
+                       tol, tol_ll)
+
+
+@pytest.mark.parametrize("d, n, batch", [(7, 4099, (3,)), (9, 4099, (3,)),
+                                         (12, 4099, (3,)), (9, 47, ())])
+def test_filter_scan_of_random_elements(cuda_device, d, n, batch):
+    """The filter scan's pass 3 carries only the b and C legs of the prefix,
+    which hold for any prebuilt elements: random A, C, J, b, eta at every
+    step, float64, against the plain scan."""
+    elems = chip_smoke.random_filter_elements(d, n, batch, torch.float64, cuda_device)
+    got, want = ops.filter_scan(*elems), ops.filter_scan_plain(*elems)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= F64_TOL
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

@@ -120,6 +120,12 @@ template <class K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) {
   return bytes > 232448 ? cudaErrorInvalidValue : cudaSuccess;
 }
+// The stand-in runs one block at a time.
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K, int, size_t) {
+  *blocks = 1;
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { int e = mf_shim::last_error; mf_shim::last_error = 0; return e; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 232448; return 0; }

@@ -38,6 +38,7 @@ def load(out: Path):
                      .replace('.device.type == "cpu"', '.device.type == "none"')
                      .replace('.device.type != "cuda"', '.device.type not in ("cuda", "cpu")'))
     sys.path.insert(0, str(pkg))
+    sys.path.append(str(ROOT))  # chip_smoke; the patched package comes first
     from markovflow_tpu_torch.ops import adjoint, cuda_scan
 
     lib = ctypes.CDLL(str(out / "libmarkovflow_scans.so"))
@@ -84,6 +85,7 @@ def problems(d, n, batch, sparse):
 
 
 def check(cs, adj, d, n, batch, sparse=False):
+    import chip_smoke
     from markovflow_tpu_torch.ops.kalman import make_filter_elements_tl, smoother_elements_tl
 
     uni, gen = problems(d, n, batch, sparse)
@@ -106,6 +108,10 @@ def check(cs, adj, d, n, batch, sparse=False):
     felems = make_filter_elements_tl(*gen[:6])
     for name, got, want in zip(("scan m_f", "scan P_f"), cs.filter_scan(*felems),
                                cs.filter_scan_plain(*felems)):
+        out[name] = rel(got, want)
+    relems = chip_smoke.random_filter_elements(d, n, batch, torch.float64, "cpu")
+    for name, got, want in zip(("random scan m_f", "random scan P_f"), cs.filter_scan(*relems),
+                               cs.filter_scan_plain(*relems)):
         out[name] = rel(got, want)
     gs = torch.linspace(0.5, -1.5, max(1, math.prod(batch)), dtype=torch.float64).reshape(batch)
     for name, got, want in zip(("gF", "gc", "gQ", "gH", "gnu", "glam"),
