@@ -24,7 +24,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    batch (3,) and a mask; then the chunk edges of the staged passes (d = 9
    at N = 1, 5, 9, 47, 50 in float64 and float32; d = 12 at N = 50 in
    float64, batch (3,)) and the filter scan on random prebuilt elements
-   (nonzero A and J at step 0; d = 7, 9, 12, float64);
+   (nonzero A and J at step 0; d = 7, 9, 12, float64); then the general
+   filter and the general Koopman backward at d = 1, 2, 3, 6 (a Sum of two
+   Matern52 at d = 6), N in EDGE_NS (the edges of a thread's run of steps,
+   of a warp's and of a block's at d <= 2: 1, 7, 8, 9, 255, 256, 257, 2047,
+   2048, 2049, 4099), batch (3,), a mask and GPR's stride-0 emission row
+   and lam, in float64 and float32;
 4. the slice at full size, T = 1e6, float32, flagship GPR (Matern32(0.5,
    1.0), noise Cholesky 0.2), each path with the launch counters set to 0
    just before it and read just after:
@@ -141,9 +146,14 @@ TOL_D9_F32_MOMENTS = 3e-2
 #: a second warp of one step; runs of six and seven warps
 CHUNK_EDGES = (1, 5, 9, 47, 50)
 KERNEL_NAMES = {1: "Matern12", 2: "Matern32", 3: "Matern52"}
-#: children past the d9 model's Matern52s for the phase-3 Sums at d = 7..12
-WIDE_EXTRA = {7: ("Matern12",), 8: ("Matern32",), 9: (), 10: ("Matern12",),
-              11: ("Matern32",), 12: ("Matern52",)}
+#: phase-3 step counts at the edges of the d <= 6 passes of the general
+#: filter and Koopman backward: a thread's run of 8 steps, a warp's 256 and
+#: a block's 2,048 at d <= 2 in float32, and two blocks
+EDGE_NS = (1, 7, 8, 9, 255, 256, 257, 2047, 2048, 2049, 4099)
+#: children past the d9 model's Matern52s for the phase-3 Sums at d = 4..12
+SUM_EXTRA = {4: ("Matern12",), 5: ("Matern32",), 6: ("Matern52",), 7: ("Matern12",),
+             8: ("Matern32",), 9: (), 10: ("Matern12",), 11: ("Matern32",),
+             12: ("Matern52",)}
 DEVICE = torch.device("cuda")
 #: the H100's memory rate and float32 rate outside the tensor cores
 #: (NVIDIA's data sheet, SXM part, at a 700 W power limit)
@@ -284,15 +294,17 @@ def sites(n, batch, dtype, rng, masked):
     return nu, lam, maskf
 
 
-def wide_kernel(d, dtype):
-    """A Sum of Matern kernels of state dim d = 7..12: the d9 model's
-    Matern52s (the first two for d < 9), then WIDE_EXTRA[d]."""
+def sum_kernel(d, dtype):
+    """A Sum of Matern kernels of state dim d = 4..12: the d9 model's
+    Matern52s (the first for d <= 6, the first two for d < 9), then
+    SUM_EXTRA[d]."""
     from markovflow_tpu_torch import kernels
 
+    base = 1 if d <= 6 else (2 if d < 9 else 3)
     kids = [kernels.Matern52(lengthscale=ell, variance=var, dtype=dtype,
-                             device=DEVICE) for ell, var in D9[:3 if d >= 9 else 2]]
+                             device=DEVICE) for ell, var in D9[:base]]
     kids += [getattr(kernels, name)(lengthscale=1.0, variance=0.3, dtype=dtype,
-                                    device=DEVICE) for name in WIDE_EXTRA[d]]
+                                    device=DEVICE) for name in SUM_EXTRA[d]]
     k = kernels.Sum(kids)
     assert k.state_dim == d
     return k
@@ -311,7 +323,7 @@ def emission_row(k, d, dtype):
 
 def uniform_problem(d, n, batch, dtype, seed, masked=False):
     """Constant Matern prior steps on linspace(0, 100, n) with sites; for
-    d >= 7 those of a Sum (wide_kernel), made in float64 and cast, as
+    d >= 4 those of a Sum (sum_kernel), made in float64 and cast, as
     general_problem makes them."""
     from markovflow_tpu_torch import kernels
 
@@ -319,7 +331,7 @@ def uniform_problem(d, n, batch, dtype, seed, masked=False):
     kdtype = dtype if d <= 3 else torch.float64
     k = (getattr(kernels, KERNEL_NAMES[d])(lengthscale=0.5, variance=1.0,
                                           dtype=kdtype, device=dev)
-         if d <= 3 else wide_kernel(d, kdtype))
+         if d <= 3 else sum_kernel(d, kdtype))
     dt = torch.full((1,), 100.0 / max(n - 1, 1), dtype=kdtype, device=dev)
     with torch.no_grad():
         fc, cc, qc, mu0, p0 = (x.to(dtype) for x in k.prior_const_tl(dt))
@@ -329,7 +341,7 @@ def uniform_problem(d, n, batch, dtype, seed, masked=False):
 
 
 def general_problem(d, n, batch, dtype, seed, masked=False):
-    """Per-step Matern prior steps (a Sum's for d >= 7) on a jittered grid,
+    """Per-step Matern prior steps (a Sum's for d >= 4) on a jittered grid,
     one emission row expanded over the steps, and sites.  The prior steps
     are made in float64 and cast: Matern52's generic process noise cancels
     in float32 at these small steps, and the check is of the kernels."""
@@ -338,7 +350,7 @@ def general_problem(d, n, batch, dtype, seed, masked=False):
     dev = DEVICE
     k = (getattr(kernels, KERNEL_NAMES[d])(lengthscale=0.5, variance=1.0,
                                           dtype=torch.float64, device=dev)
-         if d <= 3 else wide_kernel(d, torch.float64))
+         if d <= 3 else sum_kernel(d, torch.float64))
     tp = torch.as_tensor(jittered_grid(n, seed), device=dev)
     with torch.no_grad():
         F, c, Q = (x.to(dtype) for x in k.prior_arrays_tl(tp))
@@ -399,6 +411,35 @@ def phase_kernels_vs_plain(cs, adj):
     # the filter scan's moments-only pass 3 on elements no model makes
     for n, batch, d in ((4099, (3,), 7), (4099, (3,), 9), (4099, (3,), 12), (47, (), 9)):
         filter_scan_random_case(cs, n, batch, d)
+    # the general filter and Koopman backward at d <= 6 where a thread's,
+    # a warp's or a block's run of steps ends
+    for dtype in (torch.float64, torch.float32):
+        for d in (1, 2, 3, 6):
+            for n in EDGE_NS:
+                general_edges_case(cs, adj, n, d, dtype)
+
+
+def general_edges_case(cs, adj, n, d, dtype):
+    """The general filter and Koopman backward against their plain versions
+    at N = n, batch (3,), with a mask and the stride-0 emission row and lam
+    of GPR (general_problem's)."""
+    f64 = dtype == torch.float64
+    tol_m = TOL_F64 if f64 else TOL_F32_MOMENTS
+    gargs = general_problem(d, n, (3,), dtype, seed=n, masked=True)
+    assert n == 1 or gargs[3].stride(-1) == gargs[5].stride(-1) == 0
+    gscale = torch.linspace(1.0, -0.5, 3, dtype=dtype, device=DEVICE)
+    with torch.no_grad():
+        m_k, p_k, ll_k = cs.filter_pipeline(*gargs)
+        m_p, p_p, ll_p = cs.filter_pipeline_plain(*gargs)
+        ga_k = adj.adjoint_pipeline(*gargs, m_p, p_p, gscale)
+        ga_p = adj.adjoint_pipeline_plain(*gargs, m_p, p_p, gscale)
+    torch.cuda.synchronize()
+    diffs = {"m_f": rel_diff(m_k, m_p), "P_f": rel_diff(p_k, p_p),
+             "loglik": rel_diff(ll_k, ll_p),
+             **{name: rel_diff(g, w) for name, g, w in zip(GADJ_OUT, ga_k, ga_p)}}
+    tols = {k: tol_m for k in diffs}
+    tols["loglik"] = TOL_F64 if f64 else TOL_F32_LOGLIK
+    check(f"general edges N={n} batch=(3,) d={d} {str(dtype)[6:]} masked", diffs, tols)
 
 
 def random_filter_elements(d, n, batch, dtype, device=DEVICE, seed=0):

@@ -1,18 +1,27 @@
 """Report on one CUDA card what chip_smoke.py does not measure for the
-d = 7..12 kernels (markovflow_tpu_torch/ops/csrc/wide_scan.cuh):
+d = 7..12 kernels (markovflow_tpu_torch/ops/csrc/wide_scan.cuh) and for the
+d <= 6 register passes of the general filter and Koopman backward (kernels
+4 and 7):
 
     python3 chip_wide_report.py
 
 1. ptxas's registers, stack and spills of every kernel of the runtime-d
    units (nvcc -Xptxas -v on csrc/wide_inst.cu, one unit per family and
-   dtype, compiled in parallel), and the static count of its SASS
-   instructions by kind (cuobjdump -sass): shared-memory loads (LDS),
-   generic loads (LD), local-memory loads and stores (LDL, STL), FMAs,
-   shuffles, all;
+   dtype) and of the general and gadjoint units at d = 2, 3 and 6 in
+   float32 (general_inst.cu, gadjoint_inst.cu; kernels 4, 5 and 6, and 7),
+   compiled in parallel, and the static count of each kernel's SASS
+   instructions by kind (cuobjdump -sass): shared-memory loads and stores
+   (LDS, STS), generic loads and stores (LD, ST), global loads and stores
+   (LDG, STG), local-memory loads and stores (LDL, STL), FMAs, shuffles,
+   all;
 2. the shared memory a warp of passes 1, 3 and 2 of kernels 2, 5 and 6
    (the staged passes), and the warps an SM keeps resident, as the library
    configures the launches and the occupancy calculator counts them
-   (mf_wide_occupancy_*), at d = 9 in float32 and d = 12 in float64.
+   (mf_wide_occupancy_*), at d = 9 in float32 and d = 12 in float64;
+3. the registers, local memory and static shared memory of passes 1, 3
+   and 2 of kernels 4 and 7 at d = 1..6 and the warps an SM keeps resident,
+   as the library's runtime reports them (mf_general_occupancy_*; a library
+   without that entry reports none), float32 and float64.
 
 The last line is one JSON object of all of it.  Needs a CUDA card and nvcc.
 """
@@ -37,8 +46,12 @@ KERNELS = {2: "uniform RTS smoother", 5: "smoother scan", 6: "filter scan"}
 
 
 #: SASS opcodes counted, by kind
-SASS_KINDS = {"LDS": ("LDS",), "LD": ("LD",), "LDL/STL": ("LDL", "STL"),
+SASS_KINDS = {"LDS": ("LDS",), "STS": ("STS",), "LD": ("LD",), "ST": ("ST",),
+              "LDG": ("LDG",), "STG": ("STG",), "LDL/STL": ("LDL", "STL"),
               "FMA": ("FFMA", "DFMA"), "SHFL": ("SHFL",)}
+#: the d <= 6 units reported beside the wide ones: (source, defines)
+NARROW_UNITS = [(f"{fam}_inst.cu", ["-DMF_T=float", f"-DMF_D={d}"])
+                for fam in ("general", "gadjoint") for d in (2, 3, 6)]
 
 
 def sass_counts(sass: str, demangle) -> dict:
@@ -58,12 +71,14 @@ def sass_counts(sass: str, demangle) -> dict:
 
 def ptxas(cs) -> tuple:
     """label -> (registers, stack bytes, spill store bytes, spill load
-    bytes) of every kernel of the wide units, and label -> SASS counts."""
+    bytes) of every kernel of the wide units and of NARROW_UNITS, and label
+    -> SASS counts."""
     nvcc = cs._find_nvcc()
     bindir = str(Path(nvcc).parent)
     filt = shutil.which("cu++filt", path=bindir) or shutil.which("c++filt")
     dump = shutil.which("cuobjdump", path=bindir)
-    units = [defines for src, defines in cs._UNITS if src == "wide_inst.cu"]
+    units = [(src, defines) for src, defines in cs._UNITS
+             if src == "wide_inst.cu"] + NARROW_UNITS
 
     def demangle(name):
         if filt is None:
@@ -71,10 +86,11 @@ def ptxas(cs) -> tuple:
         return chip_smoke.pass_label(subprocess.run([filt, name], capture_output=True,
                                                     text=True).stdout.strip())
 
-    def one(defines):
+    def one(unit):
+        src, defines = unit
         with tempfile.TemporaryDirectory() as tmp:
             run = subprocess.run([nvcc, *cs._NVCC_FLAGS, "-Xptxas", "-v", *defines, "-c",
-                                  str(cs._CSRC / "wide_inst.cu"), "-o", f"{tmp}/u.o"],
+                                  str(cs._CSRC / src), "-o", f"{tmp}/u.o"],
                                  check=True, capture_output=True, text=True)
             sass = "" if dump is None else subprocess.run(
                 [dump, "-sass", f"{tmp}/u.o"], capture_output=True, text=True).stdout
@@ -118,6 +134,33 @@ def occupancy(cs) -> list:
     return rows
 
 
+def general_occupancy(cs) -> list:
+    """Per kernel (4, 7), state dim 1..6, dtype and pass: registers, local
+    and static shared memory and resident warps, from the library; empty
+    when the library has no mf_general_occupancy_* entry."""
+    lib, rows = cs.build_kernels(), []
+    if not hasattr(lib, "mf_general_occupancy_f32"):
+        print("  the library has no mf_general_occupancy_* entry", flush=True)
+        return rows
+    for sfx in ("f32", "f64"):
+        for kernel in (4, 7):
+            for d in range(1, 7):
+                out = (ctypes.c_int64 * 12)()
+                err = getattr(lib, f"mf_general_occupancy_{sfx}")(kernel, d, out)
+                if err != 0:
+                    raise RuntimeError(f"mf_general_occupancy_{sfx}({kernel}, {d}): CUDA error {err}")
+                for i, label in enumerate(("pass 1", "pass 3", "pass 2")):
+                    row = {"kernel": kernel, "pass": label, "d": d, "dtype": sfx,
+                           "registers": out[4 * i], "local_bytes": out[4 * i + 1],
+                           "static_smem_bytes": out[4 * i + 2],
+                           "resident_warps": out[4 * i + 3]}
+                    rows.append(row)
+                    print(f"  kernel {kernel} d={d} {sfx} {label}: {row['registers']} registers, "
+                          f"{row['local_bytes']} B local, {row['static_smem_bytes']} B shared a "
+                          f"block; {row['resident_warps']} warps an SM resident", flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_wide_report: no CUDA device", file=sys.stderr)
@@ -134,8 +177,10 @@ def main() -> int:
               + " ".join(f"{k} {v}" for k, v in sass.get(label, {}).items()), flush=True)
     print("2. shared memory and resident warps:", flush=True)
     occ = occupancy(cs)
-    print(json.dumps({"card": card, "ptxas": regs, "sass": sass, "occupancy": occ}),
-          flush=True)
+    print("3. kernels 4 and 7 at d <= 6, from the library:", flush=True)
+    gocc = general_occupancy(cs)
+    print(json.dumps({"card": card, "ptxas": regs, "sass": sass, "occupancy": occ,
+                      "general_occupancy": gocc}), flush=True)
     return 0
 
 

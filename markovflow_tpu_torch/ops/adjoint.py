@@ -263,7 +263,7 @@ def adjoint_pipeline(F, c, Q, H, nu, lam, maskf, m_f, p_f, gscale,
     shapes = ((d, d, n), (d, 1, n), (d, d, n), (o, d, n), (o, 1, n), (o, o, n))
     grads = [torch.empty((B,) + shape, **kw) if need else None
              for shape, need in zip(shapes, needs)]
-    scratch = cs._scratch("smoother", sfx, d, B, n, F)
+    scratch = cs._scratch("general_adjoint", sfx, d, B, n, F)
     with torch.cuda.device(F.device):
         err = getattr(cs.build_kernels(), f"mf_general_adjoint_{sfx}")(
             *ptrs, strides, m_b.data_ptr(), p_b.data_ptr(), gs.data_ptr(),

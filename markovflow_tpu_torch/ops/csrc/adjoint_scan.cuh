@@ -67,9 +67,8 @@ struct AdjointStep {
 };
 
 // Stage 1: the step's inputs, predicted moments and smoothing element.  U
-// is the prior-step source (UniformRow here, GeneralRow for the per-step
-// backward of general_adjoint.cuh); P holds its prior (p.k), the sites and
-// the filtered moments.
+// is the prior-step source (UniformRow); P holds its prior (p.k), the sites
+// and the filtered moments.
 template <typename T, int D, int O, class U, class P>
 MF_DEV void adjoint_stage1_body(const U& u, const P& p, int64_t b, int64_t k, int64_t n,
                                 AdjointStep<T, D, O>& st, SElem<T, D>& out) {

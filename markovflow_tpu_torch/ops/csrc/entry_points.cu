@@ -10,8 +10,9 @@
       mf::FilterArgs<T>, mf::UniformPrior<T>, T*, int64_t, cudaStream_t);                 \
   extern template int mf::launch_smoother<mf::UniformRtsRow<T, D>>(                      \
       mf::SmootherArgs<T>, mf::UniformRts<T>, T*, int64_t, cudaStream_t);                 \
-  extern template int mf::launch_filter<mf::GeneralRow<T, D, 1>>(                        \
-      mf::FilterArgs<T>, mf::GeneralPrior<T>, T*, int64_t, cudaStream_t);                 \
+  extern template int mf::launch_general_filter<T, D>(mf::FilterArgs<T>,                \
+                                                      mf::GeneralPrior<T>, T*, int64_t,   \
+                                                      cudaStream_t);                      \
   extern template int mf::launch_smoother<mf::PrebuiltRow<T, D>>(                        \
       mf::SmootherArgs<T>, mf::Prebuilt<T>, T*, int64_t, cudaStream_t);                   \
   extern template int mf::launch_adjoint<T, D>(mf::AdjointPrior<T>, T*, T*, int64_t,     \
@@ -19,7 +20,9 @@
   extern template int mf::launch_filter<mf::FilterPrebuiltRow<T, D>>(                    \
       mf::FilterArgs<T>, mf::FilterPrebuilt<T>, T*, int64_t, cudaStream_t);               \
   extern template int mf::launch_general_adjoint<T, D>(mf::GeneralAdjointPrior<T>, T*,   \
-                                                       int64_t, int64_t, cudaStream_t);
+                                                       int64_t, int64_t, cudaStream_t);   \
+  extern template int mf::general_filter_occupancy<T, D>(int64_t*);                      \
+  extern template int mf::general_adjoint_occupancy<T, D>(int64_t*);
 #define MF_EXTERN_ALL_D(T) \
   MF_EXTERN(T, 1) MF_EXTERN(T, 2) MF_EXTERN(T, 3) MF_EXTERN(T, 4) MF_EXTERN(T, 5) MF_EXTERN(T, 6)
 
@@ -49,8 +52,10 @@ MF_EXTERN_ALL_D(double)
 MF_EXTERN_WIDE(float)
 MF_EXTERN_WIDE(double)
 
-// Scratch sizes in elements of T (-1 for a state dimension with no kernel); the
-// uniform smoother's keeps the E legs of its elements at d = 7..12.
+// Scratch sizes in elements of T (-1 for a state dimension with no kernel):
+// mf_filter_scratch_* for the uniform filter and the filter scan,
+// mf_smoother_scratch_* for the smoother scan; the uniform smoother's keeps
+// the E legs of its elements at d = 7..12.
 #define MF_DEFINE_SCRATCH(T, SUFFIX)                                                    \
   extern "C" int64_t mf_filter_scratch_##SUFFIX(int64_t d, int64_t batch, int64_t n) {  \
     if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
@@ -61,6 +66,20 @@ MF_EXTERN_WIDE(double)
     if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
       return mf::wide_smoother_scratch<T>(int(d), batch, n);                            \
     MF_SWITCH_D(d, (mf::smoother_scratch<T, D_>(batch, n)), -1)                         \
+  }                                                                                     \
+  /* the general filter's and the general Koopman backward's: at d <= 6 they */         \
+  /* also keep each thread's in-block prefix or suffix */                               \
+  extern "C" int64_t mf_general_filter_scratch_##SUFFIX(int64_t d, int64_t batch,       \
+                                                        int64_t n) {                    \
+    if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
+      return mf::wide_filter_scratch<T>(int(d), batch, n);                              \
+    MF_SWITCH_D(d, (mf::general_filter_scratch<T, D_>(batch, n)), -1)                   \
+  }                                                                                     \
+  extern "C" int64_t mf_general_adjoint_scratch_##SUFFIX(int64_t d, int64_t batch,      \
+                                                         int64_t n) {                   \
+    if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
+      return mf::wide_smoother_scratch<T>(int(d), batch, n);                            \
+    MF_SWITCH_D(d, (mf::general_adjoint_scratch<T, D_>(batch, n)), -1)                  \
   }                                                                                     \
   extern "C" int64_t mf_uniform_smoother_scratch_##SUFFIX(int64_t d, int64_t batch,     \
                                                           int64_t n) {                  \
@@ -82,6 +101,14 @@ MF_EXTERN_WIDE(double)
       return mf::wide_smoother_occupancy<mf::WidePrebuiltRow<T>>(int(d), out);          \
     if (kernel == 6)                                                                    \
       return mf::wide_filter_occupancy<mf::WideFilterPrebuiltRow<T>>(int(d), out);      \
+    return int(cudaErrorInvalidValue);                                                  \
+  }                                                                                     \
+  /* pass_occupancy of passes 1, 3 and 2 (out[0..11]) of kernel 4 or 7 at d <= 6 */     \
+  extern "C" int mf_general_occupancy_##SUFFIX(int64_t kernel, int64_t d, int64_t* out) { \
+    if (kernel == 4) MF_SWITCH_D(d, (mf::general_filter_occupancy<T, D_>(out)),         \
+                                 int(cudaErrorInvalidValue))                            \
+    if (kernel == 7) MF_SWITCH_D(d, (mf::general_adjoint_occupancy<T, D_>(out)),        \
+                                 int(cudaErrorInvalidValue))                            \
     return int(cudaErrorInvalidValue);                                                  \
   }
 

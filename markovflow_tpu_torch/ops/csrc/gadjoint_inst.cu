@@ -5,3 +5,4 @@
 
 template int mf::launch_general_adjoint<MF_T, MF_D>(mf::GeneralAdjointPrior<MF_T>, MF_T*,
                                                     int64_t, int64_t, cudaStream_t);
+template int mf::general_adjoint_occupancy<MF_T, MF_D>(int64_t*);

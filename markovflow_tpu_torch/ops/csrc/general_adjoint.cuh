@@ -7,10 +7,10 @@
 // adjoint_pipeline_plain in markovflow_tpu_torch/ops/adjoint.py (the plain
 // stages around the plain reverse scan).
 //
-// For each step k, stage 1 (adjoint_scan.cuh, with GeneralRow as the
-// prior-step source) reads F_k, c_k, Q_k, H_k through their strides, the
-// sites, (m, P)_{k-1} from the saved filtered moments and F_{k+1} (0 at the
-// last step), and builds the smoothing element (L_k^T, H^T e, H^T W H).  The
+// For each step k, stage 1 (adjoint_stage1_body of adjoint_scan.cuh, at
+// o = 1) reads F_k, c_k, Q_k, H_k through their strides, the sites,
+// (m, P)_{k-1} from the saved filtered moments and F_{k+1} (0 at the last
+// step), and builds the smoothing element (L_k^T, H^T e, H^T W H).  The
 // reverse scan of those elements gives r_k and NDK_k; stage 2 turns them into
 // the step's gradients, scaled by the row's cotangent gscale:
 //   gF_k = r m_{k-1}^T + 2 N F_k P_{k-1},  gc_k = r,  gQ_k = N,
@@ -20,23 +20,24 @@
 // (GPR asks for gF, gc and gQ).  Unlike the uniform backward there are no
 // sums across steps, so no partials and no fourth pass.
 //
-// Passes: the smoother passes of scan_core.cuh with this element source
-// (block totals of the reverse reduce, then scan_totals), then
-// gadjoint_outputs, which rebuilds the elements, folds in the suffix of all
-// later steps and writes every step's gradients.  d = 7..12 run the same
-// three passes a warp per element (wide_gadjoint_pass and the pass 2 of
-// wide_scan.cuh), with stage 1 and stage 2 composed warp-cooperatively in
-// the warp's workspace (see the notes above wide_gadjoint_pass).
+// Passes: block totals of the reverse reduce, scan_totals, then an output
+// pass that folds each step into the suffix of all later steps and writes
+// its gradients.  d = 1..6 (below) keep the elements in registers, a run of
+// steps a thread, and pass 3 starts from each thread's in-block suffix,
+// which pass 1 stores; d = 7..12 run the same three passes a warp per
+// element (wide_gadjoint_pass and the pass 2 of wide_scan.cuh), with stage 1
+// and stage 2 composed warp-cooperatively in the warp's workspace (see the
+// notes above wide_gadjoint_pass).
 //
 // What bounds it on an H100: per step it reads F, c, Q (2 d^2 + d values),
 // the sites (one expanded value each for GPR) and (m, P)_{k-1} (d^2 + d)
 // twice, and writes gF, gc, gQ (2 d^2 + d): ~108 B a step at d = 2, float32,
-// a 32 us floor at N = 1e6 (52 us at d = 9, N = 1e5).  It does ~3x the
-// smoother scan's arithmetic per step (stage 1 twice, stage 2, two
-// compositions), so it is bound by arithmetic latency as the filter is: at
-// d = 7..12 by the chain of a warp's steps, each a few shared-memory
-// products of d x d matrices, which the wide route shortens (rank-one
-// stage 1, no E product in pass 3, a pass 2 over many SMs).
+// a 32 us floor at N = 1e6 (52 us at d = 9, N = 1e5).  Both routes cut the
+// arithmetic of a step to a rank-one stage 1 (two d^3 products), three d^3
+// products of the fold in pass 1 and two in pass 3 (no E leg), and one for
+// stage 2's gF: at d = 2 some 150 dependent flops a step, so latency, not
+// bytes, bounds it; at d = 7..12 the chain of a warp's steps, each a few
+// shared-memory products of d x d matrices, and a pass 2 over many SMs.
 #pragma once
 
 #include "adjoint_scan.cuh"
@@ -61,150 +62,327 @@ struct GeneralAdjointPrior {
   T *gf, *gc, *gq, *gh, *gnu, *glam;
 };
 
-// Stage 2: the step's gradients from r = suf.g and NDK = suf.ell, written
-// per step (adjoint_grads_from_scan; adjoint_stage2_body sums them instead).
-template <typename T, int D, int O>
-MF_DEV void gadjoint_stage2_body(const AdjointStep<T, D, O>& st, const SElem<T, D>& suf,
-                                 const GeneralAdjointPrior<T>& p, int64_t b, int64_t k,
-                                 int64_t n, T gs) {
+// ---------------------------------------------------------------------------
+// d = 1..6 (o = 1), with the elements in registers (the tiling and the
+// staging of steps through shared memory of general_scan.cuh, with the
+// moments P_{k-1}, m_{k-1} staged beside each step's inputs).
+//
+// Each thread walks its R steps from the last to the first, carrying F_{k+1}
+// from the step it has just done (gadjoint_walk).  Stage 1 needs no inverse
+// at o = 1 (Zt, W and e are scalars), and L_k is a rank-one update of
+// F_{k+1}: L_k = F_{k+1} - (F_{k+1} Pp H^T)(W H), so a step's stage 1 is two
+// d^3 products (F P_{k-1} F^T); F P_{k-1} is also what stage 2's gF needs.
+//   1. each thread folds its steps into its suffix with the full composition
+//      (gadjoint_fold: pass 2 needs the E leg); the block scan gives every
+//      thread its exclusive suffix within the block, which goes to the
+//      scratch (store_thread_elem), and the block total;
+//   2. scan_totals (scan_core.cuh);
+//   3. each thread composes its stored suffix with its block's carry, g and L
+//      legs only (stage 2 reads r = g and NDK = L, and no E product is
+//      formed), folds its steps into them and writes each step's gradients:
+//      gF, gc and gQ over the step's staged F, c and Q, which the warp then
+//      stores; gH, gnu and glam (not on GPR's path) where they lie.
+// ---------------------------------------------------------------------------
+
+// Stage 1 of step k: fp = F P_{k-1}, a = F m_{k-1} + c, Pp = sym(fp F^T + Q),
+// Zt = 1 / (1 + lam H Pp H^T), W = Zt lam, e = Zt (nu - lam H a) and
+// L_k = F_{k+1} - (F_{k+1} Pp H^T)(W H) (adjoint_stage1_body at o = 1); the
+// step's smoothing element is (E = L_k^T, g = H^T e, ell = W H^T H).
+template <typename T, int D>
+struct GadjStage1 {
+  T mp[D], fp[D * D], a[D], pp[D * D], lk[D * D];
+  T ev, w;
+
+  MF_DEV void build(const GeneralIn<T, D>& in, const T* pprev, const T* fn) {
+    mm<T, D, D, D>(in.f, pprev, fp);
+    mm_nt<T, D, D, D>(fp, in.f, pp);
+    add_to<T, D * D>(pp, in.q);
+    sym<T, D>(pp);
+    mm<T, D, D, 1>(in.f, mp, a);
+    add_to<T, D>(a, in.c);
+    T ph[D], fph[D];
+    mm<T, D, D, 1>(pp, in.h, ph);
+    const T zt = T(1) / (in.s.lam * dot<T, D>(in.h, ph) + T(1));
+    w = zt * in.s.lam;
+    ev = zt * (in.s.nu - in.s.lam * dot<T, D>(in.h, a));
+    mm<T, D, D, 1>(fn, ph, fph);
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) lk[i * D + j] = fn[i * D + j] - fph[i] * (w * in.h[j]);
+    }
+  }
+};
+
+// Walks thread t's steps t R .. t R + R - 1 (those below n) of batch row b
+// from the last to the first: reads each step's inputs and the filtered
+// moments of the step before (0 before step 0), from the warp's stage when
+// STAGED, builds stage 1 with F_{k+1} carried from the later step (F_{k+1}
+// of the last step read once, 0 past step n - 1) and calls
+// body(in, st, k, r).  Every lane of the warp must call it.
+template <typename T, int D, class Body>
+MF_DEV void gadjoint_walk(const GeneralAdjointPrior<T>& p, int64_t b, int64_t t, int64_t n,
+                          const WarpStage<T, GeneralTiling<T, D, true>::R>& st,
+                          const GeneralSlots& sl, const Body& body) {
+  using G = GeneralTiling<T, D, true>;
+  constexpr int R = G::R;
+  const int lane = lane_id();
+  const int64_t first = t * R, last = imin(first + R, n) - 1;
+  const GeneralPrior<T>& q = p.k;
+  T fn[D * D], pprev[D * D];
+  // F_{last + 1}: from the stage when it is one of the warp's steps (the
+  // next lane's first), read before any lane writes over it
+  const int64_t next = last + 1 - st.w0;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      fn[i * D + j] =
+          last < first || last + 1 >= n ? T(0)
+          : G::STAGED && next < 32 * R
+              ? *st.step(i * D + j, int(next))
+              : q.f[b * q.f_sb + i * q.f_si + j * q.f_sj + (last + 1) * q.f_st];
+  }
+  if constexpr (G::STAGED) __syncwarp();
+  GeneralIn<T, D> in;
+  GadjStage1<T, D> s1;
+  for (int r = int(last - first); r >= 0; --r) {
+    const int64_t k = first + r;
+    in.template read<G::STAGED>(st, sl, lane, r, q, p, b, k, k == last);
+    if constexpr (G::STAGED) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) s1.mp[i] = *st.at(sl.mprev + i, lane, r);
+#pragma unroll
+      for (int i = 0; i < D * D; ++i) pprev[i] = *st.at(sl.pprev + i, lane, r);
+    } else {
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        s1.mp[i] = k > 0 ? p.m_f[(b * D + i) * n + k - 1] : T(0);
+#pragma unroll
+        for (int j = 0; j < D; ++j)
+          pprev[i * D + j] = k > 0 ? p.p_f[((b * D + i) * D + j) * n + k - 1] : T(0);
+      }
+    }
+    s1.build(in, pprev, fn);
+    body(in, s1, k, r);
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) fn[i] = in.f[i];
+  }
+}
+
+// The step's element (L_k^T, H^T e, W H^T H) composed with the suffix x
+// (SmootherOp): g <- L_k^T g + H^T e, L <- sym(L_k^T L L_k + W H^T H) and,
+// when FULL, E <- L_k^T E.
+template <typename T, int D, bool FULL>
+MF_DEV void gadjoint_fold(SElem<T, D>& x, const GadjStage1<T, D>& st, const T* h) {
   using E = SElem<T, D>;
-  const FilterStep<T, D, O>& s = st.s;
-  const T* h = s.h;
-  const T *r = suf.v + E::OG, *ndk = suf.v + E::OL;
+  T *ee = x.v + E::OE, *g = x.v + E::OG, *l = x.v + E::OL;
+  T t[D * D], u[D * D], v[D];
+  mm_tn<T, D, D, 1>(st.lk, g, v);
+  mm<T, D, D, D>(l, st.lk, t);
+  mm_tn<T, D, D, D>(st.lk, t, u);
+  if constexpr (FULL) {
+    mm_tn<T, D, D, D>(st.lk, ee, t);
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) ee[i] = t[i];
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    g[i] = v[i] + h[i] * st.ev;
+#pragma unroll
+    for (int j = 0; j < D; ++j) l[i * D + j] = u[i * D + j] + st.w * (h[i] * h[j]);
+  }
+  sym<T, D>(l);
+}
+
+// Stage 2: the step's gradients from r = g and NDK = L of the suffix from
+// step k on, scaled by the row's cotangent gs (adjoint_grads_from_scan):
+//   gF = r m_{k-1}^T + 2 N F P_{k-1},  gc = r,  gQ = N = (r r^T - NDK) / 2,
+// to gf[i * stride], gc[i * stride], gq[i * stride] (null: not asked for);
+// and, through the smoothed moments m_s = a + Pp r, A = sym(Pp - Pp NDK Pp)
+// + m_s m_s^T, with y = nu / lam: gH = nu m_s^T - lam H A, gnu = H m_s - y,
+// glam = (y^2 - H A H^T + 1 / lam) / 2 (0 at masked steps), to step k of
+// p's arrays.
+template <typename T, int D>
+MF_DEV void gadjoint_stage2(const GeneralAdjointPrior<T>& p, const GeneralIn<T, D>& in,
+                            const GadjStage1<T, D>& st, const T* r, const T* ndk, T gs,
+                            T* gf, T* gc, T* gq, int64_t stride, int64_t b, int64_t k,
+                            int64_t n) {
   T nm[D * D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
 #pragma unroll
     for (int j = 0; j < D; ++j) nm[i * D + j] = T(0.5) * (r[i] * r[j] - ndk[i * D + j]);
   }
-  if (p.gf != nullptr) {
-    T fp[D * D], nfp[D * D];
-    mm<T, D, D, D>(s.f, st.pprev, fp);
-    mm<T, D, D, D>(nm, fp, nfp);
+  if (gf != nullptr) {
+    T nfp[D * D];
+    mm<T, D, D, D>(nm, st.fp, nfp);
 #pragma unroll
     for (int i = 0; i < D; ++i) {
 #pragma unroll
       for (int j = 0; j < D; ++j)
-        p.gf[((b * D + i) * D + j) * n + k] = gs * (r[i] * st.mp[j] + T(2) * nfp[i * D + j]);
+        gf[(i * D + j) * stride] = gs * (r[i] * st.mp[j] + T(2) * nfp[i * D + j]);
     }
   }
-  if (p.gc != nullptr) {
+  if (gc != nullptr) {
 #pragma unroll
-    for (int i = 0; i < D; ++i) p.gc[(b * D + i) * n + k] = gs * r[i];
+    for (int i = 0; i < D; ++i) gc[i * stride] = gs * r[i];
   }
-  if (p.gq != nullptr) {
+  if (gq != nullptr) {
 #pragma unroll
-    for (int i = 0; i < D * D; ++i) p.gq[(b * D * D + i) * n + k] = gs * nm[i];
+    for (int i = 0; i < D * D; ++i) gq[i * stride] = gs * nm[i];
   }
   if (p.gh == nullptr && p.gnu == nullptr && p.glam == nullptr) return;
-  if (!s.keep) {  // masked steps: zero observation gradients
+  T gh[D], gnu = T(0), glam = T(0);
 #pragma unroll
-    for (int i = 0; i < O; ++i) {
-      if (p.gnu != nullptr) p.gnu[(b * O + i) * n + k] = T(0);
+  for (int j = 0; j < D; ++j) gh[j] = T(0);
+  if (in.s.keep) {
+    T ms[D], ps[D * D], t1[D * D], hak[D];
+    mm<T, D, D, 1>(st.pp, r, ms);
+    add_to<T, D>(ms, st.a);
+    mm<T, D, D, D>(ndk, st.pp, t1);
+    mm<T, D, D, D>(st.pp, t1, ps);
 #pragma unroll
-      for (int j = 0; j < O; ++j)
-        if (p.glam != nullptr) p.glam[((b * O + i) * O + j) * n + k] = T(0);
+    for (int i = 0; i < D * D; ++i) ps[i] = st.pp[i] - ps[i];
+    sym<T, D>(ps);
 #pragma unroll
-      for (int j = 0; j < D; ++j)
-        if (p.gh != nullptr) p.gh[((b * O + i) * D + j) * n + k] = T(0);
+    for (int i = 0; i < D; ++i) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) ps[i * D + j] += ms[i] * ms[j];
     }
-    return;
+    mm_tn<T, D, D, 1>(ps, in.h, hak);  // (H A)^T
+    const T li = T(1) / in.s.lam, y = li * in.s.nu;
+    gnu = gs * (dot<T, D>(in.h, ms) - y);
+    glam = gs * (T(0.5) * (y * y - dot<T, D>(hak, in.h) + li));
+#pragma unroll
+    for (int j = 0; j < D; ++j) gh[j] = gs * (in.s.nu * ms[j] - in.s.lam * hak[j]);
   }
-  // smoothed moments m_s = a + Pp r, A = sym(Pp - Pp NDK Pp) + m_s m_s^T
-  T ms[D], ps[D * D], t1[D * D];
-  mm<T, D, D, 1>(st.pp, r, ms);
-  add_to<T, D>(ms, st.a);
-  mm<T, D, D, D>(ndk, st.pp, t1);
-  mm<T, D, D, D>(st.pp, t1, ps);
+  if (p.gh != nullptr) {
 #pragma unroll
-  for (int i = 0; i < D * D; ++i) ps[i] = st.pp[i] - ps[i];
-  sym<T, D>(ps);
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-#pragma unroll
-    for (int j = 0; j < D; ++j) ps[i * D + j] += ms[i] * ms[j];
+    for (int j = 0; j < D; ++j) p.gh[(b * D + j) * n + k] = gh[j];
   }
-  // y = Lam^-1 nu
-  T li[O * O], y[O];
-  inv<T, O>(s.lam, li);
-  mm<T, O, O, 1>(li, s.nu, y);
-  T hak[O * D], lhak[O * D], hakh[O * O], hm[O];
-  mm<T, O, D, D>(h, ps, hak);
-  mm<T, O, O, D>(s.lam, hak, lhak);
-  mm_nt<T, O, D, O>(hak, h, hakh);
-  mm<T, O, D, 1>(h, ms, hm);
-  // dL/dH = nu m_s^T - Lam H A; dL/dnu = H m_s - y;
-  // dL/dLam = (y y^T - H A H^T + Lam^-1) / 2
-#pragma unroll
-  for (int i = 0; i < O; ++i) {
-    if (p.gh != nullptr) {
-#pragma unroll
-      for (int j = 0; j < D; ++j)
-        p.gh[((b * O + i) * D + j) * n + k] = gs * (s.nu[i] * ms[j] - lhak[i * D + j]);
-    }
-    if (p.gnu != nullptr) p.gnu[(b * O + i) * n + k] = gs * (hm[i] - y[i]);
-    if (p.glam != nullptr) {
-#pragma unroll
-      for (int j = 0; j < O; ++j)
-        p.glam[((b * O + i) * O + j) * n + k] =
-            gs * (T(0.5) * (y[i] * y[j] - hakh[i * O + j] + li[i * O + j]));
-    }
-  }
+  if (p.gnu != nullptr) p.gnu[b * n + k] = gnu;
+  if (p.glam != nullptr) p.glam[b * n + k] = glam;
 }
 
-template <typename T, int D, int O>
-__device__ __noinline__ void gadjoint_stage2_call(const AdjointStep<T, D, O>& st,
-                                                  const SElem<T, D>& suf,
-                                                  const GeneralAdjointPrior<T>& p, int64_t b,
-                                                  int64_t k, int64_t n, T gs) {
-  gadjoint_stage2_body<T, D, O>(st, suf, p, b, k, n, gs);
-}
-
-template <typename T, int D, int O>
-using GeneralAdjointRow = AdjointRow<GeneralRow<T, D, O>, GeneralAdjointPrior<T>>;
-
-template <typename T, int D, int O>
-__global__ void __launch_bounds__(Tiling<D>::THREADS)
-gadjoint_outputs(SmootherArgs<T> a, GeneralAdjointPrior<T> p) {
-  using Row = GeneralAdjointRow<T, D, O>;
+template <typename T, int D>
+__global__ void __launch_bounds__(GeneralTiling<T, D, true>::THREADS)
+gadjoint_totals(SmootherArgs<T> a, GeneralAdjointPrior<T> p) {
+  using G = GeneralTiling<T, D, true>;
   using Op = SmootherOp<T, D>;
   using E = SElem<T, D>;
-  constexpr int THREADS = Tiling<D>::THREADS, R = Tiling<D>::R;
+  constexpr int THREADS = G::THREADS;
   __shared__ E smem[THREADS / 32 + 1];
-  const int64_t b = blockIdx.y, blk = blockIdx.x, n = a.n;
-  const int64_t first_step = (blk * THREADS + threadIdx.x) * R;
-  Row row;
-  row.load(p, b);
-  E excl, total, run, e, t;
-  smoother_thread_suffix<Row>(p, row, b, first_step, n, excl, total, smem);
-  // the later threads of this block, then all later blocks
-  Op::combine(excl, reinterpret_cast<const E*>(a.totals)[b * a.nblk + blk], run);
-  const T gs = p.gscale[b];
-  AdjointStep<T, D, O> st;
-  for (int r = R - 1; r >= 0; --r) {
-    const int64_t k = first_step + r;
-    if (k >= n) continue;
-    row.build(p, b, k, n, st, e);
-    Op::combine(e, run, t);
-    run = t;  // (E, r_k, NDK_k): the suffix from step k on
-    if constexpr (D >= 4) gadjoint_stage2_call<T, D, O>(st, run, p, b, k, n, gs);
-    else gadjoint_stage2_body<T, D, O>(st, run, p, b, k, n, gs);
+  const int64_t b = blockIdx.y, t = blockIdx.x * int64_t(THREADS) + threadIdx.x;
+  WarpStage<T, G::R> st;
+  GeneralSlots sl{};
+  stage_steps<G, D>(p.k, p, b, t, a.n, p.m_f, p.p_f, st, sl);
+  E run, excl, total;
+  Op::identity(run);
+  gadjoint_walk<T, D>(p, b, t, a.n, st, sl,
+                      [&](const GeneralIn<T, D>& in, const GadjStage1<T, D>& s1, int64_t,
+                          int) { gadjoint_fold<T, D, true>(run, s1, in.h); });
+  block_scan<Op, THREADS, true>(run, excl, total, smem);
+  store_thread_elem(a.prefix, excl, b, t, a.nblk * THREADS);
+  if (threadIdx.x == 0) reinterpret_cast<E*>(a.totals)[b * a.nblk + blockIdx.x] = total;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(GeneralTiling<T, D, true>::THREADS)
+gadjoint_outputs(SmootherArgs<T> a, GeneralAdjointPrior<T> p) {
+  using G = GeneralTiling<T, D, true>;
+  using E = SElem<T, D>;
+  constexpr int THREADS = G::THREADS, R = G::R;
+  const int64_t b = blockIdx.y, n = a.n, t = blockIdx.x * int64_t(THREADS) + threadIdx.x;
+  const int lane = lane_id();
+  WarpStage<T, R> st;
+  GeneralSlots sl{};
+  stage_steps<G, D>(p.k, p, b, t, n, p.m_f, p.p_f, st, sl);
+  // the g and L legs of the later threads of this block, then all later
+  // blocks: g = xE cg + xg, L = sym(xE cL xE^T + xL)
+  E run;
+  {
+    E x;
+    load_thread_elem(a.prefix, x, b, t, a.nblk * THREADS);
+    const E& c = reinterpret_cast<const E*>(a.totals)[b * a.nblk + blockIdx.x];
+    T u[D * D];
+    mm<T, D, D, 1>(x.v + E::OE, c.v + E::OG, run.v + E::OG);
+    add_to<T, D>(run.v + E::OG, x.v + E::OG);
+    mm_nt<T, D, D, D>(c.v + E::OL, x.v + E::OE, u);
+    mm<T, D, D, D>(x.v + E::OE, u, run.v + E::OL);
+    add_to<T, D * D>(run.v + E::OL, x.v + E::OL);
+    sym<T, D>(run.v + E::OL);
   }
+  const T gs = p.gscale[b];
+  gadjoint_walk<T, D>(
+      p, b, t, n, st, sl,
+      [&](const GeneralIn<T, D>& in, const GadjStage1<T, D>& s1, int64_t k, int r) {
+        gadjoint_fold<T, D, false>(run, s1, in.h);
+        // gF, gc and gQ over the step's staged F, c and Q, or at step k
+        const auto out = [&](T* arr, int v, int rows) -> T* {
+          if (arr == nullptr) return nullptr;
+          return G::STAGED ? st.at(v, lane, r) : arr + b * rows * n + k;
+        };
+        gadjoint_stage2<T, D>(p, in, s1, run.v + E::OG, run.v + E::OL, gs,
+                              out(p.gf, 0, D * D), out(p.gc, 2 * D * D, D),
+                              out(p.gq, D * D, D * D), G::STAGED ? 32 * R : n, b, k, n);
+      });
+  if constexpr (G::STAGED) {
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) {
+      if (p.gf != nullptr) st.store(i, p.gf + (b * D * D + i) * n);
+      if (p.gq != nullptr) st.store(D * D + i, p.gq + (b * D * D + i) * n);
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      if (p.gc != nullptr) st.store(2 * D * D + i, p.gc + (b * D + i) * n);
+    }
+  }
+}
+
+// Scratch of the general Koopman backward in elements of T: the block totals
+// and every thread's in-block suffix.
+template <typename T, int D>
+int64_t general_adjoint_scratch(int64_t batch, int64_t n) {
+  using G = GeneralTiling<T, D, true>;
+  return batch * num_blocks(n, G::TILE) * SElem<T, D>::SIZE * (1 + G::THREADS);
+}
+
+// pass_occupancy of passes 1, 3 and 2 (out[0..11]), staged for the largest
+// number of values a step.
+template <typename T, int D>
+int general_adjoint_occupancy(int64_t* out) {
+  using G = GeneralTiling<T, D, true>;
+  const size_t bytes = general_stage_bytes<G, T>(G::NV);
+  int err = wide_smem_bytes(gadjoint_totals<T, D>, bytes);
+  if (err == 0) err = wide_smem_bytes(gadjoint_outputs<T, D>, bytes);
+  if (err == 0) err = pass_occupancy(gadjoint_totals<T, D>, G::THREADS, bytes, out);
+  if (err == 0) err = pass_occupancy(gadjoint_outputs<T, D>, G::THREADS, bytes, out + 4);
+  if (err == 0)
+    err = pass_occupancy(scan_totals<SmootherOp<T, D>, G::SCAN_THREADS, true>, G::SCAN_THREADS,
+                         0, out + 8);
+  return err;
 }
 
 template <typename T, int D>
 int launch_general_adjoint(GeneralAdjointPrior<T> p, T* scratch, int64_t batch, int64_t n,
                            cudaStream_t stream) {
-  using Row = GeneralAdjointRow<T, D, 1>;
-  constexpr int THREADS = Tiling<D>::THREADS;
-  SmootherArgs<T> a{nullptr, nullptr, scratch, n, num_blocks(n, Tiling<D>::TILE)};
+  using G = GeneralTiling<T, D, true>;
+  SmootherArgs<T> a{nullptr, nullptr, scratch, n, num_blocks(n, G::TILE)};
+  a.prefix = scratch + batch * a.nblk * SElem<T, D>::SIZE;
+  const size_t bytes = general_stage_bytes<G, T>(general_slots<D>(p.k, p, true).nv);
+  int err = wide_smem_bytes(gadjoint_totals<T, D>, bytes);
+  if (err == 0) err = wide_smem_bytes(gadjoint_outputs<T, D>, bytes);
+  if (err != 0) return err;
   const dim3 grid(unsigned(a.nblk), unsigned(batch));
-  smoother_totals<Row><<<grid, THREADS, 0, stream>>>(a, p);
+  gadjoint_totals<T, D><<<grid, G::THREADS, bytes, stream>>>(a, p);
   MF_CHECK_LAUNCH();
-  scan_totals<SmootherOp<T, D>, THREADS, true><<<unsigned(batch), THREADS, 0, stream>>>(
+  scan_totals<SmootherOp<T, D>, G::SCAN_THREADS, true>
+      <<<unsigned(batch), G::SCAN_THREADS, 0, stream>>>(
       reinterpret_cast<SElem<T, D>*>(a.totals), a.nblk);
   MF_CHECK_LAUNCH();
-  gadjoint_outputs<T, D, 1><<<grid, THREADS, 0, stream>>>(a, p);
+  gadjoint_outputs<T, D><<<grid, G::THREADS, bytes, stream>>>(a, p);
   MF_CHECK_LAUNCH();
   return 0;
 }
@@ -474,8 +652,8 @@ int launch_wide_general_adjoint(GeneralAdjointPrior<T> p, T* scratch, int64_t ba
 
 // C entry point for one dtype (T, suffix), as in general_scan.cuh: the
 // strides of F, c, Q, H and the sites in the general filter's order; the
-// scratch is the smoother scan's (mf_smoother_scratch_*); any gradient
-// pointer may be null.
+// scratch is mf_general_adjoint_scratch_*'s; any gradient pointer may be
+// null.
 #define MF_DEFINE_GENERAL_ADJOINT_ENTRY_POINTS(T, SUFFIX)                              \
   extern "C" int mf_general_adjoint_##SUFFIX(                                          \
       const T* f, const T* c, const T* q, const T* h, const T* nu, const T* lam,       \

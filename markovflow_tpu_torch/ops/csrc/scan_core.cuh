@@ -16,7 +16,9 @@
 //      filter's log-likelihood, the adjoint's gradient sums) goes out as one
 //      partial per block;
 //   4. one block per (value, batch row) sums the partials in a fixed order.
-// No float atomics: a run repeats bit for bit.
+// No float atomics: a run repeats bit for bit.  The general filter and the
+// general Koopman backward have passes of their own that keep pass 1's
+// in-block prefix instead of rebuilding it (general_scan.cuh).
 //
 // A source ("Row") supplies the elements of one batch row: the filter's
 // rows build (F, c, Q, H) and the sites of each step (FilterStep), or, with
@@ -267,6 +269,23 @@ scan_totals(typename Op::Elem* totals, int64_t nblk) {
   }
 }
 
+// The exclusive prefix (or suffix) of every thread within its block, kept
+// by pass 1 for pass 3 so that pass 3 need not rebuild it: value v of the
+// element of thread t (of nthreads = nblk * THREADS a batch row) of batch row
+// b at pre[(b * SIZE + v) * nthreads + t], so that the lanes of a warp touch
+// neighbouring addresses.
+template <class E, typename T>
+MF_DEV void store_thread_elem(T* pre, const E& x, int64_t b, int64_t t, int64_t nthreads) {
+#pragma unroll
+  for (int v = 0; v < E::SIZE; ++v) pre[(b * E::SIZE + v) * nthreads + t] = x.v[v];
+}
+
+template <class E, typename T>
+MF_DEV void load_thread_elem(const T* pre, E& x, int64_t b, int64_t t, int64_t nthreads) {
+#pragma unroll
+  for (int v = 0; v < E::SIZE; ++v) x.v[v] = pre[(b * E::SIZE + v) * nthreads + t];
+}
+
 // ---------------------------------------------------------------------------
 // Fixed-order sums.
 // ---------------------------------------------------------------------------
@@ -334,8 +353,10 @@ struct FilterArgs {
   int64_t mask_sb, mask_st;
   // outputs, contiguous: m_f [B, d, 1, N], P_f [B, d, d, N], loglik [B]
   T *m_f, *p_f, *loglik;
-  // scratch: block totals [B, nblk] elements, then partial sums [B, nblk]
-  T *totals, *partials;
+  // scratch: block totals [B, nblk] elements, then partial sums [B, nblk];
+  // the general filter's d <= 6 passes also keep each thread's in-block
+  // prefix (store_thread_elem)
+  T *totals, *partials, *prefix;
   int64_t n, nblk;
 };
 
@@ -555,6 +576,24 @@ filter_outputs(FilterArgs<typename Row::T> a, typename Row::Prior p) {
   }
 }
 
+// What the runtime reports of a pass launched with `threads` a block and
+// `bytes` of dynamic shared memory: registers a thread, local memory a
+// thread, and shared memory a block (static and dynamic, bytes), and the
+// warps an SM keeps resident by the occupancy calculator (out[0..3]).
+template <class K>
+int pass_occupancy(K kernel, int threads, size_t bytes, int64_t* out) {
+  cudaFuncAttributes attr{};
+  int blocks = 0;
+  int err = int(cudaFuncGetAttributes(&attr, kernel));
+  if (err == 0)
+    err = int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, bytes));
+  out[0] = attr.numRegs;
+  out[1] = int64_t(attr.localSizeBytes);
+  out[2] = int64_t(attr.sharedSizeBytes + bytes);
+  out[3] = int64_t(blocks) * threads / 32;
+  return err;
+}
+
 #define MF_CHECK_LAUNCH()                      \
   do {                                         \
     const cudaError_t err = cudaGetLastError(); \
@@ -601,6 +640,7 @@ struct SmootherArgs {
   T *m_s, *p_s;
   T* totals;  // scratch: block totals [B, nblk] elements
   int64_t n, nblk;
+  T* prefix;  // the general Koopman backward's d <= 6 in-block suffixes
 };
 
 // The composition of this thread's run of R steps, and the exclusive

@@ -176,7 +176,8 @@ def _compile(nvcc: str, out_dir: Path) -> Path:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     for sfx in ("f32", "f64"):
-        for kind in ("filter", "smoother", "uniform_smoother", "adjoint"):
+        for kind in ("filter", "smoother", "uniform_smoother", "adjoint",
+                     "general_filter", "general_adjoint"):
             fn = getattr(lib, f"mf_{kind}_scratch_{sfx}")
             fn.argtypes = [i64, i64, i64]
             fn.restype = i64
@@ -201,9 +202,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, f"mf_general_adjoint_{sfx}")
         fn.argtypes = [p] * 8 + [p] * 3 + [p] * 7 + [i64] * 3 + [p]
         fn.restype = ctypes.c_int
-        fn = getattr(lib, f"mf_wide_occupancy_{sfx}")
-        fn.argtypes = [i64, i64, p]
-        fn.restype = ctypes.c_int
+        for kind in ("wide", "general"):
+            fn = getattr(lib, f"mf_{kind}_occupancy_{sfx}")
+            fn.argtypes = [i64, i64, p]
+            fn.restype = ctypes.c_int
 
 
 def build_kernels() -> ctypes.CDLL:
@@ -450,7 +452,7 @@ def filter_pipeline(F, c, Q, H, nu, lam, maskf=None):
     m_f = torch.empty((B, d, 1, n), **kw)
     p_f = torch.empty((B, d, d, n), **kw)
     loglik = torch.empty((B,), **kw)
-    scratch = _scratch("filter", sfx, d, B, n, F)
+    scratch = _scratch("general_filter", sfx, d, B, n, F)
     with torch.cuda.device(F.device):
         err = getattr(build_kernels(), f"mf_general_filter_{sfx}")(
             *ptrs, strides, m_f.data_ptr(), p_f.data_ptr(), loglik.data_ptr(),

@@ -197,6 +197,30 @@ def test_wide_kernels_at_the_chunk_edges_of_the_staged_passes(cuda_device, d, n,
                        tol, tol_ll)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [1, 2, 3, 6])
+@pytest.mark.parametrize("n", list(chip_smoke.EDGE_NS))
+def test_general_pair_at_the_run_warp_and_block_edges(cuda_device, n, d, dtype):
+    """The d <= 6 general filter and Koopman backward where a thread's run
+    of steps (8 at d <= 2), a warp's (256) or a block's (2,048 in float32)
+    ends, and across those of d = 3 and 6, with batch (3,), a mask and the
+    emission row and lam expanded over the steps (stride 0, as GPR passes
+    them), against their plain versions: float64 within F64_TOL, float32 at
+    the tolerances of test_kernels_match_plain_float32."""
+    tol, tol_ll = (F64_TOL, F64_TOL) if dtype == torch.float64 else (1e-3, 1e-4)
+    gargs = _general(d, n, (3,), cuda_device, dtype=dtype)
+    gargs[5] = gargs[5][..., :1].expand(gargs[5].shape)  # lam, stride 0
+    m_k, p_k, ll_k = ops.filter_pipeline(*gargs)
+    m_p, p_p, ll_p = ops.filter_pipeline_plain(*gargs)
+    gs = torch.linspace(0.5, -1.5, 3, dtype=dtype, device=cuda_device)
+    got = adj.adjoint_pipeline(*gargs, m_p, p_p, gs)
+    want = adj.adjoint_pipeline_plain(*gargs, m_p, p_p, gs)
+    torch.cuda.synchronize()
+    for g, w in [(m_k, m_p), (p_k, p_p), *zip(got, want)]:
+        assert _rel(g, w) <= tol, _rel(g, w)
+    assert _rel(ll_k, ll_p) <= tol_ll
+
+
 @pytest.mark.parametrize("d, n, batch", [(7, 4099, (3,)), (9, 4099, (3,)),
                                          (12, 4099, (3,)), (9, 47, ())])
 def test_filter_scan_of_random_elements(cuda_device, d, n, batch):

@@ -26,7 +26,12 @@ SHIM = Path(__file__).resolve().parents[1] / "tools" / "cuda_shim"
 TOL = 1e-12
 
 
-CASES = ["7:97:(2,)", "9:300:()", "9:64:(2,):sparse", "12:50:(2,)"]
+# d = 7..12 (csrc/wide_scan.cuh, the wide routes), then d <= 6: the general
+# filter's and Koopman backward's register passes across two or more
+# blocks of steps, staged through shared memory at d = 2 and not at d = 5,
+# and sparse sites
+CASES = ["7:97:(2,)", "9:300:()", "9:64:(2,):sparse", "12:50:(2,)",
+         "2:2100:(2,)", "2:700:(2,):sparse", "5:600:()"]
 # the outputs of a case: the uniform filter (3) and smoother (2), the
 # general filter (3), the smoother scan (2), the filter scan of the
 # problem's elements and of random ones (2 + 2), the general Koopman
@@ -59,9 +64,10 @@ def shim_results(shim_lib):
 
 @pytest.mark.parametrize("case", CASES)
 def test_kernels_match_plain_versions_under_the_shim(shim_results, case):
-    """d = 7, 9 and 12, N below and above a few warps' runs of steps, a
-    batch, a mask, and sparse sites (lam = nu = 0 where masked): all seven
-    kernels, and the filter scan also on random prebuilt elements."""
+    """d = 7, 9 and 12, N below and above a few warps' runs of steps; d = 2
+    and 5 across a block's tile of steps; a batch, a mask, and sparse sites
+    (lam = nu = 0 where masked): all seven kernels, and the filter scan also
+    on random prebuilt elements."""
     line = shim_results[case]
     diffs = [float(v) for v in re.findall(r"=(\S+)", line)]
     assert len(diffs) == N_OUTPUTS, line

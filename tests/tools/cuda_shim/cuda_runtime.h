@@ -120,6 +120,16 @@ template <class K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) {
   return bytes > 232448 ? cudaErrorInvalidValue : cudaSuccess;
 }
+struct cudaFuncAttributes {
+  int numRegs;
+  size_t localSizeBytes, sharedSizeBytes;
+};
+// The stand-in knows nothing of a kernel's resources.
+template <class K>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* attr, K) {
+  *attr = cudaFuncAttributes{};
+  return cudaSuccess;
+}
 // The stand-in runs one block at a time.
 template <class K>
 cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K, int, size_t) {
