@@ -29,7 +29,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    Matern52 at d = 6), N in EDGE_NS (the edges of a thread's run of steps,
    of a warp's and of a block's at d <= 2: 1, 7, 8, 9, 255, 256, 257, 2047,
    2048, 2049, 4099), batch (3,), a mask and GPR's stride-0 emission row
-   and lam, in float64 and float32;
+   and lam, in float64 and float32; and beside them, at the same N, batch
+   and dtypes, the uniform filter at d = 1, 2, 3, 6 with a mask and GPR's
+   stride-0 lam, and the filter scan on random prebuilt elements at d = 1,
+   2, 3, 4, 6 (d = 4 above its staged tile);
 4. the slice at full size, T = 1e6, float32, flagship GPR (Matern32(0.5,
    1.0), noise Cholesky 0.2), each path with the launch counters set to 0
    just before it and read just after:
@@ -411,12 +414,17 @@ def phase_kernels_vs_plain(cs, adj):
     # the filter scan's moments-only pass 3 on elements no model makes
     for n, batch, d in ((4099, (3,), 7), (4099, (3,), 9), (4099, (3,), 12), (47, (), 9)):
         filter_scan_random_case(cs, n, batch, d)
-    # the general filter and Koopman backward at d <= 6 where a thread's,
-    # a warp's or a block's run of steps ends
+    # the d <= 6 filter passes where a thread's, a warp's or a block's run
+    # of steps ends: the general filter and Koopman backward, the uniform
+    # filter, and the filter scan (also at d = 4, where it reads each step
+    # where it lies)
     for dtype in (torch.float64, torch.float32):
-        for d in (1, 2, 3, 6):
-            for n in EDGE_NS:
+        for n in EDGE_NS:
+            for d in (1, 2, 3, 6):
                 general_edges_case(cs, adj, n, d, dtype)
+                uniform_edges_case(cs, n, d, dtype)
+            for d in (1, 2, 3, 4, 6):
+                filter_scan_random_case(cs, n, (3,), d, dtype)
 
 
 def general_edges_case(cs, adj, n, d, dtype):
@@ -442,6 +450,21 @@ def general_edges_case(cs, adj, n, d, dtype):
     check(f"general edges N={n} batch=(3,) d={d} {str(dtype)[6:]} masked", diffs, tols)
 
 
+def uniform_edges_case(cs, n, d, dtype):
+    """The uniform filter against its plain version at N = n, batch (3,),
+    with a mask and GPR's stride-0 lam (uniform_problem's)."""
+    f64 = dtype == torch.float64
+    args = uniform_problem(d, n, (3,), dtype, seed=n, masked=True)
+    assert n == 1 or args[7].stride(-1) == 0
+    with torch.no_grad():
+        got, want = cs.filter_pipeline_uniform(*args), cs.filter_pipeline_uniform_plain(*args)
+    torch.cuda.synchronize()
+    tol_m = TOL_F64 if f64 else TOL_F32_MOMENTS
+    check(f"uniform edges N={n} batch=(3,) d={d} {str(dtype)[6:]} masked",
+          {k: rel_diff(g, w) for k, g, w in zip(("m_f", "P_f", "loglik"), got, want)},
+          {"m_f": tol_m, "P_f": tol_m, "loglik": TOL_F64 if f64 else TOL_F32_LOGLIK})
+
+
 def random_filter_elements(d, n, batch, dtype, device=DEVICE, seed=0):
     """Prebuilt filtering elements that no model makes: a random contraction A
     and random PSD C and J at every step, step 0 included (where
@@ -459,16 +482,17 @@ def random_filter_elements(d, n, batch, dtype, device=DEVICE, seed=0):
             t(rng.standard_normal(batch + (n, d, 1))))
 
 
-def filter_scan_random_case(cs, n, batch, d):
+def filter_scan_random_case(cs, n, batch, d, dtype=torch.float64):
     """The filter-scan kernel against its plain version on random prebuilt
-    elements, float64."""
-    elems = random_filter_elements(d, n, batch, torch.float64)
+    elements."""
+    elems = random_filter_elements(d, n, batch, dtype, DEVICE)
     with torch.no_grad():
         got, want = cs.filter_scan(*elems), cs.filter_scan_plain(*elems)
     torch.cuda.synchronize()
-    check(f"filter scan, random elements N={n} batch={batch} d={d} float64",
+    tol = TOL_F64 if dtype == torch.float64 else TOL_F32_MOMENTS
+    check(f"filter scan, random elements N={n} batch={batch} d={d} {str(dtype)[6:]}",
           {"m_f": rel_diff(got[0], want[0]), "P_f": rel_diff(got[1], want[1])},
-          {"m_f": TOL_F64, "P_f": TOL_F64})
+          {"m_f": tol, "P_f": tol})
 
 
 def kernels_vs_plain_case(cs, adj, i, n, batch, d, dtype, masked):

@@ -1,5 +1,6 @@
 // General-grid Kalman filter, smoother-scan and filter-scan kernels for
-// Hopper (sm_90a).
+// Hopper (sm_90a), and the d <= 6 filter passes that the uniform-grid filter
+// (uniform_scan.cuh) shares.
 //
 // Replace the TPU kernels of markovflow_tpu/ops/pallas_scan.py:
 //   * filter:        pallas_filter_pipeline (_pipeline_kernel)
@@ -9,27 +10,29 @@
 // / filter_scan_plain in markovflow_tpu_torch/ops/cuda_scan.py.  The
 // filter reads per-step (F, c, Q, H) through their strides (F_0 = 0 is the
 // prior row; for GPR, H is a stride-0 expansion of one row), so one kernel
-// serves any time grid; at d <= 6 it has passes of its own (below), the
-// other two run the passes of scan_core.cuh.  The smoother
-// scan composes prebuilt (E, g, L) elements: the RTS elements of the general
-// smoother.  The filter scan composes prebuilt (A, b, C, J, eta) elements
-// (the ops filter API, ops.kalman.parallel_filter) with the filter's passes,
-// without sites or log-likelihood, and writes the b and C legs.  It moves
-// 3 d^2 + 2 d values a step in and d^2 + d out (88 B at d = 2, float32) and
-// does one composition a step with a d x d inverse, so it is bound as the
-// general filter is.
+// serves any time grid.  The smoother scan composes prebuilt (E, g, L)
+// elements, the RTS elements of the general smoother, with the smoother
+// passes of scan_core.cuh.  The filter scan composes prebuilt
+// (A, b, C, J, eta) elements (the ops filter API, ops.kalman.parallel_filter)
+// without sites or log-likelihood, and writes the b and C legs.  At d <= 6
+// the filter, the filter scan and the uniform-grid filter run the passes
+// below, one template over their step sources.
 //
 // What bounds them on an H100: the filter reads the prior steps besides the
 // sites, 2 d^2 + d values a step (40 B at d = 2, float32) twice, and writes
 // d^2 + d; per step it does a rank-one fold in pass 1 and a Kalman
 // predict/update in pass 3 (two or three d^3 products, no inverse), so at
-// d = 2 its ~100 dependent flops a step leave it latency-bound.  The
-// smoother scan reads 2 d^2 + d values a step twice and writes d^2 + d, with
-// one composition per step and no inverse: at d = 2, float32, ~104 B a step,
-// 31 us at 3.35 TB/s for N = 1e6, close to its arithmetic.  The TPU kernels
-// take d <= 12: d = 1..6 are instantiated here, with every element in
-// registers; d = 7..12 (an FElem at d = 12 has 456 values) run through the
-// warp-per-element kernels of wide_scan.cuh with the Wide*Row sources below.
+// d = 2 its ~100 dependent flops a step leave it latency-bound.  The filter
+// scan moves 3 d^2 + 2 d values a step in twice and d^2 + d out (152 B at
+// d = 2, float32, 45 us at 3.35 TB/s for N = 1e6): pass 1 composes whole
+// elements (a d x d inverse a step), pass 3 carries only the moments (one
+// inverse a step).  The smoother scan reads 2 d^2 + d values a step twice
+// and writes d^2 + d, with one composition per step and no inverse: at
+// d = 2, float32, ~104 B a step, 31 us at 3.35 TB/s for N = 1e6, close to
+// its arithmetic.  The TPU kernels take d <= 12: d = 1..6 are instantiated
+// here, with every element in registers; d = 7..12 (an FElem at d = 12 has
+// 456 values) run through the warp-per-element kernels of wide_scan.cuh
+// with the Wide*Row sources below.
 #pragma once
 
 #include "scan_core.cuh"
@@ -49,45 +52,51 @@ struct GeneralPrior {
 };
 
 // ---------------------------------------------------------------------------
-// The general filter (kernel 4) and the general Koopman backward (kernel 7,
-// general_adjoint.cuh) at d = 1..6, o = 1: passes of their own, with the
-// elements in registers and a run of R consecutive steps a thread.
-//
-// Kernel 4:
-//   1. each thread folds its steps into its run as rank-one site updates
-//      (fold_site, the register twin of wide_fold_site: three d^3 products
-//      and no inverse a step); the block scan gives every thread its
-//      exclusive prefix within the block, which goes to the scratch
-//      (store_thread_elem), and the block total;
+// The d = 1..6 filter passes, o = 1, with the elements in registers and a
+// run of R consecutive steps a thread, for three step sources (below):
+// GeneralSteps (kernel 4, the general filter), UniformSteps (kernel 1, the
+// uniform-grid filter, uniform_scan.cuh) and PrebuiltSteps (kernel 6, the
+// filter scan).  The general Koopman backward (kernel 7, general_adjoint.cuh)
+// shares the tiling and the staging.
+//   1. each thread folds its steps into its run: kernels 1 and 4 as
+//      rank-one site updates (fold_site, the register twin of
+//      wide_fold_site: three d^3 products and no inverse a step), kernel 6
+//      with the full composition (FilterOp, a d x d inverse); the block scan
+//      gives every thread its exclusive prefix within the block, which goes
+//      to the scratch (store_thread_elem), and the block total;
 //   2. scan_totals (scan_core.cuh);
 //   3. each thread composes the b and C legs of its block's carry with its
 //      stored prefix (filter_moments_through: the filtered moments before
-//      its first step, one d x d inverse a thread) and runs the Kalman
-//      predict/update from them (kalman_step, the twin of
-//      wide_kalman_step), whose prediction also gives the step's
-//      log-likelihood; only the moments are carried.
-// Pass 3 thus neither rebuilds the in-block prefix nor builds an element.
+//      its first step, one d x d inverse a thread) and carries only the
+//      moments through its steps: kernels 1 and 4 by the Kalman
+//      predict/update (kalman_step, the twin of wide_kalman_step), whose
+//      prediction also gives the step's log-likelihood; kernel 6 by the b
+//      and C legs of each element (filter_moments_through again, the twin
+//      of wide_filter_moments).
+// Pass 3 thus neither rebuilds the in-block prefix nor forms the A, J and
+// eta legs.
 //
 // Steps staged through shared memory.  A thread owns R consecutive steps of
 // the time-last arrays, so a warp's load of one value reads 32 sectors R
 // steps apart, and a step's few products cannot hide the wait for them.
-// Where a warp's steps are at most 6,144 values (STAGED, 24 KB in float32:
-// kernel 4 to d = 4, kernel 7 to d = 3, every Matern), each warp first
-// copies the values of its 32 R steps into shared memory with cp.async, the
-// lanes of one copy on 32 neighbouring steps of one value, all in flight at
-// once; each lane then reads its own steps there, and writes its outputs
-// there over the inputs it has consumed, which the warp stores the same
-// way.  Values that do not change with the step (stride 0: GPR's emission
-// row and lam) are read once.  Larger d read each step's values where they
-// lie.
+// Where a warp's steps are at most 6,144 values (STAGED, 24 KB in float32),
+// each warp first copies the values of its 32 R steps into shared memory
+// with cp.async, the lanes of one copy on 32 neighbouring steps of one value,
+// all in flight at once; each lane then reads its own steps there, and
+// writes its outputs there (over inputs it has consumed, or kernel 1's own
+// slots), which the warp stores the same way.  Values that do not change
+// with the step (stride 0: GPR's emission row and lam) are read once, and
+// kernel 1's constant prior step is loaded once a thread.  What is staged
+// at d = 1..6: kernel 1 every d (the sites, and d^2 + d output slots in pass
+// 3); kernel 4 to d = 4; kernel 6 to d = 3; kernel 7 to d = 3.  Larger d
+// read each step's values where they lie.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, bool MOMENTS>
-struct GeneralTiling {
+// The tiling of passes that stage at most NV_ values a step.
+template <typename T, int D, int NV_>
+struct StagedTiling {
   static constexpr int R = Tiling<D>::R;
-  // the values of a step at most: F, Q, c, H, nu, lam, the mask and, with
-  // MOMENTS (kernel 7), P_{k-1} and m_{k-1}
-  static constexpr int NV = (MOMENTS ? 3 : 2) * (D * D + D) + 3;
+  static constexpr int NV = NV_;
   static constexpr int WARP_BYTES = NV * 32 * R * int(sizeof(T));
   static constexpr bool STAGED = NV * 32 * R <= 6144;
   // staged: 8 warps a block, or as many as 192 KB hold (float64): the
@@ -99,6 +108,11 @@ struct GeneralTiling {
   static constexpr int64_t TILE = int64_t(THREADS) * R;
   static constexpr int SCAN_THREADS = 512;  // pass 2's block: 1 or 2 totals a thread at N = 1e6
 };
+
+// Kernels 4 and 7: the values of a step at most are F, Q, c, H, nu, lam,
+// the mask and, with MOMENTS (kernel 7), P_{k-1} and m_{k-1}.
+template <typename T, int D, bool MOMENTS>
+using GeneralTiling = StagedTiling<T, D, (MOMENTS ? 3 : 2) * (D * D + D) + 3>;
 
 // The staged values of a step and their slots: F, Q, c, with MOMENTS
 // P_{k-1} and m_{k-1}, then H, nu, lam and the mask where they change with
@@ -161,6 +175,14 @@ struct WarpStage {
       if (k >= n) break;
       row[k] = *step(v, s);
     }
+  }
+
+  // Thread t's warp's stage of nv values a step in the dynamic shared
+  // memory, of the steps below n.
+  MF_DEV void place(int64_t t, int nv, int64_t steps) {
+    base = reinterpret_cast<T*>(mf_wide_smem) + (threadIdx.x >> 5) * nv * 32 * R;
+    w0 = (t - lane_id()) * R;
+    n = steps;
   }
 };
 
@@ -237,11 +259,10 @@ template <class G, int D, typename T, class A>
 MF_DEV void stage_steps(const GeneralPrior<T>& p, const A& a, int64_t b, int64_t t, int64_t n,
                         const T* m_f, const T* p_f, WarpStage<T, G::R>& st,
                         GeneralSlots& sl) {
-  constexpr int R = G::R;
-  st = {nullptr, (t - lane_id()) * R, n};
+  st = {nullptr, (t - lane_id()) * G::R, n};
   if constexpr (G::STAGED) {
     sl = general_slots<D>(p, a, m_f != nullptr);
-    st.base = reinterpret_cast<T*>(mf_wide_smem) + (threadIdx.x >> 5) * sl.nv * 32 * R;
+    st.place(t, sl.nv, n);
 #pragma unroll
     for (int i = 0; i < D; ++i) {
 #pragma unroll
@@ -359,44 +380,204 @@ MF_DEV T kalman_step(T* m, T* P, const GeneralIn<T, D>& in) {
   return wide_loglik(in.s, hm, hpht);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(GeneralTiling<T, D, false>::THREADS)
-gfilter_totals(FilterArgs<T> a, GeneralPrior<T> p) {
-  using G = GeneralTiling<T, D, false>;
+// A step source of the filter passes, for batch row b (Src src;
+// src.load(prior, b)):
+//   T, D, Prior; In, what a step's read fills; LOGLIK, whether pass 3 sums
+//   the steps' log-likelihoods; NV_IN and NV, the most values a step that
+//   pass 1 and pass 3 stage; P_OUT and M_OUT, the slots where pass 3 puts a
+//   step's P_f and m_f;
+//   slots(prior, a, outputs): the staged slots (with pass 3's outputs);
+//   stage<G, OUTPUTS>(prior, a, b, t, n, st, sl): thread t's warp's stage
+//     of pass 1 or, with OUTPUTS, of pass 3, started and waited for, when
+//     G::STAGED; every lane of the warp must call it;
+//   read<STAGED>(in, st, sl, l, r, prior, a, b, k, once): lane l's step r,
+//     global step k (once: the thread's first step);
+//   fold(run, in, first): pass 1, the step folded into the thread's run
+//     (first: the run's first step);
+//   step(m, P, in): pass 3, the moments carried through the step; returns
+//     its log-likelihood.
+
+// Kernel 4: per-step F, Q, c and H through their strides, staged with the
+// sites; pass 3 puts P_f over the staged Q and m_f over c.
+template <typename T_, int D_>
+struct GeneralSteps {
+  using T = T_;
+  static constexpr int D = D_;
+  using Prior = GeneralPrior<T>;
+  using In = GeneralIn<T, D>;
+  static constexpr bool LOGLIK = true;
+  static constexpr int NV_IN = GeneralTiling<T, D, false>::NV, NV = NV_IN;
+  static constexpr int P_OUT = D * D, M_OUT = 2 * D * D;
+
+  MF_DEV void load(const Prior&, int64_t) {}
+
+  static __host__ __device__ GeneralSlots slots(const Prior& p, const FilterArgs<T>& a, bool) {
+    return general_slots<D>(p, a, false);
+  }
+
+  template <class G, bool OUTPUTS>
+  MF_DEV void stage(const Prior& p, const FilterArgs<T>& a, int64_t b, int64_t t, int64_t n,
+                    WarpStage<T, G::R>& st, GeneralSlots& sl) const {
+    stage_steps<G, D>(p, a, b, t, n, (const T*)nullptr, (const T*)nullptr, st, sl);
+  }
+
+  template <bool STAGED, int R>
+  MF_DEV void read(In& in, const WarpStage<T, R>& st, const GeneralSlots& sl, int l, int r,
+                   const Prior& p, const FilterArgs<T>& a, int64_t b, int64_t k,
+                   bool once) const {
+    in.template read<STAGED>(st, sl, l, r, p, a, b, k, once);
+  }
+
+  static MF_DEV void fold(FElem<T, D>& run, const In& in, bool) { fold_site<T, D>(run, in); }
+  static MF_DEV T step(T* m, T* P, const In& in) { return kalman_step<T, D>(m, P, in); }
+};
+
+// prebuilt filtering elements, contiguous: A, C, J [B, d, d, N],
+// b, eta [B, d, 1, N]
+template <typename T>
+struct FilterPrebuilt {
+  const T *a, *b, *c, *j, *e;
+};
+
+// Kernel 6: prebuilt elements (A, b, C, J, eta), each value staged in the
+// slot of its place in FElem; pass 3 puts m_f over the staged b and P_f
+// over C.  No sites, no log-likelihood.
+template <typename T_, int D_>
+struct PrebuiltSteps {
+  using T = T_;
+  static constexpr int D = D_;
+  using Prior = FilterPrebuilt<T>;
+  using E = FElem<T, D>;
+  using In = E;
+  static constexpr bool LOGLIK = false;
+  static constexpr int NV_IN = E::SIZE, NV = E::SIZE;
+  static constexpr int P_OUT = E::OC, M_OUT = E::OB;
+
+  MF_DEV void load(const Prior&, int64_t) {}
+
+  static __host__ __device__ GeneralSlots slots(const Prior&, const FilterArgs<T>&, bool) {
+    return {-1, -1, -1, -1, -1, -1, E::SIZE};
+  }
+
+  // value i of the matrices' and the vectors' rows of batch row b
+  static MF_DEV const T* mat(const T* x, int64_t b, int i, int64_t n) {
+    return x + (b * D * D + i) * n;
+  }
+  static MF_DEV const T* vec(const T* x, int64_t b, int i, int64_t n) {
+    return x + (b * D + i) * n;
+  }
+
+  template <class G, bool OUTPUTS>
+  MF_DEV void stage(const Prior& p, const FilterArgs<T>&, int64_t b, int64_t t, int64_t n,
+                    WarpStage<T, G::R>& st, GeneralSlots& sl) const {
+    if constexpr (G::STAGED) {
+      sl.nv = E::SIZE;
+      st.place(t, E::SIZE, n);
+#pragma unroll
+      for (int i = 0; i < D * D; ++i) {
+        st.fetch(E::OA + i, mat(p.a, b, i, n), 1);
+        st.fetch(E::OC + i, mat(p.c, b, i, n), 1);
+        st.fetch(E::OJ + i, mat(p.j, b, i, n), 1);
+      }
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        st.fetch(E::OB + i, vec(p.b, b, i, n), 1);
+        st.fetch(E::OE + i, vec(p.e, b, i, n), 1);
+      }
+      wide_fetch_wait();
+    }
+  }
+
+  template <bool STAGED, int R>
+  MF_DEV void read(E& e, const WarpStage<T, R>& st, const GeneralSlots&, int l, int r,
+                   const Prior& p, const FilterArgs<T>& a, int64_t b, int64_t k, bool) const {
+    if constexpr (STAGED) {
+#pragma unroll
+      for (int v = 0; v < E::SIZE; ++v) e.v[v] = *st.at(v, l, r);
+    } else {
+#pragma unroll
+      for (int i = 0; i < D * D; ++i) {
+        e.v[E::OA + i] = mat(p.a, b, i, a.n)[k];
+        e.v[E::OC + i] = mat(p.c, b, i, a.n)[k];
+        e.v[E::OJ + i] = mat(p.j, b, i, a.n)[k];
+      }
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        e.v[E::OB + i] = vec(p.b, b, i, a.n)[k];
+        e.v[E::OE + i] = vec(p.e, b, i, a.n)[k];
+      }
+    }
+  }
+
+  // the run's first step is its element (one composition fewer)
+  static MF_DEV void fold(E& run, const E& e, bool first) {
+    if (first) {
+      run = e;
+      return;
+    }
+    E t;
+    FilterOp<T, D>::combine(run, e, t);
+    run = t;
+  }
+
+  // m <- A (I + P J)^-1 (m + P eta) + b, P <- sym(A (I + P J)^-1 P A^T + C)
+  static MF_DEV T step(T* m, T* P, const E& e) {
+    T m1[D], p1[D * D];
+    filter_moments_through<T, D>(m, P, e, m1, p1);
+#pragma unroll
+    for (int i = 0; i < D; ++i) m[i] = m1[i];
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) P[i] = p1[i];
+    return T(0);
+  }
+};
+
+template <class Src>
+using FilterTiling = StagedTiling<typename Src::T, Src::D, Src::NV>;
+
+template <class Src>
+__global__ void __launch_bounds__(FilterTiling<Src>::THREADS)
+gfilter_totals(FilterArgs<typename Src::T> a, typename Src::Prior p) {
+  using T = typename Src::T;
+  constexpr int D = Src::D;
+  using G = FilterTiling<Src>;
   using Op = FilterOp<T, D>;
   using E = FElem<T, D>;
   constexpr int THREADS = G::THREADS, R = G::R;
   __shared__ E smem[THREADS / 32 + 1];
   const int64_t b = blockIdx.y, n = a.n, t = blockIdx.x * int64_t(THREADS) + threadIdx.x;
   const int lane = lane_id();
+  Src src;
+  src.load(p, b);
   WarpStage<T, R> st;
   GeneralSlots sl{};
-  stage_steps<G, D>(p, a, b, t, n, (const T*)nullptr, (const T*)nullptr, st, sl);
+  src.template stage<G, false>(p, a, b, t, n, st, sl);
   E run, excl, total;
   Op::identity(run);
-  GeneralIn<T, D> in;
+  typename Src::In in;
   for (int r = 0; r < R; ++r) {
     if (t * R + r >= n) break;
-    in.template read<G::STAGED>(st, sl, lane, r, p, a, b, t * R + r, r == 0);
-    fold_site<T, D>(run, in);
+    src.template read<G::STAGED>(in, st, sl, lane, r, p, a, b, t * R + r, r == 0);
+    Src::fold(run, in, r == 0);
   }
   block_scan<Op, THREADS, false>(run, excl, total, smem);
   store_thread_elem(a.prefix, excl, b, t, a.nblk * THREADS);
   if (threadIdx.x == 0) reinterpret_cast<E*>(a.totals)[b * a.nblk + blockIdx.x] = total;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(GeneralTiling<T, D, false>::THREADS)
-gfilter_outputs(FilterArgs<T> a, GeneralPrior<T> p) {
-  using G = GeneralTiling<T, D, false>;
+template <class Src>
+__global__ void __launch_bounds__(FilterTiling<Src>::THREADS)
+gfilter_outputs(FilterArgs<typename Src::T> a, typename Src::Prior p) {
+  using T = typename Src::T;
+  constexpr int D = Src::D;
+  using G = FilterTiling<Src>;
   using E = FElem<T, D>;
   constexpr int THREADS = G::THREADS, R = G::R;
   __shared__ T red[THREADS / 32];
   const int64_t b = blockIdx.y, n = a.n, t = blockIdx.x * int64_t(THREADS) + threadIdx.x;
   const int lane = lane_id();
   // the moments before the thread's first step: all earlier blocks, then
-  // the earlier threads of this block (b = 0, C = 0 before step 0, where
-  // F = 0 makes them irrelevant)
+  // the earlier threads of this block (b = 0, C = 0 before step 0)
   T m[D], P[D * D];
   {
     E y;
@@ -404,19 +585,21 @@ gfilter_outputs(FilterArgs<T> a, GeneralPrior<T> p) {
     const E& x = reinterpret_cast<const E*>(a.totals)[b * a.nblk + blockIdx.x];
     filter_moments_through<T, D>(x.v + E::OB, x.v + E::OC, y, m, P);
   }
+  Src src;
+  src.load(p, b);
   WarpStage<T, R> st;
   GeneralSlots sl{};
-  stage_steps<G, D>(p, a, b, t, n, (const T*)nullptr, (const T*)nullptr, st, sl);
+  src.template stage<G, true>(p, a, b, t, n, st, sl);
   T ll[1] = {T(0)};
-  GeneralIn<T, D> in;
+  typename Src::In in;
   for (int r = 0; r < R; ++r) {
     const int64_t k = t * R + r;
     if (k >= n) break;
-    in.template read<G::STAGED>(st, sl, lane, r, p, a, b, k, r == 0);
-    ll[0] += kalman_step<T, D>(m, P, in);
-    // P_f over the staged Q and m_f over c, or at step k
-    T *pf = G::STAGED ? st.at(D * D, lane, r) : a.p_f + b * D * D * n + k,
-      *mf = G::STAGED ? st.at(2 * D * D, lane, r) : a.m_f + b * D * n + k;
+    src.template read<G::STAGED>(in, st, sl, lane, r, p, a, b, k, r == 0);
+    ll[0] += Src::step(m, P, in);
+    // P_f and m_f to the step's staged slots, or to step k
+    T *pf = G::STAGED ? st.at(Src::P_OUT, lane, r) : a.p_f + b * D * D * n + k,
+      *mf = G::STAGED ? st.at(Src::M_OUT, lane, r) : a.m_f + b * D * n + k;
     const int64_t stride = G::STAGED ? 32 * R : n;
 #pragma unroll
     for (int i = 0; i < D * D; ++i) pf[i * stride] = P[i];
@@ -426,20 +609,22 @@ gfilter_outputs(FilterArgs<T> a, GeneralPrior<T> p) {
   if constexpr (G::STAGED) {
     __syncwarp();
 #pragma unroll
-    for (int i = 0; i < D * D; ++i) st.store(D * D + i, a.p_f + (b * D * D + i) * n);
+    for (int i = 0; i < D * D; ++i) st.store(Src::P_OUT + i, a.p_f + (b * D * D + i) * n);
 #pragma unroll
-    for (int i = 0; i < D; ++i) st.store(2 * D * D + i, a.m_f + (b * D + i) * n);
+    for (int i = 0; i < D; ++i) st.store(Src::M_OUT + i, a.m_f + (b * D + i) * n);
   }
-  block_sum<T, THREADS, 1>(ll, red);
-  if (threadIdx.x == 0) a.partials[b * a.nblk + blockIdx.x] = ll[0];
+  if constexpr (Src::LOGLIK) {
+    block_sum<T, THREADS, 1>(ll, red);
+    if (threadIdx.x == 0) a.partials[b * a.nblk + blockIdx.x] = ll[0];
+  }
 }
 
-// Scratch of the general filter in elements of T: the block totals, the
+// Scratch of the filter passes in elements of T: the block totals, the
 // partial sums and every thread's in-block prefix.
-template <typename T, int D>
+template <class Src>
 int64_t general_filter_scratch(int64_t batch, int64_t n) {
-  using G = GeneralTiling<T, D, false>;
-  return batch * num_blocks(n, G::TILE) * (FElem<T, D>::SIZE * (1 + G::THREADS) + 1);
+  using G = FilterTiling<Src>;
+  return batch * num_blocks(n, G::TILE) * (FElem<typename Src::T, Src::D>::SIZE * (1 + G::THREADS) + 1);
 }
 
 // Dynamic shared memory of a staged pass: nv values of 32 R steps a warp.
@@ -448,83 +633,54 @@ size_t general_stage_bytes(int nv) {
   return G::STAGED ? size_t(G::THREADS / 32) * nv * 32 * G::R * sizeof(T) : 0;
 }
 
-// pass_occupancy of passes 1, 3 and 2 (out[0..11]), staged for the largest
-// number of values a step.
-template <typename T, int D>
+// pass_occupancy of passes 1, 3 and 2 (out[0..11]), staged for the most
+// values a step of each pass.
+template <class Src>
 int general_filter_occupancy(int64_t* out) {
-  using G = GeneralTiling<T, D, false>;
-  const size_t bytes = general_stage_bytes<G, T>(G::NV);
-  int err = wide_smem_bytes(gfilter_totals<T, D>, bytes);
-  if (err == 0) err = wide_smem_bytes(gfilter_outputs<T, D>, bytes);
-  if (err == 0) err = pass_occupancy(gfilter_totals<T, D>, G::THREADS, bytes, out);
-  if (err == 0) err = pass_occupancy(gfilter_outputs<T, D>, G::THREADS, bytes, out + 4);
+  using T = typename Src::T;
+  using G = FilterTiling<Src>;
+  const size_t b1 = general_stage_bytes<G, T>(Src::NV_IN), b3 = general_stage_bytes<G, T>(Src::NV);
+  int err = wide_smem_bytes(gfilter_totals<Src>, b1);
+  if (err == 0) err = wide_smem_bytes(gfilter_outputs<Src>, b3);
+  if (err == 0) err = pass_occupancy(gfilter_totals<Src>, G::THREADS, b1, out);
+  if (err == 0) err = pass_occupancy(gfilter_outputs<Src>, G::THREADS, b3, out + 4);
   if (err == 0)
-    err = pass_occupancy(scan_totals<FilterOp<T, D>, G::SCAN_THREADS, false>, G::SCAN_THREADS,
-                         0, out + 8);
+    err = pass_occupancy(scan_totals<FilterOp<T, Src::D>, G::SCAN_THREADS, false>,
+                         G::SCAN_THREADS, 0, out + 8);
   return err;
 }
 
-template <typename T, int D>
-int launch_general_filter(FilterArgs<T> a, GeneralPrior<T> p, T* scratch, int64_t batch,
-                          cudaStream_t stream) {
-  using G = GeneralTiling<T, D, false>;
-  constexpr int SIZE = FElem<T, D>::SIZE;
+template <class Src>
+int launch_general_filter(FilterArgs<typename Src::T> a, typename Src::Prior p,
+                          typename Src::T* scratch, int64_t batch, cudaStream_t stream) {
+  using T = typename Src::T;
+  using G = FilterTiling<Src>;
+  constexpr int SIZE = FElem<T, Src::D>::SIZE;
   a.nblk = num_blocks(a.n, G::TILE);
   a.totals = scratch;
   a.partials = scratch + batch * a.nblk * SIZE;
   a.prefix = a.partials + batch * a.nblk;
-  const size_t bytes = general_stage_bytes<G, T>(general_slots<D>(p, a, false).nv);
-  int err = wide_smem_bytes(gfilter_totals<T, D>, bytes);
-  if (err == 0) err = wide_smem_bytes(gfilter_outputs<T, D>, bytes);
+  const size_t b1 = general_stage_bytes<G, T>(Src::slots(p, a, false).nv),
+               b3 = general_stage_bytes<G, T>(Src::slots(p, a, true).nv);
+  int err = wide_smem_bytes(gfilter_totals<Src>, b1);
+  if (err == 0) err = wide_smem_bytes(gfilter_outputs<Src>, b3);
   if (err != 0) return err;
   const dim3 grid(unsigned(a.nblk), unsigned(batch));
-  gfilter_totals<T, D><<<grid, G::THREADS, bytes, stream>>>(a, p);
+  gfilter_totals<Src><<<grid, G::THREADS, b1, stream>>>(a, p);
   MF_CHECK_LAUNCH();
-  scan_totals<FilterOp<T, D>, G::SCAN_THREADS, false>
+  scan_totals<FilterOp<T, Src::D>, G::SCAN_THREADS, false>
       <<<unsigned(batch), G::SCAN_THREADS, 0, stream>>>(
-      reinterpret_cast<FElem<T, D>*>(a.totals), a.nblk);
+      reinterpret_cast<FElem<T, Src::D>*>(a.totals), a.nblk);
   MF_CHECK_LAUNCH();
-  gfilter_outputs<T, D><<<grid, G::THREADS, bytes, stream>>>(a, p);
+  gfilter_outputs<Src><<<grid, G::THREADS, b3, stream>>>(a, p);
   MF_CHECK_LAUNCH();
-  sum_partials<T, 256><<<dim3(1u, unsigned(batch)), 256, 0, stream>>>(
-      a.partials, a.nblk, 1, nullptr, a.loglik);
-  MF_CHECK_LAUNCH();
+  if constexpr (Src::LOGLIK) {
+    sum_partials<T, 256><<<dim3(1u, unsigned(batch)), 256, 0, stream>>>(
+        a.partials, a.nblk, 1, nullptr, a.loglik);
+    MF_CHECK_LAUNCH();
+  }
   return 0;
 }
-
-// prebuilt filtering elements, contiguous: A, C, J [B, d, d, N],
-// b, eta [B, d, 1, N]
-template <typename T>
-struct FilterPrebuilt {
-  const T *a, *b, *c, *j, *e;
-};
-
-template <typename T_, int D_>
-struct FilterPrebuiltRow {
-  using T = T_;
-  static constexpr int D = D_, O = 1;
-  static constexpr bool PREBUILT = true;
-  using Prior = FilterPrebuilt<T>;
-
-  MF_DEV void load(const Prior&, int64_t) {}
-
-  MF_DEV void elem(const Prior& a, int64_t b, int64_t k, int64_t n,
-                   FElem<T, D>& out) const {
-    using E = FElem<T, D>;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      out.v[E::OB + i] = a.b[(b * D + i) * n + k];
-      out.v[E::OE + i] = a.e[(b * D + i) * n + k];
-#pragma unroll
-      for (int j = 0; j < D; ++j) {
-        const int64_t at = ((b * D + i) * D + j) * n + k;
-        out.v[E::OA + i * D + j] = a.a[at];
-        out.v[E::OC + i * D + j] = a.c[at];
-        out.v[E::OJ + i * D + j] = a.j[at];
-      }
-    }
-  }
-};
 
 // prebuilt smoothing elements: Prebuilt (wide_scan.cuh)
 template <typename T_, int D_>
@@ -617,7 +773,8 @@ struct WideFilterPrebuiltRow {
     if (d >= mf::WIDE_MIN_D)                                                           \
       return mf::launch_wide_filter<mf::WideGeneralRow<T>>(a, p, scratch, batch, int(d), \
                                                            s);                         \
-    MF_SWITCH_D(d, (mf::launch_general_filter<T, D_>(a, p, scratch, batch, s)),         \
+    MF_SWITCH_D(d, (mf::launch_general_filter<mf::GeneralSteps<T, D_>>(a, p, scratch,   \
+                                                                       batch, s)),     \
                 int(cudaErrorInvalidValue))                                            \
   }                                                                                    \
   extern "C" int mf_smoother_scan_##SUFFIX(                                            \
@@ -645,7 +802,7 @@ struct WideFilterPrebuiltRow {
     if (d >= mf::WIDE_MIN_D)                                                           \
       return mf::launch_wide_filter<mf::WideFilterPrebuiltRow<T>>(a, p, scratch, batch,  \
                                                                   int(d), s);          \
-    MF_SWITCH_D(d, (mf::launch_filter<mf::FilterPrebuiltRow<T, D_>>(a, p, scratch,     \
-                                                                    batch, s)),        \
+    MF_SWITCH_D(d, (mf::launch_general_filter<mf::PrebuiltSteps<T, D_>>(a, p, scratch,  \
+                                                                        batch, s)),    \
                 int(cudaErrorInvalidValue))                                            \
   }

@@ -1,6 +1,7 @@
 // Shared core of the Kalman scan kernels for Hopper (sm_90a): associative
-// elements and their compositions, the block-wide scan, and the passes of
-// the filter and smoother kernels, written once for every element source.
+// elements and their compositions, the block-wide scan, the scan of the
+// block totals, fixed-order sums, and the smoother passes, written once for
+// every element source.
 //
 // Design: reduce, then scan, then fix up.  The TPU kernels thread one carry
 // through a sequential grid; here blocks run in no order, so
@@ -9,21 +10,22 @@
 //      scan plus a scan of the warp totals gives the block total, which is
 //      written out (one element per block);
 //   2. one block per batch row scans the block totals into exclusive
-//      carries, in place;
-//   3. each thread rebuilds its elements (re-reading the inputs is cheaper
-//      than storing 3d^2 + 2d values per step), folds in its exclusive
-//      prefix and writes the outputs.  A reduction over steps (the
-//      filter's log-likelihood, the adjoint's gradient sums) goes out as one
-//      partial per block;
+//      carries, in place (scan_totals);
+//   3. each thread folds its exclusive prefix into its steps and writes the
+//      outputs.  A reduction over steps (the filter's log-likelihood, the
+//      adjoint's gradient sums) goes out as one partial per block;
 //   4. one block per (value, batch row) sums the partials in a fixed order.
-// No float atomics: a run repeats bit for bit.  The general filter and the
-// general Koopman backward have passes of their own that keep pass 1's
-// in-block prefix instead of rebuilding it (general_scan.cuh).
+// No float atomics: a run repeats bit for bit.  The smoother passes below
+// (the smoother scan, the uniform RTS smoother and, with its own output
+// pass, the uniform Koopman backward) rebuild each thread's elements and
+// in-block suffix in pass 3 (re-reading the inputs is cheaper than storing
+// them).  The d <= 6 filters (general_scan.cuh) and the general Koopman
+// backward (general_adjoint.cuh) have passes of their own that keep pass
+// 1's in-block prefix (suffix) instead (store_thread_elem).
 //
-// A source ("Row") supplies the elements of one batch row: the filter's
-// rows build (F, c, Q, H) and the sites of each step (FilterStep), or, with
-// Row::PREBUILT, read a prebuilt filtering element (no sites, no
-// log-likelihood); the smoother's rows build one smoothing element per step.  The prior element
+// A source ("Row") supplies the elements of one batch row: the smoother's
+// rows build one smoothing element per step, and FilterStep holds the
+// inputs of one step of the uniform Koopman backward.  The prior element
 // sits at global step 0 and a smoother's boundary element at global step
 // N-1; both are found from global indices, and steps past N are absent.
 #pragma once
@@ -340,7 +342,7 @@ sum_partials(const T* partials, int64_t nblk, int64_t nv, const T* scale, T* out
 }
 
 // ---------------------------------------------------------------------------
-// Filter passes, for any Row that fills a FilterStep.
+// The filters' arguments and one step's inputs.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -354,8 +356,8 @@ struct FilterArgs {
   // outputs, contiguous: m_f [B, d, 1, N], P_f [B, d, d, N], loglik [B]
   T *m_f, *p_f, *loglik;
   // scratch: block totals [B, nblk] elements, then partial sums [B, nblk];
-  // the general filter's d <= 6 passes also keep each thread's in-block
-  // prefix (store_thread_elem)
+  // the d <= 6 passes also keep each thread's in-block prefix
+  // (store_thread_elem)
   T *totals, *partials, *prefix;
   int64_t n, nblk;
 };
@@ -390,192 +392,6 @@ struct FilterStep {
   }
 };
 
-// Filter element of one step (make_filter_elements_tl / _make_elem_slice).
-template <typename T, int D, int O>
-MF_DEV void make_filter_elem(const FilterStep<T, D, O>& s, FElem<T, D>& out) {
-  using E = FElem<T, D>;
-  const T* h = s.h;
-  T qht[D * O], hqht[O * O], t[O * O], z[O * O], lz[O * O], gain[D * O];
-  mm_nt<T, D, D, O>(s.q, h, qht);  // Q H^T
-  mm<T, O, D, O>(h, qht, hqht);
-  mm<T, O, O, O>(hqht, s.lam, t);
-  add_eye<T, O>(t);
-  inv<T, O>(t, z);
-  mm<T, O, O, O>(s.lam, z, lz);  // S^-1
-  sym<T, O>(lz);
-  mm<T, D, O, O>(qht, lz, gain);
-  T igh[D * D];
-  mm<T, D, O, D>(gain, h, igh);
-#pragma unroll
-  for (int i = 0; i < D * D; ++i) igh[i] = -igh[i];
-  add_eye<T, D>(igh);  // I - K H
-  mm<T, D, D, D>(igh, s.f, out.v + E::OA);
-  // b = (I - K H) c + Q H^T z^T nu
-  T ztnu[O], v[D];
-  mm_tn<T, O, O, 1>(z, s.nu, ztnu);
-  mm<T, D, D, 1>(igh, s.c, out.v + E::OB);
-  mm<T, D, O, 1>(qht, ztnu, v);
-  add_to<T, D>(out.v + E::OB, v);
-  // C = sym((I - K H) Q)
-  mm<T, D, D, D>(igh, s.q, out.v + E::OC);
-  sym<T, D>(out.v + E::OC);
-  // eta = F^T H^T (z^T nu - S^-1 H c)
-  T hc[O], r[O], htr[D];
-  mm<T, O, D, 1>(h, s.c, hc);
-  mm<T, O, O, 1>(lz, hc, r);
-#pragma unroll
-  for (int i = 0; i < O; ++i) r[i] = ztnu[i] - r[i];
-  mm_tn<T, D, O, 1>(h, r, htr);
-  mm_tn<T, D, D, 1>(s.f, htr, out.v + E::OE);
-  // J = sym((H F)^T S^-1 (H F))
-  T hf[O * D], lhf[O * D];
-  mm<T, O, D, D>(h, s.f, hf);
-  mm<T, O, O, D>(lz, hf, lhf);
-  mm_tn<T, D, O, D>(hf, lhf, out.v + E::OJ);
-  sym<T, D>(out.v + E::OJ);
-}
-
-// Site log-likelihood of one step given the previous filtered moments
-// (pm, pp), in lam form (filter_pipeline_tl / _ll_slice).  Masked steps
-// give 0 and use the identity in place of lam.
-template <typename T, int D, int O>
-MF_DEV T step_loglik(const FilterStep<T, D, O>& s, const T* pm, const T* pp) {
-  const T* h = s.h;
-  T mp[D], t[D * D], ppred[D * D];
-  mm<T, D, D, 1>(s.f, pm, mp);
-  add_to<T, D>(mp, s.c);
-  mm_nt<T, D, D, D>(pp, s.f, t);
-  mm<T, D, D, D>(s.f, t, ppred);
-  add_to<T, D * D>(ppred, s.q);
-  sym<T, D>(ppred);
-  T hm[O], ph[D * O], hpht[O * O], w[O];
-  mm<T, O, D, 1>(h, mp, hm);
-  mm_nt<T, D, D, O>(ppred, h, ph);
-  mm<T, O, D, O>(h, ph, hpht);
-  mm<T, O, O, 1>(s.lam, hm, w);
-#pragma unroll
-  for (int i = 0; i < O; ++i) w[i] = s.nu[i] - w[i];
-  T lsafe[O * O], mmat[O * O], hl[O * O];
-  if (s.keep) {
-#pragma unroll
-    for (int i = 0; i < O * O; ++i) lsafe[i] = s.lam[i];
-    mm<T, O, O, O>(hpht, s.lam, hl);
-    mm<T, O, O, O>(s.lam, hl, mmat);
-    add_to<T, O * O>(mmat, s.lam);
-  } else {
-    set_eye<T, O>(lsafe);
-    set_eye<T, O>(mmat);
-  }
-  T mi[O * O], sol[O];
-  inv<T, O>(mmat, mi);
-  mm<T, O, O, 1>(mi, w, sol);
-  T quad = T(0);
-#pragma unroll
-  for (int i = 0; i < O; ++i) quad += w[i] * sol[i];
-  mm<T, O, O, O>(hpht, lsafe, hl);
-  add_eye<T, O>(hl);
-  const T log_det_s = log(fabs(det<T, O>(hl))) - log(fabs(det<T, O>(lsafe)));
-  const T log_2pi = T(1.8378770664093453);
-  const T ll = T(-0.5) * (quad + log_det_s + T(O) * log_2pi);
-  return s.keep ? ll : T(0);
-}
-
-// Pass 1 and the first half of pass 3: the composition of this thread's run
-// of R steps, and its exclusive prefix within the block.
-template <class Row>
-MF_DEV void filter_thread_prefix(const FilterArgs<typename Row::T>& a,
-                                 const typename Row::Prior& p, const Row& row,
-                                 int64_t b, int64_t first_step,
-                                 FElem<typename Row::T, Row::D>& excl,
-                                 FElem<typename Row::T, Row::D>& total,
-                                 FElem<typename Row::T, Row::D>* smem) {
-  using T = typename Row::T;
-  constexpr int D = Row::D, O = Row::O;
-  using Op = FilterOp<T, D>;
-  using E = FElem<T, D>;
-  E run, e, t;
-  Op::identity(run);
-  FilterStep<T, D, O> s;
-  for (int r = 0; r < Tiling<D>::R; ++r) {
-    const int64_t k = first_step + r;
-    if (k >= a.n) break;
-    if constexpr (Row::PREBUILT) {
-      row.elem(p, b, k, a.n, e);
-    } else {
-      row.step(p, b, k, s);
-      s.load_sites(a, b, k);
-      make_filter_elem<T, D, O>(s, e);
-    }
-    Op::combine(run, e, t);
-    run = t;
-  }
-  block_scan<Op, Tiling<D>::THREADS, false>(run, excl, total, smem);
-}
-
-template <class Row>
-__global__ void __launch_bounds__(Tiling<Row::D>::THREADS)
-filter_totals(FilterArgs<typename Row::T> a, typename Row::Prior p) {
-  using E = FElem<typename Row::T, Row::D>;
-  constexpr int THREADS = Tiling<Row::D>::THREADS;
-  __shared__ E smem[THREADS / 32 + 1];
-  const int64_t b = blockIdx.y, blk = blockIdx.x;
-  Row row;
-  row.load(p, b);
-  E excl, total;
-  filter_thread_prefix<Row>(a, p, row, b,
-                            (blk * THREADS + threadIdx.x) * Tiling<Row::D>::R,
-                            excl, total, smem);
-  if (threadIdx.x == 0) reinterpret_cast<E*>(a.totals)[b * a.nblk + blk] = total;
-}
-
-template <class Row>
-__global__ void __launch_bounds__(Tiling<Row::D>::THREADS)
-filter_outputs(FilterArgs<typename Row::T> a, typename Row::Prior p) {
-  using T = typename Row::T;
-  constexpr int D = Row::D, O = Row::O;
-  using Op = FilterOp<T, D>;
-  using E = FElem<T, D>;
-  constexpr int THREADS = Tiling<D>::THREADS, R = Tiling<D>::R;
-  __shared__ E smem[THREADS / 32 + 1];
-  __shared__ T red[THREADS / 32];
-  const int64_t b = blockIdx.y, blk = blockIdx.x, n = a.n;
-  const int64_t first_step = (blk * THREADS + threadIdx.x) * R;
-  Row row;
-  row.load(p, b);
-  E excl, total, run, e, t;
-  filter_thread_prefix<Row>(a, p, row, b, first_step, excl, total, smem);
-  // carry of all earlier blocks, then of the earlier threads of this block
-  Op::combine(reinterpret_cast<const E*>(a.totals)[b * a.nblk + blk], excl, run);
-  T ll[1] = {T(0)};
-  FilterStep<T, D, O> s;
-  for (int r = 0; r < R; ++r) {
-    const int64_t k = first_step + r;
-    if (k >= n) break;
-    if constexpr (Row::PREBUILT) {
-      row.elem(p, b, k, n, e);
-    } else {
-      row.step(p, b, k, s);
-      s.load_sites(a, b, k);
-      // run holds the filtered moments of step k - 1 (b = 0, C = 0 before
-      // step 0, where F = 0 makes them irrelevant)
-      ll[0] += step_loglik<T, D, O>(s, run.v + E::OB, run.v + E::OC);
-      make_filter_elem<T, D, O>(s, e);
-    }
-    Op::combine(run, e, t);
-    run = t;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      a.m_f[(b * D + i) * n + k] = run.v[E::OB + i];
-#pragma unroll
-      for (int j = 0; j < D; ++j) a.p_f[((b * D + i) * D + j) * n + k] = run.v[E::OC + i * D + j];
-    }
-  }
-  if constexpr (!Row::PREBUILT) {
-    block_sum<T, THREADS, 1>(ll, red);
-    if (threadIdx.x == 0) a.partials[b * a.nblk + blk] = ll[0];
-  }
-}
-
 // What the runtime reports of a pass launched with `threads` a block and
 // `bytes` of dynamic shared memory: registers a thread, local memory a
 // thread, and shared memory a block (static and dynamic, bytes), and the
@@ -599,36 +415,6 @@ int pass_occupancy(K kernel, int threads, size_t bytes, int64_t* out) {
     const cudaError_t err = cudaGetLastError(); \
     if (err != cudaSuccess) return int(err);   \
   } while (0)
-
-template <typename T, int D>
-int64_t filter_scratch(int64_t batch, int64_t n) {
-  const int64_t nblk = num_blocks(n, Tiling<D>::TILE);
-  return batch * nblk * (FElem<T, D>::SIZE + 1);
-}
-
-template <class Row>
-int launch_filter(FilterArgs<typename Row::T> a, typename Row::Prior p,
-                  typename Row::T* scratch, int64_t batch, cudaStream_t stream) {
-  using T = typename Row::T;
-  constexpr int D = Row::D, THREADS = Tiling<D>::THREADS;
-  a.nblk = num_blocks(a.n, Tiling<D>::TILE);
-  a.totals = scratch;
-  a.partials = scratch + batch * a.nblk * FElem<T, D>::SIZE;
-  const dim3 grid(unsigned(a.nblk), unsigned(batch));
-  filter_totals<Row><<<grid, THREADS, 0, stream>>>(a, p);
-  MF_CHECK_LAUNCH();
-  scan_totals<FilterOp<T, D>, THREADS, false><<<unsigned(batch), THREADS, 0, stream>>>(
-      reinterpret_cast<FElem<T, D>*>(a.totals), a.nblk);
-  MF_CHECK_LAUNCH();
-  filter_outputs<Row><<<grid, THREADS, 0, stream>>>(a, p);
-  MF_CHECK_LAUNCH();
-  if constexpr (!Row::PREBUILT) {
-    sum_partials<T, THREADS><<<dim3(1u, unsigned(batch)), THREADS, 0, stream>>>(
-        a.partials, a.nblk, 1, nullptr, a.loglik);
-    MF_CHECK_LAUNCH();
-  }
-  return 0;
-}
 
 // ---------------------------------------------------------------------------
 // Smoother passes, for any Row that builds one smoothing element per step.

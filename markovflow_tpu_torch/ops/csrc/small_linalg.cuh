@@ -2,14 +2,14 @@
 //
 // Matrices are row-major in flat arrays whose sizes are compile-time
 // constants, so once the loops unroll every array lives in registers.
-// inv/det use the closed forms of markovflow_tpu/ops/pallas_scan.py (_inv,
-// _det) for d <= 3.  For 4 <= d <= 6 they use Gauss-Jordan elimination with
+// inv uses the closed forms of markovflow_tpu/ops/pallas_scan.py (_inv) for
+// d <= 3.  For 4 <= d <= 6 it uses Gauss-Jordan elimination with
 // partial pivoting, where the TPU kernels use one unpivoted Schur-complement
 // level, which loses accuracy when the leading block is near singular (the
 // filter composition inverts I + C J, which is not symmetric).  The plain
 // PyTorch version is _gauss_jordan_tl in markovflow_tpu_torch/ops/kalman.py.
 // The kernels for 7 <= d <= 12 invert with the same pivoting, a warp per
-// matrix (winv in wide_scan.cuh); they need no determinant above o = 1.
+// matrix (winv in wide_scan.cuh).  At o = 1 no kernel needs a determinant.
 // No output argument may alias an input.
 #pragma once
 
@@ -110,10 +110,9 @@ MF_DEV T cof(const T* m, int i1, int j1, int i2, int j2) {
 // j with each later row whose entry in column j is larger in magnitude, by
 // selects (no indexing by a runtime row); any row order gives the same
 // inverse.  Columns left of j are zero in the rows it touches, so each step
-// works on columns j.. only.  Returns the determinant; writes the inverse
-// to out when INV.
-template <typename T, int D, bool INV>
-MF_DEV T gauss_jordan(const T* m, T* out) {
+// works on columns j.. only.  Writes the inverse to out.
+template <typename T, int D>
+MF_DEV void gauss_jordan(const T* m, T* out) {
   T a[D][2 * D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
@@ -123,7 +122,6 @@ MF_DEV T gauss_jordan(const T* m, T* out) {
       a[i][D + j] = i == j ? T(1) : T(0);
     }
   }
-  T det = T(1);
 #pragma unroll
   for (int j = 0; j < D; ++j) {
 #pragma unroll
@@ -135,11 +133,8 @@ MF_DEV T gauss_jordan(const T* m, T* out) {
         a[j][c] = s ? y : x;
         a[i][c] = s ? x : y;
       }
-      det = s ? -det : det;
     }
-    const T p = a[j][j];
-    det *= p;
-    const T r = T(1) / p;
+    const T r = T(1) / a[j][j];
 #pragma unroll
     for (int c = j; c < 2 * D; ++c) a[j][c] *= r;
 #pragma unroll
@@ -150,14 +145,11 @@ MF_DEV T gauss_jordan(const T* m, T* out) {
       for (int c = j; c < 2 * D; ++c) a[i][c] -= f * a[j][c];
     }
   }
-  if constexpr (INV) {
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
+  for (int i = 0; i < D; ++i) {
 #pragma unroll
-      for (int j = 0; j < D; ++j) out[i * D + j] = a[i][D + j];
-    }
+    for (int j = 0; j < D; ++j) out[i * D + j] = a[i][D + j];
   }
-  return det;
 }
 
 template <typename T, int D>
@@ -185,22 +177,7 @@ MF_DEV void inv(const T* m, T* out) {
     out[7] = -cof(m, 0, 0, 2, 1) / det;
     out[8] = cof(m, 0, 0, 1, 1) / det;
   } else {
-    gauss_jordan<T, D, true>(m, out);
-  }
-}
-
-template <typename T, int D>
-MF_DEV T det(const T* m) {
-  static_assert(D >= 1 && D <= 6, "instantiated for d <= 6");
-  if constexpr (D == 1) {
-    return m[0];
-  } else if constexpr (D == 2) {
-    return m[0] * m[3] - m[1] * m[2];
-  } else if constexpr (D == 3) {
-    return m[0] * cof(m, 1, 1, 2, 2) - m[1] * cof(m, 1, 0, 2, 2) +
-           m[2] * cof(m, 1, 0, 2, 1);
-  } else {
-    return gauss_jordan<T, D, false>(m, nullptr);
+    gauss_jordan<T, D>(m, out);
   }
 }
 

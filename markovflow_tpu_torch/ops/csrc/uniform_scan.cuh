@@ -5,32 +5,28 @@
 //   * smoother: pallas_smoother_pipeline_uniform (_uniform_smoother_kernel)
 // They compute the same functions; the plain PyTorch versions are
 // filter_pipeline_uniform_plain / smoother_pipeline_uniform_plain in
-// markovflow_tpu_torch/ops/cuda_scan.py.  The passes (reduce, scan, fix up)
-// are those of scan_core.cuh; this file supplies the element sources: the
-// constant prior step (Fc, cc, Qc, Hc) of a batch row, with the prior
-// (0, mu0, P0) at global step 0, and for the smoother the RTS element built
-// from the filtered moments, with the boundary element at global step N-1.
+// markovflow_tpu_torch/ops/cuda_scan.py.  At d <= 6 the filter runs the
+// staged filter passes of general_scan.cuh with the step source
+// UniformSteps (below): the constant prior step (Fc, cc, Qc, Hc) of a batch
+// row in registers, with the prior (0, mu0, P0) at global step 0, and the
+// sites staged through shared memory; the smoother runs the smoother passes
+// of scan_core.cuh with the RTS element built from the filtered moments,
+// with the boundary element at global step N-1.
 //
 // What bounds them on an H100: at d = 2, o = 1, float32 the filter reads
-// about 12 B of sites per step twice and writes 24 B of moments, ~48 B a
-// step in all (48 MB at N = 1e6, ~15 us at 3.35 TB/s), while it does some
-// 500 flops a step in dependent chains with divisions (element build, two
-// compositions, the likelihood).  So the bound is arithmetic latency, not
-// bytes.  The design keeps every element in registers, does ~2 compositions
-// per step (work-efficient sequential runs instead of a log-depth tree) and
-// keeps the sites out of shared memory.  The smoother reads 24 B and writes
-// 24 B a step with one d x d inverse per step: the same reasoning holds.
-// Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit (N = 1e6,
-// d = 2, float32, torch.profiler): filter_outputs 94 us, filter_totals
-// 27 us, scan_totals 23 us; the outputs pass moves ~28 B a step for GPR
-// (lam is one expanded value), an 8 us floor at 3.35 TB/s.
-// ptxas (CUDA 12.8) gives filter_outputs 80 registers a thread at d = 2,
-// float32, with 8 bytes spilled; the single-block scan of the ~500 block
-// totals is serial.
+// one site value a step (nu; GPR's lam is one expanded value) in each of
+// passes 1 and 3 and writes 24 B of moments, ~32 B a step in all (32 MB at
+// N = 1e6, ~10 us at 3.35 TB/s), plus the stored in-block prefix of every
+// thread (16 values a thread, 8 MB written and read).  Per step it does a
+// rank-one fold in pass 1 and a Kalman predict/update in pass 3 (two or
+// three d^3 products, no inverse) in dependent chains.  Before its own
+// passes the filter's reads and writes of a warp fell on 32 sectors each
+// (a thread owns R consecutive steps); staging makes them whole rows.  The
+// smoother reads 24 B and writes 24 B a step with one d x d inverse per
+// step, and reads each step where it lies (PERF.md has the times).
 #pragma once
 
-#include "scan_core.cuh"
-#include "wide_scan.cuh"
+#include "general_scan.cuh"
 
 namespace mf {
 
@@ -45,7 +41,6 @@ template <typename T_, int D_, int O_>
 struct UniformRow {
   using T = T_;
   static constexpr int D = D_, O = O_;
-  static constexpr bool PREBUILT = false;
   using Prior = UniformPrior<T>;
   T f[D * D], c[D], q[D * D], m0[D], p0[D * D], h[O * D];
 
@@ -84,6 +79,71 @@ struct UniformRow {
 #pragma unroll
     for (int i = 0; i < D * D; ++i) out[i] = k == n - 1 ? T(0) : f[i];
   }
+};
+
+// Kernel 1's step source of the filter passes (general_scan.cuh): the
+// constants of batch row b in registers, loaded once a thread (UniformRow),
+// with the prior (0, P0, mu0) at global step 0; nu, lam and the mask staged
+// where they change with the step, and in pass 3 P_f and m_f staged over
+// them from slot 0 (each lane reads its step's sites before it writes that
+// step's moments).  d^2 + d values a step at most: every d <= 6 is staged
+// (5,376 values a warp at d = 6, R = 4).
+template <typename T_, int D_>
+struct UniformSteps : UniformRow<T_, D_, 1> {
+  using T = T_;
+  static constexpr int D = D_;
+  using Prior = UniformPrior<T>;
+  using In = GeneralIn<T, D>;
+  static constexpr bool LOGLIK = true;
+  static constexpr int NV_IN = 3, NV = D * D + D > 3 ? D * D + D : 3;
+  static constexpr int P_OUT = 0, M_OUT = D * D;
+
+  static __host__ __device__ GeneralSlots slots(const Prior&, const FilterArgs<T>& a,
+                                                bool outputs) {
+    GeneralSlots s{-1, -1, -1, -1, -1, -1, 0};
+    s.nu = a.nu_st != 0 ? s.nv++ : -1;
+    s.lam = a.lam_st != 0 ? s.nv++ : -1;
+    s.mask = a.mask != nullptr ? s.nv++ : -1;
+    if (outputs && s.nv < D * D + D) s.nv = D * D + D;
+    return s;
+  }
+
+  template <class G, bool OUTPUTS>
+  MF_DEV void stage(const Prior& p, const FilterArgs<T>& a, int64_t b, int64_t t, int64_t n,
+                    WarpStage<T, G::R>& st, GeneralSlots& sl) const {
+    static_assert(G::STAGED, "kernel 1 stages every d <= 6");
+    sl = slots(p, a, OUTPUTS);
+    st.place(t, sl.nv, n);
+    if (sl.nu >= 0) st.fetch(sl.nu, a.nu + b * a.nu_sb, a.nu_st);
+    if (sl.lam >= 0) st.fetch(sl.lam, a.lam + b * a.lam_sb, a.lam_st);
+    if (sl.mask >= 0) st.fetch(sl.mask, a.mask + b * a.mask_sb, a.mask_st);
+    wide_fetch_wait();
+  }
+
+  template <bool STAGED, int R>
+  MF_DEV void read(In& in, const WarpStage<T, R>& st, const GeneralSlots& sl, int l, int r,
+                   const Prior&, const FilterArgs<T>& a, int64_t b, int64_t k,
+                   bool once) const {
+    const bool first = r == 0 && k == 0;  // global step 0 is a thread's first
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) {
+      in.f[i] = first ? T(0) : this->f[i];
+      in.q[i] = first ? this->p0[i] : this->q[i];
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      in.c[i] = first ? this->m0[i] : this->c[i];
+      in.h[i] = this->h[i];
+    }
+    if (once && sl.nu < 0) in.s.nu = a.nu[b * a.nu_sb + k * a.nu_st];
+    if (once && sl.lam < 0) in.s.lam = a.lam[b * a.lam_sb + k * a.lam_st];
+    if (sl.nu >= 0) in.s.nu = *st.at(sl.nu, l, r);
+    if (sl.lam >= 0) in.s.lam = *st.at(sl.lam, l, r);
+    in.s.keep = sl.mask < 0 || *st.at(sl.mask, l, r) > T(0.5);
+  }
+
+  static MF_DEV void fold(FElem<T, D>& run, const In& in, bool) { fold_site<T, D>(run, in); }
+  static MF_DEV T step(T* m, T* P, const In& in) { return kalman_step<T, D>(m, P, in); }
 };
 
 // constants Fc, cc, Qc as UniformPrior; filtered moments, contiguous:
@@ -255,8 +315,8 @@ struct WideUniformRtsRow {
     if (d >= mf::WIDE_MIN_D)                                                           \
       return mf::launch_wide_filter<mf::WideUniformRow<T>>(a, p, scratch, batch, int(d), \
                                                            s);                         \
-    MF_SWITCH_D(d, (mf::launch_filter<mf::UniformRow<T, D_, 1>>(a, p, scratch, batch,  \
-                                                                s)),                   \
+    MF_SWITCH_D(d, (mf::launch_general_filter<mf::UniformSteps<T, D_>>(a, p, scratch,   \
+                                                                       batch, s)),     \
                 int(cudaErrorInvalidValue))                                            \
   }                                                                                    \
   extern "C" int mf_uniform_smoother_##SUFFIX(                                         \

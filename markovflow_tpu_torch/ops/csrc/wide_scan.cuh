@@ -514,7 +514,8 @@ MF_DEV WideSite<T> wide_site(const A& a, int64_t b, int64_t k) {
 }
 
 // Site log-likelihood of a step from its predicted observation: hm = H mp,
-// hpht = H Ppred H^T (step_loglik, o = 1).
+// hpht = H Ppred H^T, in lam form (ops/kalman.py filter_pipeline_tl, o = 1);
+// masked steps give 0.
 template <typename T>
 MF_DEV T wide_loglik(const WideSite<T>& s, T hm, T hpht) {
   const T res = s.nu - s.lam * hm;

@@ -176,8 +176,8 @@ def _compile(nvcc: str, out_dir: Path) -> Path:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     for sfx in ("f32", "f64"):
-        for kind in ("filter", "smoother", "uniform_smoother", "adjoint",
-                     "general_filter", "general_adjoint"):
+        for kind in ("uniform_filter", "filter_scan", "smoother", "uniform_smoother",
+                     "adjoint", "general_filter", "general_adjoint"):
             fn = getattr(lib, f"mf_{kind}_scratch_{sfx}")
             fn.argtypes = [i64, i64, i64]
             fn.restype = i64
@@ -365,7 +365,7 @@ def filter_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf=None):
     m_f = torch.empty((B, d, 1, n), **kw)
     p_f = torch.empty((B, d, d, n), **kw)
     loglik = torch.empty((B,), **kw)
-    scratch = _scratch("filter", sfx, d, B, n, nu)
+    scratch = _scratch("uniform_filter", sfx, d, B, n, nu)
     with torch.cuda.device(nu.device):
         err = getattr(build_kernels(), f"mf_uniform_filter_{sfx}")(
             *(x.data_ptr() for x in consts), *sites, _strides(*site_strides),
@@ -524,7 +524,7 @@ def filter_scan(A, b, C, J, eta):
     kw = dict(dtype=A.dtype, device=A.device)
     m_f = torch.empty((B, d, 1, n), **kw)
     p_f = torch.empty((B, d, d, n), **kw)
-    scratch = _scratch("filter", sfx, d, B, n, A)
+    scratch = _scratch("filter_scan", sfx, d, B, n, A)
     with torch.cuda.device(A.device):
         err = getattr(build_kernels(), f"mf_filter_scan_{sfx}")(
             *(x.data_ptr() for x in elems), m_f.data_ptr(), p_f.data_ptr(),

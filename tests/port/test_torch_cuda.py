@@ -221,7 +221,45 @@ def test_general_pair_at_the_run_warp_and_block_edges(cuda_device, n, d, dtype):
     assert _rel(ll_k, ll_p) <= tol_ll
 
 
-@pytest.mark.parametrize("d, n, batch", [(7, 4099, (3,)), (9, 4099, (3,)),
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [1, 2, 3, 6])
+@pytest.mark.parametrize("n", list(chip_smoke.EDGE_NS))
+def test_uniform_filter_at_the_run_warp_and_block_edges(cuda_device, n, d, dtype):
+    """The d <= 6 uniform filter (staged sites, stored in-block prefix,
+    moments-only pass 3) where a thread's run of steps (8 at d <= 2), a
+    warp's (256) or a block's (2,048 in float32) ends, and across those of
+    d = 3 and 6, with batch (3,), a mask and lam expanded over the steps
+    (stride 0, as GPR passes it), against its plain version: float64 within
+    F64_TOL, float32 at the tolerances of test_kernels_match_plain_float32."""
+    tol, tol_ll = (F64_TOL, F64_TOL) if dtype == torch.float64 else (1e-3, 1e-4)
+    args = _problem(d, n, (3,), cuda_device, dtype=dtype)
+    args[7] = args[7][..., :1].expand(args[7].shape)  # lam, stride 0
+    got = ops.filter_pipeline_uniform(*args)
+    want = ops.filter_pipeline_uniform_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:2], want[:2]):
+        assert _rel(g, w) <= tol, _rel(g, w)
+    assert _rel(got[2], want[2]) <= tol_ll
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 6])
+@pytest.mark.parametrize("n", list(chip_smoke.EDGE_NS))
+def test_filter_scan_at_the_run_warp_and_block_edges(cuda_device, n, d, dtype):
+    """The d <= 6 filter scan (staged elements to d = 3, read where they lie
+    at d = 4 and 6) at the run, warp and block edges, batch (3,), on random
+    prebuilt elements (nonzero A and J at step 0), against its plain
+    version: float64 within F64_TOL, float32 within 1e-3."""
+    tol = F64_TOL if dtype == torch.float64 else 1e-3
+    elems = chip_smoke.random_filter_elements(d, n, (3,), dtype, cuda_device)
+    got, want = ops.filter_scan(*elems), ops.filter_scan_plain(*elems)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= tol, _rel(g, w)
+
+
+@pytest.mark.parametrize("d, n, batch", [(2, 4099, (3,)), (3, 4099, (3,)), (6, 4099, (3,)),
+                                         (7, 4099, (3,)), (9, 4099, (3,)),
                                          (12, 4099, (3,)), (9, 47, ())])
 def test_filter_scan_of_random_elements(cuda_device, d, n, batch):
     """The filter scan's pass 3 carries only the b and C legs of the prefix,

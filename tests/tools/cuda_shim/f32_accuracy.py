@@ -1,8 +1,10 @@
-"""Float32 accuracy of the general filter and Koopman backward kernels on the
+"""Float32 accuracy of the d <= 6 filter and Koopman backward kernels on the
 CPU, through the library of build.py: each kernel's float32 outputs against
-the plain versions in float64, on the flagship's jittered-grid problem
-(chip_smoke.general_problem, d = 2), with dense sites and with sparse ones
-(lam = nu = 0 at 30% of the steps):
+the plain versions in float64, at d = 2, with dense sites and with sparse
+ones (lam = nu = 0 at 30% of the steps): the general filter and Koopman
+backward on the flagship's jittered-grid problem (chip_smoke.general_problem),
+the uniform filter on its uniform-grid problem (chip_smoke.uniform_problem)
+and the filter scan on the jittered problem's filtering elements:
 
     python tests/tools/cuda_shim/f32_accuracy.py OUT_DIR [--root TREE] [--n N] [--seeds S]
 
@@ -36,6 +38,7 @@ def main() -> None:
 
     cs, adj = run_on_cpu.load(args.out.resolve())
     import chip_smoke
+    from markovflow_tpu_torch.ops.kalman import make_filter_elements_tl
 
     chip_smoke.DEVICE = torch.device("cpu")
     torch.cuda.synchronize = lambda *a: None
@@ -57,6 +60,20 @@ def main() -> None:
             a64 = adj.adjoint_pipeline_plain(*g64, m64, p64, one)
             a32 = adj.adjoint_pipeline(*g32, m32, p32, one.float())
             e = {"m_f": rel(m32, m64), "P_f": rel(p32, p64), "loglik": rel(ll32, ll64)}
+            u64 = list(chip_smoke.uniform_problem(2, args.n, (), torch.float64, seed=seed,
+                                                  masked=sparse))
+            if sparse:
+                u64[6], u64[7] = u64[6] * u64[8], u64[7] * u64[8]
+            u32 = [None if x is None else x.float() for x in u64]
+            for name, x32, x64 in zip(("uniform m_f", "uniform P_f", "uniform loglik"),
+                                      cs.filter_pipeline_uniform(*u32),
+                                      cs.filter_pipeline_uniform_plain(*u64)):
+                e[name] = rel(x32, x64)
+            f64 = make_filter_elements_tl(*g64[:6])
+            for name, x32, x64 in zip(("scan m_f", "scan P_f"),
+                                      cs.filter_scan(*(x.float() for x in f64)),
+                                      cs.filter_scan_plain(*f64)):
+                e[name] = rel(x32, x64)
             for name, x32, x64 in zip(("gF", "gc", "gQ", "gH", "gnu", "glam"), a32, a64):
                 e[name] = rel(x32, x64)
                 e["sum " + name] = rel(x32.double().sum(-1), x64.sum(-1))
