@@ -31,8 +31,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    2048, 2049, 4099), batch (3,), a mask and GPR's stride-0 emission row
    and lam, in float64 and float32; and beside them, at the same N, batch
    and dtypes, the uniform filter at d = 1, 2, 3, 6 with a mask and GPR's
-   stride-0 lam, and the filter scan on random prebuilt elements at d = 1,
-   2, 3, 4, 6 (d = 4 above its staged tile);
+   stride-0 lam, the uniform smoother and Koopman backward (the latter with
+   and without the site gradients) on the same problems, and the filter
+   scan on random prebuilt elements at d = 1, 2, 3, 4, 6 (d = 4 above its
+   staged tile);
 4. the slice at full size, T = 1e6, float32, flagship GPR (Matern32(0.5,
    1.0), noise Cholesky 0.2), each path with the launch counters set to 0
    just before it and read just after:
@@ -414,15 +416,16 @@ def phase_kernels_vs_plain(cs, adj):
     # the filter scan's moments-only pass 3 on elements no model makes
     for n, batch, d in ((4099, (3,), 7), (4099, (3,), 9), (4099, (3,), 12), (47, (), 9)):
         filter_scan_random_case(cs, n, batch, d)
-    # the d <= 6 filter passes where a thread's, a warp's or a block's run
-    # of steps ends: the general filter and Koopman backward, the uniform
-    # filter, and the filter scan (also at d = 4, where it reads each step
-    # where it lies)
+    # the d <= 6 passes where a thread's, a warp's or a block's run of steps
+    # ends: the general filter and Koopman backward, the uniform filter, the
+    # uniform smoother and Koopman backward, and the filter scan (also at
+    # d = 4, where it reads each step where it lies)
     for dtype in (torch.float64, torch.float32):
         for n in EDGE_NS:
             for d in (1, 2, 3, 6):
                 general_edges_case(cs, adj, n, d, dtype)
                 uniform_edges_case(cs, n, d, dtype)
+                uniform_pair_edges_case(cs, adj, n, d, dtype)
             for d in (1, 2, 3, 4, 6):
                 filter_scan_random_case(cs, n, (3,), d, dtype)
 
@@ -463,6 +466,35 @@ def uniform_edges_case(cs, n, d, dtype):
     check(f"uniform edges N={n} batch=(3,) d={d} {str(dtype)[6:]} masked",
           {k: rel_diff(g, w) for k, g, w in zip(("m_f", "P_f", "loglik"), got, want)},
           {"m_f": tol_m, "P_f": tol_m, "loglik": TOL_F64 if f64 else TOL_F32_LOGLIK})
+
+
+def uniform_pair_edges_case(cs, adj, n, d, dtype):
+    """The uniform smoother and Koopman backward against their plain versions
+    at N = n, batch (3,), from the plain filter's moments of
+    uniform_problem's problem with a mask and GPR's stride-0 lam; the
+    backward with the site gradients and without them (as the main path
+    calls it), its sums against the magnitudes of their terms."""
+    f64 = dtype == torch.float64
+    args = uniform_problem(d, n, (3,), dtype, seed=n, masked=True)
+    assert n == 1 or args[7].stride(-1) == 0
+    gscale = torch.linspace(1.0, -0.5, 3, dtype=dtype, device=DEVICE)
+    with torch.no_grad():
+        m_p, p_p, _ = cs.filter_pipeline_uniform_plain(*args)
+        s_k = cs.smoother_pipeline_uniform(*args[:3], m_p, p_p)
+        s_p = cs.smoother_pipeline_uniform_plain(*args[:3], m_p, p_p)
+        a_k = adj.adjoint_pipeline_uniform(*args, m_p, p_p, gscale)
+        a_k0 = adj.adjoint_pipeline_uniform(*args, m_p, p_p, gscale, site_grads=False)
+        a_p = adj.adjoint_pipeline_uniform_plain(*args, m_p, p_p, gscale)
+        scales = adjoint_sum_scales(adj, args, m_p, p_p, gscale) + (None, None)
+    torch.cuda.synchronize()
+    assert a_k0[6] is None and a_k0[7] is None
+    diffs = {"m_s": rel_diff(s_k[0], s_p[0]), "P_s": rel_diff(s_k[1], s_p[1]),
+             **{name: rel_diff(g, w, sc) for name, g, w, sc in zip(ADJ_OUT, a_k, a_p, scales)},
+             **{name + " (no site grads)": rel_diff(g, w, sc)
+                for name, g, w, sc in zip(ADJ_OUT[:6], a_k0, a_p, scales)}}
+    tol = TOL_F64 if f64 else TOL_F32_MOMENTS
+    check(f"uniform smoother, Koopman backward edges N={n} batch=(3,) d={d} "
+          f"{str(dtype)[6:]} masked", diffs, dict.fromkeys(diffs, tol))
 
 
 def random_filter_elements(d, n, batch, dtype, device=DEVICE, seed=0):

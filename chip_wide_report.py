@@ -1,15 +1,16 @@
 """Report on one CUDA card what chip_smoke.py does not measure for the
 d = 7..12 kernels (markovflow_tpu_torch/ops/csrc/wide_scan.cuh) and for the
-d <= 6 register passes of the filters and the general Koopman backward
-(kernels 1, 4, 6 and 7):
+d <= 6 register passes of the filters, the uniform smoother and the Koopman
+backwards (kernels 1, 2, 3, 4, 6 and 7):
 
     python3 chip_wide_report.py
 
 1. ptxas's registers, stack and spills of every kernel of the runtime-d
    units (nvcc -Xptxas -v on csrc/wide_inst.cu, one unit per family and
-   dtype) and of the uniform, general and gadjoint units at d = 2, 3 and 6
-   in float32 (uniform_inst.cu, general_inst.cu, gadjoint_inst.cu; kernels
-   1 and 2, 4, 5 and 6, and 7),
+   dtype) and of the uniform, general, adjoint and gadjoint units at d = 2,
+   3 and 6 in float32, and of the uniform and adjoint units in float64
+   (uniform_inst.cu, general_inst.cu, adjoint_inst.cu, gadjoint_inst.cu;
+   kernels 1 and 2, 4, 5 and 6, 3, and 7),
    compiled in parallel, and the static count of each kernel's SASS
    instructions by kind (cuobjdump -sass): shared-memory loads and stores
    (LDS, STS), generic loads and stores (LD, ST), global loads and stores
@@ -20,9 +21,10 @@ d <= 6 register passes of the filters and the general Koopman backward
    configures the launches and the occupancy calculator counts them
    (mf_wide_occupancy_*), at d = 9 in float32 and d = 12 in float64;
 3. the registers, local memory and shared memory of passes 1, 3 and 2 of
-   kernels 1, 4, 6 and 7 at d = 1..6 and the warps an SM keeps resident,
-   as the library's runtime reports them (mf_general_occupancy_*; a library
-   without that entry reports none), float32 and float64.
+   kernels 1, 2, 3, 4, 6 and 7 at d = 1..6 and the warps an SM keeps
+   resident, as the library's runtime reports them (mf_general_occupancy_*;
+   a library without that entry reports none, one that does not answer for
+   kernel 1, 2, 3 or 6 none of it), float32 and float64.
 
 The last line is one JSON object of all of it.  Needs a CUDA card and nvcc.
 """
@@ -51,8 +53,10 @@ SASS_KINDS = {"LDS": ("LDS",), "STS": ("STS",), "LD": ("LD",), "ST": ("ST",),
               "LDG": ("LDG",), "STG": ("STG",), "LDL/STL": ("LDL", "STL"),
               "FMA": ("FFMA", "DFMA"), "SHFL": ("SHFL",)}
 #: the d <= 6 units reported beside the wide ones: (source, defines)
-NARROW_UNITS = [(f"{fam}_inst.cu", ["-DMF_T=float", f"-DMF_D={d}"])
-                for fam in ("uniform", "general", "gadjoint") for d in (2, 3, 6)]
+NARROW_UNITS = [(f"{fam}_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}"])
+                for fam, dtypes in (("uniform", ("float", "double")), ("general", ("float",)),
+                                    ("adjoint", ("float", "double")), ("gadjoint", ("float",)))
+                for t in dtypes for d in (2, 3, 6)]
 
 
 def sass_counts(sass: str, demangle) -> dict:
@@ -136,7 +140,7 @@ def occupancy(cs) -> list:
 
 
 def general_occupancy(cs) -> list:
-    """Per kernel (1, 4, 6, 7), state dim 1..6, dtype and pass: registers,
+    """Per kernel (1, 2, 3, 4, 6, 7), state dim 1..6, dtype and pass: registers,
     local and shared memory and resident warps, from the library; empty
     when the library has no mf_general_occupancy_* entry, and no rows of a
     kernel it does not answer for."""
@@ -145,11 +149,11 @@ def general_occupancy(cs) -> list:
         print("  the library has no mf_general_occupancy_* entry", flush=True)
         return rows
     for sfx in ("f32", "f64"):
-        for kernel in (1, 4, 6, 7):
+        for kernel in (1, 2, 3, 4, 6, 7):
             for d in range(1, 7):
                 out = (ctypes.c_int64 * 12)()
                 err = getattr(lib, f"mf_general_occupancy_{sfx}")(kernel, d, out)
-                if err != 0 and kernel in (1, 6):  # a parent library's kernels 1 and 6
+                if err != 0 and kernel in (1, 2, 3, 6):  # an older library's
                     break
                 if err != 0:
                     raise RuntimeError(f"mf_general_occupancy_{sfx}({kernel}, {d}): CUDA error {err}")
@@ -181,7 +185,7 @@ def main() -> int:
               + " ".join(f"{k} {v}" for k, v in sass.get(label, {}).items()), flush=True)
     print("2. shared memory and resident warps:", flush=True)
     occ = occupancy(cs)
-    print("3. kernels 1, 4, 6 and 7 at d <= 6, from the library:", flush=True)
+    print("3. kernels 1, 2, 3, 4, 6 and 7 at d <= 6, from the library:", flush=True)
     gocc = general_occupancy(cs)
     print(json.dumps({"card": card, "ptxas": regs, "sass": sass, "occupancy": occ,
                       "general_occupancy": gocc}), flush=True)

@@ -3,5 +3,6 @@
 // ops/cuda_scan.py passes, as in uniform_inst.cu.
 #include "adjoint_scan.cuh"
 
-template int mf::launch_adjoint<MF_T, MF_D>(mf::AdjointPrior<MF_T>, MF_T*, MF_T*, int64_t,
-                                            int64_t, cudaStream_t);
+template int mf::launch_general_adjoint<mf::UniformAdjSteps<MF_T, MF_D>>(
+    mf::AdjointPrior<MF_T>, MF_T*, int64_t, int64_t, cudaStream_t);
+template int mf::general_adjoint_occupancy<mf::UniformAdjSteps<MF_T, MF_D>>(int64_t*);

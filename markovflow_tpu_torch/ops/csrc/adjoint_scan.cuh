@@ -15,27 +15,46 @@
 // Its reverse scan gives r_k (the g leg) and NDK_k (the ell leg); stage 2
 // (adjoint_grads_from_scan) turns them into the six gradients.
 //
-// Passes: the smoother passes of scan_core.cuh with this element source
-// (block totals of the reverse reduce, then scan_totals), then
-// adjoint_outputs, which rebuilds the elements, folds in the suffix of all
-// later steps and assembles every step's gradients: it writes gnu and glam
-// per step (when asked) and reduces the summed gradients (Fc, cc, Qc over
-// k >= 1, Hc over all k) to one partial per block, which sum_partials adds
-// in a fixed order.  The thread that owns global step 0 writes gmu0 and gP0.
-// Global step 0 is found from its index; nothing is padded.
+// Passes: those of the general Koopman backward at d <= 6
+// (general_adjoint.cuh: gadjoint_totals, scan_totals, gadjoint_outputs) with
+// the step source UniformAdjSteps below, then sum_partials.  At o = 1 stage
+// 1 is the rank-one GadjStage1 (no inverse, two d^3 products).  Pass 1 folds
+// each thread's steps with the full composition and stores its in-block
+// suffix; pass 3 composes the g and L legs of that suffix with the block's
+// carry, folds its steps into those legs only, and per step adds
+// r m_{k-1}^T + 2 N (F P_{k-1}), r and N (k >= 1) and the gH term (every k,
+// through the smoothed moments) to the thread's sums, writes gmu0 and gP0 at
+// step 0 and, when asked, gnu and glam per step through the stage; the
+// block's sums go out as one partial (block_sum), which sum_partials adds
+// in a fixed order.  No float atomics: a run repeats bit for bit.
 //
-// What bounds it on an H100: per step it reads the sites (one expanded
-// value for GPR) and (m, P)_{k-1} (d + d^2 values) twice, and writes
-// 2 o + o^2 values when the site gradients are asked for: ~30 B a step at
-// d = 2, float32, a 9 us floor at N = 1e6.  It does ~3x the smoother's
-// arithmetic per step (stage 1 twice, stage 2, two compositions), so it is
-// bound by arithmetic latency as the filter is; the design keeps elements
-// and the gradient sums in registers and reduces them without atomics.
+// What bounds it on an H100: at d = 2, float32, GPR's backward reads nu
+// (lam is one expanded value) and (m, P)_{k-1}, 28 B a step, in each of
+// passes 1 and 3, plus the stored in-block suffix (10 values a thread,
+// written and read): ~66 MB at N = 1e6, ~20 us at 3.35 TB/s (the
+// function's own floor, each input read once, is 8.4 us); with the site
+// gradients it also writes 8 B a step.  Pass 3 stages each warp's 32 R
+// steps through shared memory (every d <= 6: at most d^2 + d + 3 values a
+// step, 5,760 a warp at d = 6), so a warp's load of one value is whole
+// rows, not 32 sectors, and its site gradients go out the same way; pass 1,
+// which only reads, reads each step where it lies (a thread's R steps of a
+// value share their sectors; staged, it was 18% slower at d = 2 and 60% at
+// d = 6, PERF.md).  Per step
+// pass 1 does stage 1 and a full fold (five d^3 products), pass 3 stage 1,
+// a g-and-L fold and N F P (four) and the smoothed moments' site terms in
+// d^2 products, in dependent chains (PERF.md has the times).
 #pragma once
 
+#include "general_adjoint.cuh"
 #include "uniform_scan.cuh"
 
 namespace mf {
+
+// The summed gradients, in this order: Fc [d, d], cc [d], Qc [d, d], Hc [o, d].
+template <int D, int O>
+struct AdjointSums {
+  static constexpr int OF = 0, OC = D * D, OQ = OC + D, OH = OQ + D * D, NV = OH + O * D;
+};
 
 template <typename T>
 struct AdjointPrior {
@@ -50,286 +69,163 @@ struct AdjointPrior {
   const T* gscale;  // [B], the cotangent of each row's log-likelihood
   T *gnu, *glam;    // [B, o, 1, N], [B, o, o, N], contiguous; may be null
   T *gm0, *gp0;     // [B, d], [B, d, d]
+  T* gsums;         // [B, NV]: the summed gradients (AdjointSums), scaled by gscale
   T* partials;      // scratch: [B, nblk, NV] block partials of the sums
 };
 
-// The summed gradients, in this order: Fc [d, d], cc [d], Qc [d, d], Hc [o, d].
-template <int D, int O>
-struct AdjointSums {
-  static constexpr int OF = 0, OC = D * D, OQ = OC + D, OH = OQ + D * D, NV = OH + O * D;
-};
+// Kernel 3's step source of the Koopman backward passes
+// (general_adjoint.cuh): the constants of batch row b in registers, loaded
+// once a thread (UniformRow), with the prior (F_0 = 0, Q_0 = P0, c_0 = mu0)
+// at global step 0 and F_{k+1} = Fc but at step n - 1; staged in pass 3:
+// P_{k-1} and m_{k-1} (stage_steps' slots shifted by one step), then nu,
+// lam and the mask where they change with the step.  Pass 3 puts gnu and
+// glam over the first two moment slots of a step it has read, and sums the
+// constants' gradients in registers.
+template <typename T_, int D_>
+struct UniformAdjSteps : UniformRow<T_, D_, 1> {
+  using T = T_;
+  static constexpr int D = D_;
+  using Prior = AdjointPrior<T>;
+  using G = StagedTiling<T, D, D * D + D + 3>;
+  using In = GeneralIn<T, D>;
+  using S = AdjointSums<D, 1>;
+  static constexpr int NSUM = S::NV;
+  static constexpr int GNU_OUT = 0, GLAM_OUT = 1;
+  static_assert(G::STAGED, "kernel 3 stages every d <= 6 in pass 3");
+  static constexpr bool STAGED1 = false;
+  T acc[NSUM];
 
-template <typename T, int D, int O>
-struct AdjointStep {
-  FilterStep<T, D, O> s;  // F, c, Q, H and the sites of step k
-  T mp[D], pprev[D * D];  // filtered moments of step k - 1 (0 at k = 0)
-  T a[D], pp[D * D];      // predicted moments of step k
-};
-
-// Stage 1: the step's inputs, predicted moments and smoothing element.  U
-// is the prior-step source (UniformRow); P holds its prior (p.k), the sites
-// and the filtered moments.
-template <typename T, int D, int O, class U, class P>
-MF_DEV void adjoint_stage1_body(const U& u, const P& p, int64_t b, int64_t k, int64_t n,
-                                AdjointStep<T, D, O>& st, SElem<T, D>& out) {
-  using E = SElem<T, D>;
-  FilterStep<T, D, O>& s = st.s;
-  u.step(p.k, b, k, s);
-  s.load_sites(p, b, k);
+  MF_DEV void load(const Prior& p, int64_t b) {
+    UniformRow<T, D, 1>::load(p.k, b);
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    st.mp[i] = k > 0 ? p.m_f[(b * D + i) * n + k - 1] : T(0);
-#pragma unroll
-    for (int j = 0; j < D; ++j)
-      st.pprev[i * D + j] = k > 0 ? p.p_f[((b * D + i) * D + j) * n + k - 1] : T(0);
+    for (int i = 0; i < NSUM; ++i) acc[i] = T(0);
   }
-  const T* h = s.h;
-  // a = F m + c, Pp = sym(F P F^T + Q)
-  mm<T, D, D, 1>(s.f, st.mp, st.a);
-  add_to<T, D>(st.a, s.c);
-  T t[D * D];
-  mm_nt<T, D, D, D>(st.pprev, s.f, t);
-  mm<T, D, D, D>(s.f, t, st.pp);
-  add_to<T, D * D>(st.pp, s.q);
-  sym<T, D>(st.pp);
-  // Zt = (I + Lam H Pp H^T)^-1, W = sym(Zt Lam), e = Zt (nu - Lam H a)
-  T hp[O * D], hpht[O * O], m1[O * O], zt[O * O], w[O * O];
-  mm<T, O, D, D>(h, st.pp, hp);
-  mm_nt<T, O, D, O>(hp, h, hpht);
-  mm<T, O, O, O>(s.lam, hpht, m1);
-  add_eye<T, O>(m1);
-  inv<T, O>(m1, zt);
-  mm<T, O, O, O>(zt, s.lam, w);
-  sym<T, O>(w);
-  T ha[O], res[O], e[O];
-  mm<T, O, D, 1>(h, st.a, ha);
-  mm<T, O, O, 1>(s.lam, ha, res);
-#pragma unroll
-  for (int i = 0; i < O; ++i) res[i] = s.nu[i] - res[i];
-  mm<T, O, O, 1>(zt, res, e);
-  // H^T W H; L = F_{k+1} (I - Pp H^T W H)
-  T wh[O * D], htwh[D * D], ikh[D * D], lmat[D * D];
-  mm<T, O, O, D>(w, h, wh);
-  mm_tn<T, D, O, D>(h, wh, htwh);
-  mm<T, D, D, D>(st.pp, htwh, ikh);
-#pragma unroll
-  for (int i = 0; i < D * D; ++i) ikh[i] = -ikh[i];
-  add_eye<T, D>(ikh);
-  u.next_f(p.k, b, k, n, t);  // F_{k+1}
-  mm<T, D, D, D>(t, ikh, lmat);
-  // element (E = L^T, g = H^T e, ell = sym(H^T W H))
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-#pragma unroll
-    for (int j = 0; j < D; ++j) out.v[E::OE + i * D + j] = lmat[j * D + i];
-  }
-  mm_tn<T, D, O, 1>(h, e, out.v + E::OG);
-#pragma unroll
-  for (int i = 0; i < D * D; ++i) out.v[E::OL + i] = htwh[i];
-  sym<T, D>(out.v + E::OL);
-}
 
-template <typename T, int D, int O, class U, class P>
-__device__ __noinline__ void adjoint_stage1_call(const U& u, const P& p, int64_t b,
-                                                 int64_t k, int64_t n,
-                                                 AdjointStep<T, D, O>& st,
-                                                 SElem<T, D>& out) {
-  adjoint_stage1_body<T, D, O>(u, p, b, k, n, st, out);
-}
-
-// Stage 2: the step's gradients from r = suffix.g and NDK = suffix.ell,
-// added to the block sums (acc) and written per step.
-template <typename T, int D, int O>
-MF_DEV void adjoint_stage2_body(const AdjointStep<T, D, O>& st, const SElem<T, D>& suf,
-                                const AdjointPrior<T>& p, int64_t b, int64_t k,
-                                int64_t n, T gs, T* acc) {
-  using E = SElem<T, D>;
-  using S = AdjointSums<D, O>;
-  const FilterStep<T, D, O>& s = st.s;
-  const T* h = s.h;
-  const T *r = suf.v + E::OG, *ndk = suf.v + E::OL;
-  // N = (r r^T - NDK) / 2 = dL/dQ_k; dL/dc_k = r;
-  // dL/dF_k = r m_{k-1}^T + 2 N F P_{k-1}
-  T nm[D * D], fp[D * D], nfp[D * D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-#pragma unroll
-    for (int j = 0; j < D; ++j) nm[i * D + j] = T(0.5) * (r[i] * r[j] - ndk[i * D + j]);
+  static __host__ __device__ GeneralSlots slots(const Prior& p) {
+    GeneralSlots s{0, D * D, -1, -1, -1, -1, D * D + D};
+    s.nu = p.nu_st != 0 ? s.nv++ : -1;
+    s.lam = p.lam_st != 0 ? s.nv++ : -1;
+    s.mask = p.mask != nullptr ? s.nv++ : -1;
+    return s;
   }
-  mm<T, D, D, D>(s.f, st.pprev, fp);
-  mm<T, D, D, D>(nm, fp, nfp);
-  if (k == 0) {
+
+  template <bool STAGED>
+  MF_DEV void stage(const Prior& p, int64_t b, int64_t t, int64_t n, WarpStage<T, G::R>& st,
+                    GeneralSlots& sl) const {
+    if constexpr (!STAGED) return;
+    sl = slots(p);
+    st.place(t, sl.nv, n);
 #pragma unroll
-    for (int i = 0; i < D; ++i) p.gm0[b * D + i] = gs * r[i];
+    for (int i = 0; i < D * D; ++i)
+      st.template fetch<true>(sl.pprev + i, p.p_f + (b * D * D + i) * n, 1);
 #pragma unroll
-    for (int i = 0; i < D * D; ++i) p.gp0[b * D * D + i] = gs * nm[i];
-  } else {
+    for (int i = 0; i < D; ++i) st.template fetch<true>(sl.mprev + i, p.m_f + (b * D + i) * n, 1);
+    if (sl.nu >= 0) st.fetch(sl.nu, p.nu + b * p.nu_sb, p.nu_st);
+    if (sl.lam >= 0) st.fetch(sl.lam, p.lam + b * p.lam_sb, p.lam_st);
+    if (sl.mask >= 0) st.fetch(sl.mask, p.mask + b * p.mask_sb, p.mask_st);
+    wide_fetch_wait();
+  }
+
+  MF_DEV void f_after(const Prior&, int64_t, int64_t, int64_t last, int64_t n,
+                      const WarpStage<T, G::R>&, T* fn) const {
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) fn[i] = last + 1 >= n ? T(0) : this->f[i];
+  }
+
+  // Unstaged (pass 1), nu and lam from step k and no mask (the fold reads
+  // none).
+  template <bool STAGED>
+  MF_DEV void read(In& in, T* mp, T* pprev, const WarpStage<T, G::R>& st,
+                   const GeneralSlots& sl, int lane, int r, const Prior& p, int64_t b,
+                   int64_t k, bool once, int64_t n) const {
+    if constexpr (STAGED) this->read_step(in, st, sl, lane, r, p, b, k, once);
+    else this->read_step(in, st, GeneralSlots{-1, -1, -1, -1, -1, -1, 0}, lane, r, p, b, k, true);
+    read_prev_moments<STAGED, D>(p, st, sl, lane, r, b, k, n, mp, pprev);
+  }
+
+  // Stage 2 (adjoint_grads_from_scan) into the sums, unscaled (sum_partials
+  // scales them): N = (r r^T - NDK) / 2; Fc += r m_{k-1}^T + 2 N F P_{k-1},
+  // cc += r, Qc += N at k >= 1, gmu0 = gs r and gP0 = gs N at k = 0; at
+  // kept steps, through the smoothed moments m_s = a + Pp r and
+  // A = Pp - Pp NDK Pp + m_s m_s^T, Hc += nu m_s^T - lam H A and, with
+  // y = nu / lam, gnu = gs (H m_s - y) and glam = gs (y^2 - H A H^T +
+  // 1 / lam) / 2 (0 at masked steps).
+  MF_DEV void out(const Prior& p, const In& in, const GadjStage1<T, D>& s1, const T* rv,
+                  const T* ndk, T gs, const WarpStage<T, G::R>& st, int lane, int r, int64_t b,
+                  int64_t k, int64_t) {
+    T nm[D * D];
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      acc[S::OC + i] += r[i];
 #pragma unroll
-      for (int j = 0; j < D; ++j)
-        acc[S::OF + i * D + j] += r[i] * st.mp[j] + T(2) * nfp[i * D + j];
+      for (int j = 0; j < D; ++j) nm[i * D + j] = T(0.5) * (rv[i] * rv[j] - ndk[i * D + j]);
     }
+    if (k == 0) {
 #pragma unroll
-    for (int i = 0; i < D * D; ++i) acc[S::OQ + i] += nm[i];
-  }
-  // smoothed moments m_s = a + Pp r, P_s = sym(Pp - Pp NDK Pp)
-  T ms[D], ps[D * D], t1[D * D];
-  mm<T, D, D, 1>(st.pp, r, ms);
-  add_to<T, D>(ms, st.a);
-  mm<T, D, D, D>(ndk, st.pp, t1);
-  mm<T, D, D, D>(st.pp, t1, ps);
+      for (int i = 0; i < D; ++i) p.gm0[b * D + i] = gs * rv[i];
 #pragma unroll
-  for (int i = 0; i < D * D; ++i) ps[i] = st.pp[i] - ps[i];
-  sym<T, D>(ps);
-  if (!s.keep) {  // masked steps: zero observation gradients
-    if (p.gnu == nullptr) return;
+      for (int i = 0; i < D * D; ++i) p.gp0[b * D * D + i] = gs * nm[i];
+    } else {
+      T nfp[D * D];
+      mm<T, D, D, D>(nm, s1.fp, nfp);
 #pragma unroll
-    for (int i = 0; i < O; ++i) {
-      p.gnu[(b * O + i) * n + k] = T(0);
+      for (int i = 0; i < D; ++i) {
+        acc[S::OC + i] += rv[i];
 #pragma unroll
-      for (int j = 0; j < O; ++j) p.glam[((b * O + i) * O + j) * n + k] = T(0);
+        for (int j = 0; j < D; ++j)
+          acc[S::OF + i * D + j] += rv[i] * s1.mp[j] + T(2) * nfp[i * D + j];
+      }
+#pragma unroll
+      for (int i = 0; i < D * D; ++i) acc[S::OQ + i] += nm[i];
     }
-    return;
-  }
-  // y = Lam^-1 nu, A = P_s + m_s m_s^T
-  T li[O * O], y[O];
-  inv<T, O>(s.lam, li);
-  mm<T, O, O, 1>(li, s.nu, y);
+    T gnu = T(0), glam = T(0);
+    if (in.s.keep) {
+      // A H^T = Pp H^T - Pp NDK (Pp H^T) + m_s (H m_s): d^2 products (Pp
+      // and NDK are symmetric, so A is without the sym of gadjoint_stage2)
+      T ms[D], hak[D], ph[D], t1[D];
+      mm<T, D, D, 1>(s1.pp, rv, ms);
+      add_to<T, D>(ms, s1.a);
+      mm<T, D, D, 1>(s1.pp, in.h, ph);
+      mm<T, D, D, 1>(ndk, ph, t1);
+      mm<T, D, D, 1>(s1.pp, t1, hak);
+      const T hm = dot<T, D>(in.h, ms);
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
+      for (int i = 0; i < D; ++i) hak[i] = ph[i] - hak[i] + ms[i] * hm;
 #pragma unroll
-    for (int j = 0; j < D; ++j) ps[i * D + j] += ms[i] * ms[j];
-  }
-  T hak[O * D], lhak[O * D], hakh[O * O], hm[O];
-  mm<T, O, D, D>(h, ps, hak);
-  mm<T, O, O, D>(s.lam, hak, lhak);
-  mm_nt<T, O, D, O>(hak, h, hakh);
-  mm<T, O, D, 1>(h, ms, hm);
-  // dL/dH = nu m_s^T - Lam H A
-#pragma unroll
-  for (int i = 0; i < O; ++i) {
-#pragma unroll
-    for (int j = 0; j < D; ++j)
-      acc[S::OH + i * D + j] += s.nu[i] * ms[j] - lhak[i * D + j];
-  }
-  if (p.gnu == nullptr) return;
-  // dL/dnu = H m_s - y; dL/dLam = (y y^T - H A H^T + Lam^-1) / 2
-#pragma unroll
-  for (int i = 0; i < O; ++i) {
-    p.gnu[(b * O + i) * n + k] = gs * (hm[i] - y[i]);
-#pragma unroll
-    for (int j = 0; j < O; ++j)
-      p.glam[((b * O + i) * O + j) * n + k] =
-          gs * (T(0.5) * (y[i] * y[j] - hakh[i * O + j] + li[i * O + j]));
-  }
-}
-
-template <typename T, int D, int O>
-__device__ __noinline__ void adjoint_stage2_call(const AdjointStep<T, D, O>& st,
-                                                 const SElem<T, D>& suf,
-                                                 const AdjointPrior<T>& p, int64_t b,
-                                                 int64_t k, int64_t n, T gs, T* acc) {
-  adjoint_stage2_body<T, D, O>(st, suf, p, b, k, n, gs, acc);
-}
-
-// Element source of the reverse scan, over the prior-step source U and the
-// arguments P.  For d >= 4 both stages are calls, as the compositions are
-// (scan_core.cuh).
-template <class U, class P>
-struct AdjointRow {
-  using T = typename U::T;
-  static constexpr int D = U::D, O = U::O;
-  using Prior = P;
-  U u;
-
-  MF_DEV void load(const Prior& p, int64_t b) { u.load(p.k, b); }
-
-  MF_DEV void build(const Prior& p, int64_t b, int64_t k, int64_t n,
-                    AdjointStep<T, D, O>& st, SElem<T, D>& out) const {
-    if constexpr (D >= 4) adjoint_stage1_call<T, D, O>(u, p, b, k, n, st, out);
-    else adjoint_stage1_body<T, D, O>(u, p, b, k, n, st, out);
+      for (int j = 0; j < D; ++j) acc[S::OH + j] += in.s.nu * ms[j] - in.s.lam * hak[j];
+      if (p.gnu != nullptr) {
+        const T li = T(1) / in.s.lam, y = li * in.s.nu;
+        gnu = gs * (hm - y);
+        glam = gs * (T(0.5) * (y * y - dot<T, D>(hak, in.h) + li));
+      }
+    }
+    if (p.gnu != nullptr) {
+      *st.at(GNU_OUT, lane, r) = gnu;
+      *st.at(GLAM_OUT, lane, r) = glam;
+    }
   }
 
-  MF_DEV void elem(const Prior& p, int64_t b, int64_t k, int64_t n,
-                   SElem<T, D>& out) const {
-    AdjointStep<T, D, O> st;
-    build(p, b, k, n, st, out);
+  // gnu and glam from the stage; the block's sums to its partial
+  template <int THREADS>
+  MF_DEV void finish(const Prior& p, const SmootherArgs<T>& a, const WarpStage<T, G::R>& st,
+                     int64_t b, T* red) {
+    if (p.gnu != nullptr) {
+      __syncwarp();
+      st.store(GNU_OUT, p.gnu + b * a.n);
+      st.store(GLAM_OUT, p.glam + b * a.n);
+    }
+    block_sum<T, THREADS, NSUM>(acc, red);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int i = 0; i < NSUM; ++i) p.partials[(b * a.nblk + blockIdx.x) * NSUM + i] = acc[i];
+    }
   }
 };
-
-template <typename T, int D, int O>
-__global__ void __launch_bounds__(Tiling<D>::THREADS)
-adjoint_outputs(SmootherArgs<T> a, AdjointPrior<T> p) {
-  using Row = AdjointRow<UniformRow<T, D, O>, AdjointPrior<T>>;
-  using Op = SmootherOp<T, D>;
-  using E = SElem<T, D>;
-  constexpr int THREADS = Tiling<D>::THREADS, R = Tiling<D>::R;
-  constexpr int NV = AdjointSums<D, O>::NV;
-  __shared__ E smem[THREADS / 32 + 1];
-  __shared__ T red[NV * (THREADS / 32)];
-  const int64_t b = blockIdx.y, blk = blockIdx.x, n = a.n;
-  const int64_t first_step = (blk * THREADS + threadIdx.x) * R;
-  Row row;
-  row.load(p, b);
-  E excl, total, run, e, t;
-  smoother_thread_suffix<Row>(p, row, b, first_step, n, excl, total, smem);
-  // the later threads of this block, then all later blocks
-  Op::combine(excl, reinterpret_cast<const E*>(a.totals)[b * a.nblk + blk], run);
-  const T gs = p.gscale[b];
-  T acc[NV];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) acc[i] = T(0);
-  AdjointStep<T, D, O> st;
-  for (int r = R - 1; r >= 0; --r) {
-    const int64_t k = first_step + r;
-    if (k >= n) continue;
-    row.build(p, b, k, n, st, e);
-    Op::combine(e, run, t);
-    run = t;  // (E, r_k, NDK_k): the suffix from step k on
-    if constexpr (D >= 4) adjoint_stage2_call<T, D, O>(st, run, p, b, k, n, gs, acc);
-    else adjoint_stage2_body<T, D, O>(st, run, p, b, k, n, gs, acc);
-  }
-  block_sum<T, THREADS, NV>(acc, red);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) p.partials[(b * a.nblk + blk) * NV + i] = acc[i];
-  }
-}
-
-template <typename T, int D>
-int64_t adjoint_scratch(int64_t batch, int64_t n) {
-  return batch * num_blocks(n, Tiling<D>::TILE) *
-         (SElem<T, D>::SIZE + AdjointSums<D, 1>::NV);
-}
-
-template <typename T, int D>
-int launch_adjoint(AdjointPrior<T> p, T* gsums, T* scratch, int64_t batch, int64_t n,
-                   cudaStream_t stream) {
-  using Row = AdjointRow<UniformRow<T, D, 1>, AdjointPrior<T>>;
-  constexpr int THREADS = Tiling<D>::THREADS, NV = AdjointSums<D, 1>::NV;
-  SmootherArgs<T> a{nullptr, nullptr, scratch, n, num_blocks(n, Tiling<D>::TILE)};
-  p.partials = scratch + batch * a.nblk * SElem<T, D>::SIZE;
-  const dim3 grid(unsigned(a.nblk), unsigned(batch));
-  smoother_totals<Row><<<grid, THREADS, 0, stream>>>(a, p);
-  MF_CHECK_LAUNCH();
-  scan_totals<SmootherOp<T, D>, THREADS, true><<<unsigned(batch), THREADS, 0, stream>>>(
-      reinterpret_cast<SElem<T, D>*>(a.totals), a.nblk);
-  MF_CHECK_LAUNCH();
-  adjoint_outputs<T, D, 1><<<grid, THREADS, 0, stream>>>(a, p);
-  MF_CHECK_LAUNCH();
-  sum_partials<T, THREADS><<<dim3(unsigned(NV), unsigned(batch)), THREADS, 0, stream>>>(
-      p.partials, a.nblk, NV, p.gscale, gsums);
-  MF_CHECK_LAUNCH();
-  return 0;
-}
 
 }  // namespace mf
 
 // C entry point for one dtype (T, suffix), as in uniform_scan.cuh.  gsums
 // [B, NV] receives the summed gradients in AdjointSums order, scaled by
-// gscale; gnu and glam may be null.
+// gscale; gnu and glam may be null.  The scratch is mf_adjoint_scratch_*'s.
 #define MF_DEFINE_ADJOINT_ENTRY_POINTS(T, SUFFIX)                                      \
   extern "C" int mf_uniform_adjoint_##SUFFIX(                                          \
       const T* fc, const T* cc, const T* qc, const T* mu0, const T* p0, const T* hc,   \
@@ -343,8 +239,9 @@ int launch_adjoint(AdjointPrior<T> p, T* gsums, T* scratch, int64_t batch, int64
     p.nu = nu; p.lam = lam; p.mask = mask;                                             \
     mf::set_site_strides(p, site_strides);                                             \
     p.m_f = m_f; p.p_f = p_f; p.gscale = gscale;                                       \
-    p.gnu = gnu; p.glam = glam; p.gm0 = gm0; p.gp0 = gp0;                              \
+    p.gnu = gnu; p.glam = glam; p.gm0 = gm0; p.gp0 = gp0; p.gsums = gsums;             \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
-    MF_SWITCH_D(d, (mf::launch_adjoint<T, D_>(p, gsums, scratch, batch, n, s)),        \
+    MF_SWITCH_D(d, (mf::launch_general_adjoint<mf::UniformAdjSteps<T, D_>>(p, scratch, \
+                                                                           batch, n, s)), \
                 int(cudaErrorInvalidValue))                                            \
   }

@@ -3,27 +3,29 @@
 // themselves are instantiated in the *_inst.cu units, one per (kernel family,
 // dtype, state dimension) for d <= 6 and one per (kernel family, dtype) for
 // d = 7..12.
-#include "general_adjoint.cuh"
+#include "adjoint_scan.cuh"
 
 #define MF_EXTERN(T, D)                                                                   \
   extern template int mf::launch_general_filter<mf::UniformSteps<T, D>>(                 \
       mf::FilterArgs<T>, mf::UniformPrior<T>, T*, int64_t, cudaStream_t);                 \
-  extern template int mf::launch_smoother<mf::UniformRtsRow<T, D>>(                      \
+  extern template int mf::launch_rts<mf::UniformRtsRow<T, D>>(                           \
       mf::SmootherArgs<T>, mf::UniformRts<T>, T*, int64_t, cudaStream_t);                 \
   extern template int mf::launch_general_filter<mf::GeneralSteps<T, D>>(                 \
       mf::FilterArgs<T>, mf::GeneralPrior<T>, T*, int64_t, cudaStream_t);                 \
   extern template int mf::launch_smoother<mf::PrebuiltRow<T, D>>(                        \
       mf::SmootherArgs<T>, mf::Prebuilt<T>, T*, int64_t, cudaStream_t);                   \
-  extern template int mf::launch_adjoint<T, D>(mf::AdjointPrior<T>, T*, T*, int64_t,     \
-                                               int64_t, cudaStream_t);                    \
+  extern template int mf::launch_general_adjoint<mf::UniformAdjSteps<T, D>>(             \
+      mf::AdjointPrior<T>, T*, int64_t, int64_t, cudaStream_t);                           \
   extern template int mf::launch_general_filter<mf::PrebuiltSteps<T, D>>(                \
       mf::FilterArgs<T>, mf::FilterPrebuilt<T>, T*, int64_t, cudaStream_t);               \
-  extern template int mf::launch_general_adjoint<T, D>(mf::GeneralAdjointPrior<T>, T*,   \
-                                                       int64_t, int64_t, cudaStream_t);   \
+  extern template int mf::launch_general_adjoint<mf::GeneralAdjSteps<T, D>>(             \
+      mf::GeneralAdjointPrior<T>, T*, int64_t, int64_t, cudaStream_t);                    \
   extern template int mf::general_filter_occupancy<mf::UniformSteps<T, D>>(int64_t*);    \
   extern template int mf::general_filter_occupancy<mf::GeneralSteps<T, D>>(int64_t*);    \
   extern template int mf::general_filter_occupancy<mf::PrebuiltSteps<T, D>>(int64_t*);   \
-  extern template int mf::general_adjoint_occupancy<T, D>(int64_t*);
+  extern template int mf::general_adjoint_occupancy<mf::GeneralAdjSteps<T, D>>(int64_t*); \
+  extern template int mf::general_adjoint_occupancy<mf::UniformAdjSteps<T, D>>(int64_t*); \
+  extern template int mf::rts_occupancy<mf::UniformRtsRow<T, D>>(int64_t*);
 #define MF_EXTERN_ALL_D(T) \
   MF_EXTERN(T, 1) MF_EXTERN(T, 2) MF_EXTERN(T, 3) MF_EXTERN(T, 4) MF_EXTERN(T, 5) MF_EXTERN(T, 6)
 
@@ -54,10 +56,11 @@ MF_EXTERN_WIDE(float)
 MF_EXTERN_WIDE(double)
 
 // Scratch sizes in elements of T (-1 for a state dimension with no kernel):
-// mf_smoother_scratch_* for the smoother scan; at d <= 6 the filters and
-// the general Koopman backward also keep each thread's in-block prefix or
-// suffix, and the uniform smoother's scratch keeps the E legs of its
-// elements at d = 7..12.
+// mf_smoother_scratch_* for the smoother scan; at d <= 6 the filters, the
+// Koopman backwards and the uniform smoother also keep each thread's
+// in-block prefix or suffix (the uniform backward also its partial sums),
+// and the uniform smoother's scratch keeps the E legs of its elements at
+// d = 7..12.
 #define MF_DEFINE_SCRATCH(T, SUFFIX)                                                    \
   extern "C" int64_t mf_uniform_filter_scratch_##SUFFIX(int64_t d, int64_t batch,       \
                                                         int64_t n) {                    \
@@ -86,17 +89,17 @@ MF_EXTERN_WIDE(double)
                                                          int64_t n) {                   \
     if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
       return mf::wide_smoother_scratch<T>(int(d), batch, n);                            \
-    MF_SWITCH_D(d, (mf::general_adjoint_scratch<T, D_>(batch, n)), -1)                  \
+    MF_SWITCH_D(d, (mf::general_adjoint_scratch<mf::GeneralAdjSteps<T, D_>>(batch, n)), -1) \
   }                                                                                     \
   extern "C" int64_t mf_uniform_smoother_scratch_##SUFFIX(int64_t d, int64_t batch,     \
                                                           int64_t n) {                  \
     if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
       return mf::wide_smoother_scratch<T>(int(d), batch, n,                             \
                                           mf::WideUniformRtsRow<T>::BUILD);             \
-    MF_SWITCH_D(d, (mf::smoother_scratch<T, D_>(batch, n)), -1)                         \
+    MF_SWITCH_D(d, (mf::rts_scratch<mf::UniformRtsRow<T, D_>>(batch, n)), -1)           \
   }                                                                                     \
   extern "C" int64_t mf_adjoint_scratch_##SUFFIX(int64_t d, int64_t batch, int64_t n) { \
-    MF_SWITCH_D(d, (mf::adjoint_scratch<T, D_>(batch, n)), -1)                          \
+    MF_SWITCH_D(d, (mf::general_adjoint_scratch<mf::UniformAdjSteps<T, D_>>(batch, n)), -1) \
   }                                                                                     \
   /* the shared memory a warp and the warps an SM keeps resident of passes */           \
   /* 1, 3 and 2 (out[0..5]) of kernel 2, 5 or 6 at d = 7..12 */                         \
@@ -110,11 +113,17 @@ MF_EXTERN_WIDE(double)
       return mf::wide_filter_occupancy<mf::WideFilterPrebuiltRow<T>>(int(d), out);      \
     return int(cudaErrorInvalidValue);                                                  \
   }                                                                                     \
-  /* pass_occupancy of passes 1, 3 and 2 (out[0..11]) of kernel 1, 4, 6 or 7 */      \
-  /* at d <= 6 */                                                                       \
+  /* pass_occupancy of passes 1, 3 and 2 (out[0..11]) of kernel 1, 2, 3, 4, 6 */     \
+  /* or 7 at d <= 6 */                                                                  \
   extern "C" int mf_general_occupancy_##SUFFIX(int64_t kernel, int64_t d, int64_t* out) { \
     if (kernel == 1)                                                                    \
       MF_SWITCH_D(d, (mf::general_filter_occupancy<mf::UniformSteps<T, D_>>(out)),      \
+                  int(cudaErrorInvalidValue))                                           \
+    if (kernel == 2)                                                                    \
+      MF_SWITCH_D(d, (mf::rts_occupancy<mf::UniformRtsRow<T, D_>>(out)),                \
+                  int(cudaErrorInvalidValue))                                           \
+    if (kernel == 3)                                                                    \
+      MF_SWITCH_D(d, (mf::general_adjoint_occupancy<mf::UniformAdjSteps<T, D_>>(out)),  \
                   int(cudaErrorInvalidValue))                                           \
     if (kernel == 4)                                                                    \
       MF_SWITCH_D(d, (mf::general_filter_occupancy<mf::GeneralSteps<T, D_>>(out)),      \
@@ -122,8 +131,9 @@ MF_EXTERN_WIDE(double)
     if (kernel == 6)                                                                    \
       MF_SWITCH_D(d, (mf::general_filter_occupancy<mf::PrebuiltSteps<T, D_>>(out)),     \
                   int(cudaErrorInvalidValue))                                           \
-    if (kernel == 7) MF_SWITCH_D(d, (mf::general_adjoint_occupancy<T, D_>(out)),        \
-                                 int(cudaErrorInvalidValue))                            \
+    if (kernel == 7)                                                                    \
+      MF_SWITCH_D(d, (mf::general_adjoint_occupancy<mf::GeneralAdjSteps<T, D_>>(out)),  \
+                  int(cudaErrorInvalidValue))                                           \
     return int(cudaErrorInvalidValue);                                                  \
   }
 

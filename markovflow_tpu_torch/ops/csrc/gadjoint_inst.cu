@@ -3,6 +3,6 @@
 // ops/cuda_scan.py passes, as in uniform_inst.cu.
 #include "general_adjoint.cuh"
 
-template int mf::launch_general_adjoint<MF_T, MF_D>(mf::GeneralAdjointPrior<MF_T>, MF_T*,
-                                                    int64_t, int64_t, cudaStream_t);
-template int mf::general_adjoint_occupancy<MF_T, MF_D>(int64_t*);
+template int mf::launch_general_adjoint<mf::GeneralAdjSteps<MF_T, MF_D>>(
+    mf::GeneralAdjointPrior<MF_T>, MF_T*, int64_t, int64_t, cudaStream_t);
+template int mf::general_adjoint_occupancy<mf::GeneralAdjSteps<MF_T, MF_D>>(int64_t*);

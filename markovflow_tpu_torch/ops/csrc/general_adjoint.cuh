@@ -7,10 +7,10 @@
 // adjoint_pipeline_plain in markovflow_tpu_torch/ops/adjoint.py (the plain
 // stages around the plain reverse scan).
 //
-// For each step k, stage 1 (adjoint_stage1_body of adjoint_scan.cuh, at
-// o = 1) reads F_k, c_k, Q_k, H_k through their strides, the sites,
-// (m, P)_{k-1} from the saved filtered moments and F_{k+1} (0 at the last
-// step), and builds the smoothing element (L_k^T, H^T e, H^T W H).  The
+// For each step k, stage 1 (GadjStage1, at o = 1) reads F_k, c_k, Q_k, H_k
+// through their strides, the sites, (m, P)_{k-1} from the saved filtered
+// moments and F_{k+1} (0 at the last step), and builds the smoothing
+// element (L_k^T, H^T e, H^T W H).  The
 // reverse scan of those elements gives r_k and NDK_k; stage 2 turns them into
 // the step's gradients, scaled by the row's cotangent gscale:
 //   gF_k = r m_{k-1}^T + 2 N F_k P_{k-1},  gc_k = r,  gQ_k = N,
@@ -24,9 +24,11 @@
 // pass that folds each step into the suffix of all later steps and writes
 // its gradients.  d = 1..6 (below) keep the elements in registers, a run of
 // steps a thread, and pass 3 starts from each thread's in-block suffix,
-// which pass 1 stores; d = 7..12 run the same three passes a warp per
-// element (wide_gadjoint_pass and the pass 2 of wide_scan.cuh), with stage 1
-// and stage 2 composed warp-cooperatively in the warp's workspace (see the
+// which pass 1 stores; those passes are one template over a step source,
+// which the uniform Koopman backward (kernel 3, adjoint_scan.cuh) shares.
+// d = 7..12 run the same three passes a warp per element
+// (wide_gadjoint_pass and the pass 2 of wide_scan.cuh), with stage 1 and
+// stage 2 composed warp-cooperatively in the warp's workspace (see the
 // notes above wide_gadjoint_pass).
 //
 // What bounds it on an H100: per step it reads F, c, Q (2 d^2 + d values),
@@ -40,7 +42,6 @@
 // shared-memory products of d x d matrices, and a pass 2 over many SMs.
 #pragma once
 
-#include "adjoint_scan.cuh"
 #include "general_scan.cuh"
 
 namespace mf {
@@ -65,7 +66,10 @@ struct GeneralAdjointPrior {
 // ---------------------------------------------------------------------------
 // d = 1..6 (o = 1), with the elements in registers (the tiling and the
 // staging of steps through shared memory of general_scan.cuh, with the
-// moments P_{k-1}, m_{k-1} staged beside each step's inputs).
+// moments P_{k-1}, m_{k-1} staged beside each step's inputs), for two step
+// sources: GeneralAdjSteps (kernel 7, below) and UniformAdjSteps (kernel 3,
+// the uniform grid, adjoint_scan.cuh, whose pass 3 sums the gradients over
+// the steps to one partial a block; sum_partials adds them).
 //
 // Each thread walks its R steps from the last to the first, carrying F_{k+1}
 // from the step it has just done (gadjoint_walk).  Stage 1 needs no inverse
@@ -80,13 +84,14 @@ struct GeneralAdjointPrior {
 //   3. each thread composes its stored suffix with its block's carry, g and L
 //      legs only (stage 2 reads r = g and NDK = L, and no E product is
 //      formed), folds its steps into them and writes each step's gradients:
-//      gF, gc and gQ over the step's staged F, c and Q, which the warp then
-//      stores; gH, gnu and glam (not on GPR's path) where they lie.
+//      (the source's out: kernel 7 gF, gc and gQ over the step's staged F,
+//      c and Q, which the warp then stores; gH, gnu and glam, not on GPR's
+//      path, where they lie).
 // ---------------------------------------------------------------------------
 
 // Stage 1 of step k: fp = F P_{k-1}, a = F m_{k-1} + c, Pp = sym(fp F^T + Q),
 // Zt = 1 / (1 + lam H Pp H^T), W = Zt lam, e = Zt (nu - lam H a) and
-// L_k = F_{k+1} - (F_{k+1} Pp H^T)(W H) (adjoint_stage1_body at o = 1); the
+// L_k = F_{k+1} - (F_{k+1} Pp H^T)(W H) (= F_{k+1} (I - Pp H^T W H)); the
 // step's smoothing element is (E = L_k^T, g = H^T e, ell = W H^T H).
 template <typename T, int D>
 struct GadjStage1 {
@@ -116,53 +121,25 @@ struct GadjStage1 {
 
 // Walks thread t's steps t R .. t R + R - 1 (those below n) of batch row b
 // from the last to the first: reads each step's inputs and the filtered
-// moments of the step before (0 before step 0), from the warp's stage when
-// STAGED, builds stage 1 with F_{k+1} carried from the later step (F_{k+1}
-// of the last step read once, 0 past step n - 1) and calls
-// body(in, st, k, r).  Every lane of the warp must call it.
-template <typename T, int D, class Body>
-MF_DEV void gadjoint_walk(const GeneralAdjointPrior<T>& p, int64_t b, int64_t t, int64_t n,
-                          const WarpStage<T, GeneralTiling<T, D, true>::R>& st,
+// moments of the step before (from the warp's stage when STAGED), builds
+// stage 1 with F_{k+1} carried from the later step (F_{last + 1} from
+// src.f_after) and calls body(in, st, k, r).  Every lane of the warp must
+// call it.
+template <bool STAGED, class Src, class Body>
+MF_DEV void gadjoint_walk(const Src& src, const typename Src::Prior& p, int64_t b, int64_t t,
+                          int64_t n, const WarpStage<typename Src::T, Src::G::R>& st,
                           const GeneralSlots& sl, const Body& body) {
-  using G = GeneralTiling<T, D, true>;
-  constexpr int R = G::R;
+  using T = typename Src::T;
+  constexpr int D = Src::D, R = Src::G::R;
   const int lane = lane_id();
   const int64_t first = t * R, last = imin(first + R, n) - 1;
-  const GeneralPrior<T>& q = p.k;
   T fn[D * D], pprev[D * D];
-  // F_{last + 1}: from the stage when it is one of the warp's steps (the
-  // next lane's first), read before any lane writes over it
-  const int64_t next = last + 1 - st.w0;
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-#pragma unroll
-    for (int j = 0; j < D; ++j)
-      fn[i * D + j] =
-          last < first || last + 1 >= n ? T(0)
-          : G::STAGED && next < 32 * R
-              ? *st.step(i * D + j, int(next))
-              : q.f[b * q.f_sb + i * q.f_si + j * q.f_sj + (last + 1) * q.f_st];
-  }
-  if constexpr (G::STAGED) __syncwarp();
-  GeneralIn<T, D> in;
+  src.f_after(p, b, first, last, n, st, fn);
+  typename Src::In in;
   GadjStage1<T, D> s1;
   for (int r = int(last - first); r >= 0; --r) {
     const int64_t k = first + r;
-    in.template read<G::STAGED>(st, sl, lane, r, q, p, b, k, k == last);
-    if constexpr (G::STAGED) {
-#pragma unroll
-      for (int i = 0; i < D; ++i) s1.mp[i] = *st.at(sl.mprev + i, lane, r);
-#pragma unroll
-      for (int i = 0; i < D * D; ++i) pprev[i] = *st.at(sl.pprev + i, lane, r);
-    } else {
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        s1.mp[i] = k > 0 ? p.m_f[(b * D + i) * n + k - 1] : T(0);
-#pragma unroll
-        for (int j = 0; j < D; ++j)
-          pprev[i * D + j] = k > 0 ? p.p_f[((b * D + i) * D + j) * n + k - 1] : T(0);
-      }
-    }
+    src.template read<STAGED>(in, s1.mp, pprev, st, sl, lane, r, p, b, k, k == last, n);
     s1.build(in, pprev, fn);
     body(in, s1, k, r);
 #pragma unroll
@@ -265,125 +242,251 @@ MF_DEV void gadjoint_stage2(const GeneralAdjointPrior<T>& p, const GeneralIn<T, 
   if (p.glam != nullptr) p.glam[b * n + k] = glam;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(GeneralTiling<T, D, true>::THREADS)
-gadjoint_totals(SmootherArgs<T> a, GeneralAdjointPrior<T> p) {
+// (m, P)_{k-1} of lane l's step r, global step k (0 before step 0): from
+// the warp's stage when STAGED, else from p's m_f and p_f where they lie.
+template <bool STAGED, int D, typename T, int R, class P>
+MF_DEV void read_prev_moments(const P& p, const WarpStage<T, R>& st, const GeneralSlots& sl,
+                              int lane, int r, int64_t b, int64_t k, int64_t n, T* mp,
+                              T* pprev) {
+  if constexpr (STAGED) {
+#pragma unroll
+    for (int i = 0; i < D; ++i) mp[i] = *st.at(sl.mprev + i, lane, r);
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) pprev[i] = *st.at(sl.pprev + i, lane, r);
+  } else {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      mp[i] = k > 0 ? p.m_f[(b * D + i) * n + k - 1] : T(0);
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        pprev[i * D + j] = k > 0 ? p.p_f[((b * D + i) * D + j) * n + k - 1] : T(0);
+    }
+  }
+}
+
+// A step source of the Koopman backward passes below, for batch row b
+// (Src src; src.load(prior, b)):
+//   T, D, Prior; G, the tiling (StagedTiling): pass 3 stages when
+//   G::STAGED, pass 1 when STAGED1; NSUM, the number of sums that pass 3
+//   reduces over the steps to one partial per block (0: none);
+//   slots(prior): the staged slots, (m, P)_{k-1} in mprev and pprev;
+//   stage<STAGED>(prior, b, t, n, st, sl): thread t's warp's stage,
+//     started and waited for when STAGED; every lane of the warp must call
+//     it;
+//   f_after(prior, b, first, last, n, st, fn): F_{last + 1} of the thread's
+//     last step (0 past step n - 1); every lane of the warp must call it;
+//   read<STAGED>(in, mp, pprev, st, sl, l, r, prior, b, k, once, n): lane
+//     l's step r, global step k: its inputs and (m, P)_{k-1} (0 before step
+//     0); once: the thread's first step read (its last);
+//   out(prior, in, s1, rv, ndk, gs, st, l, r, b, k, n): pass 3, the step's
+//     gradients from r = rv and NDK = ndk of the suffix from step k on;
+//   finish<THREADS>(prior, a, st, b, red): pass 3's end, after every step
+//     (red: NSUM values a warp of the block's shared memory).
+
+// Kernel 7: per-step F, Q, c and H through their strides, staged with the
+// sites and (m, P)_{k-1} to d = 3; pass 3 puts gF over the staged F, gQ
+// over Q and gc over c, and writes gH, gnu and glam (not on GPR's path)
+// where they lie.
+template <typename T_, int D_>
+struct GeneralAdjSteps {
+  using T = T_;
+  static constexpr int D = D_;
+  using Prior = GeneralAdjointPrior<T>;
   using G = GeneralTiling<T, D, true>;
+  using In = GeneralIn<T, D>;
+  static constexpr int NSUM = 0;
+  static constexpr bool STAGED1 = G::STAGED;
+
+  MF_DEV void load(const Prior&, int64_t) {}
+
+  static __host__ __device__ GeneralSlots slots(const Prior& p) {
+    return general_slots<D>(p.k, p, true);
+  }
+
+  template <bool STAGED>
+  MF_DEV void stage(const Prior& p, int64_t b, int64_t t, int64_t n, WarpStage<T, G::R>& st,
+                    GeneralSlots& sl) const {
+    stage_steps<G, D>(p.k, p, b, t, n, p.m_f, p.p_f, st, sl);
+  }
+
+  // from the stage when step last + 1 is one of the warp's steps (the next
+  // lane's first), read before any lane writes over it
+  MF_DEV void f_after(const Prior& p, int64_t b, int64_t first, int64_t last, int64_t n,
+                      const WarpStage<T, G::R>& st, T* fn) const {
+    const GeneralPrior<T>& q = p.k;
+    const int64_t next = last + 1 - st.w0;
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        fn[i * D + j] =
+            last < first || last + 1 >= n ? T(0)
+            : G::STAGED && next < 32 * G::R
+                ? *st.step(i * D + j, int(next))
+                : q.f[b * q.f_sb + i * q.f_si + j * q.f_sj + (last + 1) * q.f_st];
+    }
+    if constexpr (G::STAGED) __syncwarp();
+  }
+
+  template <bool STAGED>
+  MF_DEV void read(In& in, T* mp, T* pprev, const WarpStage<T, G::R>& st,
+                   const GeneralSlots& sl, int lane, int r, const Prior& p, int64_t b,
+                   int64_t k, bool once, int64_t n) const {
+    in.template read<STAGED>(st, sl, lane, r, p.k, p, b, k, once);
+    read_prev_moments<STAGED, D>(p, st, sl, lane, r, b, k, n, mp, pprev);
+  }
+
+  // gF, gc and gQ over the step's staged F, c and Q, or at step k
+  MF_DEV void out(const Prior& p, const In& in, const GadjStage1<T, D>& s1, const T* rv,
+                  const T* ndk, T gs, const WarpStage<T, G::R>& st, int lane, int r, int64_t b,
+                  int64_t k, int64_t n) {
+    const auto at = [&](T* arr, int v, int rows) -> T* {
+      if (arr == nullptr) return nullptr;
+      return G::STAGED ? st.at(v, lane, r) : arr + b * rows * n + k;
+    };
+    gadjoint_stage2<T, D>(p, in, s1, rv, ndk, gs, at(p.gf, 0, D * D), at(p.gc, 2 * D * D, D),
+                          at(p.gq, D * D, D * D), G::STAGED ? 32 * G::R : n, b, k, n);
+  }
+
+  template <int THREADS>
+  MF_DEV void finish(const Prior& p, const SmootherArgs<T>& a, const WarpStage<T, G::R>& st,
+                     int64_t b, T*) const {
+    if constexpr (G::STAGED) {
+      const int64_t n = a.n;
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < D * D; ++i) {
+        if (p.gf != nullptr) st.store(i, p.gf + (b * D * D + i) * n);
+        if (p.gq != nullptr) st.store(D * D + i, p.gq + (b * D * D + i) * n);
+      }
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        if (p.gc != nullptr) st.store(2 * D * D + i, p.gc + (b * D + i) * n);
+      }
+    }
+  }
+};
+
+template <class Src>
+__global__ void __launch_bounds__(Src::G::THREADS)
+gadjoint_totals(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
+  using T = typename Src::T;
+  constexpr int D = Src::D;
+  using G = typename Src::G;
   using Op = SmootherOp<T, D>;
   using E = SElem<T, D>;
   constexpr int THREADS = G::THREADS;
   __shared__ E smem[THREADS / 32 + 1];
   const int64_t b = blockIdx.y, t = blockIdx.x * int64_t(THREADS) + threadIdx.x;
+  Src src;
+  src.load(p, b);
   WarpStage<T, G::R> st;
   GeneralSlots sl{};
-  stage_steps<G, D>(p.k, p, b, t, a.n, p.m_f, p.p_f, st, sl);
+  src.template stage<Src::STAGED1>(p, b, t, a.n, st, sl);
   E run, excl, total;
   Op::identity(run);
-  gadjoint_walk<T, D>(p, b, t, a.n, st, sl,
-                      [&](const GeneralIn<T, D>& in, const GadjStage1<T, D>& s1, int64_t,
-                          int) { gadjoint_fold<T, D, true>(run, s1, in.h); });
+  gadjoint_walk<Src::STAGED1>(src, p, b, t, a.n, st, sl,
+                [&](const typename Src::In& in, const GadjStage1<T, D>& s1, int64_t, int) {
+                  gadjoint_fold<T, D, true>(run, s1, in.h);
+                });
   block_scan<Op, THREADS, true>(run, excl, total, smem);
   store_thread_elem(a.prefix, excl, b, t, a.nblk * THREADS);
   if (threadIdx.x == 0) reinterpret_cast<E*>(a.totals)[b * a.nblk + blockIdx.x] = total;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(GeneralTiling<T, D, true>::THREADS)
-gadjoint_outputs(SmootherArgs<T> a, GeneralAdjointPrior<T> p) {
-  using G = GeneralTiling<T, D, true>;
+template <class Src>
+__global__ void __launch_bounds__(Src::G::THREADS)
+gadjoint_outputs(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
+  using T = typename Src::T;
+  constexpr int D = Src::D;
+  using G = typename Src::G;
   using E = SElem<T, D>;
-  constexpr int THREADS = G::THREADS, R = G::R;
+  constexpr int THREADS = G::THREADS;
   const int64_t b = blockIdx.y, n = a.n, t = blockIdx.x * int64_t(THREADS) + threadIdx.x;
   const int lane = lane_id();
-  WarpStage<T, R> st;
+  Src src;
+  src.load(p, b);
+  WarpStage<T, G::R> st;
   GeneralSlots sl{};
-  stage_steps<G, D>(p.k, p, b, t, n, p.m_f, p.p_f, st, sl);
+  src.template stage<G::STAGED>(p, b, t, n, st, sl);
   // the g and L legs of the later threads of this block, then all later
-  // blocks: g = xE cg + xg, L = sym(xE cL xE^T + xL)
+  // blocks
   E run;
   {
     E x;
     load_thread_elem(a.prefix, x, b, t, a.nblk * THREADS);
     const E& c = reinterpret_cast<const E*>(a.totals)[b * a.nblk + blockIdx.x];
-    T u[D * D];
-    mm<T, D, D, 1>(x.v + E::OE, c.v + E::OG, run.v + E::OG);
-    add_to<T, D>(run.v + E::OG, x.v + E::OG);
-    mm_nt<T, D, D, D>(c.v + E::OL, x.v + E::OE, u);
-    mm<T, D, D, D>(x.v + E::OE, u, run.v + E::OL);
-    add_to<T, D * D>(run.v + E::OL, x.v + E::OL);
-    sym<T, D>(run.v + E::OL);
+    smoother_gl<T, D>(x.v + E::OE, x.v + E::OG, x.v + E::OL, c.v + E::OG, c.v + E::OL,
+                      run.v + E::OG, run.v + E::OL);
   }
   const T gs = p.gscale[b];
-  gadjoint_walk<T, D>(
-      p, b, t, n, st, sl,
-      [&](const GeneralIn<T, D>& in, const GadjStage1<T, D>& s1, int64_t k, int r) {
-        gadjoint_fold<T, D, false>(run, s1, in.h);
-        // gF, gc and gQ over the step's staged F, c and Q, or at step k
-        const auto out = [&](T* arr, int v, int rows) -> T* {
-          if (arr == nullptr) return nullptr;
-          return G::STAGED ? st.at(v, lane, r) : arr + b * rows * n + k;
-        };
-        gadjoint_stage2<T, D>(p, in, s1, run.v + E::OG, run.v + E::OL, gs,
-                              out(p.gf, 0, D * D), out(p.gc, 2 * D * D, D),
-                              out(p.gq, D * D, D * D), G::STAGED ? 32 * R : n, b, k, n);
-      });
-  if constexpr (G::STAGED) {
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < D * D; ++i) {
-      if (p.gf != nullptr) st.store(i, p.gf + (b * D * D + i) * n);
-      if (p.gq != nullptr) st.store(D * D + i, p.gq + (b * D * D + i) * n);
-    }
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      if (p.gc != nullptr) st.store(2 * D * D + i, p.gc + (b * D + i) * n);
-    }
+  gadjoint_walk<G::STAGED>(src, p, b, t, n, st, sl,
+                [&](const typename Src::In& in, const GadjStage1<T, D>& s1, int64_t k, int r) {
+                  gadjoint_fold<T, D, false>(run, s1, in.h);
+                  src.out(p, in, s1, run.v + E::OG, run.v + E::OL, gs, st, lane, r, b, k, n);
+                });
+  if constexpr (Src::NSUM > 0) {
+    __shared__ T red[Src::NSUM * (THREADS / 32)];
+    src.template finish<THREADS>(p, a, st, b, red);
+  } else {
+    src.template finish<THREADS>(p, a, st, b, nullptr);
   }
 }
 
-// Scratch of the general Koopman backward in elements of T: the block totals
-// and every thread's in-block suffix.
-template <typename T, int D>
+// Scratch of the Koopman backward passes in elements of T: the block
+// totals, every thread's in-block suffix and the NSUM partial sums a block.
+template <class Src>
 int64_t general_adjoint_scratch(int64_t batch, int64_t n) {
-  using G = GeneralTiling<T, D, true>;
-  return batch * num_blocks(n, G::TILE) * SElem<T, D>::SIZE * (1 + G::THREADS);
+  using G = typename Src::G;
+  return batch * num_blocks(n, G::TILE) *
+         (SElem<typename Src::T, Src::D>::SIZE * (1 + G::THREADS) + Src::NSUM);
 }
 
 // pass_occupancy of passes 1, 3 and 2 (out[0..11]), staged for the largest
 // number of values a step.
-template <typename T, int D>
+template <class Src>
 int general_adjoint_occupancy(int64_t* out) {
-  using G = GeneralTiling<T, D, true>;
-  const size_t bytes = general_stage_bytes<G, T>(G::NV);
-  int err = wide_smem_bytes(gadjoint_totals<T, D>, bytes);
-  if (err == 0) err = wide_smem_bytes(gadjoint_outputs<T, D>, bytes);
-  if (err == 0) err = pass_occupancy(gadjoint_totals<T, D>, G::THREADS, bytes, out);
-  if (err == 0) err = pass_occupancy(gadjoint_outputs<T, D>, G::THREADS, bytes, out + 4);
+  using T = typename Src::T;
+  using G = typename Src::G;
+  const size_t bytes = general_stage_bytes<G, T>(G::NV), b1 = Src::STAGED1 ? bytes : 0;
+  int err = wide_smem_bytes(gadjoint_totals<Src>, b1);
+  if (err == 0) err = wide_smem_bytes(gadjoint_outputs<Src>, bytes);
+  if (err == 0) err = pass_occupancy(gadjoint_totals<Src>, G::THREADS, b1, out);
+  if (err == 0) err = pass_occupancy(gadjoint_outputs<Src>, G::THREADS, bytes, out + 4);
   if (err == 0)
-    err = pass_occupancy(scan_totals<SmootherOp<T, D>, G::SCAN_THREADS, true>, G::SCAN_THREADS,
-                         0, out + 8);
+    err = pass_occupancy(scan_totals<SmootherOp<T, Src::D>, G::SCAN_THREADS, true>,
+                         G::SCAN_THREADS, 0, out + 8);
   return err;
 }
 
-template <typename T, int D>
-int launch_general_adjoint(GeneralAdjointPrior<T> p, T* scratch, int64_t batch, int64_t n,
-                           cudaStream_t stream) {
-  using G = GeneralTiling<T, D, true>;
+template <class Src>
+int launch_general_adjoint(typename Src::Prior p, typename Src::T* scratch, int64_t batch,
+                           int64_t n, cudaStream_t stream) {
+  using T = typename Src::T;
+  constexpr int D = Src::D;
+  using G = typename Src::G;
   SmootherArgs<T> a{nullptr, nullptr, scratch, n, num_blocks(n, G::TILE)};
   a.prefix = scratch + batch * a.nblk * SElem<T, D>::SIZE;
-  const size_t bytes = general_stage_bytes<G, T>(general_slots<D>(p.k, p, true).nv);
-  int err = wide_smem_bytes(gadjoint_totals<T, D>, bytes);
-  if (err == 0) err = wide_smem_bytes(gadjoint_outputs<T, D>, bytes);
+  const size_t bytes = general_stage_bytes<G, T>(Src::slots(p).nv),
+               b1 = Src::STAGED1 ? bytes : 0;
+  int err = wide_smem_bytes(gadjoint_totals<Src>, b1);
+  if (err == 0) err = wide_smem_bytes(gadjoint_outputs<Src>, bytes);
   if (err != 0) return err;
   const dim3 grid(unsigned(a.nblk), unsigned(batch));
-  gadjoint_totals<T, D><<<grid, G::THREADS, bytes, stream>>>(a, p);
+  gadjoint_totals<Src><<<grid, G::THREADS, b1, stream>>>(a, p);
   MF_CHECK_LAUNCH();
   scan_totals<SmootherOp<T, D>, G::SCAN_THREADS, true>
       <<<unsigned(batch), G::SCAN_THREADS, 0, stream>>>(
       reinterpret_cast<SElem<T, D>*>(a.totals), a.nblk);
   MF_CHECK_LAUNCH();
-  gadjoint_outputs<T, D><<<grid, G::THREADS, bytes, stream>>>(a, p);
+  if constexpr (Src::NSUM > 0) p.partials = a.prefix + batch * a.nblk * G::THREADS * SElem<T, D>::SIZE;
+  gadjoint_outputs<Src><<<grid, G::THREADS, bytes, stream>>>(a, p);
   MF_CHECK_LAUNCH();
+  if constexpr (Src::NSUM > 0) {
+    sum_partials<T, 256><<<dim3(unsigned(Src::NSUM), unsigned(batch)), 256, 0, stream>>>(
+        p.partials, a.nblk, Src::NSUM, p.gscale, p.gsums);
+    MF_CHECK_LAUNCH();
+  }
   return 0;
 }
 
@@ -457,7 +560,7 @@ MF_DEV const T* wide_gadjoint_src(const GeneralAdjointPrior<T>& p, int64_t b, in
 }
 
 // Stage 1 of the step in slot st with F_{k+1} = fnext
-// (adjoint_stage1_body, o = 1): fp = F P_{k-1}, Pp = sym(F P_{k-1} F^T + Q),
+// (GadjStage1): fp = F P_{k-1}, Pp = sym(F P_{k-1} F^T + Q),
 // a = F m_{k-1} + c, ph = Pp H^T, lk = L_k and t1 = H^T W H; the element is
 // (E = L_k^T, g = H^T ev, ell = H^T W H).
 template <typename T>
@@ -509,7 +612,7 @@ MF_DEV void wide_gadjoint_fold(WideAdjWork<T>& w, int d) {
   T* t = w.run; w.run = w.nxt; w.nxt = t;
 }
 
-// Stage 2 of the step in slot st (gadjoint_stage2_body, o = 1) from
+// Stage 2 of the step in slot st (gadjoint_stage2) from
 // r = run.g and NDK = run.L, scaled by gs; the gradients go over the slot's
 // inputs: gQ over Q, gc over c, gH over h, gF over P_{k-1}, gnu and glam
 // over m_{k-1}.
@@ -674,6 +777,7 @@ int launch_wide_general_adjoint(GeneralAdjointPrior<T> p, T* scratch, int64_t ba
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
     if (d >= mf::WIDE_MIN_D)                                                           \
       return mf::launch_wide_general_adjoint<T>(p, scratch, batch, n, int(d), s);      \
-    MF_SWITCH_D(d, (mf::launch_general_adjoint<T, D_>(p, scratch, batch, n, s)),       \
+    MF_SWITCH_D(d, (mf::launch_general_adjoint<mf::GeneralAdjSteps<T, D_>>(p, scratch, \
+                                                                           batch, n, s)), \
                 int(cudaErrorInvalidValue))                                            \
   }

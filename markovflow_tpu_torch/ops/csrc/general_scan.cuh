@@ -1,6 +1,7 @@
 // General-grid Kalman filter, smoother-scan and filter-scan kernels for
-// Hopper (sm_90a), and the d <= 6 filter passes that the uniform-grid filter
-// (uniform_scan.cuh) shares.
+// Hopper (sm_90a), the d <= 6 filter passes that the uniform-grid filter
+// (uniform_scan.cuh) shares, and the d <= 6 RTS smoother passes that the
+// uniform-grid smoother runs.
 //
 // Replace the TPU kernels of markovflow_tpu/ops/pallas_scan.py:
 //   * filter:        pallas_filter_pipeline (_pipeline_kernel)
@@ -88,8 +89,9 @@ struct GeneralPrior {
 // with the step (stride 0: GPR's emission row and lam) are read once, and
 // kernel 1's constant prior step is loaded once a thread.  What is staged
 // at d = 1..6: kernel 1 every d (the sites, and d^2 + d output slots in pass
-// 3); kernel 4 to d = 4; kernel 6 to d = 3; kernel 7 to d = 3.  Larger d
-// read each step's values where they lie.
+// 3); kernel 4 to d = 4; kernel 6 to d = 3; kernel 7 to d = 3; the passes 3
+// of kernels 2 and 3 (the RTS smoother passes below, adjoint_scan.cuh)
+// every d.  Larger d read each step's values where they lie.
 // ---------------------------------------------------------------------------
 
 // The tiling of passes that stage at most NV_ values a step.
@@ -679,6 +681,153 @@ int launch_general_filter(FilterArgs<typename Src::T> a, typename Src::Prior p,
         a.partials, a.nblk, 1, nullptr, a.loglik);
     MF_CHECK_LAUNCH();
   }
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// The d = 1..6 RTS smoother passes, with the elements in registers and a
+// run of R consecutive steps a thread, over a step source: UniformRtsRow
+// (kernel 2, uniform_scan.cuh).
+//   1. each thread takes the element of each of its steps from where the
+//      step's values lie (Src::elem) and folds them, last first, with the
+//      full composition (SmootherOp: pass 2 needs the E leg); the block
+//      scan gives every thread its exclusive in-block suffix, which goes to
+//      the scratch (store_thread_elem), and the block total.  Pass 1 only
+//      reads, and a thread's R steps of a value share their sectors, which
+//      stay in L1: staged, it was as fast at d = 2 and slower at d = 6
+//      (PERF.md);
+//   2. scan_totals (scan_core.cuh) over Tiling<D>'s block;
+//   3. each warp stages the Src::NV values of its 32 R steps (Src::stage);
+//      each thread composes the g and L legs of its stored suffix with its
+//      block's carry (smoother_gl): the smoothed moments after its last
+//      step; then, last step first, it takes each step's element from the
+//      stage (Src::elem again) and carries only the moments,
+//      m_s = g + E m_s, P_s = sym(E P_s E^T + L) (smoother_gl again),
+//      written to the step's slots Src::P_OUT and Src::M_OUT (values the
+//      lane has read), which the warp then stores.
+// Pass 3 thus neither rebuilds the in-block suffix nor composes the E leg.
+// A source stages every d <= 6 (StagedTiling::STAGED).
+// ---------------------------------------------------------------------------
+
+template <class Src>
+using RtsTiling = StagedTiling<typename Src::T, Src::D, Src::NV>;
+
+template <class Src>
+__global__ void __launch_bounds__(RtsTiling<Src>::THREADS)
+rts_totals(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
+  using T = typename Src::T;
+  using G = RtsTiling<Src>;
+  using Op = SmootherOp<T, Src::D>;
+  using E = SElem<T, Src::D>;
+  constexpr int THREADS = G::THREADS, R = G::R;
+  __shared__ E smem[THREADS / 32 + 1];
+  const int64_t b = blockIdx.y, n = a.n, t = blockIdx.x * int64_t(THREADS) + threadIdx.x;
+  Src src;
+  src.load(p, b);
+  E run, excl, total;
+  Op::identity(run);
+#pragma unroll
+  for (int r = R - 1; r >= 0; --r) {
+    const int64_t k = t * R + r;
+    if (k >= n) continue;
+    E e, u;
+    src.elem(p, b, k, n, e);
+    Op::combine(e, run, u);
+    run = u;
+  }
+  block_scan<Op, THREADS, true>(run, excl, total, smem);
+  store_thread_elem(a.prefix, excl, b, t, a.nblk * THREADS);
+  if (threadIdx.x == 0) reinterpret_cast<E*>(a.totals)[b * a.nblk + blockIdx.x] = total;
+}
+
+template <class Src>
+__global__ void __launch_bounds__(RtsTiling<Src>::THREADS)
+rts_outputs(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
+  using T = typename Src::T;
+  constexpr int D = Src::D;
+  using G = RtsTiling<Src>;
+  using E = SElem<T, D>;
+  constexpr int THREADS = G::THREADS, R = G::R;
+  static_assert(G::STAGED, "pass 3 stages its steps");
+  const int64_t b = blockIdx.y, n = a.n, t = blockIdx.x * int64_t(THREADS) + threadIdx.x;
+  const int lane = lane_id();
+  // the smoothed moments after the thread's last step: the later threads
+  // of this block, then all later blocks
+  T ms[D], ps[D * D];
+  {
+    E x;
+    load_thread_elem(a.prefix, x, b, t, a.nblk * THREADS);
+    const E& c = reinterpret_cast<const E*>(a.totals)[b * a.nblk + blockIdx.x];
+    smoother_gl<T, D>(x.v + E::OE, x.v + E::OG, x.v + E::OL, c.v + E::OG, c.v + E::OL, ms, ps);
+  }
+  Src src;
+  src.load(p, b);
+  WarpStage<T, R> st;
+  src.stage(p, b, t, n, st);
+#pragma unroll
+  for (int r = R - 1; r >= 0; --r) {
+    const int64_t k = t * R + r;
+    if (k >= n) continue;
+    E e;
+    src.elem(st, lane, r, k, n, e);
+    T mk[D], pk[D * D];
+    smoother_gl<T, D>(e.v + E::OE, e.v + E::OG, e.v + E::OL, ms, ps, mk, pk);
+#pragma unroll
+    for (int i = 0; i < D; ++i) ms[i] = *st.at(Src::M_OUT + i, lane, r) = mk[i];
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) ps[i] = *st.at(Src::P_OUT + i, lane, r) = pk[i];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < D * D; ++i) st.store(Src::P_OUT + i, a.p_s + (b * D * D + i) * n);
+#pragma unroll
+  for (int i = 0; i < D; ++i) st.store(Src::M_OUT + i, a.m_s + (b * D + i) * n);
+}
+
+// Scratch of the RTS smoother passes in elements of T: the block totals
+// and every thread's in-block suffix.
+template <class Src>
+int64_t rts_scratch(int64_t batch, int64_t n) {
+  using G = RtsTiling<Src>;
+  return batch * num_blocks(n, G::TILE) * SElem<typename Src::T, Src::D>::SIZE * (1 + G::THREADS);
+}
+
+// pass_occupancy of passes 1, 3 and 2 (out[0..11]).
+template <class Src>
+int rts_occupancy(int64_t* out) {
+  using T = typename Src::T;
+  using G = RtsTiling<Src>;
+  const size_t bytes = general_stage_bytes<G, T>(Src::NV);
+  int err = wide_smem_bytes(rts_outputs<Src>, bytes);
+  if (err == 0) err = pass_occupancy(rts_totals<Src>, G::THREADS, 0, out);
+  if (err == 0) err = pass_occupancy(rts_outputs<Src>, G::THREADS, bytes, out + 4);
+  if (err == 0)
+    err = pass_occupancy(scan_totals<SmootherOp<T, Src::D>, Tiling<Src::D>::THREADS, true>,
+                         Tiling<Src::D>::THREADS, 0, out + 8);
+  return err;
+}
+
+template <class Src>
+int launch_rts(SmootherArgs<typename Src::T> a, typename Src::Prior p, typename Src::T* scratch,
+               int64_t batch, cudaStream_t stream) {
+  using T = typename Src::T;
+  constexpr int D = Src::D;
+  using G = RtsTiling<Src>;
+  a.nblk = num_blocks(a.n, G::TILE);
+  a.totals = scratch;
+  a.prefix = scratch + batch * a.nblk * SElem<T, D>::SIZE;
+  const size_t bytes = general_stage_bytes<G, T>(Src::NV);
+  const int err = wide_smem_bytes(rts_outputs<Src>, bytes);
+  if (err != 0) return err;
+  const dim3 grid(unsigned(a.nblk), unsigned(batch));
+  rts_totals<Src><<<grid, G::THREADS, 0, stream>>>(a, p);
+  MF_CHECK_LAUNCH();
+  scan_totals<SmootherOp<T, D>, Tiling<D>::THREADS, true>
+      <<<unsigned(batch), Tiling<D>::THREADS, 0, stream>>>(
+      reinterpret_cast<SElem<T, D>*>(a.totals), a.nblk);
+  MF_CHECK_LAUNCH();
+  rts_outputs<Src><<<grid, G::THREADS, bytes, stream>>>(a, p);
+  MF_CHECK_LAUNCH();
   return 0;
 }
 

@@ -16,18 +16,17 @@
 //      adjoint's gradient sums) goes out as one partial per block;
 //   4. one block per (value, batch row) sums the partials in a fixed order.
 // No float atomics: a run repeats bit for bit.  The smoother passes below
-// (the smoother scan, the uniform RTS smoother and, with its own output
-// pass, the uniform Koopman backward) rebuild each thread's elements and
-// in-block suffix in pass 3 (re-reading the inputs is cheaper than storing
-// them).  The d <= 6 filters (general_scan.cuh) and the general Koopman
-// backward (general_adjoint.cuh) have passes of their own that keep pass
-// 1's in-block prefix (suffix) instead (store_thread_elem).
+// serve the smoother scan alone (kernel 5 at d <= 6, over prebuilt
+// elements, PrebuiltRow): they read each step where it lies and rebuild each
+// thread's elements and in-block suffix in pass 3.  The other d <= 6
+// kernels have passes of their own that keep pass 1's in-block prefix
+// (suffix) for pass 3 (store_thread_elem) and stage each warp's steps
+// through shared memory where that pays: the filters and the RTS smoother
+// (the uniform smoother's source in uniform_scan.cuh) in general_scan.cuh,
+// and the Koopman backwards in general_adjoint.cuh.
 //
-// A source ("Row") supplies the elements of one batch row: the smoother's
-// rows build one smoothing element per step, and FilterStep holds the
-// inputs of one step of the uniform Koopman backward.  The prior element
-// sits at global step 0 and a smoother's boundary element at global step
-// N-1; both are found from global indices, and steps past N are absent.
+// A source ("Row") of the smoother passes supplies the elements of one
+// batch row, one smoothing element per step; steps past N are absent.
 #pragma once
 
 #include <stdint.h>
@@ -169,6 +168,22 @@ struct SmootherOp {
     sym<T, D>(out.v + Elem::OL);
   }
 };
+
+// The g and L legs of x (earlier) composed with y (later): g = xE yg + xg,
+// L = sym(xE yL xE^T + xL), which read nothing of y but its g and L.  With
+// y the suffix from step k + 1 on, they carry the smoothed moments (or the
+// Koopman backward's r and NDK) through x.  g and l may not alias an input.
+template <typename T, int D>
+MF_DEV void smoother_gl(const T* xe, const T* xg, const T* xl, const T* yg, const T* yl, T* g,
+                        T* l) {
+  T u[D * D];
+  mm<T, D, D, 1>(xe, yg, g);
+  add_to<T, D>(g, xg);
+  mm_nt<T, D, D, D>(yl, xe, u);
+  mm<T, D, D, D>(xe, u, l);
+  add_to<T, D * D>(l, xl);
+  sym<T, D>(l);
+}
 
 // ---------------------------------------------------------------------------
 // Block-wide exclusive scan of one element per thread.
@@ -342,7 +357,7 @@ sum_partials(const T* partials, int64_t nblk, int64_t nv, const T* scale, T* out
 }
 
 // ---------------------------------------------------------------------------
-// The filters' arguments and one step's inputs.
+// The filters' arguments.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -371,27 +386,6 @@ inline void set_site_strides(A& a, const int64_t* s) {
   a.mask_sb = s[7]; a.mask_st = s[8];
 }
 
-// The inputs of one global step k: prior step (F, c, Q), with the prior
-// (0, mu0, P0) at k = 0, the emission H and the sites.
-template <typename T, int D, int O>
-struct FilterStep {
-  T f[D * D], c[D], q[D * D], h[O * D], nu[O], lam[O * O];
-  bool keep;
-
-  template <typename A>
-  MF_DEV void load_sites(const A& a, int64_t b, int64_t k) {
-#pragma unroll
-    for (int i = 0; i < O; ++i) nu[i] = a.nu[b * a.nu_sb + i * a.nu_si + k * a.nu_st];
-#pragma unroll
-    for (int i = 0; i < O; ++i) {
-#pragma unroll
-      for (int j = 0; j < O; ++j)
-        lam[i * O + j] = a.lam[b * a.lam_sb + i * a.lam_si + j * a.lam_sj + k * a.lam_st];
-    }
-    keep = a.mask == nullptr || a.mask[b * a.mask_sb + k * a.mask_st] > T(0.5);
-  }
-};
-
 // What the runtime reports of a pass launched with `threads` a block and
 // `bytes` of dynamic shared memory: registers a thread, local memory a
 // thread, and shared memory a block (static and dynamic, bytes), and the
@@ -417,7 +411,8 @@ int pass_occupancy(K kernel, int threads, size_t bytes, int64_t* out) {
   } while (0)
 
 // ---------------------------------------------------------------------------
-// Smoother passes, for any Row that builds one smoothing element per step.
+// Smoother passes, for any Row that builds one smoothing element per step
+// (kernel 5's PrebuiltRow).
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -426,7 +421,7 @@ struct SmootherArgs {
   T *m_s, *p_s;
   T* totals;  // scratch: block totals [B, nblk] elements
   int64_t n, nblk;
-  T* prefix;  // the general Koopman backward's d <= 6 in-block suffixes
+  T* prefix;  // the d <= 6 in-block suffixes of kernels 2, 3 and 7
 };
 
 // The composition of this thread's run of R steps, and the exclusive

@@ -7,5 +7,6 @@
 template int mf::launch_general_filter<mf::UniformSteps<MF_T, MF_D>>(
     mf::FilterArgs<MF_T>, mf::UniformPrior<MF_T>, MF_T*, int64_t, cudaStream_t);
 template int mf::general_filter_occupancy<mf::UniformSteps<MF_T, MF_D>>(int64_t*);
-template int mf::launch_smoother<mf::UniformRtsRow<MF_T, MF_D>>(
+template int mf::launch_rts<mf::UniformRtsRow<MF_T, MF_D>>(
     mf::SmootherArgs<MF_T>, mf::UniformRts<MF_T>, MF_T*, int64_t, cudaStream_t);
+template int mf::rts_occupancy<mf::UniformRtsRow<MF_T, MF_D>>(int64_t*);

@@ -9,9 +9,10 @@
 // staged filter passes of general_scan.cuh with the step source
 // UniformSteps (below): the constant prior step (Fc, cc, Qc, Hc) of a batch
 // row in registers, with the prior (0, mu0, P0) at global step 0, and the
-// sites staged through shared memory; the smoother runs the smoother passes
-// of scan_core.cuh with the RTS element built from the filtered moments,
-// with the boundary element at global step N-1.
+// sites staged through shared memory; the smoother runs the RTS smoother
+// passes of general_scan.cuh with the step source UniformRtsRow (below):
+// the RTS element built in registers from the filtered moments (staged the
+// same way in pass 3) and the boundary element at global step N-1.
 //
 // What bounds them on an H100: at d = 2, o = 1, float32 the filter reads
 // one site value a step (nu; GPR's lam is one expanded value) in each of
@@ -22,8 +23,14 @@
 // three d^3 products, no inverse) in dependent chains.  Before its own
 // passes the filter's reads and writes of a warp fell on 32 sectors each
 // (a thread owns R consecutive steps); staging makes them whole rows.  The
-// smoother reads 24 B and writes 24 B a step with one d x d inverse per
-// step, and reads each step where it lies (PERF.md has the times).
+// smoother reads (m_f, P_f) in each of passes 1 and 3 (24 B a step at
+// d = 2, float32) and writes (m_s, P_s) in pass 3 (24 B), ~72 B a step in
+// all, plus the stored in-block suffix (10 values a thread): ~24 us at
+// 3.35 TB/s for N = 1e6.  Per step it builds the RTS element in both passes
+// (one d x d inverse, five d^3 products) and composes it in full in pass 1
+// (three d^3 products) and on the moments only in pass 3 (two); the
+// staged, moments-only pass 3 replaces one that rebuilt the in-block suffix
+// and wrote each step where it lies (PERF.md has the times).
 #pragma once
 
 #include "general_scan.cuh"
@@ -60,24 +67,30 @@ struct UniformRow {
     for (int i = 0; i < O * D; ++i) h[i] = a.hc[b * O * D + i];
   }
 
-  // prior step and emission of global step k
-  MF_DEV void step(const Prior&, int64_t, int64_t k, FilterStep<T, D, O>& s) const {
-    const bool first = k == 0;
+  // The inputs of lane l's step r, global step k (GeneralIn): the constant
+  // prior step, (0, P0, mu0) at step 0; nu, lam and the mask from the warp's
+  // stage where sl has a slot for them, else read once (once: the thread's
+  // first step read).  A: FilterArgs or AdjointPrior (the site fields).
+  template <int R, class A>
+  MF_DEV void read_step(GeneralIn<T, D>& in, const WarpStage<T, R>& st, const GeneralSlots& sl,
+                        int l, int r, const A& a, int64_t b, int64_t k, bool once) const {
+    static_assert(O == 1, "one output");
+    const bool first = r == 0 && k == 0;  // global step 0 is a thread's first
 #pragma unroll
     for (int i = 0; i < D * D; ++i) {
-      s.f[i] = first ? T(0) : f[i];
-      s.q[i] = first ? p0[i] : q[i];
+      in.f[i] = first ? T(0) : f[i];
+      in.q[i] = first ? p0[i] : q[i];
     }
 #pragma unroll
-    for (int i = 0; i < D; ++i) s.c[i] = first ? m0[i] : c[i];
-#pragma unroll
-    for (int i = 0; i < O * D; ++i) s.h[i] = h[i];
-  }
-
-  // F_{k+1}, 0 at the last step (the Koopman backward's L_k)
-  MF_DEV void next_f(const Prior&, int64_t, int64_t k, int64_t n, T* out) const {
-#pragma unroll
-    for (int i = 0; i < D * D; ++i) out[i] = k == n - 1 ? T(0) : f[i];
+    for (int i = 0; i < D; ++i) {
+      in.c[i] = first ? m0[i] : c[i];
+      in.h[i] = h[i];
+    }
+    if (once && sl.nu < 0) in.s.nu = a.nu[b * a.nu_sb + k * a.nu_st];
+    if (once && sl.lam < 0) in.s.lam = a.lam[b * a.lam_sb + k * a.lam_st];
+    if (sl.nu >= 0) in.s.nu = *st.at(sl.nu, l, r);
+    if (sl.lam >= 0) in.s.lam = *st.at(sl.lam, l, r);
+    in.s.keep = sl.mask < 0 || *st.at(sl.mask, l, r) > T(0.5);
   }
 };
 
@@ -124,22 +137,7 @@ struct UniformSteps : UniformRow<T_, D_, 1> {
   MF_DEV void read(In& in, const WarpStage<T, R>& st, const GeneralSlots& sl, int l, int r,
                    const Prior&, const FilterArgs<T>& a, int64_t b, int64_t k,
                    bool once) const {
-    const bool first = r == 0 && k == 0;  // global step 0 is a thread's first
-#pragma unroll
-    for (int i = 0; i < D * D; ++i) {
-      in.f[i] = first ? T(0) : this->f[i];
-      in.q[i] = first ? this->p0[i] : this->q[i];
-    }
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      in.c[i] = first ? this->m0[i] : this->c[i];
-      in.h[i] = this->h[i];
-    }
-    if (once && sl.nu < 0) in.s.nu = a.nu[b * a.nu_sb + k * a.nu_st];
-    if (once && sl.lam < 0) in.s.lam = a.lam[b * a.lam_sb + k * a.lam_st];
-    if (sl.nu >= 0) in.s.nu = *st.at(sl.nu, l, r);
-    if (sl.lam >= 0) in.s.lam = *st.at(sl.lam, l, r);
-    in.s.keep = sl.mask < 0 || *st.at(sl.mask, l, r) > T(0.5);
+    this->read_step(in, st, sl, l, r, a, b, k, once);
   }
 
   static MF_DEV void fold(FElem<T, D>& run, const In& in, bool) { fold_site<T, D>(run, in); }
@@ -153,11 +151,20 @@ struct UniformRts {
   const T *fc, *cc, *qc, *m_f, *p_f;
 };
 
+// Kernel 2's step source of the RTS smoother passes (general_scan.cuh): the
+// constant prior step of batch row b in registers, and the RTS element of a
+// step built from its filtered moments, read where they lie in pass 1 and
+// staged in pass 3, where (m_s, P_s)_k go over the step's (m_f, P_f)_k.
+// d^2 + d values a step: every d <= 6 is staged (5,376 values a warp at
+// d = 6, R = 4).  Pass 3 builds each E_k again: faster than keeping it from
+// pass 1 (PERF.md).
 template <typename T_, int D_>
 struct UniformRtsRow {
   using T = T_;
   static constexpr int D = D_;
   using Prior = UniformRts<T>;
+  static constexpr int NV = D * D + D;
+  static constexpr int P_OUT = 0, M_OUT = D * D;  // the staged P_f and m_f
   T f[D * D], c[D], q[D * D];
 
   MF_DEV void load(const Prior& a, int64_t b) {
@@ -170,20 +177,46 @@ struct UniformRtsRow {
     for (int i = 0; i < D; ++i) c[i] = a.cc[b * D + i];
   }
 
-  // RTS element of global step k (smoother_pipeline_tl /
-  // _uniform_smoother_kernel): E = P_k F^T Pp^-1 with Pp = sym(F P_k F^T + Q),
-  // g = m_k - E (F m_k + c), L = sym(P_k - E F P_k); the last step is the
-  // boundary element (0, m_f[N-1], P_f[N-1]).
-  MF_DEV void elem(const Prior& a, int64_t b, int64_t k, int64_t n,
-                   SElem<T, D>& out) const {
-    using E = SElem<T, D>;
+  // Thread t's warp's stage of (P_f, m_f) of its steps of batch row b
+  // (pass 3), started and waited for.  Every lane of the warp must call it.
+  template <int R>
+  MF_DEV void stage(const Prior& a, int64_t b, int64_t t, int64_t n, WarpStage<T, R>& st) const {
+    st.place(t, NV, n);
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) st.fetch(P_OUT + i, a.p_f + (b * D * D + i) * n, 1);
+#pragma unroll
+    for (int i = 0; i < D; ++i) st.fetch(M_OUT + i, a.m_f + (b * D + i) * n, 1);
+    wide_fetch_wait();
+  }
+
+  // The element of global step k from (m_f, P_f)_k where they lie (pass 1)
+  MF_DEV void elem(const Prior& a, int64_t b, int64_t k, int64_t n, SElem<T, D>& out) const {
     T mk[D], pk[D * D];
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      mk[i] = a.m_f[(b * D + i) * n + k];
+    for (int i = 0; i < D; ++i) mk[i] = a.m_f[(b * D + i) * n + k];
 #pragma unroll
-      for (int j = 0; j < D; ++j) pk[i * D + j] = a.p_f[((b * D + i) * D + j) * n + k];
-    }
+    for (int i = 0; i < D * D; ++i) pk[i] = a.p_f[(b * D * D + i) * n + k];
+    build(mk, pk, k, n, out);
+  }
+
+  // The element of lane l's step r, global step k, from its stage (pass 3)
+  template <int R>
+  MF_DEV void elem(const WarpStage<T, R>& st, int l, int r, int64_t k, int64_t n,
+                   SElem<T, D>& out) const {
+    T mk[D], pk[D * D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) mk[i] = *st.at(M_OUT + i, l, r);
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) pk[i] = *st.at(P_OUT + i, l, r);
+    build(mk, pk, k, n, out);
+  }
+
+  // The RTS element of global step k from (m, P) = (m_f, P_f)_k
+  // (smoother_pipeline_tl / _uniform_smoother_kernel): E = P F^T Pp^-1 with
+  // Pp = sym(F P F^T + Q) (inv: pivoted from d = 4), g = m - E (F m + c),
+  // L = sym(P - E F P); at the last step the boundary element (0, m, P).
+  MF_DEV void build(const T* mk, const T* pk, int64_t k, int64_t n, SElem<T, D>& out) const {
+    using E = SElem<T, D>;
     if (k == n - 1) {
 #pragma unroll
       for (int i = 0; i < D * D; ++i) {
@@ -329,7 +362,6 @@ struct WideUniformRtsRow {
     if (d >= mf::WIDE_MIN_D)                                                           \
       return mf::launch_wide_smoother<mf::WideUniformRtsRow<T>>(a, p, scratch, batch,  \
                                                                 int(d), s);            \
-    MF_SWITCH_D(d, (mf::launch_smoother<mf::UniformRtsRow<T, D_>>(a, p, scratch,       \
-                                                                  batch, s)),          \
+    MF_SWITCH_D(d, (mf::launch_rts<mf::UniformRtsRow<T, D_>>(a, p, scratch, batch, s)), \
                 int(cudaErrorInvalidValue))                                            \
   }

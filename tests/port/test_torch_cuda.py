@@ -243,6 +243,41 @@ def test_uniform_filter_at_the_run_warp_and_block_edges(cuda_device, n, d, dtype
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [1, 2, 3, 6])
+@pytest.mark.parametrize("n", list(chip_smoke.EDGE_NS))
+def test_uniform_smoother_and_backward_at_the_run_warp_and_block_edges(cuda_device, n, d,
+                                                                        dtype):
+    """The d <= 6 uniform smoother and Koopman backward (staged steps, stored
+    in-block suffix, output passes that carry only the g and L legs) where a
+    thread's run of steps (8 at d <= 2), a warp's (256) or a block's (2,048)
+    ends, and across those of d = 3 and 6, with batch (3,), a mask and lam
+    expanded over the steps (stride 0, as GPR passes it), from the plain
+    filter's moments, against their plain versions: float64 within F64_TOL,
+    float32 within 1e-3; the backward with and without the site gradients,
+    its sums against the magnitudes of their terms
+    (chip_smoke.adjoint_sum_scales)."""
+    tol = F64_TOL if dtype == torch.float64 else 1e-3
+    args = _problem(d, n, (3,), cuda_device, dtype=dtype)
+    args[7] = args[7][..., :1].expand(args[7].shape)  # lam, stride 0
+    m_p, p_p, _ = ops.filter_pipeline_uniform_plain(*args)
+    gs = torch.linspace(0.5, -1.5, 3, dtype=dtype, device=cuda_device)
+    got_s = ops.smoother_pipeline_uniform(*args[:3], m_p, p_p)
+    want_s = ops.smoother_pipeline_uniform_plain(*args[:3], m_p, p_p)
+    got = adj.adjoint_pipeline_uniform(*args, m_p, p_p, gs)
+    got0 = adj.adjoint_pipeline_uniform(*args, m_p, p_p, gs, site_grads=False)
+    want = adj.adjoint_pipeline_uniform_plain(*args, m_p, p_p, gs)
+    scales = chip_smoke.adjoint_sum_scales(adj, args, m_p, p_p, gs) + (None, None)
+    torch.cuda.synchronize()
+    assert got0[6] is None and got0[7] is None
+    for g, w in zip(got_s, want_s):
+        assert _rel(g, w) <= tol, _rel(g, w)
+    for out in (got, got0[:6]):
+        for i, (g, w, sc) in enumerate(zip(out, want, scales)):
+            err = chip_smoke.rel_diff(g, w, sc)
+            assert err <= tol, (i, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("d", [1, 2, 3, 4, 6])
 @pytest.mark.parametrize("n", list(chip_smoke.EDGE_NS))
 def test_filter_scan_at_the_run_warp_and_block_edges(cuda_device, n, d, dtype):

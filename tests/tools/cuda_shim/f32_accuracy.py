@@ -1,10 +1,12 @@
-"""Float32 accuracy of the d <= 6 filter and Koopman backward kernels on the
-CPU, through the library of build.py: each kernel's float32 outputs against
-the plain versions in float64, at d = 2, with dense sites and with sparse
-ones (lam = nu = 0 at 30% of the steps): the general filter and Koopman
-backward on the flagship's jittered-grid problem (chip_smoke.general_problem),
-the uniform filter on its uniform-grid problem (chip_smoke.uniform_problem)
-and the filter scan on the jittered problem's filtering elements:
+"""Float32 accuracy of the d <= 6 filter, smoother and Koopman backward
+kernels on the CPU, through the library of build.py: each kernel's float32
+outputs against the plain versions in float64, at d = 2, with dense sites and
+with sparse ones (lam = nu = 0 at 30% of the steps): the general filter and
+Koopman backward on the flagship's jittered-grid problem
+(chip_smoke.general_problem), the uniform filter, smoother and Koopman
+backward on its uniform-grid problem (chip_smoke.uniform_problem; the
+latter two from the uniform filter's moments in each precision) and the
+filter scan on the jittered problem's filtering elements:
 
     python tests/tools/cuda_shim/f32_accuracy.py OUT_DIR [--root TREE] [--n N] [--seeds S]
 
@@ -65,10 +67,19 @@ def main() -> None:
             if sparse:
                 u64[6], u64[7] = u64[6] * u64[8], u64[7] * u64[8]
             u32 = [None if x is None else x.float() for x in u64]
+            um32, up32, ull32 = cs.filter_pipeline_uniform(*u32)
+            um64, up64, ull64 = cs.filter_pipeline_uniform_plain(*u64)
             for name, x32, x64 in zip(("uniform m_f", "uniform P_f", "uniform loglik"),
-                                      cs.filter_pipeline_uniform(*u32),
-                                      cs.filter_pipeline_uniform_plain(*u64)):
+                                      (um32, up32, ull32), (um64, up64, ull64)):
                 e[name] = rel(x32, x64)
+            for name, x32, x64 in zip(("uniform m_s", "uniform P_s"),
+                                      cs.smoother_pipeline_uniform(*u32[:3], um32, up32),
+                                      cs.smoother_pipeline_uniform_plain(*u64[:3], um64, up64)):
+                e[name] = rel(x32, x64)
+            for name, x32, x64 in zip(chip_smoke.ADJ_OUT,
+                                      adj.adjoint_pipeline_uniform(*u32, um32, up32, one.float()),
+                                      adj.adjoint_pipeline_uniform_plain(*u64, um64, up64, one)):
+                e["uniform " + name] = rel(x32, x64)
             f64 = make_filter_elements_tl(*g64[:6])
             for name, x32, x64 in zip(("scan m_f", "scan P_f"),
                                       cs.filter_scan(*(x.float() for x in f64)),

@@ -97,6 +97,12 @@ def check(cs, adj, d, n, batch, sparse=False):
     for name, got, want in zip(("m_s", "P_s"), cs.smoother_pipeline_uniform(*uni[:3], m_p, p_p),
                                cs.smoother_pipeline_uniform_plain(*uni[:3], m_p, p_p)):
         out["uniform " + name] = rel(got, want)
+    gs = torch.linspace(0.5, -1.5, max(1, math.prod(batch)), dtype=torch.float64).reshape(batch)
+    if d <= adj.UNIFORM_ADJOINT_MAX_STATE_DIM:
+        for name, got, want in zip(chip_smoke.ADJ_OUT,
+                                   adj.adjoint_pipeline_uniform(*uni, m_p, p_p, gs),
+                                   adj.adjoint_pipeline_uniform_plain(*uni, m_p, p_p, gs)):
+            out["uniform " + name] = rel(got, want)
     m_p, p_p, ll_p = cs.filter_pipeline_plain(*gen)
     for name, got, want in zip(("m_f", "P_f", "loglik"), cs.filter_pipeline(*gen),
                                (m_p, p_p, ll_p)):
@@ -113,7 +119,6 @@ def check(cs, adj, d, n, batch, sparse=False):
     for name, got, want in zip(("random scan m_f", "random scan P_f"), cs.filter_scan(*relems),
                                cs.filter_scan_plain(*relems)):
         out[name] = rel(got, want)
-    gs = torch.linspace(0.5, -1.5, max(1, math.prod(batch)), dtype=torch.float64).reshape(batch)
     for name, got, want in zip(("gF", "gc", "gQ", "gH", "gnu", "glam"),
                                adj.adjoint_pipeline(*gen, m_p, p_p, gs),
                                adj.adjoint_pipeline_plain(*gen, m_p, p_p, gs)):
