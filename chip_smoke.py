@@ -32,9 +32,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and lam, in float64 and float32; and beside them, at the same N, batch
    and dtypes, the uniform filter at d = 1, 2, 3, 6 with a mask and GPR's
    stride-0 lam, the uniform smoother and Koopman backward (the latter with
-   and without the site gradients) on the same problems, and the filter
-   scan on random prebuilt elements at d = 1, 2, 3, 4, 6 (d = 4 above its
-   staged tile);
+   and without the site gradients) on the same problems, the filter scan
+   on random prebuilt elements at d = 1, 2, 3, 4, 6 (d = 4 above its
+   staged tile), and the smoother scan at d = 1..6 (d = 5, 6 above its
+   staged tile) on the general problems' RTS elements and on random
+   prebuilt elements;
 4. the slice at full size, T = 1e6, float32, flagship GPR (Matern32(0.5,
    1.0), noise Cholesky 0.2), each path with the launch counters set to 0
    just before it and read just after:
@@ -418,8 +420,10 @@ def phase_kernels_vs_plain(cs, adj):
         filter_scan_random_case(cs, n, batch, d)
     # the d <= 6 passes where a thread's, a warp's or a block's run of steps
     # ends: the general filter and Koopman backward, the uniform filter, the
-    # uniform smoother and Koopman backward, and the filter scan (also at
-    # d = 4, where it reads each step where it lies)
+    # uniform smoother and Koopman backward, the filter scan (also at d = 4,
+    # where it reads each step where it lies) and the smoother scan (d = 4,
+    # its last staged d, 160 threads a block in float64; d = 5 and 6, where
+    # it reads each step where it lies)
     for dtype in (torch.float64, torch.float32):
         for n in EDGE_NS:
             for d in (1, 2, 3, 6):
@@ -428,6 +432,8 @@ def phase_kernels_vs_plain(cs, adj):
                 uniform_pair_edges_case(cs, adj, n, d, dtype)
             for d in (1, 2, 3, 4, 6):
                 filter_scan_random_case(cs, n, (3,), d, dtype)
+            for d in range(1, 7):
+                smoother_scan_edges_case(cs, n, d, dtype)
 
 
 def general_edges_case(cs, adj, n, d, dtype):
@@ -497,21 +503,42 @@ def uniform_pair_edges_case(cs, adj, n, d, dtype):
           f"{str(dtype)[6:]} masked", diffs, dict.fromkeys(diffs, tol))
 
 
+def random_contractions(rng, shape, d):
+    """Random d x d matrices of spectral radius at most 0.95, [*shape, d, d]."""
+    a = 0.8 * np.eye(d) + 0.3 * rng.standard_normal(shape + (d, d)) / np.sqrt(d)
+    return a * (0.95 / np.maximum(np.abs(np.linalg.eigvals(a)).max(-1), 0.95))[..., None, None]
+
+
+def psd(x):
+    """x x^T over the last two axes."""
+    return x @ np.swapaxes(x, -1, -2)
+
+
 def random_filter_elements(d, n, batch, dtype, device=DEVICE, seed=0):
     """Prebuilt filtering elements that no model makes: a random contraction A
     and random PSD C and J at every step, step 0 included (where
     make_filter_elements_tl has A = 0 and J = 0), random b and eta.  The
     cuda tests and the CPU shim run (tests/) take them from here."""
     rng = np.random.default_rng(seed + 11 * d)
-    a = 0.8 * np.eye(d) + 0.3 * rng.standard_normal(batch + (n, d, d)) / np.sqrt(d)
-    a *= 0.95 / np.maximum(np.abs(np.linalg.eigvals(a)).max(-1), 0.95)[..., None, None]
+    a = random_contractions(rng, batch + (n,), d)
     lc = 0.3 * rng.standard_normal(batch + (n, d, d)) + np.eye(d)
     lj = 0.3 * rng.standard_normal(batch + (n, d, d)) / np.sqrt(d)
-    psd = lambda x: x @ np.swapaxes(x, -1, -2)  # noqa: E731
     t = lambda x: torch.as_tensor(np.moveaxis(x, -3, -1), dtype=dtype,  # noqa: E731
                                   device=device)
     return (t(a), t(rng.standard_normal(batch + (n, d, 1))), t(psd(lc)), t(psd(lj)),
             t(rng.standard_normal(batch + (n, d, 1))))
+
+
+def random_smoother_elements(d, n, batch, dtype, device=DEVICE, seed=0):
+    """Prebuilt smoothing elements that no model makes: a random contraction E
+    and a random PSD L at every step, the last included (where
+    smoother_elements_tl has E = 0), random g."""
+    rng = np.random.default_rng(seed + 13 * d)
+    e = random_contractions(rng, batch + (n,), d)
+    ll = 0.3 * rng.standard_normal(batch + (n, d, d)) + np.eye(d)
+    t = lambda x: torch.as_tensor(np.moveaxis(x, -3, -1), dtype=dtype,  # noqa: E731
+                                  device=device)
+    return t(e), t(rng.standard_normal(batch + (n, d, 1))), t(psd(ll))
 
 
 def filter_scan_random_case(cs, n, batch, d, dtype=torch.float64):
@@ -525,6 +552,27 @@ def filter_scan_random_case(cs, n, batch, d, dtype=torch.float64):
     check(f"filter scan, random elements N={n} batch={batch} d={d} {str(dtype)[6:]}",
           {"m_f": rel_diff(got[0], want[0]), "P_f": rel_diff(got[1], want[1])},
           {"m_f": tol, "P_f": tol})
+
+
+def smoother_scan_edges_case(cs, n, d, dtype):
+    """The smoother scan against its plain version at N = n, batch (3,), on
+    the RTS elements of general_problem's problem with a mask (from the
+    plain filter's moments) and on random prebuilt elements."""
+    from markovflow_tpu_torch.ops.kalman import smoother_elements_tl
+
+    gargs = general_problem(d, n, (3,), dtype, seed=n, masked=True)
+    with torch.no_grad():
+        m_p, p_p, _ = cs.filter_pipeline_plain(*gargs)
+        inputs = {"RTS": smoother_elements_tl(*gargs[:3], m_p, p_p)[:3],
+                  "random": random_smoother_elements(d, n, (3,), dtype, DEVICE, seed=n)}
+        outs = {name: (cs.smoother_scan(*e), cs.smoother_scan_plain(*e))
+                for name, e in inputs.items()}
+    torch.cuda.synchronize()
+    diffs = {f"{name} {leg}": rel_diff(k, w) for name, (got, want) in outs.items()
+             for leg, k, w in zip(("m_s", "P_s"), got, want)}
+    tol = TOL_F64 if dtype == torch.float64 else TOL_F32_MOMENTS
+    check(f"smoother scan edges N={n} batch=(3,) d={d} {str(dtype)[6:]}", diffs,
+          dict.fromkeys(diffs, tol))
 
 
 def kernels_vs_plain_case(cs, adj, i, n, batch, d, dtype, masked):

@@ -1,7 +1,7 @@
 """Report on one CUDA card what chip_smoke.py does not measure for the
 d = 7..12 kernels (markovflow_tpu_torch/ops/csrc/wide_scan.cuh) and for the
-d <= 6 register passes of the filters, the uniform smoother and the Koopman
-backwards (kernels 1, 2, 3, 4, 6 and 7):
+d <= 6 register passes of the filters, the smoothers and the Koopman
+backwards (kernels 1 to 7):
 
     python3 chip_wide_report.py
 
@@ -21,10 +21,10 @@ backwards (kernels 1, 2, 3, 4, 6 and 7):
    configures the launches and the occupancy calculator counts them
    (mf_wide_occupancy_*), at d = 9 in float32 and d = 12 in float64;
 3. the registers, local memory and shared memory of passes 1, 3 and 2 of
-   kernels 1, 2, 3, 4, 6 and 7 at d = 1..6 and the warps an SM keeps
-   resident, as the library's runtime reports them (mf_general_occupancy_*;
-   a library without that entry reports none, one that does not answer for
-   kernel 1, 2, 3 or 6 none of it), float32 and float64.
+   kernels 1 to 7 at d = 1..6 and the warps an SM keeps resident, as the
+   library's runtime reports them (mf_general_occupancy_*; a library
+   without that entry reports none, one that does not answer for kernel 1,
+   2, 3, 5 or 6 none of it), float32 and float64.
 
 The last line is one JSON object of all of it.  Needs a CUDA card and nvcc.
 """
@@ -140,7 +140,7 @@ def occupancy(cs) -> list:
 
 
 def general_occupancy(cs) -> list:
-    """Per kernel (1, 2, 3, 4, 6, 7), state dim 1..6, dtype and pass: registers,
+    """Per kernel (1 to 7), state dim 1..6, dtype and pass: registers,
     local and shared memory and resident warps, from the library; empty
     when the library has no mf_general_occupancy_* entry, and no rows of a
     kernel it does not answer for."""
@@ -149,11 +149,11 @@ def general_occupancy(cs) -> list:
         print("  the library has no mf_general_occupancy_* entry", flush=True)
         return rows
     for sfx in ("f32", "f64"):
-        for kernel in (1, 2, 3, 4, 6, 7):
+        for kernel in range(1, 8):
             for d in range(1, 7):
                 out = (ctypes.c_int64 * 12)()
                 err = getattr(lib, f"mf_general_occupancy_{sfx}")(kernel, d, out)
-                if err != 0 and kernel in (1, 2, 3, 6):  # an older library's
+                if err != 0 and kernel in (1, 2, 3, 5, 6):  # an older library's
                     break
                 if err != 0:
                     raise RuntimeError(f"mf_general_occupancy_{sfx}({kernel}, {d}): CUDA error {err}")
@@ -185,7 +185,7 @@ def main() -> int:
               + " ".join(f"{k} {v}" for k, v in sass.get(label, {}).items()), flush=True)
     print("2. shared memory and resident warps:", flush=True)
     occ = occupancy(cs)
-    print("3. kernels 1, 2, 3, 4, 6 and 7 at d <= 6, from the library:", flush=True)
+    print("3. kernels 1 to 7 at d <= 6, from the library:", flush=True)
     gocc = general_occupancy(cs)
     print(json.dumps({"card": card, "ptxas": regs, "sass": sass, "occupancy": occ,
                       "general_occupancy": gocc}), flush=True)

@@ -12,7 +12,7 @@
       mf::SmootherArgs<T>, mf::UniformRts<T>, T*, int64_t, cudaStream_t);                 \
   extern template int mf::launch_general_filter<mf::GeneralSteps<T, D>>(                 \
       mf::FilterArgs<T>, mf::GeneralPrior<T>, T*, int64_t, cudaStream_t);                 \
-  extern template int mf::launch_smoother<mf::PrebuiltRow<T, D>>(                        \
+  extern template int mf::launch_rts<mf::PrebuiltRts<T, D>>(                             \
       mf::SmootherArgs<T>, mf::Prebuilt<T>, T*, int64_t, cudaStream_t);                   \
   extern template int mf::launch_general_adjoint<mf::UniformAdjSteps<T, D>>(             \
       mf::AdjointPrior<T>, T*, int64_t, int64_t, cudaStream_t);                           \
@@ -25,7 +25,8 @@
   extern template int mf::general_filter_occupancy<mf::PrebuiltSteps<T, D>>(int64_t*);   \
   extern template int mf::general_adjoint_occupancy<mf::GeneralAdjSteps<T, D>>(int64_t*); \
   extern template int mf::general_adjoint_occupancy<mf::UniformAdjSteps<T, D>>(int64_t*); \
-  extern template int mf::rts_occupancy<mf::UniformRtsRow<T, D>>(int64_t*);
+  extern template int mf::rts_occupancy<mf::UniformRtsRow<T, D>>(int64_t*);              \
+  extern template int mf::rts_occupancy<mf::PrebuiltRts<T, D>>(int64_t*);
 #define MF_EXTERN_ALL_D(T) \
   MF_EXTERN(T, 1) MF_EXTERN(T, 2) MF_EXTERN(T, 3) MF_EXTERN(T, 4) MF_EXTERN(T, 5) MF_EXTERN(T, 6)
 
@@ -39,26 +40,25 @@ MF_EXTERN_ALL_D(double)
       mf::SmootherArgs<T>, mf::UniformRts<T>, T*, int64_t, int, cudaStream_t);            \
   extern template int mf::launch_wide_filter<mf::WideGeneralRow<T>>(                     \
       mf::FilterArgs<T>, mf::GeneralPrior<T>, T*, int64_t, int, cudaStream_t);            \
-  extern template int mf::launch_wide_smoother<mf::WidePrebuiltRow<T>>(                   \
+  extern template int mf::launch_wide_smoother<mf::WidePrebuiltRts<T>>(                   \
       mf::SmootherArgs<T>, mf::Prebuilt<T>, T*, int64_t, int, cudaStream_t);              \
-  extern template int mf::launch_wide_filter<mf::WideFilterPrebuiltRow<T>>(               \
+  extern template int mf::launch_wide_filter<mf::WidePrebuiltSteps<T>>(                   \
       mf::FilterArgs<T>, mf::FilterPrebuilt<T>, T*, int64_t, int, cudaStream_t);          \
   extern template int mf::launch_wide_general_adjoint<T>(mf::GeneralAdjointPrior<T>, T*,  \
                                                          int64_t, int64_t, int,           \
                                                          cudaStream_t);                   \
   extern template int mf::wide_smoother_occupancy<mf::WideUniformRtsRow<T>>(int,          \
                                                                             int64_t*);    \
-  extern template int mf::wide_smoother_occupancy<mf::WidePrebuiltRow<T>>(int, int64_t*);  \
-  extern template int mf::wide_filter_occupancy<mf::WideFilterPrebuiltRow<T>>(int,        \
-                                                                              int64_t*);
+  extern template int mf::wide_smoother_occupancy<mf::WidePrebuiltRts<T>>(int, int64_t*);  \
+  extern template int mf::wide_filter_occupancy<mf::WidePrebuiltSteps<T>>(int, int64_t*);
 
 MF_EXTERN_WIDE(float)
 MF_EXTERN_WIDE(double)
 
 // Scratch sizes in elements of T (-1 for a state dimension with no kernel):
 // mf_smoother_scratch_* for the smoother scan; at d <= 6 the filters, the
-// Koopman backwards and the uniform smoother also keep each thread's
-// in-block prefix or suffix (the uniform backward also its partial sums),
+// Koopman backwards and the smoothers also keep each thread's in-block
+// prefix or suffix (the uniform backward also its partial sums),
 // and the uniform smoother's scratch keeps the E legs of its elements at
 // d = 7..12.
 #define MF_DEFINE_SCRATCH(T, SUFFIX)                                                    \
@@ -77,7 +77,7 @@ MF_EXTERN_WIDE(double)
   extern "C" int64_t mf_smoother_scratch_##SUFFIX(int64_t d, int64_t batch, int64_t n) { \
     if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
       return mf::wide_smoother_scratch<T>(int(d), batch, n);                            \
-    MF_SWITCH_D(d, (mf::smoother_scratch<T, D_>(batch, n)), -1)                         \
+    MF_SWITCH_D(d, (mf::rts_scratch<mf::PrebuiltRts<T, D_>>(batch, n)), -1)             \
   }                                                                                     \
   extern "C" int64_t mf_general_filter_scratch_##SUFFIX(int64_t d, int64_t batch,       \
                                                         int64_t n) {                    \
@@ -108,13 +108,13 @@ MF_EXTERN_WIDE(double)
     if (kernel == 2)                                                                    \
       return mf::wide_smoother_occupancy<mf::WideUniformRtsRow<T>>(int(d), out);        \
     if (kernel == 5)                                                                    \
-      return mf::wide_smoother_occupancy<mf::WidePrebuiltRow<T>>(int(d), out);          \
+      return mf::wide_smoother_occupancy<mf::WidePrebuiltRts<T>>(int(d), out);          \
     if (kernel == 6)                                                                    \
-      return mf::wide_filter_occupancy<mf::WideFilterPrebuiltRow<T>>(int(d), out);      \
+      return mf::wide_filter_occupancy<mf::WidePrebuiltSteps<T>>(int(d), out);          \
     return int(cudaErrorInvalidValue);                                                  \
   }                                                                                     \
-  /* pass_occupancy of passes 1, 3 and 2 (out[0..11]) of kernel 1, 2, 3, 4, 6 */     \
-  /* or 7 at d <= 6 */                                                                  \
+  /* pass_occupancy of passes 1, 3 and 2 (out[0..11]) of kernel 1, 2, 3, 4, 5, */      \
+  /* 6 or 7 at d <= 6 */                                                                \
   extern "C" int mf_general_occupancy_##SUFFIX(int64_t kernel, int64_t d, int64_t* out) { \
     if (kernel == 1)                                                                    \
       MF_SWITCH_D(d, (mf::general_filter_occupancy<mf::UniformSteps<T, D_>>(out)),      \
@@ -127,6 +127,9 @@ MF_EXTERN_WIDE(double)
                   int(cudaErrorInvalidValue))                                           \
     if (kernel == 4)                                                                    \
       MF_SWITCH_D(d, (mf::general_filter_occupancy<mf::GeneralSteps<T, D_>>(out)),      \
+                  int(cudaErrorInvalidValue))                                           \
+    if (kernel == 5)                                                                    \
+      MF_SWITCH_D(d, (mf::rts_occupancy<mf::PrebuiltRts<T, D_>>(out)),                  \
                   int(cudaErrorInvalidValue))                                           \
     if (kernel == 6)                                                                    \
       MF_SWITCH_D(d, (mf::general_filter_occupancy<mf::PrebuiltSteps<T, D_>>(out)),     \

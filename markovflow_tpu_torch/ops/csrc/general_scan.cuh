@@ -12,12 +12,13 @@
 // filter reads per-step (F, c, Q, H) through their strides (F_0 = 0 is the
 // prior row; for GPR, H is a stride-0 expansion of one row), so one kernel
 // serves any time grid.  The smoother scan composes prebuilt (E, g, L)
-// elements, the RTS elements of the general smoother, with the smoother
-// passes of scan_core.cuh.  The filter scan composes prebuilt
-// (A, b, C, J, eta) elements (the ops filter API, ops.kalman.parallel_filter)
-// without sites or log-likelihood, and writes the b and C legs.  At d <= 6
-// the filter, the filter scan and the uniform-grid filter run the passes
-// below, one template over their step sources.
+// elements, the RTS elements of the general smoother, and writes the g and
+// L legs.  The filter scan composes prebuilt (A, b, C, J, eta) elements
+// (the ops filter API, ops.kalman.parallel_filter) without sites or
+// log-likelihood, and writes the b and C legs.  At d <= 6 the filter, the
+// filter scan and the uniform-grid filter run the filter passes below, one
+// template over their step sources, and the smoother scan and the
+// uniform-grid smoother the RTS smoother passes, another.
 //
 // What bounds them on an H100: the filter reads the prior steps besides the
 // sites, 2 d^2 + d values a step (40 B at d = 2, float32) twice, and writes
@@ -28,12 +29,13 @@
 // d = 2, float32, 45 us at 3.35 TB/s for N = 1e6): pass 1 composes whole
 // elements (a d x d inverse a step), pass 3 carries only the moments (one
 // inverse a step).  The smoother scan reads 2 d^2 + d values a step twice
-// and writes d^2 + d, with one composition per step and no inverse: at
-// d = 2, float32, ~104 B a step, 31 us at 3.35 TB/s for N = 1e6, close to
-// its arithmetic.  The TPU kernels take d <= 12: d = 1..6 are instantiated
-// here, with every element in registers; d = 7..12 (an FElem at d = 12 has
-// 456 values) run through the warp-per-element kernels of wide_scan.cuh
-// with the Wide*Row sources below.
+// and writes d^2 + d, with no inverse: a full composition a step in pass 1
+// (three d^3 products), the g and L legs only in pass 3 (two); at d = 2,
+// float32, ~104 B a step and the stored in-block suffix (10 values a
+// thread), 34 us at 3.35 TB/s for N = 1e6.  The TPU kernels take d <= 12:
+// d = 1..6 are instantiated here, with every element in registers; d =
+// 7..12 (an FElem at d = 12 has 456 values) run through the
+// warp-per-element kernels of wide_scan.cuh with the Wide* sources below.
 #pragma once
 
 #include "scan_core.cuh"
@@ -91,7 +93,8 @@ struct GeneralPrior {
 // at d = 1..6: kernel 1 every d (the sites, and d^2 + d output slots in pass
 // 3); kernel 4 to d = 4; kernel 6 to d = 3; kernel 7 to d = 3; the passes 3
 // of kernels 2 and 3 (the RTS smoother passes below, adjoint_scan.cuh)
-// every d.  Larger d read each step's values where they lie.
+// every d; kernel 5 (passes 1 and 3) to d = 4.  Larger d read each step's
+// values where they lie.
 // ---------------------------------------------------------------------------
 
 // The tiling of passes that stage at most NV_ values a step.
@@ -687,26 +690,30 @@ int launch_general_filter(FilterArgs<typename Src::T> a, typename Src::Prior p,
 // ---------------------------------------------------------------------------
 // The d = 1..6 RTS smoother passes, with the elements in registers and a
 // run of R consecutive steps a thread, over a step source: UniformRtsRow
-// (kernel 2, uniform_scan.cuh).
-//   1. each thread takes the element of each of its steps from where the
-//      step's values lie (Src::elem) and folds them, last first, with the
-//      full composition (SmootherOp: pass 2 needs the E leg); the block
-//      scan gives every thread its exclusive in-block suffix, which goes to
-//      the scratch (store_thread_elem), and the block total.  Pass 1 only
-//      reads, and a thread's R steps of a value share their sectors, which
-//      stay in L1: staged, it was as fast at d = 2 and slower at d = 6
-//      (PERF.md);
+// (kernel 2, uniform_scan.cuh) and PrebuiltRts (kernel 5, below).
+//   1. each thread takes the element of each of its steps (Src::elem),
+//      from the warp's stage with Src::STAGE_TOTALS where the steps are
+//      staged (below), else from where the step's values lie, and folds
+//      them, last first, with the full composition (SmootherOp: pass 2
+//      needs the E leg); the block scan gives every thread its exclusive
+//      in-block suffix, which goes to the scratch (store_thread_elem), and
+//      the block total.  Kernel 2 reads its d^2 + d values a step where
+//      they lie: a thread's R steps of a value share their sectors, which
+//      stay in L1 (staged, it was as fast at d = 2 and slower at d = 6).
+//      Kernel 5's 2 d^2 + d outgrow L1 that way (0.052 ms against 0.025
+//      staged at d = 2, N = 1e6; PERF.md);
 //   2. scan_totals (scan_core.cuh) over Tiling<D>'s block;
-//   3. each warp stages the Src::NV values of its 32 R steps (Src::stage);
-//      each thread composes the g and L legs of its stored suffix with its
-//      block's carry (smoother_gl): the smoothed moments after its last
-//      step; then, last step first, it takes each step's element from the
-//      stage (Src::elem again) and carries only the moments,
-//      m_s = g + E m_s, P_s = sym(E P_s E^T + L) (smoother_gl again),
-//      written to the step's slots Src::P_OUT and Src::M_OUT (values the
-//      lane has read), which the warp then stores.
+//   3. where a warp's steps are at most 6,144 values (StagedTiling::STAGED:
+//      kernel 2 every d <= 6, kernel 5 to d = 4), each warp stages the
+//      Src::NV values of its 32 R steps (Src::stage); each thread composes
+//      the g and L legs of its stored suffix with its block's carry
+//      (smoother_gl): the smoothed moments after its last step; then, last
+//      step first, it takes each step's element from the stage (Src::elem
+//      again), or where it lies when not staged, and carries only the
+//      moments, m_s = g + E m_s, P_s = sym(E P_s E^T + L) (smoother_gl
+//      again), written to the step's slots Src::P_OUT and Src::M_OUT (values
+//      the lane has read), which the warp then stores, or to step k.
 // Pass 3 thus neither rebuilds the in-block suffix nor composes the E leg.
-// A source stages every d <= 6 (StagedTiling::STAGED).
 // ---------------------------------------------------------------------------
 
 template <class Src>
@@ -724,6 +731,8 @@ rts_totals(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
   const int64_t b = blockIdx.y, n = a.n, t = blockIdx.x * int64_t(THREADS) + threadIdx.x;
   Src src;
   src.load(p, b);
+  WarpStage<T, R> st;
+  if constexpr (G::STAGED && Src::STAGE_TOTALS) src.stage(p, b, t, n, st);
   E run, excl, total;
   Op::identity(run);
 #pragma unroll
@@ -731,7 +740,8 @@ rts_totals(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
     const int64_t k = t * R + r;
     if (k >= n) continue;
     E e, u;
-    src.elem(p, b, k, n, e);
+    if constexpr (G::STAGED && Src::STAGE_TOTALS) src.elem(st, lane_id(), r, k, n, e);
+    else src.elem(p, b, k, n, e);
     Op::combine(e, run, u);
     run = u;
   }
@@ -748,7 +758,6 @@ rts_outputs(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
   using G = RtsTiling<Src>;
   using E = SElem<T, D>;
   constexpr int THREADS = G::THREADS, R = G::R;
-  static_assert(G::STAGED, "pass 3 stages its steps");
   const int64_t b = blockIdx.y, n = a.n, t = blockIdx.x * int64_t(THREADS) + threadIdx.x;
   const int lane = lane_id();
   // the smoothed moments after the thread's last step: the later threads
@@ -763,25 +772,36 @@ rts_outputs(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
   Src src;
   src.load(p, b);
   WarpStage<T, R> st;
-  src.stage(p, b, t, n, st);
+  if constexpr (G::STAGED) src.stage(p, b, t, n, st);
 #pragma unroll
   for (int r = R - 1; r >= 0; --r) {
     const int64_t k = t * R + r;
     if (k >= n) continue;
     E e;
-    src.elem(st, lane, r, k, n, e);
+    if constexpr (G::STAGED) src.elem(st, lane, r, k, n, e);
+    else src.elem(p, b, k, n, e);
     T mk[D], pk[D * D];
     smoother_gl<T, D>(e.v + E::OE, e.v + E::OG, e.v + E::OL, ms, ps, mk, pk);
+    // m_s and P_s to the step's staged slots, or to step k
+    if constexpr (G::STAGED) {
 #pragma unroll
-    for (int i = 0; i < D; ++i) ms[i] = *st.at(Src::M_OUT + i, lane, r) = mk[i];
+      for (int i = 0; i < D; ++i) ms[i] = *st.at(Src::M_OUT + i, lane, r) = mk[i];
 #pragma unroll
-    for (int i = 0; i < D * D; ++i) ps[i] = *st.at(Src::P_OUT + i, lane, r) = pk[i];
+      for (int i = 0; i < D * D; ++i) ps[i] = *st.at(Src::P_OUT + i, lane, r) = pk[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < D; ++i) ms[i] = a.m_s[(b * D + i) * n + k] = mk[i];
+#pragma unroll
+      for (int i = 0; i < D * D; ++i) ps[i] = a.p_s[(b * D * D + i) * n + k] = pk[i];
+    }
   }
-  __syncwarp();
+  if constexpr (G::STAGED) {
+    __syncwarp();
 #pragma unroll
-  for (int i = 0; i < D * D; ++i) st.store(Src::P_OUT + i, a.p_s + (b * D * D + i) * n);
+    for (int i = 0; i < D * D; ++i) st.store(Src::P_OUT + i, a.p_s + (b * D * D + i) * n);
 #pragma unroll
-  for (int i = 0; i < D; ++i) st.store(Src::M_OUT + i, a.m_s + (b * D + i) * n);
+    for (int i = 0; i < D; ++i) st.store(Src::M_OUT + i, a.m_s + (b * D + i) * n);
+  }
 }
 
 // Scratch of the RTS smoother passes in elements of T: the block totals
@@ -792,15 +812,24 @@ int64_t rts_scratch(int64_t batch, int64_t n) {
   return batch * num_blocks(n, G::TILE) * SElem<typename Src::T, Src::D>::SIZE * (1 + G::THREADS);
 }
 
+// Dynamic shared memory of passes 1 and 3.
+template <class Src>
+void rts_stage_bytes(size_t* bytes) {
+  bytes[1] = general_stage_bytes<RtsTiling<Src>, typename Src::T>(Src::NV);
+  bytes[0] = Src::STAGE_TOTALS ? bytes[1] : 0;
+}
+
 // pass_occupancy of passes 1, 3 and 2 (out[0..11]).
 template <class Src>
 int rts_occupancy(int64_t* out) {
   using T = typename Src::T;
   using G = RtsTiling<Src>;
-  const size_t bytes = general_stage_bytes<G, T>(Src::NV);
-  int err = wide_smem_bytes(rts_outputs<Src>, bytes);
-  if (err == 0) err = pass_occupancy(rts_totals<Src>, G::THREADS, 0, out);
-  if (err == 0) err = pass_occupancy(rts_outputs<Src>, G::THREADS, bytes, out + 4);
+  size_t bytes[2];
+  rts_stage_bytes<Src>(bytes);
+  int err = wide_smem_bytes(rts_totals<Src>, bytes[0]);
+  if (err == 0) err = wide_smem_bytes(rts_outputs<Src>, bytes[1]);
+  if (err == 0) err = pass_occupancy(rts_totals<Src>, G::THREADS, bytes[0], out);
+  if (err == 0) err = pass_occupancy(rts_outputs<Src>, G::THREADS, bytes[1], out + 4);
   if (err == 0)
     err = pass_occupancy(scan_totals<SmootherOp<T, Src::D>, Tiling<Src::D>::THREADS, true>,
                          Tiling<Src::D>::THREADS, 0, out + 8);
@@ -816,42 +845,76 @@ int launch_rts(SmootherArgs<typename Src::T> a, typename Src::Prior p, typename 
   a.nblk = num_blocks(a.n, G::TILE);
   a.totals = scratch;
   a.prefix = scratch + batch * a.nblk * SElem<T, D>::SIZE;
-  const size_t bytes = general_stage_bytes<G, T>(Src::NV);
-  const int err = wide_smem_bytes(rts_outputs<Src>, bytes);
+  size_t bytes[2];
+  rts_stage_bytes<Src>(bytes);
+  int err = wide_smem_bytes(rts_totals<Src>, bytes[0]);
+  if (err == 0) err = wide_smem_bytes(rts_outputs<Src>, bytes[1]);
   if (err != 0) return err;
   const dim3 grid(unsigned(a.nblk), unsigned(batch));
-  rts_totals<Src><<<grid, G::THREADS, 0, stream>>>(a, p);
+  rts_totals<Src><<<grid, G::THREADS, bytes[0], stream>>>(a, p);
   MF_CHECK_LAUNCH();
   scan_totals<SmootherOp<T, D>, Tiling<D>::THREADS, true>
       <<<unsigned(batch), Tiling<D>::THREADS, 0, stream>>>(
       reinterpret_cast<SElem<T, D>*>(a.totals), a.nblk);
   MF_CHECK_LAUNCH();
-  rts_outputs<Src><<<grid, G::THREADS, bytes, stream>>>(a, p);
+  rts_outputs<Src><<<grid, G::THREADS, bytes[1], stream>>>(a, p);
   MF_CHECK_LAUNCH();
   return 0;
 }
 
-// prebuilt smoothing elements: Prebuilt (wide_scan.cuh)
+// Kernel 5: prebuilt smoothing elements (Prebuilt, wide_scan.cuh), the
+// RTS elements of the general smoother with the last step's boundary
+// element (0, m, P) among them.  2 d^2 + d values a step, staged E, then L,
+// then g, in passes 1 and 3, so that pass 3 puts P_s over the staged L and
+// m_s over g: to d = 4; at d = 5 and 6 both read each step where it lies.
 template <typename T_, int D_>
-struct PrebuiltRow {
+struct PrebuiltRts {
   using T = T_;
   static constexpr int D = D_;
   using Prior = Prebuilt<T>;
+  using E = SElem<T, D>;
+  static constexpr int NV = 2 * D * D + D;
+  static constexpr int P_OUT = D * D, M_OUT = 2 * D * D;  // the staged L and g
+  static constexpr bool STAGE_TOTALS = true;
 
   MF_DEV void load(const Prior&, int64_t) {}
 
-  MF_DEV void elem(const Prior& a, int64_t b, int64_t k, int64_t n,
-                   SElem<T, D>& out) const {
-    using E = SElem<T, D>;
+  // Thread t's warp's stage of the elements of its steps of batch row b,
+  // started and waited for.  Every lane of the warp must call it.
+  template <int R>
+  MF_DEV void stage(const Prior& a, int64_t b, int64_t t, int64_t n, WarpStage<T, R>& st) const {
+    st.place(t, NV, n);
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      out.v[E::OG + i] = a.g[(b * D + i) * n + k];
-#pragma unroll
-      for (int j = 0; j < D; ++j) {
-        out.v[E::OE + i * D + j] = a.e[((b * D + i) * D + j) * n + k];
-        out.v[E::OL + i * D + j] = a.l[((b * D + i) * D + j) * n + k];
-      }
+    for (int i = 0; i < D * D; ++i) {
+      st.fetch(i, a.e + (b * D * D + i) * n, 1);
+      st.fetch(P_OUT + i, a.l + (b * D * D + i) * n, 1);
     }
+#pragma unroll
+    for (int i = 0; i < D; ++i) st.fetch(M_OUT + i, a.g + (b * D + i) * n, 1);
+    wide_fetch_wait();
+  }
+
+  // The element of global step k where it lies
+  MF_DEV void elem(const Prior& a, int64_t b, int64_t k, int64_t n, E& out) const {
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) {
+      out.v[E::OE + i] = a.e[(b * D * D + i) * n + k];
+      out.v[E::OL + i] = a.l[(b * D * D + i) * n + k];
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i) out.v[E::OG + i] = a.g[(b * D + i) * n + k];
+  }
+
+  // The element of lane l's step r from its stage
+  template <int R>
+  MF_DEV void elem(const WarpStage<T, R>& st, int l, int r, int64_t, int64_t, E& out) const {
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) {
+      out.v[E::OE + i] = *st.at(i, l, r);
+      out.v[E::OL + i] = *st.at(P_OUT + i, l, r);
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i) out.v[E::OG + i] = *st.at(M_OUT + i, l, r);
   }
 };
 
@@ -877,7 +940,7 @@ struct WideGeneralRow {
 };
 
 template <typename T_>
-struct WidePrebuiltRow : WideReadRow<T_> {
+struct WidePrebuiltRts : WideReadRow<T_> {
   using Prior = Prebuilt<T_>;
 
   static MF_DEV WideRows<const T_*> rows(const Prior& a, int d) {
@@ -886,7 +949,7 @@ struct WidePrebuiltRow : WideReadRow<T_> {
 };
 
 template <typename T_>
-struct WideFilterPrebuiltRow {
+struct WidePrebuiltSteps {
   using T = T_;
   static constexpr bool PREBUILT = true;
   using Prior = FilterPrebuilt<T>;
@@ -934,10 +997,9 @@ struct WideFilterPrebuiltRow {
     mf::SmootherArgs<T> a{m_s, p_s, nullptr, n, 0};                                    \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
     if (d >= mf::WIDE_MIN_D)                                                           \
-      return mf::launch_wide_smoother<mf::WidePrebuiltRow<T>>(a, p, scratch, batch,    \
+      return mf::launch_wide_smoother<mf::WidePrebuiltRts<T>>(a, p, scratch, batch,    \
                                                               int(d), s);              \
-    MF_SWITCH_D(d, (mf::launch_smoother<mf::PrebuiltRow<T, D_>>(a, p, scratch, batch,  \
-                                                                s)),                   \
+    MF_SWITCH_D(d, (mf::launch_rts<mf::PrebuiltRts<T, D_>>(a, p, scratch, batch, s)),  \
                 int(cudaErrorInvalidValue))                                            \
   }                                                                                    \
   extern "C" int mf_filter_scan_##SUFFIX(                                              \
@@ -949,8 +1011,8 @@ struct WideFilterPrebuiltRow {
     a.m_f = m_f; a.p_f = p_f; a.n = n;                                                 \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
     if (d >= mf::WIDE_MIN_D)                                                           \
-      return mf::launch_wide_filter<mf::WideFilterPrebuiltRow<T>>(a, p, scratch, batch,  \
-                                                                  int(d), s);          \
+      return mf::launch_wide_filter<mf::WidePrebuiltSteps<T>>(a, p, scratch, batch,    \
+                                                              int(d), s);              \
     MF_SWITCH_D(d, (mf::launch_general_filter<mf::PrebuiltSteps<T, D_>>(a, p, scratch,  \
                                                                         batch, s)),    \
                 int(cudaErrorInvalidValue))                                            \

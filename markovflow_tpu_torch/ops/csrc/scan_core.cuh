@@ -1,32 +1,29 @@
 // Shared core of the Kalman scan kernels for Hopper (sm_90a): associative
 // elements and their compositions, the block-wide scan, the scan of the
-// block totals, fixed-order sums, and the smoother passes, written once for
-// every element source.
+// block totals, each thread's stored in-block prefix, fixed-order sums, and
+// the tiling of the d <= 6 passes.
 //
 // Design: reduce, then scan, then fix up.  The TPU kernels thread one carry
 // through a sequential grid; here blocks run in no order, so
 //   1. each thread owns R consecutive steps, builds their associative
 //      elements in registers and composes them in order; a warp-shuffle
 //      scan plus a scan of the warp totals gives the block total, which is
-//      written out (one element per block);
+//      written out (one element per block), and each thread's exclusive
+//      in-block prefix (suffix), which is kept for pass 3
+//      (store_thread_elem);
 //   2. one block per batch row scans the block totals into exclusive
 //      carries, in place (scan_totals);
-//   3. each thread folds its exclusive prefix into its steps and writes the
-//      outputs.  A reduction over steps (the filter's log-likelihood, the
-//      adjoint's gradient sums) goes out as one partial per block;
+//   3. each thread composes its block's carry with its stored prefix and
+//      carries only the moments (the backwards: the g and L legs) through
+//      its steps, writing the outputs.  A reduction over steps (the
+//      filter's log-likelihood, the adjoint's gradient sums) goes out as
+//      one partial per block;
 //   4. one block per (value, batch row) sums the partials in a fixed order.
-// No float atomics: a run repeats bit for bit.  The smoother passes below
-// serve the smoother scan alone (kernel 5 at d <= 6, over prebuilt
-// elements, PrebuiltRow): they read each step where it lies and rebuild each
-// thread's elements and in-block suffix in pass 3.  The other d <= 6
-// kernels have passes of their own that keep pass 1's in-block prefix
-// (suffix) for pass 3 (store_thread_elem) and stage each warp's steps
-// through shared memory where that pays: the filters and the RTS smoother
-// (the uniform smoother's source in uniform_scan.cuh) in general_scan.cuh,
-// and the Koopman backwards in general_adjoint.cuh.
-//
-// A source ("Row") of the smoother passes supplies the elements of one
-// batch row, one smoothing element per step; steps past N are absent.
+// No float atomics: a run repeats bit for bit.  The d <= 6 passes are
+// templates over a step source: the filters and the RTS smoothers
+// (kernels 1, 4, 6; 2, 5) in general_scan.cuh, the Koopman backwards
+// (kernels 3, 7) in general_adjoint.cuh; the d = 7..12 passes are in
+// wide_scan.cuh.
 #pragma once
 
 #include <stdint.h>
@@ -411,8 +408,7 @@ int pass_occupancy(K kernel, int threads, size_t bytes, int64_t* out) {
   } while (0)
 
 // ---------------------------------------------------------------------------
-// Smoother passes, for any Row that builds one smoothing element per step
-// (kernel 5's PrebuiltRow).
+// The smoothers' arguments.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -421,102 +417,8 @@ struct SmootherArgs {
   T *m_s, *p_s;
   T* totals;  // scratch: block totals [B, nblk] elements
   int64_t n, nblk;
-  T* prefix;  // the d <= 6 in-block suffixes of kernels 2, 3 and 7
+  T* prefix;  // the d <= 6 in-block suffixes of kernels 2, 3, 5 and 7
 };
-
-// The composition of this thread's run of R steps, and the exclusive
-// suffix within the block (all later threads).
-template <class Row>
-MF_DEV void smoother_thread_suffix(const typename Row::Prior& p, const Row& row,
-                                   int64_t b, int64_t first_step, int64_t n,
-                                   SElem<typename Row::T, Row::D>& excl,
-                                   SElem<typename Row::T, Row::D>& total,
-                                   SElem<typename Row::T, Row::D>* smem) {
-  using T = typename Row::T;
-  constexpr int D = Row::D;
-  using Op = SmootherOp<T, D>;
-  using E = SElem<T, D>;
-  E run, e, t;
-  Op::identity(run);
-  for (int r = Tiling<D>::R - 1; r >= 0; --r) {
-    const int64_t k = first_step + r;
-    if (k >= n) continue;
-    row.elem(p, b, k, n, e);
-    Op::combine(e, run, t);
-    run = t;
-  }
-  block_scan<Op, Tiling<D>::THREADS, true>(run, excl, total, smem);
-}
-
-template <class Row>
-__global__ void __launch_bounds__(Tiling<Row::D>::THREADS)
-smoother_totals(SmootherArgs<typename Row::T> a, typename Row::Prior p) {
-  using E = SElem<typename Row::T, Row::D>;
-  constexpr int THREADS = Tiling<Row::D>::THREADS;
-  __shared__ E smem[THREADS / 32 + 1];
-  const int64_t b = blockIdx.y, blk = blockIdx.x;
-  Row row;
-  row.load(p, b);
-  E excl, total;
-  smoother_thread_suffix<Row>(p, row, b, (blk * THREADS + threadIdx.x) * Tiling<Row::D>::R,
-                              a.n, excl, total, smem);
-  if (threadIdx.x == 0) reinterpret_cast<E*>(a.totals)[b * a.nblk + blk] = total;
-}
-
-template <class Row>
-__global__ void __launch_bounds__(Tiling<Row::D>::THREADS)
-smoother_outputs(SmootherArgs<typename Row::T> a, typename Row::Prior p) {
-  using T = typename Row::T;
-  constexpr int D = Row::D;
-  using Op = SmootherOp<T, D>;
-  using E = SElem<T, D>;
-  constexpr int THREADS = Tiling<D>::THREADS, R = Tiling<D>::R;
-  __shared__ E smem[THREADS / 32 + 1];
-  const int64_t b = blockIdx.y, blk = blockIdx.x, n = a.n;
-  const int64_t first_step = (blk * THREADS + threadIdx.x) * R;
-  Row row;
-  row.load(p, b);
-  E excl, total, run, e, t;
-  smoother_thread_suffix<Row>(p, row, b, first_step, n, excl, total, smem);
-  // the later threads of this block, then all later blocks
-  Op::combine(excl, reinterpret_cast<const E*>(a.totals)[b * a.nblk + blk], run);
-  for (int r = R - 1; r >= 0; --r) {
-    const int64_t k = first_step + r;
-    if (k >= n) continue;
-    row.elem(p, b, k, n, e);
-    Op::combine(e, run, t);
-    run = t;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      a.m_s[(b * D + i) * n + k] = run.v[E::OG + i];
-#pragma unroll
-      for (int j = 0; j < D; ++j) a.p_s[((b * D + i) * D + j) * n + k] = run.v[E::OL + i * D + j];
-    }
-  }
-}
-
-template <typename T, int D>
-int64_t smoother_scratch(int64_t batch, int64_t n) {
-  return batch * num_blocks(n, Tiling<D>::TILE) * SElem<T, D>::SIZE;
-}
-
-template <class Row>
-int launch_smoother(SmootherArgs<typename Row::T> a, typename Row::Prior p,
-                    typename Row::T* scratch, int64_t batch, cudaStream_t stream) {
-  using T = typename Row::T;
-  constexpr int D = Row::D, THREADS = Tiling<D>::THREADS;
-  a.nblk = num_blocks(a.n, Tiling<D>::TILE);
-  a.totals = scratch;
-  const dim3 grid(unsigned(a.nblk), unsigned(batch));
-  smoother_totals<Row><<<grid, THREADS, 0, stream>>>(a, p);
-  MF_CHECK_LAUNCH();
-  scan_totals<SmootherOp<T, D>, THREADS, true><<<unsigned(batch), THREADS, 0, stream>>>(
-      reinterpret_cast<SElem<T, D>*>(a.totals), a.nblk);
-  MF_CHECK_LAUNCH();
-  smoother_outputs<Row><<<grid, THREADS, 0, stream>>>(a, p);
-  MF_CHECK_LAUNCH();
-  return 0;
-}
 
 }  // namespace mf
 

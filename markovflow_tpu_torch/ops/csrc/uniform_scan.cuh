@@ -165,6 +165,7 @@ struct UniformRtsRow {
   using Prior = UniformRts<T>;
   static constexpr int NV = D * D + D;
   static constexpr int P_OUT = 0, M_OUT = D * D;  // the staged P_f and m_f
+  static constexpr bool STAGE_TOTALS = false;     // pass 1 reads each step where it lies
   T f[D * D], c[D], q[D * D];
 
   MF_DEV void load(const Prior& a, int64_t b) {

@@ -16,12 +16,12 @@ template int mf::wide_smoother_occupancy<mf::WideUniformRtsRow<MF_T>>(int, int64
 #ifdef MF_GENERAL
 template int mf::launch_wide_filter<mf::WideGeneralRow<MF_T>>(
     mf::FilterArgs<MF_T>, mf::GeneralPrior<MF_T>, MF_T*, int64_t, int, cudaStream_t);
-template int mf::launch_wide_smoother<mf::WidePrebuiltRow<MF_T>>(
+template int mf::launch_wide_smoother<mf::WidePrebuiltRts<MF_T>>(
     mf::SmootherArgs<MF_T>, mf::Prebuilt<MF_T>, MF_T*, int64_t, int, cudaStream_t);
-template int mf::launch_wide_filter<mf::WideFilterPrebuiltRow<MF_T>>(
+template int mf::launch_wide_filter<mf::WidePrebuiltSteps<MF_T>>(
     mf::FilterArgs<MF_T>, mf::FilterPrebuilt<MF_T>, MF_T*, int64_t, int, cudaStream_t);
-template int mf::wide_smoother_occupancy<mf::WidePrebuiltRow<MF_T>>(int, int64_t*);
-template int mf::wide_filter_occupancy<mf::WideFilterPrebuiltRow<MF_T>>(int, int64_t*);
+template int mf::wide_smoother_occupancy<mf::WidePrebuiltRts<MF_T>>(int, int64_t*);
+template int mf::wide_filter_occupancy<mf::WidePrebuiltSteps<MF_T>>(int, int64_t*);
 #endif
 #ifdef MF_GADJOINT
 template int mf::launch_wide_general_adjoint<MF_T>(mf::GeneralAdjointPrior<MF_T>, MF_T*,

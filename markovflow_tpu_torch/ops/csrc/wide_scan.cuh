@@ -5,7 +5,7 @@
 // markovflow_tpu/ops/pallas_scan.py that the d9 path runs:
 // pallas_filter_pipeline_uniform, pallas_smoother_pipeline_uniform,
 // pallas_filter_pipeline, pallas_smoother_scan and pallas_filter_scan (the
-// element sources are the Wide*Row types of uniform_scan.cuh and
+// element sources are the Wide* types of uniform_scan.cuh and
 // general_scan.cuh); general_adjoint.cuh runs pallas_adjoint_pipeline on the
 // same machinery.  The plain PyTorch versions are the *_plain functions of
 // markovflow_tpu_torch/ops/cuda_scan.py.
@@ -1038,8 +1038,8 @@ MF_DEV WideRows<const T*> wide_element_rows(const Prebuilt<T>& e, int d) {
 // chunk's elements also go out, E to e and g and L to m_s and P_s.
 template <class Row>
 __global__ void __launch_bounds__(WIDE_WARPS * 32)
-wide_smoother_totals(SmootherArgs<typename Row::T> a, typename Row::Prior p, int d,
-                     int64_t steps, typename Row::T* e) {
+wide_rts_totals(SmootherArgs<typename Row::T> a, typename Row::Prior p, int d,
+                int64_t steps, typename Row::T* e) {
   using T = typename Row::T;
   using W = WideStageWork<T>;
   constexpr int CH = W::CH;
@@ -1081,7 +1081,7 @@ wide_smoother_totals(SmootherArgs<typename Row::T> a, typename Row::Prior p, int
 // may be m_s and P_s.
 template <typename T>
 __global__ void __launch_bounds__(WIDE_WARPS * 32)
-wide_smoother_outputs(SmootherArgs<T> a, Prebuilt<T> e, int d, int64_t steps) {
+wide_rts_outputs(SmootherArgs<T> a, Prebuilt<T> e, int d, int64_t steps) {
   using W = WideStageWork<T>;
   constexpr int CH = W::CH;
   const int warp = threadIdx.x >> 5, size = wide_smoother_size(d);
@@ -1151,15 +1151,15 @@ int launch_wide_smoother(SmootherArgs<typename Row::T> a, typename Row::Prior p,
   const dim3 grid(unsigned(num_blocks(a.nblk, WIDE_WARPS)), unsigned(batch));
   size_t bytes[2];
   wide_smoother_bytes<Row>(d, bytes);
-  int err = wide_smem_bytes(wide_smoother_totals<Row>, bytes[0]);
-  if (err == 0) err = wide_smem_bytes(wide_smoother_outputs<T>, bytes[1]);
+  int err = wide_smem_bytes(wide_rts_totals<Row>, bytes[0]);
+  if (err == 0) err = wide_smem_bytes(wide_rts_outputs<T>, bytes[1]);
   if (err != 0) return err;
-  wide_smoother_totals<Row><<<grid, WIDE_WARPS * 32, bytes[0], stream>>>(a, p, d, steps, e);
+  wide_rts_totals<Row><<<grid, WIDE_WARPS * 32, bytes[0], stream>>>(a, p, d, steps, e);
   MF_CHECK_LAUNCH();
   err = launch_wide_scan<WideSmootherOp<T>, true, T>(a.totals, a.nblk, batch, d, levels,
                                                      stream);
   if (err != 0) return err;
-  wide_smoother_outputs<T><<<grid, WIDE_WARPS * 32, bytes[1], stream>>>(a, elems, d, steps);
+  wide_rts_outputs<T><<<grid, WIDE_WARPS * 32, bytes[1], stream>>>(a, elems, d, steps);
   MF_CHECK_LAUNCH();
   return 0;
 }
@@ -1171,8 +1171,8 @@ int wide_smoother_occupancy(int d, int64_t* out) {
   using T = typename Row::T;
   size_t bytes[2];
   wide_smoother_bytes<Row>(d, bytes);
-  int err = wide_occupancy(wide_smoother_totals<Row>, bytes[0], out);
-  if (err == 0) err = wide_occupancy(wide_smoother_outputs<T>, bytes[1], out + 2);
+  int err = wide_occupancy(wide_rts_totals<Row>, bytes[0], out);
+  if (err == 0) err = wide_occupancy(wide_rts_outputs<T>, bytes[1], out + 2);
   if (err == 0)
     err = wide_occupancy(wide_scan_level<WideSmootherOp<T>, true, true, T>,
                          wide_scan_bytes<T>(d), out + 4);

@@ -293,6 +293,20 @@ def test_filter_scan_at_the_run_warp_and_block_edges(cuda_device, n, d, dtype):
         assert _rel(g, w) <= tol, _rel(g, w)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("n", list(chip_smoke.EDGE_NS))
+def test_smoother_scan_at_the_run_warp_and_block_edges(cuda_device, n, d, dtype):
+    """The d <= 6 smoother scan (stored in-block suffix, moments-only pass 3;
+    passes 1 and 3 staged to d = 4, 160 threads a block there in float64,
+    and read where the steps lie at d = 5 and 6) at the run, warp and block
+    edges, batch (3,), on the RTS elements of chip_smoke.general_problem's
+    problem and on random prebuilt elements, against its plain version:
+    float64 within chip_smoke.TOL_F64, float32 within
+    chip_smoke.TOL_F32_MOMENTS."""
+    chip_smoke.smoother_scan_edges_case(ops, n, d, dtype)
+
+
 @pytest.mark.parametrize("d, n, batch", [(2, 4099, (3,)), (3, 4099, (3,)), (6, 4099, (3,)),
                                          (7, 4099, (3,)), (9, 4099, (3,)),
                                          (12, 4099, (3,)), (9, 47, ())])

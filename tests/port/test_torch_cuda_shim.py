@@ -28,18 +28,21 @@ TOL = 1e-12
 
 # d = 7..12 (csrc/wide_scan.cuh, the wide routes), then d <= 6: the filter
 # passes (general, uniform, filter scan), the Koopman backwards' register
-# passes and the uniform smoother's across two or more blocks of steps, at
-# d = 2 (R = 8) and d = 3 (R = 4; the filter scan's largest staged d),
-# staged through shared memory and at d = 5 not (but the uniform kernels'),
-# sparse sites, and d = 6 across three blocks of the uniform kernels'
-# staged passes (four warps a block in float64)
+# passes and the smoothers' across two or more blocks of steps, at d = 2
+# (R = 8) and d = 3 (R = 4; the filter scan's largest staged d), staged
+# through shared memory and at d = 5 not (but the uniform kernels'),
+# sparse sites, d = 6 across three blocks of the uniform kernels' staged
+# passes (four warps a block in float64), and d = 4 across two blocks of
+# the smoother scan's last staged tile (five warps a block in float64)
 CASES = ["7:97:(2,)", "9:300:()", "9:64:(2,):sparse", "12:50:(2,)",
-         "2:2100:(2,)", "2:700:(2,):sparse", "5:600:()", "3:1100:(2,)", "6:1100:()"]
+         "2:2100:(2,)", "2:700:(2,):sparse", "5:600:()", "3:1100:(2,)", "6:1100:()",
+         "4:1100:(2,)"]
 # the outputs of a case: the uniform filter (3) and smoother (2), the
 # uniform Koopman backward (8, at d <= 6), the general filter (3), the
-# smoother scan (2), the filter scan of the problem's elements and of random
-# ones (2 + 2), the general Koopman backward (6)
-N_OUTPUTS = {True: 28, False: 20}
+# smoother scan of the problem's elements and of random ones (2 + 2), the
+# filter scan of the problem's elements and of random ones (2 + 2), the
+# general Koopman backward (6)
+N_OUTPUTS = {True: 30, False: 22}
 
 
 @pytest.fixture(scope="module")
@@ -68,10 +71,10 @@ def shim_results(shim_lib):
 @pytest.mark.parametrize("case", CASES)
 def test_kernels_match_plain_versions_under_the_shim(shim_results, case):
     """d = 7, 9 and 12, N below and above a few warps' runs of steps; d = 2,
-    3, 5 and 6 across a block's tile of steps; a batch, a mask, and sparse sites
-    (lam = nu = 0 where masked): all seven kernels (the uniform Koopman
-    backward at d <= 6, with the site gradients), and the filter scan also
-    on random prebuilt elements."""
+    3, 4, 5 and 6 across a block's tile of steps; a batch, a mask, and sparse
+    sites (lam = nu = 0 where masked): all seven kernels (the uniform Koopman
+    backward at d <= 6, with the site gradients), and the smoother scan and
+    the filter scan also on random prebuilt elements."""
     line = shim_results[case]
     diffs = [float(v) for v in re.findall(r"=(\S+)", line)]
     assert len(diffs) == N_OUTPUTS[int(case.split(":")[0]) <= 6], line

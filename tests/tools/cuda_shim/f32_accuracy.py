@@ -5,8 +5,10 @@ with sparse ones (lam = nu = 0 at 30% of the steps): the general filter and
 Koopman backward on the flagship's jittered-grid problem
 (chip_smoke.general_problem), the uniform filter, smoother and Koopman
 backward on its uniform-grid problem (chip_smoke.uniform_problem; the
-latter two from the uniform filter's moments in each precision) and the
-filter scan on the jittered problem's filtering elements:
+latter two from the uniform filter's moments in each precision), and the
+smoother scan and the filter scan on the jittered problem's smoothing
+elements (from the float64 filter's moments) and filtering elements, each
+rounded to float32:
 
     python tests/tools/cuda_shim/f32_accuracy.py OUT_DIR [--root TREE] [--n N] [--seeds S]
 
@@ -40,7 +42,7 @@ def main() -> None:
 
     cs, adj = run_on_cpu.load(args.out.resolve())
     import chip_smoke
-    from markovflow_tpu_torch.ops.kalman import make_filter_elements_tl
+    from markovflow_tpu_torch.ops.kalman import make_filter_elements_tl, smoother_elements_tl
 
     chip_smoke.DEVICE = torch.device("cpu")
     torch.cuda.synchronize = lambda *a: None
@@ -80,6 +82,11 @@ def main() -> None:
                                       adj.adjoint_pipeline_uniform(*u32, um32, up32, one.float()),
                                       adj.adjoint_pipeline_uniform_plain(*u64, um64, up64, one)):
                 e["uniform " + name] = rel(x32, x64)
+            s64 = smoother_elements_tl(*g64[:3], m64, p64)[:3]
+            for name, x32, x64 in zip(("scan m_s", "scan P_s"),
+                                      cs.smoother_scan(*(x.float() for x in s64)),
+                                      cs.smoother_scan_plain(*s64)):
+                e[name] = rel(x32, x64)
             f64 = make_filter_elements_tl(*g64[:6])
             for name, x32, x64 in zip(("scan m_f", "scan P_f"),
                                       cs.filter_scan(*(x.float() for x in f64)),

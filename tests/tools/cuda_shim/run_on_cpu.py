@@ -111,6 +111,10 @@ def check(cs, adj, d, n, batch, sparse=False):
     for name, got, want in zip(("m_s", "P_s"), cs.smoother_scan(*elems),
                                cs.smoother_scan_plain(*elems)):
         out[name] = rel(got, want)
+    relems = chip_smoke.random_smoother_elements(d, n, batch, torch.float64, "cpu")
+    for name, got, want in zip(("random m_s", "random P_s"), cs.smoother_scan(*relems),
+                               cs.smoother_scan_plain(*relems)):
+        out[name] = rel(got, want)
     felems = make_filter_elements_tl(*gen[:6])
     for name, got, want in zip(("scan m_f", "scan P_f"), cs.filter_scan(*felems),
                                cs.filter_scan_plain(*felems)):
