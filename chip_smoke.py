@@ -70,8 +70,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       flagship's grid points unobserved: -log_likelihood().backward()
       through the general filter and the general Koopman backward with
       that mask, against float64;
+   f. the posterior and prediction: gpr.posterior (one filter and one
+      smoother launch: kernels 1 + 2 on the uniform grid, 4 + 5 on the
+      jittered one), then predict_f and predict_y at 1e5 new points
+      (prediction_points: 98% inside, 1% exact hits, 0.5% past each end)
+      and sample_f (16 draws at 1e3 points), for the flagship at T = 1e6
+      on both grids and the d9 model at T = 1e5 (1e4 points, jittered
+      grid), float32 and float64: float64 on the kernel path against the
+      plain path, float32 against float64 by check_f32_wide's rule,
+      sample_f's moments (256 draws, float64) within 5 standard errors of
+      predict_f; the linear mean function on the flagship (loss() and
+      predict_f against the flagship's on the residual); condense() on
+      4e's sparse-site problem (its log-likelihood against the grid
+      filter's); and float64 against a dense GP (tests/tools/dense_gp.py)
+      at N = 500;
 5. times, kernel path against plain path, with CUDA events after a warm-up
-   (median of several runs): serving requests, training steps on both
+   (median of several runs): serving requests (gpr.posterior and
+   predict_f at 1e5 points among them), training steps on both
    grids, general-grid requests, the d9 requests and training step; each
    kernel's device time per call from a torch.profiler trace (the wrapper's
    call time also holds its host work), at the flagship's d = 2 and at the
@@ -161,6 +176,15 @@ EDGE_NS = (1, 7, 8, 9, 255, 256, 257, 2047, 2048, 2049, 4099)
 SUM_EXTRA = {4: ("Matern12",), 5: ("Matern32",), 6: ("Matern52",), 7: ("Matern12",),
              8: ("Matern32",), 9: (), 10: ("Matern12",), 11: ("Matern32",),
              12: ("Matern52",)}
+#: phase 4f: new points of a flagship request and of a d9 request, points
+#: and draws of sample_f, draws (calls x draws) of the moment check, and
+#: the linear mean function's coefficient
+N_NEW = 100_000
+N_NEW_D9 = 10_000
+N_SAMPLE_POINTS = 1_000
+SAMPLES = 16
+SAMPLE_CALLS = 16
+COEF = 0.01
 DEVICE = torch.device("cuda")
 #: the H100's memory rate and float32 rate outside the tensor cores
 #: (NVIDIA's data sheet, SXM part, at a 700 W power limit)
@@ -713,10 +737,11 @@ def hyper(model):
             for i, c in enumerate(k.kernels) for name in ("lengthscale", "variance")}
 
 
-def load_numpy_oracle():
-    """tests/tools/numpy_kalman.py, loaded by path (its package imports JAX)."""
-    path = ROOT / "tests" / "tools" / "numpy_kalman.py"
-    spec = importlib.util.spec_from_file_location("numpy_kalman", path)
+def load_numpy_oracle(name="numpy_kalman"):
+    """tests/tools/<name>.py (the numpy Kalman oracle, or the dense GP),
+    loaded by path (its package imports JAX)."""
+    path = ROOT / "tests" / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1087,6 +1112,335 @@ def phase_ops(cs, adj, kf):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4f
+# ---------------------------------------------------------------------------
+def prediction_points(n_new, x, seed=0):
+    """n_new new time points from seed: 98% uniform in [0, 100], 1% equal
+    to training points x (exact hits), 0.5% in [-5, 0) and 0.5% in
+    (100, 105]; and the slice of each kind."""
+    rng = np.random.default_rng(seed)
+    n_hit, n_side = n_new // 100, n_new // 200
+    n_in = n_new - n_hit - 2 * n_side
+    pts = np.concatenate([rng.uniform(0.0, 100.0, n_in),
+                          x[rng.choice(x.size, n_hit, replace=False)],
+                          rng.uniform(-5.0, 0.0, n_side),
+                          105.0 - 5.0 * rng.random(n_side)])
+    edges = np.cumsum([0, n_in, n_hit, n_side, n_side])
+    kinds = {k: slice(int(a), int(b)) for k, a, b in
+             zip(("inner", "hits", "left", "right"), edges[:-1], edges[1:])}
+    return pts, kinds
+
+
+def predictions(post, tn):
+    """predict_f's mean and variance and predict_y's variance, [N*] each."""
+    f_mean, f_var = post.predict_f(tn)
+    _, y_var = post.predict_y(tn)
+    return {"f mean": f_mean[..., 0], "f var": f_var[..., 0], "y var": y_var[..., 0]}
+
+
+def check_finite(tag, outs):
+    bad = {k: int((~torch.isfinite(v)).sum()) for k, v in outs.items()}
+    if any(bad.values()):
+        raise AssertionError(f"{tag}: non-finite predictions {bad}")
+
+
+def posterior_run(cs, adj, counts, path, model, tn, expect):
+    """gpr.posterior with the launch counters set to 0 just before it
+    (one filter and one smoother launch expected), then predict_f and
+    predict_y at tn (no launch); returns (posterior, predictions)."""
+    counts[path] = {}
+    with launches_of(cs, adj, counts[path]), torch.no_grad():
+        post = model.posterior
+    expect_launches(f"{path}: gpr.posterior", counts[path], no_launches(**expect))
+    got = {}
+    with launches_of(cs, adj, got), torch.no_grad():
+        outs = predictions(post, tn)
+    expect_launches(f"{path}: predict_f, predict_y", got, no_launches())
+    return post, outs
+
+
+def rebuild_error(post):
+    """The posterior SSM's covariances rebuilt from its clamped factors by
+    the affine scan (the JAX package's route) against the smoother's, which
+    the port's predictions read: max abs difference over max entry."""
+    with torch.no_grad():
+        _, rebuilt = post.dist.rebuilt_marginals_tl()
+        _, exact = post.dist.marginals_tl()
+    return rel_diff(rebuilt.double(), exact.double())
+
+
+def plain_predictions(cs, adj, kf, model, tn):
+    with plain_path(cs, adj, kf), torch.no_grad():
+        return predictions(model.posterior, tn)
+
+
+def phase_prediction(cs, adj, kf, dense):
+    """GPR's posterior, predict_f, predict_y and sample_f on both grids at
+    T = 1e6 (the flagship) and on the jittered grid at T = 1e5 (the d9
+    model), float32 and float64; the linear mean function; condense; and
+    float64 against a dense GP at N = 500."""
+    log(f"phase 4f: posterior and prediction at T = {T_FULL} (flagship) and "
+        f"T = {T_D9} (d9 model), float32 and float64")
+    counts = {}
+    for uniform in (True, False):
+        grid = "uniform" if uniform else "jittered"
+        x, _ = flagship_data(T_FULL, uniform)
+        pts, kinds = prediction_points(N_NEW, x)
+        expect = ({"filter_pipeline_uniform": 1, "smoother_pipeline_uniform": 1} if uniform
+                  else {"filter_pipeline": 1, "smoother_scan": 1})
+        outs, plain = {}, {}
+        for dtype in (torch.float64, torch.float32):
+            name = str(dtype)[6:]
+            model = build_gpr(T_FULL, dtype, uniform)
+            tn = torch.as_tensor(pts, dtype=dtype, device=DEVICE)
+            post, outs[dtype] = posterior_run(cs, adj, counts, f"posterior {grid} {name}",
+                                              model, tn, expect)
+            check_finite(f"{grid} {name}", outs[dtype])
+            plain[dtype] = plain_predictions(cs, adj, kf, model, tn)
+            log(f"  {grid} {name}: {N_NEW} points; the posterior SSM's covariances "
+                f"rebuilt from its factors vs the smoother's: {rebuild_error(post):.3e}")
+            if dtype == torch.float64:
+                check(f"{grid} float64 predictions, kernel path vs plain path",
+                      {k: rel_diff(outs[dtype][k], plain[dtype][k]) for k in outs[dtype]},
+                      dict.fromkeys(outs[dtype], TOL_F64))
+                if uniform:
+                    check_sampling(post, tn[kinds["inner"]][:N_SAMPLE_POINTS])
+            else:
+                sample_run(cs, adj, post, tn[:N_SAMPLE_POINTS])
+            del model, post
+        for kind, sl in kinds.items():
+            errs = {k: rel_diff(outs[torch.float32][k][sl].double(),
+                                outs[torch.float64][k][sl]) for k in outs[torch.float32]}
+            log(f"  {grid} f32 vs f64 at the {kind} points: "
+                + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+        check_f32_wide(f"{grid} predictions f32 (kernel / plain) vs f64",
+                       {k: (outs[torch.float32][k], plain[torch.float32][k],
+                            outs[torch.float64][k]) for k in outs[torch.float32]},
+                       dict.fromkeys(outs[torch.float32], TOL_F32_MOMENTS))
+    counts.update(d9_prediction(cs, adj, kf))
+    counts.update(linear_mean_run(cs, adj, kf))
+    counts.update(condense_run(cs, adj, kf))
+    for uniform in (True, False):
+        check_dense_gp(dense, uniform)
+    return counts
+
+
+def sample_run(cs, adj, post, tn):
+    """sample_f with SAMPLES draws at tn, from a seeded generator on the
+    card: no launch, finite, of the expected shape."""
+    got = {}
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    with launches_of(cs, adj, got), torch.no_grad():
+        draws = post.sample_f(tn, SAMPLES, generator=g)
+    expect_launches(f"sample_f ({SAMPLES} draws at {tn.numel()} points)", got,
+                    no_launches())
+    if draws.shape != (SAMPLES, tn.numel(), 1) or not torch.isfinite(draws).all():
+        raise AssertionError(f"bad draws {tuple(draws.shape)}")
+
+
+def check_sampling(post, tn):
+    """The mean and variance of SAMPLE_CALLS x SAMPLES draws of sample_f
+    at each point within 5 standard errors of predict_f's."""
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    with torch.no_grad():
+        draws = torch.cat([post.sample_f(tn, SAMPLES, generator=g)[..., 0]
+                           for _ in range(SAMPLE_CALLS)])
+        mean, var = (v[..., 0] for v in post.predict_f(tn))
+    n = draws.shape[0]
+    z_mean = float(((draws.mean(0) - mean).abs() / torch.sqrt(var / n)).max())
+    z_var = float(((draws.var(0) - var).abs() / (var * math.sqrt(2.0 / (n - 1)))).max())
+    log(f"  sample_f: {n} draws at {tn.numel()} points; largest |mean - predict_f| "
+        f"{z_mean:.2f} standard errors, |variance - predict_f| {z_var:.2f} (bound 5)")
+    if not (z_mean <= 5.0 and z_var <= 5.0):
+        raise AssertionError("sample_f's moments disagree with predict_f")
+
+
+def d9_prediction(cs, adj, kf):
+    """The d9 model's posterior (the general filter and the smoother scan
+    on the jittered grid) and predict_f at N_NEW_D9 points.  Between the
+    grid points the reference's generic Matern52 process noise
+    P_inf - A P_inf A^T has no digits left at these sub-grid steps, in
+    float64 too, and the conditional statistics invert it (ROADMAP queue
+    3): there the predictions are counted, non-finite ones included, and
+    printed.  The exact hits (the smoother's moments) and the points past
+    either end are checked: finite, float64 against the smoother's
+    marginals and the plain path, float32 against float64 by the rule."""
+    counts = {}
+    x, _ = flagship_data(T_D9, uniform=False)
+    pts, kinds = prediction_points(N_NEW_D9, x)
+    held = np.r_[kinds["hits"], kinds["left"], kinds["right"]]
+    outs, plain = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        model = build_gpr(T_D9, dtype, uniform=False, d9=True)
+        tn = torch.as_tensor(pts, dtype=dtype, device=DEVICE)
+        post, outs[dtype] = posterior_run(cs, adj, counts, f"d9 posterior {name}", model,
+                                          tn, {"filter_pipeline": 1, "smoother_scan": 1})
+        plain[dtype] = plain_predictions(cs, adj, kf, model, tn)
+        inner = {k: int((~torch.isfinite(v[kinds["inner"]])).sum())
+                 for k, v in outs[dtype].items()}
+        log(f"  d9 {name}: non-finite predictions between the grid points: {inner}; "
+            f"rebuilt covariances vs the smoother's: {rebuild_error(post):.3e}")
+        check_finite(f"d9 {name} exact hits and ends",
+                     {k: v[held] for k, v in outs[dtype].items()})
+        if dtype == torch.float64:
+            with torch.no_grad():
+                m_s, p_s = model.kalman.posterior_marginals()
+                h = model.kernel.generate_emission_model(model.time_points[:1]).emission_matrix[0]
+            idx = torch.as_tensor(np.searchsorted(x, pts[kinds["hits"]]), device=DEVICE)
+            hit_mean = (m_s[idx] * h[0]).sum(-1)
+            hit_var = (h[0] * (p_s[idx] * h[0]).sum(-1)).sum(-1)
+            check("d9 float64 at the exact hits vs the smoother's marginals",
+                  {"f mean": rel_diff(outs[dtype]["f mean"][kinds["hits"]], hit_mean),
+                   "f var": rel_diff(outs[dtype]["f var"][kinds["hits"]], hit_var)},
+                  {"f mean": TOL_F64, "f var": TOL_F64})
+            diffs = {k: rel_diff(v[held], plain[dtype][k][held]) for k, v in outs[dtype].items()}
+            log("  d9 float64 between the grid points, kernel path vs plain path: "
+                + " ".join(f"{k}={finite_rel_diff(v[kinds['inner']], plain[dtype][k][kinds['inner']])}"
+                           for k, v in outs[dtype].items()))
+            check("d9 float64 at the exact hits and ends, kernel path vs plain path", diffs,
+                  dict.fromkeys(diffs, TOL_F64))
+        del model, post
+    log("  d9 f32 vs f64 between the grid points: " + " ".join(
+        f"{k}={finite_rel_diff(v[kinds['inner']].double(), outs[torch.float64][k][kinds['inner']])}"
+        for k, v in outs[torch.float32].items()))
+    check_f32_wide("d9 predictions f32 (kernel / plain) vs f64 at the exact hits and ends",
+                   {k: (v[held], plain[torch.float32][k][held],
+                        outs[torch.float64][k][held]) for k, v in outs[torch.float32].items()},
+                   dict.fromkeys(outs[torch.float32], TOL_D9_F32_MOMENTS))
+    return counts
+
+
+def finite_rel_diff(got, want) -> str:
+    """rel_diff over the entries finite on both sides, and how many those
+    are, for the log."""
+    ok = torch.isfinite(got) & torch.isfinite(want)
+    if not bool(ok.any()):
+        return f"none of {ok.numel()} finite"
+    return f"{rel_diff(got[ok], want[ok]):.3e} over {int(ok.sum())} of {ok.numel()}"
+
+
+def linear_mean_run(cs, adj, kf):
+    """The flagship at T = 1e6 with the linear mean function 0.01 t on data
+    y + 0.01 t: loss() and the posterior's predict_f; in float64 the loss
+    equals the flagship's on y and predict_f's mean is the flagship's plus
+    0.01 t, within 1e-9; float32 against float64."""
+    from markovflow_tpu_torch.convert import gpr_from_numpy
+
+    counts = {}
+    x, y = flagship_data(T_FULL)
+    pts, _ = prediction_points(N_NEW, x)
+    params = {**flagship_params(), "mean_function.coefficient": np.asarray(COEF)}
+    outs, losses, plain = {}, {}, {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        model = gpr_from_numpy(params, x, y + COEF * x[:, None], device=DEVICE, dtype=dtype,
+                               mean_function="Linear")
+        tn = torch.as_tensor(pts, dtype=dtype, device=DEVICE)
+        path = f"linear mean {name}"
+        counts[path] = {}
+        with launches_of(cs, adj, counts[path]), torch.no_grad():
+            losses[dtype] = model.loss()
+            outs[dtype] = predictions(model.posterior, tn)
+        expect_launches(f"{path}: loss() and predict_f", counts[path],
+                        no_launches(filter_pipeline_uniform=2, smoother_pipeline_uniform=1))
+        check_finite(path, outs[dtype])
+        plain[dtype] = plain_predictions(cs, adj, kf, model, tn)
+        if dtype == torch.float64:
+            base = build_gpr(T_FULL, dtype)
+            with torch.no_grad():
+                base_loss = base.loss()
+                base_f = predictions(base.posterior, tn)
+            check("linear mean float64 vs the flagship on y",
+                  {"loss": rel_diff(losses[dtype], base_loss),
+                   "f mean": rel_diff(outs[dtype]["f mean"] - COEF * tn, base_f["f mean"]),
+                   "f var": rel_diff(outs[dtype]["f var"], base_f["f var"])},
+                  {"loss": TOL_F64, "f mean": TOL_F64, "f var": TOL_F64})
+            del base
+        del model
+    rel = abs(float(losses[torch.float32]) - float(losses[torch.float64])) / abs(
+        float(losses[torch.float64]))
+    log(f"  linear mean: loss f32 vs f64 {rel:.3e} (tol {TOL_F32_VS_F64_LOSS:g})")
+    if not rel <= TOL_F32_VS_F64_LOSS:
+        raise AssertionError("linear mean: f32 loss differs from f64")
+    check_f32_wide("linear mean predictions f32 (kernel / plain) vs f64",
+                   {k: (v, plain[torch.float32][k], outs[torch.float64][k])
+                    for k, v in outs[torch.float32].items()},
+                   dict.fromkeys(outs[torch.float32], TOL_F32_MOMENTS))
+    return counts
+
+
+def sparse_filter(kf, dtype, x, y, idx):
+    """Phase 4e's sparse-site filter (the flagship's kernel on the grid x,
+    sites at x[idx]), without gradients."""
+    from markovflow_tpu_torch import kernels
+
+    k = kernels.Matern32(lengthscale=0.5, variance=1.0, dtype=dtype, device=DEVICE)
+    tp = torch.as_tensor(x, dtype=dtype, device=DEVICE)
+    nat1 = torch.as_tensor(y[idx, None] / 0.04, dtype=dtype, device=DEVICE)
+    nat2 = torch.full((idx.size, 1, 1), -0.5 / 0.04, dtype=dtype, device=DEVICE)
+    return kf.KalmanFilterWithSparseSites(
+        k.generate_emission_model(tp), kf.UnivariateGaussianSitesNat(nat1, nat2),
+        x.size, torch.as_tensor(idx, device=DEVICE), None,
+        prior_tl=k.prior_arrays_tl(tp))
+
+
+def condense_run(cs, adj, kf):
+    """condense() on phase 4e's sparse-site problem (70% of 1e6 jittered
+    grid points observed): the condensed filter's log_likelihood (the
+    general filter on the M observed points) against the grid filter's,
+    float64 within 1e-9 relative; float32 against float64 by the rule."""
+    counts = {}
+    x, y = flagship_data(T_FULL, uniform=False)
+    idx = np.sort(np.random.default_rng(1).choice(T_FULL, int(0.7 * T_FULL),
+                                                  replace=False))
+    lls, plain = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        f = sparse_filter(kf, dtype, x, y[:, 0], idx)
+        path = f"condense {name}"
+        counts[path] = {}
+        with launches_of(cs, adj, counts[path]), torch.no_grad():
+            cond = f.condense()
+            lls[dtype] = cond.log_likelihood()
+        expect_launches(f"{path}: condense() and its log_likelihood()", counts[path],
+                        no_launches(filter_pipeline=1))
+        with torch.no_grad():
+            grid_ll = f.log_likelihood()
+            with plain_path(cs, adj, kf):
+                plain[dtype] = f.condense().log_likelihood()
+        rel = rel_diff(lls[dtype], grid_ll)
+        log(f"  condense {name}: {idx.size} of {T_FULL} points; log-likelihood "
+            f"{float(lls[dtype])!r}, the grid filter's {float(grid_ll)!r} (rel {rel:.3e})")
+        if dtype == torch.float64 and not rel <= TOL_F64:
+            raise AssertionError(f"condensed log-likelihood differs by {rel:.3e}")
+        del f, cond
+    check_f32_wide("condensed log-likelihood f32 (kernel / plain) vs f64",
+                   {"loglik": (lls[torch.float32], plain[torch.float32], lls[torch.float64])},
+                   {"loglik": TOL_F32_VS_F64_LOSS})
+    return counts
+
+
+def check_dense_gp(dense, uniform):
+    """float64 predict_f and predict_y at N = 500 against the dense GP in
+    numpy (tests/tools/dense_gp.py), within 1e-8."""
+    n = 500
+    model = build_gpr(n, torch.float64, uniform)
+    x, y = flagship_data(n, uniform)
+    pts, _ = prediction_points(1000, x)
+    with torch.no_grad():
+        got = predictions(model.posterior, torch.as_tensor(pts, dtype=torch.float64,
+                                                          device=DEVICE))
+    mean, cov, _ = dense.dense_posterior([("Matern32", 0.5, 1.0)], 0.04, x, y[:, 0], pts)
+    var = np.diag(cov)
+    errs = {"f mean": float(np.abs(got["f mean"].cpu().numpy() - mean).max()),
+            "f var": float(np.abs(got["f var"].cpu().numpy() - var).max()),
+            "y var": float(np.abs(got["y var"].cpu().numpy() - var - 0.04).max())}
+    check(f"N={n} f64 {'uniform' if uniform else 'jittered'} predictions vs the dense GP "
+          f"(max abs)", errs, dict.fromkeys(errs, 1e-8))
+
+
+# ---------------------------------------------------------------------------
 # Phase 5
 # ---------------------------------------------------------------------------
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1269,7 +1623,16 @@ def phase_times(cs, adj, kf, card, counts):
     d9j = build_gpr(T_D9, torch.float32, uniform=False, d9=True)
     sets = {"": (kernel_calls(cs, adj, uni, gen), 2, T_FULL),
             " d=9": (kernel_calls(cs, adj, d9u, d9j), 9, T_D9)}
+    with torch.no_grad():
+        tn = torch.as_tensor(prediction_points(N_NEW, flagship_data(T_FULL)[0])[0],
+                             dtype=torch.float32, device=DEVICE)
+        held = {"uniform": uni.posterior, "jittered": gen.posterior}
     requests = {
+        # predict_f runs no kernel: its plain path is the same code
+        "uniform posterior": lambda: uni.posterior,
+        "uniform predict_f (1e5 points)": lambda: held["uniform"].predict_f(tn),
+        "jittered posterior": lambda: gen.posterior,
+        "jittered predict_f (1e5 points)": lambda: held["jittered"].predict_f(tn),
         "uniform loss()": lambda: uni.loss(),
         "uniform posterior_marginals()": lambda: uni.kalman.posterior_marginals(),
         "jittered loss()": lambda: gen.loss(),
@@ -1331,16 +1694,22 @@ def phase_times(cs, adj, kf, card, counts):
     # (name, source at d <= 6, source at d = 7..12, TPU kernel, paths at d = 2,
     # paths at d = 9)
     d9_paths = ("d9 serving", "d9 training", "d9 jittered")
+    d9_post = ("d9 posterior float64", "d9 posterior float32")
+    both = ("float64", "float32")
+    uni_post = tuple(f"{p} {t}" for p in ("posterior uniform", "linear mean") for t in both)
+    gen_post = tuple(f"posterior jittered {t}" for t in both)
+    condensed = tuple(f"condense {t}" for t in both)
     rows = [("filter_pipeline_uniform", "uniform_scan.cuh", "wide_scan.cuh",
-             "pallas_scan.py:1036", ("serving",), d9_paths),
+             "pallas_scan.py:1036", ("serving",) + uni_post, d9_paths),
             ("smoother_pipeline_uniform", "uniform_scan.cuh", "wide_scan.cuh",
-             "pallas_scan.py:1457", ("serving",), d9_paths),
+             "pallas_scan.py:1457", ("serving",) + uni_post, d9_paths),
             ("adjoint_pipeline_uniform", "adjoint_scan.cuh", None,
              "pallas_scan.py:1229", ("training",), ()),
             ("filter_pipeline", "general_scan.cuh", "wide_scan.cuh",
-             "pallas_scan.py:849", ("general", "sparse"), d9_paths),
+             "pallas_scan.py:849", ("general", "sparse") + gen_post + condensed,
+             d9_paths + d9_post),
             ("smoother_scan", "general_scan.cuh", "wide_scan.cuh",
-             "pallas_scan.py:1313", ("general",), d9_paths),
+             "pallas_scan.py:1313", ("general",) + gen_post, d9_paths + d9_post),
             ("filter_scan", "general_scan.cuh", "wide_scan.cuh",
              "pallas_scan.py:793", ("ops",), ("ops d9",)),
             ("adjoint_pipeline", "general_adjoint.cuh", "general_adjoint.cuh",
@@ -1396,6 +1765,7 @@ def main() -> int:
     counts["general"], _ = phase_general(cs, adj, training, npk)
     counts.update(phase_d9(cs, adj, kf, training, npk))
     counts.update(phase_ops(cs, adj, kf))
+    counts.update(phase_prediction(cs, adj, kf, load_numpy_oracle("dense_gp")))
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels = phase_times(cs, adj, kf, card, counts)

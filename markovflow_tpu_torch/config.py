@@ -10,6 +10,10 @@ from __future__ import annotations
 
 import torch
 
+#: Stand-in for an infinite time delta: the phantom neighbours of a new
+#: time point outside the conditioning points sit this far away.
+APPROX_INF = 1e10
+
 #: Default jitter added to covariance diagonals for numerical stability.
 DEFAULT_JITTER = 1e-6
 

@@ -2,12 +2,12 @@
 numpy arrays, so that both packages compute the same thing."""
 from __future__ import annotations
 
-from typing import Dict, Sequence, Union
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from . import kernels
+from . import kernels, mean_function as mf
 from .models import GaussianProcessRegression
 
 __all__ = ["gpr_from_numpy"]
@@ -28,9 +28,27 @@ def _kernel(name: str, params, prefix: str, dtype, device):
     return k
 
 
+def _mean_function(name: Optional[str], params, k, dtype, device):
+    """The mean function ``name`` ("Zero", "Linear", "Impulse", "Step" or
+    None) from ``params["mean_function.*"]``, the JAX model's attribute
+    paths (``coefficient``; ``action_times`` and ``state_perturbations``)."""
+    if name is None:
+        return None
+    if name == "Zero":
+        return mf.ZeroMeanFunction()
+    if name == "Linear":
+        return mf.LinearMeanFunction(np.asarray(params["mean_function.coefficient"]),
+                                     dtype=dtype, device=device)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)  # noqa: E731
+    cls = {"Impulse": mf.ImpulseMeanFunction, "Step": mf.StepMeanFunction}[name]
+    return cls(as_t(params["mean_function.action_times"]),
+               as_t(params["mean_function.state_perturbations"]), k)
+
+
 def gpr_from_numpy(params: Dict[str, np.ndarray], time_points: np.ndarray,
                    observations: np.ndarray, *, dtype: torch.dtype,
-                   device="cuda", kernel: Union[str, Sequence[str]] = "Matern32"
+                   device="cuda", kernel: Union[str, Sequence[str]] = "Matern32",
+                   mean_function: Optional[str] = None
                    ) -> GaussianProcessRegression:
     """A :class:`GaussianProcessRegression` from numpy parameters under the
     JAX model's attribute paths: ``kernel.lengthscale`` and
@@ -39,7 +57,10 @@ def gpr_from_numpy(params: Dict[str, np.ndarray], time_points: np.ndarray,
     ``kernel`` names the kernel class, or is a sequence of names for a
     :class:`~markovflow_tpu_torch.kernels.Sum` of those kernels, whose
     parameters are ``kernel.kernels[i].lengthscale`` and so on, as in a JAX
-    ``Sum([...])``.  The time points, on any grid, are checked, and the
+    ``Sum([...])``.  ``mean_function`` names the mean function ("Zero",
+    "Linear", "Impulse" or "Step"; the last two respond through the
+    model's kernel), whose arrays are ``params["mean_function.*"]``.  The
+    time points, on any grid, are checked, and the
     grid's uniformity detected, on the host before they move to ``device``.
     Training (:func:`markovflow_tpu_torch.training.fit`) starts from these
     parameter values."""
@@ -52,4 +73,5 @@ def gpr_from_numpy(params: Dict[str, np.ndarray], time_points: np.ndarray,
     # numpy time points: the model checks them on the host, then moves them
     return GaussianProcessRegression(
         input_data=(np.asarray(time_points), as_t(observations)), kernel=k,
-        chol_obs_covariance=as_t(params["chol_obs_covariance"]))
+        chol_obs_covariance=as_t(params["chol_obs_covariance"]),
+        mean_function=_mean_function(mean_function, params, k, dtype, device))

@@ -1,7 +1,7 @@
 """Kalman filter classes (counterpart of ``markovflow_tpu/kalman_filter.py``:
-``BaseKalmanFilter``, ``KalmanFilter``, the Gaussian sites and the filters
-with time-varying and with sparse sites; ``condense`` and the posterior
-state-space model are not ported yet).
+``BaseKalmanFilter`` with the posterior state-space model, ``KalmanFilter``,
+the Gaussian sites and the filters with time-varying and with sparse sites,
+and ``condense``).
 
 Two engines, each through the kernel wrappers of :mod:`.ops.cuda_scan`
 and :mod:`.ops.adjoint`, which launch the CUDA kernels on CUDA tensors and
@@ -26,8 +26,11 @@ from .emission_model import EmissionModel
 from .ops.adjoint import log_likelihood_koopman, log_likelihood_koopman_uniform
 from .ops.cuda_scan import (filter_pipeline, filter_pipeline_uniform,
                             smoother_pipeline_uniform, smoother_scan)
-from .ops.kalman import smoother_elements_tl
-from .utils.linalg import small_solve, tlt
+from .ops.kalman import (_materialize_uniform, _posterior_ssm_tl, rts_gains_tl,
+                         smoother_elements_tl)
+from .ops.scans import segmented_affine_cov_scan_tl
+from .state_space_model import StateSpaceModel
+from .utils.linalg import psd_cholesky, small_solve, tlt
 from .utils.module import Parameter
 
 __all__ = ["BaseKalmanFilter", "KalmanFilter", "GaussianSites",
@@ -149,17 +152,46 @@ class BaseKalmanFilter(abc.ABC):
         return log_likelihood_koopman(F, c, Q, self._emission_tl(), nu, lam,
                                       mask)
 
-    def posterior_marginals(self):
-        """Smoothed means and covariances ([..., N, d], [..., N, d, d])."""
+    def _smoothed_tl(self, with_gains: bool = False):
+        """The smoothed moments (m_s [..., d, 1, N], P_s [..., d, d, N]): the
+        filter kernel, then the uniform smoother kernel for constant prior
+        steps or the smoother-scan kernel of the RTS elements otherwise;
+        with ``with_gains`` also the RTS gains [..., d, d, N-1] (on the
+        uniform path elementwise from the constant steps and P_f)."""
         m_f, p_f = self._filter_tl(*self._site_nats_tl())
         if self.prior_const_tl is not None:
             Fc, cc, Qc, _, _ = self.prior_const_tl
             m_s, p_s = smoother_pipeline_uniform(Fc, cc, Qc, m_f, p_f)
+            gains = rts_gains_tl(Fc, Qc, p_f[..., :-1]) if with_gains else None
         else:
             F, c, Q = self.prior_tl
-            e, g, ell, _ = smoother_elements_tl(F, c, Q, m_f, p_f)
+            e, g, ell, gains = smoother_elements_tl(F, c, Q, m_f, p_f)
             m_s, p_s = smoother_scan(e, g, ell)
+        return m_s, p_s, gains
+
+    def posterior_marginals(self):
+        """Smoothed means and covariances ([..., N, d], [..., N, d, d])."""
+        m_s, p_s, _ = self._smoothed_tl()
         return m_s[..., 0, :].movedim(-1, -2), p_s.movedim(-1, -3)
+
+    def posterior_state_space_model(self) -> StateSpaceModel:
+        """The posterior over the states as a forward state-space model:
+        one filter and one smoother launch, then the posterior's (A, b, Q)
+        from the smoothed moments and the RTS gains.  ``psd_cholesky``
+        factors P0 and Q: Q = P_{k+1} - A Cov(x_k, x_{k+1}) cancels for
+        near-coincident points and can come out a roundoff below zero.
+        The model carries the smoother's moments and Cov(x_{k+1}, x_k) =
+        (G_k P_{k+1})^T, which its marginals read: rebuilt from the clamped
+        factors they drift (the JAX package's rebuild, at d = 9, T = 1e5,
+        float64, is 249 times off the smoother's covariances; ROADMAP
+        queue 3)."""
+        m_s, p_s, gains = self._smoothed_tl(with_gains=True)
+        a_post, b_post, q_post, cross = _posterior_ssm_tl(m_s, p_s, gains)
+        from_tl = lambda x: x.movedim(-1, -3)  # noqa: E731
+        return StateSpaceModel(m_s[..., 0, 0], psd_cholesky(p_s[..., 0]),
+                               from_tl(a_post), from_tl(b_post)[..., 0],
+                               psd_cholesky(from_tl(q_post)),
+                               moments_tl=(m_s, p_s, cross.transpose(-3, -2)))
 
 
 class KalmanFilter(BaseKalmanFilter):
@@ -224,3 +256,26 @@ class KalmanFilterWithSparseSites(BaseKalmanFilter):
         mask = torch.zeros((n,), dtype=torch.bool, device=nu_obs.device)
         mask[idx] = True
         return _sites_tl(nu, lam) + (mask,)
+
+    def condense(self) -> KalmanFilterWithSites:
+        """An equivalent filter on the M observed points alone: each
+        unobserved stretch of the grid collapses into one transition, the
+        composition of its grid steps, by one segmented affine scan of the
+        prior steps (independent of the sites).  Its ``log_likelihood``
+        equals this filter's; its posterior lives on the observed points."""
+        if self.prior_tl is not None:
+            f_tl, c_tl, q_tl = self.prior_tl
+        else:
+            f_tl, c_tl, q_tl, _ = _materialize_uniform(
+                *self.prior_const_tl, self._const_emission_tl(), self.num_grid_points)
+        n = f_tl.shape[-1]
+        idx = torch.as_tensor(self.observations_index, device=f_tl.device)
+        # segments restart at 0 (the prior element) and after each observation
+        start = torch.zeros((n + 1,), dtype=torch.bool, device=f_tl.device)
+        start[0] = True
+        start[idx + 1] = True
+        fc, cc, qc = segmented_affine_cov_scan_tl(f_tl, c_tl, q_tl, start[:n])
+        fc, cc, qc = (x.index_select(-1, idx) for x in (fc, cc, qc))
+        h_m = self.emission.emission_matrix.index_select(-3, idx)
+        return KalmanFilterWithSites(EmissionModel(h_m), self.sites,
+                                     prior_tl=(fc, cc, qc))

@@ -38,6 +38,10 @@ class Matern12(_Matern):
         return 1
 
     @property
+    def feedback_matrix(self):
+        return (-1.0 / self.lengthscale.value)[..., None, None]
+
+    @property
     def steady_state_covariance(self):
         return self.variance.value[..., None, None]
 
@@ -63,6 +67,13 @@ class Matern32(_Matern):
     @property
     def _lambda(self):
         return SQRT3 / self.lengthscale.value
+
+    @property
+    def feedback_matrix(self):
+        lam = self._lambda
+        z = torch.zeros_like(lam)
+        return torch.stack([torch.stack([z, torch.ones_like(lam)], -1),
+                            torch.stack([-lam**2, -2.0 * lam], -1)], -2)
 
     @property
     def steady_state_covariance(self):
@@ -124,6 +135,14 @@ class Matern52(_Matern):
     @property
     def _lambda(self):
         return SQRT5 / self.lengthscale.value
+
+    @property
+    def feedback_matrix(self):
+        lam = self._lambda
+        z, one = torch.zeros_like(lam), torch.ones_like(lam)
+        return torch.stack([torch.stack([z, one, z], -1),
+                            torch.stack([z, z, one], -1),
+                            torch.stack([-lam**3, -3.0 * lam**2, -3.0 * lam], -1)], -2)
 
     @property
     def steady_state_covariance(self):

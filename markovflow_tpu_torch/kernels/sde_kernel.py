@@ -1,5 +1,11 @@
-"""SDE kernels discretised to time-last prior steps (counterpart of
-``markovflow_tpu/kernels/sde_kernel.py``, the time-last methods only).
+"""SDE kernels discretised to prior steps (counterpart of
+``markovflow_tpu/kernels/sde_kernel.py``).
+
+The time-last methods (``transition_statistics_tl``, ``prior_arrays_tl``,
+``prior_const_tl``) feed the filters; the standard-layout ones
+(``transition_statistics``, ``state_space_model``, ...) are views of the
+same closed forms, for the state-space model, the conditionals and the
+mean functions.
 
 Every tensor is built in the dtype and on the device of the kernel's
 parameters or of the time points it is given; nothing falls back to a
@@ -17,7 +23,8 @@ import torch
 from torch import nn
 
 from ..emission_model import EmissionModel
-from ..utils.linalg import block_diag
+from ..state_space_model import StateSpaceModel
+from ..utils.linalg import block_diag, cholesky_or_zero, small_mv, to_delta_time
 from ..utils.module import Parameter
 from .kernel import Kernel
 
@@ -60,6 +67,38 @@ class SDEKernel(Kernel, abc.ABC):
     def __add__(self, other: "SDEKernel") -> "Sum":
         return Sum([self, other])
 
+    @abc.abstractmethod
+    def transition_statistics(self, transition_times, time_deltas):
+        """(A [..., N, d, d], Q [..., N, d, d]) of transitions that start at
+        ``transition_times`` and last ``time_deltas`` [..., N]."""
+
+    @abc.abstractmethod
+    def initial_mean(self, batch_shape=()) -> torch.Tensor:
+        ...
+
+    @abc.abstractmethod
+    def initial_covariance(self, initial_time_point) -> torch.Tensor:
+        """P0 at the first time point, [..., d, d]."""
+
+    @abc.abstractmethod
+    def state_offsets(self, state_transitions, time_deltas,
+                      transition_times=None) -> torch.Tensor:
+        """b [..., N, d] of the transitions."""
+
+    def transition_statistics_from_time_points(self, time_points):
+        return self.transition_statistics(time_points[..., :-1],
+                                          to_delta_time(time_points))
+
+    def state_space_model(self, time_points: torch.Tensor) -> StateSpaceModel:
+        """The prior over the states at ``time_points`` [..., N]."""
+        a_s, q_s = self.transition_statistics_from_time_points(time_points)
+        b_s = self.state_offsets(a_s, to_delta_time(time_points),
+                                 transition_times=time_points[..., :-1])
+        mu0 = self.initial_mean(tuple(time_points.shape[:-1]))
+        p0 = self.initial_covariance(time_points[..., :1])
+        return StateSpaceModel(mu0, cholesky_or_zero(p0), a_s, b_s,
+                               cholesky_or_zero(q_s))
+
 
 class StationaryKernel(SDEKernel, abc.ABC):
     """Stationary kernels: fixed feedback matrix F and steady state P_inf,
@@ -81,9 +120,38 @@ class StationaryKernel(SDEKernel, abc.ABC):
     def steady_state_covariance(self) -> torch.Tensor:
         """P_inf [d, d]."""
 
+    @property
+    @abc.abstractmethod
+    def feedback_matrix(self) -> torch.Tensor:
+        """F in dx = F x dt + L dW, [d, d]."""
+
     @abc.abstractmethod
     def state_transitions_tl(self, time_deltas: torch.Tensor) -> torch.Tensor:
         """A(dt) = expm(F dt) in time-last layout [..., d, d, N]."""
+
+    def state_transitions(self, time_deltas: torch.Tensor) -> torch.Tensor:
+        """A(dt) [..., N, d, d]."""
+        return self.state_transitions_tl(time_deltas).movedim(-1, -3)
+
+    def transition_statistics(self, transition_times, time_deltas):
+        """(A, Q) [..., N, d, d]: a view of :meth:`transition_statistics_tl`
+        (the transition times do not matter to a stationary kernel)."""
+        a, q = self.transition_statistics_tl(time_deltas)
+        return a.movedim(-1, -3), q.movedim(-1, -3)
+
+    def initial_mean(self, batch_shape=()) -> torch.Tensor:
+        return self.state_mean.expand(tuple(batch_shape) + (self.state_dim,))
+
+    def initial_covariance(self, initial_time_point) -> torch.Tensor:
+        """P0 = P_inf + jitter I, [..., d, d] for the time point [..., 1]."""
+        p0 = self._p0(self.state_mean.dtype)[..., 0]
+        return p0.expand(tuple(initial_time_point.shape[:-1]) + p0.shape[-2:])
+
+    def state_offsets(self, state_transitions, time_deltas,
+                      transition_times=None) -> torch.Tensor:
+        """b_k = (I - A_k) m, which keeps the stationary mean m."""
+        m = self.state_mean
+        return m - small_mv(state_transitions, m)
 
     def _p0(self, dtype) -> torch.Tensor:
         """P0 = P_inf + jitter I, [d, d, 1]."""
@@ -158,6 +226,10 @@ class ConcatKernel(StationaryKernel, abc.ABC):
     @property
     def steady_state_covariance(self) -> torch.Tensor:
         return block_diag([k.steady_state_covariance for k in self.kernels])
+
+    @property
+    def feedback_matrix(self) -> torch.Tensor:
+        return block_diag([k.feedback_matrix for k in self.kernels])
 
     def state_transitions_tl(self, time_deltas: torch.Tensor) -> torch.Tensor:
         blocks = [k.state_transitions_tl(time_deltas).movedim(-1, -3)

@@ -26,10 +26,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .scans import scan_tl
+from .scans import _mm_tl, _sym_tl, _t_tl, scan_tl
 
 __all__ = ["make_filter_elements_tl", "filter_scan_tl", "filter_pipeline_tl",
-           "smoother_elements_tl", "smoother_scan_tl", "smoother_pipeline_tl",
+           "rts_gains_tl", "smoother_elements_tl", "smoother_scan_tl", "smoother_pipeline_tl",
            "posterior_ssm_params_tl",
            "FilterElements", "make_filter_elements", "parallel_filter",
            "sequential_filter", "predicted_moments", "log_likelihood_sites",
@@ -42,20 +42,6 @@ def _no_tf32(x: torch.Tensor) -> None:
     if x.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-
-
-def _mm_tl(a, b):
-    """[..., d1, d2, N] @ [..., d2, d3, N] -> [..., d1, d3, N], as
-    elementwise products summed over d2."""
-    return (a[..., :, :, None, :] * b[..., None, :, :, :]).sum(-3)
-
-
-def _t_tl(a):
-    return a.transpose(-3, -2)
-
-
-def _sym_tl(a):
-    return 0.5 * (a + _t_tl(a))
 
 
 def _eye_tl(d: int, like: torch.Tensor) -> torch.Tensor:
@@ -254,6 +240,16 @@ def _log_likelihood_sites_tl(H, nu, lam, m_pred, p_pred, mask=None):
     return ll.sum(-1)
 
 
+def rts_gains_tl(F, Q, p_f):
+    """RTS gains G_k = P_k F^T (F P_k F^T + Q)^-1 [..., d, d, N-1] from the
+    filtered covariances P_k (k < N - 1) and the steps (F, Q) of k + 1,
+    elementwise d x d algebra over the steps.  F and Q may be one constant
+    step [..., d, d, 1] (a uniform grid), broadcast against P_k."""
+    p_pred = _sym_tl(_mm_tl(F, _mm_tl(p_f, _t_tl(F))) + Q)
+    pft = _mm_tl(p_f, _t_tl(F))
+    return _t_tl(_mm_tl(_inv_tl(p_pred), _t_tl(pft)))
+
+
 def smoother_elements_tl(F, c, Q, m_f, p_f):
     """RTS smoothing elements (E, g, L) of every step from the filtered
     moments: E_k = P_k F^T Pp^-1 (the gain), g_k = m_k - E_k (F m_k + c),
@@ -266,9 +262,7 @@ def smoother_elements_tl(F, c, Q, m_f, p_f):
     """
     fn, cn, qn = F[..., 1:], c[..., 1:], Q[..., 1:]
     mk, pk = m_f[..., :-1], p_f[..., :-1]
-    p_pred = _sym_tl(_mm_tl(fn, _mm_tl(pk, _t_tl(fn))) + qn)
-    pft = _mm_tl(pk, _t_tl(fn))
-    gains = _t_tl(_mm_tl(_inv_tl(p_pred), _t_tl(pft)))
+    gains = rts_gains_tl(fn, qn, pk)
     g = mk - _mm_tl(gains, _mm_tl(fn, mk) + cn)
     ell = _sym_tl(pk - _mm_tl(gains, _mm_tl(fn, pk)))
     e_all = _cat([gains, torch.zeros_like(p_f[..., -1:])], dim=-1)

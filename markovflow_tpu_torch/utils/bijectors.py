@@ -10,7 +10,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["Bijector", "Identity", "Positive", "positive"]
+__all__ = ["Bijector", "Identity", "Positive", "positive", "FillTriangular",
+           "triangular"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,3 +54,26 @@ class Positive(Bijector):
 
 def positive(lower: float = 1e-6) -> Positive:
     return Positive(lower=lower)
+
+
+@dataclasses.dataclass(frozen=True)
+class FillTriangular(Bijector):
+    """Vector of n(n+1)/2 entries <-> lower-triangular [..., n, n] matrix,
+    in row-major lower-triangular order (0,0), (1,0), (1,1), (2,0), ...,
+    as the JAX package's ``triangular()``."""
+
+    def forward(self, x):
+        m = x.shape[-1]
+        n = int(round((np.sqrt(8 * m + 1) - 1) / 2))
+        rows, cols = np.tril_indices(n)
+        out = x.new_zeros(x.shape[:-1] + (n, n))
+        out[..., rows, cols] = x
+        return out
+
+    def inverse(self, y):
+        rows, cols = np.tril_indices(y.shape[-1])
+        return y[..., rows, cols]
+
+
+def triangular() -> FillTriangular:
+    return FillTriangular()

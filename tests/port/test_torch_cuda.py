@@ -617,3 +617,115 @@ def test_sparse_sites_gradients_on_cuda_match_cpu(cuda_device):
     np.testing.assert_allclose(val, want_val, rtol=1e-10)
     for g, w in zip(grads, want_grads):
         np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-9 * np.abs(w).max())
+
+
+# ---------------------------------------------------------------------------
+# the posterior and prediction path
+# ---------------------------------------------------------------------------
+POSTERIOR_KERNELS = {1: "Matern12", 2: "Matern32", 3: "Matern52", 6: ("Matern52", "Matern52")}
+
+
+def _posterior_model(d, n, uniform, dtype, device):
+    """A GPR of state dim d on n points of [0, 10] (jittered unless
+    ``uniform``), and new points: inner, exact hits at the first and last
+    points, and points past either end; with the slice of the hits and
+    ends."""
+    rng = np.random.default_rng(n + 10 * d)
+    x = np.linspace(0.0, 10.0, n)
+    if not uniform:
+        x = x + 0.4 * (10.0 / max(n - 1, 1)) * rng.uniform(-1.0, 1.0, n)
+        x.sort()
+    y = (np.sin(2.0 * x) + 0.2 * rng.standard_normal(n))[:, None]
+    kernel = POSTERIOR_KERNELS[d]
+    params = {"chol_obs_covariance": np.asarray([[0.2]])}
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    for i, _ in enumerate(names):
+        path = "kernel" if isinstance(kernel, str) else f"kernel.kernels[{i}]"
+        params[f"{path}.lengthscale"] = np.asarray(0.5 * i - 0.5)
+        params[f"{path}.variance"] = np.asarray(0.5)
+    model = gpr_from_numpy(params, x, y, device=device, dtype=dtype, kernel=kernel)
+    pts = np.concatenate([rng.uniform(0.0, 10.0, 64), x[[0, -1]], [-3.0, -1e-3],
+                          [x[-1] + 1e-3, 14.0]])
+    return model, torch.as_tensor(pts, dtype=dtype, device=device), slice(64, None)
+
+
+def _prediction_outputs(model, tn):
+    with torch.no_grad():
+        post = model.posterior
+        (f_mean, f_var), (_, y_var) = post.predict_f(tn), post.predict_y(tn)
+        m_tl, p_tl = post.dist.marginals_tl()
+    return {"m_s": m_tl, "P_s": p_tl, "A": post.dist.state_transitions,
+            "f mean": f_mean, "f var": f_var, "y var": y_var}
+
+
+@pytest.mark.parametrize("uniform", [True, False], ids=["uniform", "jittered"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", sorted(POSTERIOR_KERNELS))
+@pytest.mark.parametrize("n", list(chip_smoke.EDGE_NS))
+def test_posterior_path_kernels_match_plain(cuda_device, n, d, dtype, uniform):
+    """gpr.posterior (one filter and one smoother launch), predict_f and
+    predict_y on the kernel path against the plain path: float64 within
+    F64_TOL; float32 within chip_smoke's tolerance of the plain path or no
+    less accurate than it against float64 (chip_smoke.check_f32_wide).  At
+    every point for d <= 2; for the Matern52 kernels (d = 3, 6), whose
+    generic process noise loses its digits at sub-grid steps (ROADMAP
+    queue 3), at the exact hits and the points past either end."""
+    model, tn, held = _posterior_model(d, n, uniform, dtype, cuda_device)
+    before = {k: getattr(ops, k).launches for k in
+              ("filter_pipeline_uniform", "smoother_pipeline_uniform", "filter_pipeline",
+               "smoother_scan")}
+    got = _prediction_outputs(model, tn)
+    after = {k: getattr(ops, k).launches - v for k, v in before.items()}
+    on_uniform = model._uniform_grid
+    assert after == {"filter_pipeline_uniform": int(on_uniform),
+                     "smoother_pipeline_uniform": int(on_uniform),
+                     "filter_pipeline": int(not on_uniform),
+                     "smoother_scan": int(not on_uniform)}
+    with chip_smoke.plain_path(ops, adj, kf):
+        want = _prediction_outputs(model, tn)
+    keys = ("f mean", "f var", "y var")
+    pick = (lambda v: v) if d <= 2 else (lambda v: v[held])  # noqa: E731
+    assert all(torch.isfinite(pick(got[k])).all() for k in keys)
+    if dtype == torch.float64:
+        for key in got:
+            g, w = (got[key], want[key]) if key not in keys else (pick(got[key]),
+                                                                  pick(want[key]))
+            assert g.numel() == 0 or _rel(g, w) <= F64_TOL, key
+        return
+    model64, tn64, _ = _posterior_model(d, n, uniform, torch.float64, cuda_device)
+    ref = _prediction_outputs(model64, tn64)
+    chip_smoke.check_f32_wide(f"N={n} d={d}", {k: (pick(got[k]), pick(want[k]), pick(ref[k]))
+                                               for k in keys},
+                              dict.fromkeys(keys, chip_smoke.TOL_F32_MOMENTS))
+
+
+@pytest.mark.parametrize("name", ["Matern12", "Matern32", "Matern52", "d9"])
+def test_extrapolation_and_exact_hits_are_finite_in_float32_on_cuda(cuda_device, name):
+    """The phantom neighbours at -/+ 1e10 and exact hits in float32 on the
+    card: every prediction finite, and given the prior as the
+    distribution, the prior's marginal past either end and at the hits."""
+    from markovflow_tpu_torch import conditionals, kernels, state_space_model
+
+    def kernel(dtype):
+        if name == "d9":
+            return kernels.Sum([kernels.Matern52(lengthscale=e, variance=v, dtype=dtype,
+                                                 device=cuda_device)
+                                for e, v in chip_smoke.D9])
+        return getattr(kernels, name)(lengthscale=0.5, variance=1.0, dtype=dtype,
+                                      device=cuda_device)
+    x = torch.linspace(0.0, 10.0, 1001, dtype=torch.float64, device=cuda_device)
+    with torch.no_grad():
+        prior = kernel(torch.float64).state_space_model(x)
+        prior32 = state_space_model.StateSpaceModel(*(v.float() for v in (
+            prior.initial_mean, prior.cholesky_initial_covariance,
+            prior.state_transitions, prior.state_offsets,
+            prior.cholesky_process_covariances)))
+        k32, x32 = kernel(torch.float32), x.float()
+        xs = torch.cat([torch.tensor([-1e6, -50.0], device=cuda_device), x32[[0, 500, -1]],
+                        torch.tensor([60.0, 1e6], device=cuda_device)])
+        means, covs = conditionals.conditional_predict_tl(xs, x32, k32, prior32)
+        p_inf = k32.steady_state_covariance[..., None].expand(covs.shape)
+    assert torch.isfinite(means).all() and torch.isfinite(covs).all()
+    scale = float(p_inf.abs().max())
+    assert float((covs - p_inf).abs().max()) <= 2e-6 * scale
+    assert float(means.abs().max()) <= 2e-6 * scale ** 0.5
