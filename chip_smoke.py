@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's GPR serving and training paths once on one CUDA
-card.
+"""Drive the PyTorch port's GPR serving, training and prediction paths, CVI
+and SDE variational inference once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -84,10 +84,37 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       4e's sparse-site problem (its log-likelihood against the grid
       filter's); and float64 against a dense GP (tests/tools/dense_gp.py)
       at N = 500;
+   g. CVI, bench config 4 (Matern32(0.5, 1), a Gaussian likelihood of
+      variance 0.04, learning rate 0.5, y = sin(2x) + 0.2 N on
+      linspace(0, 1000, T), seed 0), on the uniform and the jittered grid,
+      float32 and float64: 5 full iterations (update_sites(), loss(),
+      backward(): kernels 1 x2, 2, 3 a uniform iteration, 4 x2, 5, 7 a
+      jittered one), the float64 kernel path within 1e-9 of the plain
+      path (ELBO, sites, gradients) and float32 against float64; the
+      float32 marginals of the initial sites (precision 2e-10) against the
+      prior's; learning rate 1 and one update against GPR (ELBO and
+      predict_f, float64); and the Bernoulli and Poisson likelihoods, 10
+      updates each on the uniform grid: the classic ELBO may not fall
+      after the fifth (float64), the float64 kernel path within 1e-9 of
+      the plain path; in float32 each update's marginals from the kernels
+      against the plain version's at the same sites, the sites and
+      predict_log_density at 1e4 points after the last against the
+      float64 plain run (check_f32_wide), and the ELBO at the float32
+      sites against float64 at the same sites;
+   h. SDE variational inference, bench config 5 (DoubleWellSDE(q=0.5),
+      n = 16384 on linspace(0, 8, n + 1), observation noise 0.2): 4
+      iterations of linearize_sde, the Kalman filter of the linearised
+      prior and its posterior state-space model (kernels 4 and 5 at d = 1
+      once each), the posterior's linear drift and the KL surrogate, in
+      float32 and float64: the KL falls, the float64 kernel path within
+      1e-9 of the plain path, float32 against float64;
 5. times, kernel path against plain path, with CUDA events after a warm-up
    (median of several runs): serving requests (gpr.posterior and
    predict_f at 1e5 points among them), training steps on both
-   grids, general-grid requests, the d9 requests and training step; each
+   grids, general-grid requests, the d9 requests and training step, the
+   CVI iteration on both grids and the SDE VI iteration (with each
+   wrapper's device time per iteration in its own kernels, which must add
+   up to all of the port's kernels in the trace); each
    kernel's device time per call from a torch.profiler trace (the wrapper's
    call time also holds its host work), at the flagship's d = 2 and at the
    d9 model's d = 9, beside its bound: the least time an H100 needs for
@@ -185,6 +212,31 @@ N_SAMPLE_POINTS = 1_000
 SAMPLES = 16
 SAMPLE_CALLS = 16
 COEF = 0.01
+#: phase 4g, bench config 4 (bench.py:262-267, :318-324): the grid's end,
+#: the learning rate, full iterations of the Gaussian CVI, site updates of
+#: the Bernoulli and Poisson CVI, and the points of predict_log_density;
+#: the data's seed by likelihood
+CVI_END = 1000.0
+CVI_LR = 0.5
+CVI_ITERS = 5
+CVI_UPDATES = 10
+N_PLD = 10_000
+CVI_SEEDS = {"Gaussian": 0, "Bernoulli": 1, "Poisson": 2}
+#: the classic ELBO of a non-Gaussian CVI may fall by no more than this,
+#: relative, from the fifth site update on (the rule of
+#: tests/integration/models/test_cvi.py::test_cvi_poisson_improves)
+TOL_ELBO_FALL = 1e-6
+#: float32 q(f) from the initial sites (precision 2e-10) against the
+#: prior's mean 0 and variance 1, max abs: a few float32 roundings of the
+#: filter's and the smoother's compositions
+TOL_CVI_FIRST_F32 = 1e-4
+#: phase 4h, bench config 5: the path's points and the VI iterations
+SDE_N = 16_384
+SDE_ITERS = 4
+#: the SDE's KL surrogate in float32 against float64, relative: the
+#: posterior's linear drift divides A_post - 1 (float32 roundoff ~6e-8) by
+#: dt = 4.9e-4; measured on an H100 at n = 16384: 1.2e-6 (PERF.md)
+TOL_SDE_F32_KL = 1e-4
 DEVICE = torch.device("cuda")
 #: the H100's memory rate and float32 rate outside the tensor cores
 #: (NVIDIA's data sheet, SXM part, at a 700 W power limit)
@@ -303,11 +355,11 @@ def plain_path(cs, adj, kf):
 # ---------------------------------------------------------------------------
 # Problems
 # ---------------------------------------------------------------------------
-def jittered_grid(n, seed=0):
-    """linspace(0, 100, n), each point moved by up to 0.4 of the spacing."""
+def jittered_grid(n, seed=0, end=100.0):
+    """linspace(0, end, n), each point moved by up to 0.4 of the spacing."""
     rng = np.random.default_rng(seed)
-    x = np.linspace(0.0, 100.0, n)
-    return x + 0.4 * (100.0 / max(n - 1, 1)) * rng.uniform(-1.0, 1.0, n)
+    x = np.linspace(0.0, end, n)
+    return x + 0.4 * (end / max(n - 1, 1)) * rng.uniform(-1.0, 1.0, n)
 
 
 def sites(n, batch, dtype, rng, masked):
@@ -1114,17 +1166,17 @@ def phase_ops(cs, adj, kf):
 # ---------------------------------------------------------------------------
 # Phase 4f
 # ---------------------------------------------------------------------------
-def prediction_points(n_new, x, seed=0):
-    """n_new new time points from seed: 98% uniform in [0, 100], 1% equal
+def prediction_points(n_new, x, seed=0, end=100.0):
+    """n_new new time points from seed: 98% uniform in [0, end], 1% equal
     to training points x (exact hits), 0.5% in [-5, 0) and 0.5% in
-    (100, 105]; and the slice of each kind."""
+    (end, end + 5]; and the slice of each kind."""
     rng = np.random.default_rng(seed)
     n_hit, n_side = n_new // 100, n_new // 200
     n_in = n_new - n_hit - 2 * n_side
-    pts = np.concatenate([rng.uniform(0.0, 100.0, n_in),
+    pts = np.concatenate([rng.uniform(0.0, end, n_in),
                           x[rng.choice(x.size, n_hit, replace=False)],
                           rng.uniform(-5.0, 0.0, n_side),
-                          105.0 - 5.0 * rng.random(n_side)])
+                          end + 5.0 - 5.0 * rng.random(n_side)])
     edges = np.cumsum([0, n_in, n_hit, n_side, n_side])
     kinds = {k: slice(int(a), int(b)) for k, a, b in
              zip(("inner", "hits", "left", "right"), edges[:-1], edges[1:])}
@@ -1441,6 +1493,409 @@ def check_dense_gp(dense, uniform):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4g
+# ---------------------------------------------------------------------------
+def cvi_targets(x, likelihood, rng):
+    """Observations at x for a likelihood: y = sin(2x) + 0.2 N (Gaussian,
+    bench config 4), (sin(2x) + 0.3 N > 0) (Bernoulli, the VGP config's
+    rule, benchmarks/run_all.py:198-200) or Poisson counts of rate
+    exp(sin(2x)) (tests/integration/models/test_cvi.py)."""
+    f = np.sin(2.0 * x)
+    if likelihood == "Gaussian":
+        y = f + 0.2 * rng.standard_normal(x.size)
+    elif likelihood == "Bernoulli":
+        y = (f + 0.3 * rng.standard_normal(x.size) > 0).astype(np.float64)
+    else:
+        y = rng.poisson(np.exp(f)).astype(np.float64)
+    return y[:, None]
+
+
+def cvi_data(n, likelihood="Gaussian", uniform=True, seed=None):
+    """Bench config 4's grid, linspace(0, CVI_END, n) or its jittered twin,
+    and observations from ``seed`` (by default CVI_SEEDS[likelihood])."""
+    x = (np.linspace(0.0, CVI_END, n) if uniform
+         else jittered_grid(n, 0, end=CVI_END))
+    seed = CVI_SEEDS[likelihood] if seed is None else seed
+    return x, cvi_targets(x, likelihood, np.random.default_rng(seed))
+
+
+def build_cvi(n, dtype, likelihood="Gaussian", uniform=True, lr=CVI_LR, seed=None):
+    """Bench config 4's CVI (Matern32(0.5, 1), Gaussian likelihood of
+    variance 0.04, learning rate 0.5), or the same kernel with another
+    likelihood, from the JAX initial sites."""
+    from markovflow_tpu_torch.convert import cvi_from_numpy
+    from markovflow_tpu_torch.utils.bijectors import positive
+
+    x, y = cvi_data(n, likelihood, uniform, seed)
+    params = {**flagship_params(),
+              "likelihood.variance": positive().inverse(np.asarray(0.04))}
+    model = cvi_from_numpy(params, x, y, dtype=dtype, device=DEVICE,
+                           likelihood=likelihood, learning_rate=lr)
+    if model._uniform_grid != uniform:
+        raise AssertionError(f"the grid was detected as uniform={model._uniform_grid}")
+    return model
+
+
+def cvi_iterations(model, iters):
+    """``iters`` full iterations (update_sites(), then loss().backward());
+    the ELBO and the kernel's hyperparameter gradients of each, and the
+    sites after the last."""
+    elbos, grads = [], []
+    for _ in range(iters):
+        model.update_sites()
+        for p in model.parameters():
+            p.grad = None
+        loss = model.loss()
+        loss.backward()
+        elbos.append(float(-loss.detach()))
+        grads.append({k: float(v.grad) for k, v in hyper(model).items()})
+    sites = tuple(x.detach() for x in model.sites.natural_parameters)
+    return elbos, grads, sites
+
+
+def rel_list(got, want, floor=0.0):
+    """The largest |a - b| / max(|b|, floor) over the pairs."""
+    return max(abs(a - b) / max(abs(b), floor) for a, b in zip(got, want))
+
+
+def rel_grads(got, want):
+    return max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want) for k in w)
+
+
+def cvi_config4(cs, adj, kf, uniform):
+    """Bench config 4 at T = 1e6 on one grid: CVI_ITERS full iterations in
+    float64 and float32 on the kernel path (launch counts), float64 on the
+    plain path; the f32 sites' first marginals against the prior's."""
+    grid = "uniform" if uniform else "jittered"
+    expect = ({"filter_pipeline_uniform": 2, "smoother_pipeline_uniform": 1,
+               "adjoint_pipeline_uniform": 1} if uniform else
+              {"filter_pipeline": 2, "smoother_scan": 1, "adjoint_pipeline": 1})
+    counts, runs = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        model = build_cvi(T_FULL, dtype, uniform=uniform)
+        if dtype == torch.float32:
+            first_marginals(cs, adj, model, grid)
+        path = f"cvi {grid} {name}"
+        counts[path] = {}
+        with launches_of(cs, adj, counts[path]):
+            runs[dtype] = cvi_iterations(model, CVI_ITERS)
+        expect_launches(f"{path}: {CVI_ITERS} iterations", counts[path],
+                        no_launches(**{k: v * CVI_ITERS for k, v in expect.items()}))
+        log(f"  {path}: ELBO {runs[dtype][0]!r}")
+        del model
+    with plain_path(cs, adj, kf):
+        plain = cvi_iterations(build_cvi(T_FULL, torch.float64, uniform=uniform), CVI_ITERS)
+    (e64, g64, s64), (e32, g32, s32) = runs[torch.float64], runs[torch.float32]
+    check(f"cvi {grid} float64, kernel path vs plain path ({CVI_ITERS} iterations)",
+          {"ELBO": rel_list(e64, plain[0]), "gradients": rel_grads(g64, plain[1]),
+           "nat1": rel_diff(s64[0], plain[2][0]), "lam": rel_diff(s64[1], plain[2][1])},
+          dict.fromkeys(("ELBO", "gradients", "nat1", "lam"), TOL_F64))
+    # the ELBO is a sum of T terms of order one; in the first iterations
+    # they cancel (the ELBO crosses zero), so its float32 error is measured
+    # against T where T exceeds it
+    check(f"cvi {grid} float32 vs float64 (check_f32_vs_f64's rule; the ELBO "
+          f"over max(|ELBO|, T))",
+          {"ELBO": rel_list(e32, e64, T_FULL), "gradients": rel_grads(g32, g64),
+           "nat1": rel_diff(s32[0].double(), s64[0]), "lam": rel_diff(s32[1].double(), s64[1])},
+          {"ELBO": TOL_F32_VS_F64_LOSS, "gradients": TOL_F32_VS_F64_GRAD,
+           "nat1": TOL_F32_MOMENTS, "lam": TOL_F32_MOMENTS})
+    return counts
+
+
+def first_marginals(cs, adj, model, grid):
+    """q(f) from the initial sites (precision 2e-10, below float32's
+    resolution against the prior's variance 1): the prior's marginals,
+    mean 0 and variance 1, on the kernel path."""
+    got = {}
+    with launches_of(cs, adj, got), torch.no_grad():
+        f_mu, f_var = model._f_marginals()
+    want = ({"filter_pipeline_uniform": 1, "smoother_pipeline_uniform": 1}
+            if grid == "uniform" else {"filter_pipeline": 1, "smoother_scan": 1})
+    expect_launches(f"cvi {grid} float32: the first marginals", got, no_launches(**want))
+    check(f"cvi {grid} float32: the first marginals vs the prior's (max abs)",
+          {"f mean": float(f_mu.abs().max()), "f var": float((f_var - 1.0).abs().max())},
+          {"f mean": TOL_CVI_FIRST_F32, "f var": TOL_CVI_FIRST_F32})
+
+
+def cvi_exactness(uniform):
+    """Learning rate 1 and a Gaussian likelihood: one update puts the
+    exact likelihood factors in the sites, so elbo() is the GPR's
+    log_likelihood() and the posteriors agree (float64)."""
+    from markovflow_tpu_torch.convert import gpr_from_numpy
+
+    grid = "uniform" if uniform else "jittered"
+    x, y = cvi_data(T_FULL, uniform=uniform)
+    cvi = build_cvi(T_FULL, torch.float64, uniform=uniform, lr=1.0).update_sites()
+    gpr = gpr_from_numpy(flagship_params(), x, y, device=DEVICE, dtype=torch.float64)
+    pts, _ = prediction_points(N_NEW, x, end=CVI_END)
+    tn = torch.as_tensor(pts, dtype=torch.float64, device=DEVICE)
+    with torch.no_grad():
+        elbo, ll = cvi.elbo(), gpr.log_likelihood()
+        fc, vc = cvi.posterior.predict_f(tn)
+        fg, vg = gpr.posterior.predict_f(tn)
+    log(f"  cvi {grid} lr = 1: ELBO {float(elbo)!r}, GPR log-likelihood {float(ll)!r}")
+    check(f"cvi {grid} lr = 1, one update, vs GPR (float64; predict_f at {N_NEW} points)",
+          {"ELBO": rel_diff(elbo, ll), "f mean": rel_diff(fc, fg), "f var": rel_diff(vc, vg)},
+          dict.fromkeys(("ELBO", "f mean", "f var"), TOL_F64))
+
+
+def sites_of(model, nat1, lam):
+    """``model`` at the sites (nat1, lam), cast to its dtype."""
+    dtype = model.observations.dtype
+    model.sites = model.sites.replace_nats(nat1.to(dtype), -0.5 * lam.to(dtype))
+    return model
+
+
+def held_marginals(cs, adj, kf, model, twin, tag):
+    """q(f) at ``model``'s float32 sites from the kernels, held against the
+    plain version in float32 and in float64 (``twin``) at the same sites
+    by check_f32_wide.  These kernel launches are a comparison's and fall
+    outside every count."""
+    with torch.no_grad():
+        got = model._f_marginals()
+        with plain_path(cs, adj, kf):
+            plain = model._f_marginals()
+            ref = sites_of(twin, *model.sites.natural_parameters)._f_marginals()
+    check_f32_wide(tag, {"f mean": (got[0], plain[0], ref[0]),
+                         "f var": (got[1], plain[1], ref[1])},
+                   dict.fromkeys(("f mean", "f var"), TOL_F32_MOMENTS))
+
+
+def non_gaussian_run(cs, adj, model, counts, pts, y_new, hold=None):
+    """CVI_UPDATES site updates (launches counted into ``counts``), the
+    classic ELBO after each from the fifth, then the ELBO, the sites,
+    predict_log_density at pts and the posterior's process-noise factors'
+    zero pivots (where psd_cholesky clamped Q_post).  ``hold``: (kf, the
+    float64 twin, tag) to hold each update's float32 marginals
+    (``held_marginals``)."""
+    classic = []
+    with torch.no_grad():
+        for i in range(CVI_UPDATES):
+            if hold is not None:
+                kf, twin, tag = hold
+                held_marginals(cs, adj, kf, model, twin, f"{tag}, update {i + 1}: q(f)")
+            got = {}
+            with launches_of(cs, adj, got):
+                model.update_sites()
+            for k, v in got.items():
+                counts[k] = counts.get(k, 0) + v
+            if i >= 4:
+                classic.append(float(model.classic_elbo()))
+        dtype = model.observations.dtype
+        pld = model.predict_log_density((torch.as_tensor(pts, dtype=dtype, device=DEVICE),
+                                         torch.as_tensor(y_new, dtype=dtype, device=DEVICE)))
+        chol_q = model.dist_q.cholesky_process_covariances
+        clamped = int((torch.diagonal(chol_q, dim1=-2, dim2=-1) == 0).any(-1).sum())
+        return {"classic": classic, "ELBO": float(model.elbo()), "pld": pld,
+                "sites": [x.detach() for x in model.sites.natural_parameters],
+                "clamped": clamped}
+
+
+def f32_elbo_parts(cs, adj, kf, likelihood, runs):
+    """The float32 ELBO against float64's after CVI_UPDATES updates, in two
+    parts for each path: its evaluation at the path's own float32 sites
+    against float64 at the same sites (held within TOL_F32_VS_F64_LOSS),
+    and what those sites move the float64 ELBO by (printed, with lam's
+    elementwise relative error: a few sites far off carry the ELBO's
+    error, ROADMAP queue 3).  All over max(|ELBO|, T): the ELBO crosses
+    zero in the first iterations."""
+    ref = runs[torch.float64][1]
+    twin = build_cvi(T_FULL, torch.float64, likelihood)
+    lam64 = ref["sites"][1]
+    log(f"  cvi {likelihood} float64: {int((lam64 < 0).sum())} sites of negative precision")
+    for tag, run in zip(("kernel", "plain"), runs[torch.float32]):
+        with torch.no_grad(), plain_path(cs, adj, kf):
+            at = float(sites_of(twin, *run["sites"]).elbo())
+        rel = (run["sites"][1].double() - lam64).abs() / lam64.abs()
+        log(f"  cvi {likelihood} float32 ({tag} path): ELBO vs float64 "
+            f"{rel_list([run['ELBO']], [ref['ELBO']], T_FULL):.3e}; its float32 sites move the "
+            f"float64 ELBO by {rel_list([at], [ref['ELBO']], T_FULL):.3e}; lam's elementwise "
+            f"relative error: median {float(rel.median()):.3e}, max {float(rel.max()):.3e}")
+        check(f"cvi {likelihood} float32 ({tag} path): the ELBO at its own float32 sites vs "
+              f"float64 at the same sites (over max(|ELBO|, T))",
+              {"ELBO": rel_list([run["ELBO"]], [at], T_FULL)}, {"ELBO": TOL_F32_VS_F64_LOSS})
+
+
+def cvi_non_gaussian(cs, adj, kf, likelihood):
+    """CVI_UPDATES site updates on the uniform grid at T = 1e6 in float64
+    and float32 on the kernel path and the plain path, the classic ELBO
+    after each from the fifth.  Float64: the classic ELBO falls by no more
+    than TOL_ELBO_FALL relative, and the kernel path is within TOL_F64 of
+    the plain path.  Float32: each update's marginals (``held_marginals``),
+    the sites and predict_log_density (at N_PLD points) after the last
+    against the float64 plain run (check_f32_wide), and the ELBO's
+    evaluation (``f32_elbo_parts``).  The float32 classic ELBO's KL takes
+    the log-det of the posterior's process noise, whose factor psd_cholesky
+    clamps to 0 where Q_post ~ dt^3 lies below float32's roundoff (ROADMAP
+    queue 3): its non-finite values are counted and printed."""
+    counts, runs = {}, {}
+    x, _ = cvi_data(T_FULL, likelihood)
+    pts, _ = prediction_points(N_PLD, x, end=CVI_END)
+    y_new = cvi_targets(pts, likelihood, np.random.default_rng(7))
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        path = f"cvi {likelihood} {name}"
+        counts[path] = {}
+        hold = (None if dtype == torch.float64 else
+                (kf, build_cvi(T_FULL, torch.float64, likelihood), f"{path} kernel path"))
+        kernel = non_gaussian_run(cs, adj, build_cvi(T_FULL, dtype, likelihood),
+                                  counts[path], pts, y_new, hold)
+        expect_launches(f"{path}: {CVI_UPDATES} site updates", counts[path],
+                        no_launches(filter_pipeline_uniform=CVI_UPDATES,
+                                    smoother_pipeline_uniform=CVI_UPDATES))
+        with plain_path(cs, adj, kf):
+            plain = non_gaussian_run(cs, adj, build_cvi(T_FULL, dtype, likelihood), {},
+                                     pts, y_new)
+        runs[dtype] = (kernel, plain)
+        for tag, run in (("kernel", kernel), ("plain", plain)):
+            log(f"  {path} ({tag} path): classic ELBO after updates 5..{CVI_UPDATES} "
+                f"{run['classic']!r}; ELBO {run['ELBO']!r}; mean predict_log_density at "
+                f"{N_PLD} points {float(run['pld'].mean())!r}; steps whose Q_post factor "
+                f"has a clamped pivot: {run['clamped']}")
+        check_finite(path, {"nat1": kernel["sites"][0], "lam": kernel["sites"][1],
+                            "ELBO": torch.as_tensor(kernel["ELBO"]),
+                            "predict_log_density": kernel["pld"]})
+        if kernel["pld"].shape != (N_PLD,):
+            raise AssertionError(f"predict_log_density has shape {tuple(kernel['pld'].shape)}")
+        if dtype == torch.float64:
+            check_finite(f"{path} classic ELBO", {"classic": torch.as_tensor(kernel["classic"])})
+            c = kernel["classic"]
+            falls = [(a - b) / abs(a) for a, b in zip(c, c[1:])]
+            log(f"  {path}: largest relative fall of the classic ELBO {max(falls):.3e} "
+                f"(tol {TOL_ELBO_FALL:g}; negative: it rose at every update)")
+            if not max(falls) <= TOL_ELBO_FALL:
+                raise AssertionError(f"{path}: the classic ELBO falls")
+            check(f"{path}, kernel path vs plain path ({CVI_UPDATES} updates)",
+                  {"ELBO": rel_list([kernel["ELBO"]], [plain["ELBO"]]),
+                   "classic ELBO": rel_list(kernel["classic"], plain["classic"]),
+                   "nat1": rel_diff(kernel["sites"][0], plain["sites"][0]),
+                   "lam": rel_diff(kernel["sites"][1], plain["sites"][1])},
+                  dict.fromkeys(("ELBO", "classic ELBO", "nat1", "lam"), TOL_F64))
+        else:
+            bad = {tag: sum(not np.isfinite(v) for v in run["classic"])
+                   for tag, run in (("kernel", kernel), ("plain", plain))}
+            log(f"  {path}: non-finite classic ELBOs (the KL's log-det of clamped "
+                f"Q_post factors; ROADMAP queue 3): kernel path {bad['kernel']}, plain path "
+                f"{bad['plain']} of {len(kernel['classic'])}")
+    (k32, p32), ref = runs[torch.float32], runs[torch.float64][1]
+    check_f32_wide(f"cvi {likelihood} float32 after {CVI_UPDATES} updates, against the "
+                   f"float64 plain run",
+                   {"nat1": (k32["sites"][0], p32["sites"][0], ref["sites"][0]),
+                    "lam": (k32["sites"][1], p32["sites"][1], ref["sites"][1]),
+                    "predict_log_density": (k32["pld"], p32["pld"], ref["pld"])},
+                   dict.fromkeys(("nat1", "lam", "predict_log_density"), TOL_F32_MOMENTS))
+    f32_elbo_parts(cs, adj, kf, likelihood, runs)
+    return counts
+
+
+def phase_cvi(cs, adj, kf):
+    """Bench config 4 (CVI) at T = 1e6 on both grids, the exactness check
+    against GPR, and the Bernoulli and Poisson likelihoods."""
+    log(f"phase 4g: CVI (bench config 4) at T = {T_FULL}, float32 and float64")
+    counts = {}
+    for uniform in (True, False):
+        counts.update(cvi_config4(cs, adj, kf, uniform))
+        cvi_exactness(uniform)
+    for likelihood in ("Bernoulli", "Poisson"):
+        counts.update(cvi_non_gaussian(cs, adj, kf, likelihood))
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 4h
+# ---------------------------------------------------------------------------
+def sde_problem(dtype, n):
+    """Bench config 5 (benchmarks/run_all.py:135-183): DoubleWellSDE(q=0.5)
+    on linspace(0, 8, n + 1), the truth by Euler-Maruyama from x0 = 1 and
+    observations with noise 0.2, both drawn in float64 from a seeded
+    generator on the card and cast; the initial path N(0, 1) at the n
+    points after the first, the initial state N(1, 0.25)."""
+    from markovflow_tpu_torch import sde as sde_mod
+
+    kw = dict(dtype=torch.float64, device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    ts = torch.as_tensor(np.linspace(0.0, 8.0, n + 1), **kw)
+    truth = sde_mod.euler_maruyama(sde_mod.DoubleWellSDE(q=0.5, **kw),
+                                   torch.ones((1, 1), **kw), ts, g)[0]
+    obs = truth + 0.2 * torch.randn(truth.shape, generator=g, **kw)
+    kw["dtype"] = dtype
+    ts = ts.to(dtype)
+    return {"sde": sde_mod.DoubleWellSDE(q=0.5, **kw), "ts": ts,
+            "obs": obs.to(dtype)[None], "dt": float(ts[1] - ts[0]),
+            "path": sde_mod.Gaussian(torch.zeros((1, n, 1), **kw),
+                                     torch.ones((1, n, 1, 1), **kw)),
+            "init": sde_mod.Gaussian(torch.ones((1, 1), **kw),
+                                     0.25 * torch.ones((1, 1, 1), **kw)),
+            "emission": torch.ones((1, n + 1, 1, 1), **kw),
+            "chol": torch.full((1, 1), 0.2, **kw)}
+
+
+def sde_iteration(kf, prob, path):
+    """One VI iteration of bench config 5: linearize_sde along the path,
+    the Kalman filter of the linearised prior, its posterior state-space
+    model (the general filter and the smoother scan), the posterior's
+    linear drift and the KL surrogate.  Returns (KL, the posterior's path
+    at the path's points after the first)."""
+    from markovflow_tpu_torch import sde as sde_mod
+    from markovflow_tpu_torch.emission_model import EmissionModel
+
+    prior = sde_mod.linearize_sde(prob["sde"], prob["ts"], path, prob["init"])
+    post = kf.KalmanFilter(EmissionModel(prob["emission"]), prob["obs"], prob["chol"],
+                           prior_tl=prior.prior_tl()).posterior_state_space_model()
+    means, covs = post.marginals
+    drift = sde_mod.LinearDrift.from_ssm(post, prob["dt"])
+    kl = sde_mod.squared_drift_difference_along_Gaussian_path(
+        prob["sde"], sde_mod.LinearDrift(A=drift.A[0, :, :, 0], b=drift.b[0]),
+        sde_mod.Gaussian(means[0, 1:], covs[0, 1:]), prob["dt"])
+    return kl, sde_mod.Gaussian(means[..., 1:, :], covs[..., 1:, :, :])
+
+
+def sde_vi(kf, prob):
+    """SDE_ITERS iterations from the initial path, each from the last's
+    posterior path: the KLs and the last path."""
+    kls, path = [], prob["path"]
+    with torch.no_grad():
+        for _ in range(SDE_ITERS):
+            kl, path = sde_iteration(kf, prob, path)
+            kls.append(float(kl))
+    return kls, path
+
+
+def phase_sde(cs, adj, kf):
+    """Bench config 5 (SDE variational inference) at n = SDE_N in float64
+    and float32 on the kernel path, float64 on the plain path."""
+    log(f"phase 4h: SDE VI (bench config 5, DoubleWell) at n = {SDE_N}, float32 and float64")
+    counts, runs = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        prob = sde_problem(dtype, SDE_N)
+        path = f"sde {name}"
+        counts[path] = {}
+        with launches_of(cs, adj, counts[path]):
+            runs[dtype] = sde_vi(kf, prob)
+        expect_launches(f"{path}: {SDE_ITERS} VI iterations", counts[path],
+                        no_launches(filter_pipeline=SDE_ITERS, smoother_scan=SDE_ITERS))
+        kls, q = runs[dtype]
+        log(f"  {path}: KL by iteration {kls!r}")
+        check_finite(path, {"KL": torch.as_tensor(kls), "mean": q.mu, "var": q.cov})
+        if not kls[-1] < kls[0]:
+            raise AssertionError(f"{path}: the KL does not fall from iteration 1 to {SDE_ITERS}")
+        if dtype == torch.float64:
+            with plain_path(cs, adj, kf):
+                pkls, pq = sde_vi(kf, prob)
+            check("sde float64, kernel path vs plain path",
+                  {"KL": rel_list(kls, pkls), "mean": rel_diff(q.mu, pq.mu),
+                   "var": rel_diff(q.cov, pq.cov)}, dict.fromkeys(("KL", "mean", "var"), TOL_F64))
+    (k64, q64), (k32, q32) = runs[torch.float64], runs[torch.float32]
+    check("sde float32 vs float64", {"KL": rel_list(k32, k64),
+                                     "mean": rel_diff(q32.mu.double(), q64.mu),
+                                     "var": rel_diff(q32.cov.double(), q64.cov)},
+          {"KL": TOL_SDE_F32_KL, "mean": TOL_F32_MOMENTS, "var": TOL_F32_MOMENTS})
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 5
 # ---------------------------------------------------------------------------
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1495,6 +1950,75 @@ def kernel_device_ms(fn, reps: int = 20):
                     passes[pass_label(evt.key)] = (t / reps / 1e3, evt.count / reps)
                     break
     return us / reps / 1e3, passes
+
+
+@contextlib.contextmanager
+def labelled_wrappers(cs, adj, kf):
+    """Wrap every kernel wrapper, in the modules that call it, in a
+    profiler range named ``kernel <wrapper>``, so that a trace gives each
+    kernel's device time within a path."""
+    saved = []
+    for mod in (cs, kf, adj):
+        for _, name in COUNTED:
+            fn = getattr(mod, name, None)
+            if fn is None:
+                continue
+
+            def labelled(*args, _fn=fn, _name=name, **kw):
+                with torch.profiler.record_function(f"kernel {_name}"):
+                    return _fn(*args, **kw)
+            # a wrapper counts its launches on the name it is called by in
+            # its own module, here this stand-in
+            labelled.launches = 0
+            saved.append((mod, name, fn))
+            setattr(mod, name, labelled)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def device_ms_by_kernel(cs, adj, kf, fn, reps: int = 20):
+    """Device milliseconds per call of ``fn``: in all the port's kernels
+    together (``kernel_device_ms``); per wrapper, in the ``mf::`` kernels
+    inside its span on the card's timeline (the trace's device-side
+    ``kernel <wrapper>`` annotation; a kernel inside two goes to the
+    shorter); and in all the ``mf::`` kernels of that trace, which the
+    wrappers' parts must add up to."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    total, _ = kernel_device_ms(fn, reps)
+    with labelled_wrappers(cs, adj, kf):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [e for e in on_card if e.name.startswith("kernel ")]
+    ours = [e for e in on_card if "mf::" in e.name]
+    per = {}
+    for e in ours:
+        around = [w for w in spans if w.time_range.start <= e.time_range.start
+                  and e.time_range.end <= w.time_range.end]
+        if around:
+            name = min(around, key=lambda w: w.time_range.elapsed_us()).name[len("kernel "):]
+            per[name] = per.get(name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+    traced = sum(e.time_range.elapsed_us() for e in ours) / reps / 1e3
+    return total, per, traced
+
+
+def cvi_step(model):
+    """One full CVI iteration: update_sites(), then loss().backward()."""
+    def step():
+        model.update_sites()
+        for p in model.parameters():
+            p.grad = None
+        model.loss().backward()
+    return step
 
 
 def train_step(model):
@@ -1642,10 +2166,16 @@ def phase_times(cs, adj, kf, card, counts):
         "d9 jittered loss()": lambda: d9j.loss(),
         "d9 jittered posterior_marginals()": lambda: d9j.kalman.posterior_marginals(),
     }
+    sde_prob = sde_problem(torch.float32, SDE_N)
+    sde_key = f"SDE VI iteration (n={SDE_N})"
+    requests[sde_key] = lambda: sde_iteration(kf, sde_prob, sde_prob["path"])
     steps = {"uniform training step": train_step(uni),
              "jittered training step": train_step(gen),
              "d9 training step": train_step(d9u),
-             "d9 jittered training step": train_step(d9j)}
+             "d9 jittered training step": train_step(d9j),
+             "uniform CVI iteration": cvi_step(build_cvi(T_FULL, torch.float32)),
+             "jittered CVI iteration": cvi_step(build_cvi(T_FULL, torch.float32,
+                                                          uniform=False))}
     calls = {name + tag: fns for tag, (c, _, _) in sets.items()
              for name, fns in c.items()}
     # turns: plain, kernel, kernel, plain; the medians of both turns
@@ -1667,6 +2197,20 @@ def phase_times(cs, adj, kf, card, counts):
     for key in list(requests) + list(steps):
         log(f"  {key}: kernel path {ms[('kernel', key)]!r} ms, plain path "
             f"{ms[('plain', key)]!r} ms (CUDA events, median)  [{card}]")
+    for key, fn in (("uniform CVI iteration", steps["uniform CVI iteration"]),
+                    ("jittered CVI iteration", steps["jittered CVI iteration"]),
+                    (sde_key, requests[sde_key])):
+        ctx = torch.no_grad() if key.startswith("SDE") else contextlib.nullcontext()
+        with ctx:
+            total, per, traced = device_ms_by_kernel(cs, adj, kf, fn)
+        log(f"  {key}: device ms per iteration in the port's kernels {total!r} "
+            f"(torch.profiler); by wrapper, in its own kernels: " + (", ".join(
+                f"{k} {v!r}" for k, v in per.items()) or "not measured") + f"  [{card}]")
+        own_sum = sum(per.values())
+        log(f"  {key}: the wrappers' mf:: kernels add up to {own_sum!r} ms of the "
+            f"{traced!r} ms of mf:: kernels in the same trace")
+        if per and not abs(own_sum - traced) <= 1e-6 * traced:
+            raise AssertionError(f"{key}: mf:: kernels ran outside the wrappers' ranges")
     dev, passes, errs, largest, bounds = {}, {}, {}, {}, {}
     for tag, (c, d, n) in sets.items():
         for name, (kfn, pfn, inputs) in c.items():
@@ -1699,21 +2243,25 @@ def phase_times(cs, adj, kf, card, counts):
     uni_post = tuple(f"{p} {t}" for p in ("posterior uniform", "linear mean") for t in both)
     gen_post = tuple(f"posterior jittered {t}" for t in both)
     condensed = tuple(f"condense {t}" for t in both)
+    cvi_uni = tuple(f"cvi {p} {t}" for p in ("uniform", "Bernoulli", "Poisson") for t in both)
+    cvi_gen = tuple(f"cvi jittered {t}" for t in both)
+    sde = tuple(f"sde {t}" for t in both)
     rows = [("filter_pipeline_uniform", "uniform_scan.cuh", "wide_scan.cuh",
-             "pallas_scan.py:1036", ("serving",) + uni_post, d9_paths),
+             "pallas_scan.py:1036", ("serving",) + uni_post + cvi_uni, d9_paths),
             ("smoother_pipeline_uniform", "uniform_scan.cuh", "wide_scan.cuh",
-             "pallas_scan.py:1457", ("serving",) + uni_post, d9_paths),
+             "pallas_scan.py:1457", ("serving",) + uni_post + cvi_uni, d9_paths),
             ("adjoint_pipeline_uniform", "adjoint_scan.cuh", None,
-             "pallas_scan.py:1229", ("training",), ()),
+             "pallas_scan.py:1229", ("training",) + cvi_uni, ()),
             ("filter_pipeline", "general_scan.cuh", "wide_scan.cuh",
-             "pallas_scan.py:849", ("general", "sparse") + gen_post + condensed,
-             d9_paths + d9_post),
+             "pallas_scan.py:849", ("general", "sparse") + gen_post + condensed
+             + cvi_gen + sde, d9_paths + d9_post),
             ("smoother_scan", "general_scan.cuh", "wide_scan.cuh",
-             "pallas_scan.py:1313", ("general",) + gen_post, d9_paths + d9_post),
+             "pallas_scan.py:1313", ("general",) + gen_post + cvi_gen + sde,
+             d9_paths + d9_post),
             ("filter_scan", "general_scan.cuh", "wide_scan.cuh",
              "pallas_scan.py:793", ("ops",), ("ops d9",)),
             ("adjoint_pipeline", "general_adjoint.cuh", "general_adjoint.cuh",
-             "pallas_scan.py:681", ("general", "sparse"), d9_paths)]
+             "pallas_scan.py:681", ("general", "sparse") + cvi_gen, d9_paths)]
     out = []
     for name, src, wide_src, rep, paths, wide_paths in rows:
         for tag, file, run in (("", src, paths), (" d=9", wide_src, wide_paths)):
@@ -1722,7 +2270,7 @@ def phase_times(cs, adj, kf, card, counts):
             key = name + tag
             out.append({"name": key, "route": "cuda", "source": source + file,
                         "replaces": "markovflow_tpu/ops/" + rep,
-                        "launches": sum(counts[path][name] for path in run),
+                        "launches": sum(counts[path].get(name, 0) for path in run),
                         "max_abs_err": errs[key], "ms": dev[key],
                         "plain_ms": ms[("plain", key)], "bound_ms": bounds[key][0],
                         "bound_by": bounds[key][1], "library_ms": None})
@@ -1766,6 +2314,8 @@ def main() -> int:
     counts.update(phase_d9(cs, adj, kf, training, npk))
     counts.update(phase_ops(cs, adj, kf))
     counts.update(phase_prediction(cs, adj, kf, load_numpy_oracle("dense_gp")))
+    counts.update(phase_cvi(cs, adj, kf))
+    counts.update(phase_sde(cs, adj, kf))
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels = phase_times(cs, adj, kf, card, counts)

@@ -1,2 +1,2 @@
 from .base import Likelihood, gauss_hermite
-from .scalar import Gaussian
+from .scalar import Bernoulli, Gaussian, Poisson, StudentT, inv_probit

@@ -11,8 +11,6 @@ from ..kernels import SDEKernel
 from ..likelihoods import Gaussian
 from ..mean_function import MeanFunction
 from ..posterior import AnalyticPosteriorProcess
-from ..utils.checks import (check_observations, check_time_points,
-                            host_array, is_uniform_grid)
 from .models import MarkovFlowModel
 
 __all__ = ["GaussianProcessRegression"]
@@ -21,39 +19,21 @@ __all__ = ["GaussianProcessRegression"]
 class GaussianProcessRegression(MarkovFlowModel):
     def __init__(self, input_data: Tuple, kernel: SDEKernel,
                  chol_obs_covariance: torch.Tensor,
-                 mean_function: Optional[MeanFunction] = None,
-                 uniform_grid: Optional[bool] = None):
+                 mean_function: Optional[MeanFunction] = None):
         """input_data: (time_points [..., N], observations [..., N, o]);
         chol_obs_covariance [o, o].  The data and the noise Cholesky are
         buffers in the observations' dtype and on their device.  The
         filters see the observations minus ``mean_function`` of the time
-        points; the posterior adds it back to f.
-
-        ``uniform_grid``: the stationary uniform-grid path (constant prior
-        steps, no [d, d, N] array).  ``None`` detects it from the time
-        points on the host: pass numpy time points to skip the one
-        device-to-host copy that a CUDA tensor costs here, at construction
-        and never per call.  ``False`` forces the general path; ``True``
-        asserts eligibility."""
+        points; the posterior adds it back to f.  The uniform-grid path is
+        detected from the time points on the host, at construction and
+        never per call (``MarkovFlowModel._set_data``)."""
         super().__init__()
-        time_points, observations = input_data
-        tp_host = host_array(time_points)
-        check_time_points(tp_host)
-        check_observations(observations, tp_host)
-        kw = dict(dtype=observations.dtype, device=observations.device)
-        self.register_buffer("time_points", torch.as_tensor(time_points, **kw))
-        self.register_buffer("observations", observations)
-        self.register_buffer("chol_obs_covariance",
-                             torch.as_tensor(chol_obs_covariance, **kw))
         self.kernel = kernel
         self.mean_function = mean_function
-        detected = (is_uniform_grid(tp_host)
-                    and hasattr(kernel, "prior_const_tl"))
-        if uniform_grid and not detected:
-            raise ValueError("uniform_grid=True requires evenly spaced time "
-                             "points and a stationary kernel")
-        self._uniform_grid = detected if uniform_grid is None \
-            else bool(uniform_grid)
+        self._set_data(input_data)
+        self.register_buffer("chol_obs_covariance", torch.as_tensor(
+            chol_obs_covariance, dtype=self.observations.dtype,
+            device=self.observations.device))
 
     def _residual(self) -> torch.Tensor:
         """The observations minus the mean function."""
@@ -65,17 +45,9 @@ class GaussianProcessRegression(MarkovFlowModel):
     def kalman(self) -> KalmanFilter:
         """The Kalman filter of this model.  On the uniform path it holds
         only the constant prior steps, the emission row and the data."""
-        tp = self.time_points
-        emission = self.kernel.generate_emission_model(tp)
-        if self._uniform_grid:
-            n = tp.shape[-1]
-            dt = (tp[..., -1:] - tp[..., :1]) / (n - 1)
-            return KalmanFilter(emission, self._residual(),
-                                self.chol_obs_covariance,
-                                prior_const_tl=self.kernel.prior_const_tl(dt))
-        return KalmanFilter(emission, self._residual(),
-                            self.chol_obs_covariance,
-                            prior_tl=self.kernel.prior_arrays_tl(tp))
+        return KalmanFilter(self.kernel.generate_emission_model(self.time_points),
+                            self._residual(), self.chol_obs_covariance,
+                            **self._prior_kwargs())
 
     def log_likelihood(self) -> torch.Tensor:
         """log p(Y)."""

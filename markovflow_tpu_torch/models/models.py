@@ -3,11 +3,14 @@
 from __future__ import annotations
 
 import abc
+from typing import Tuple
 
 import torch
 from torch import nn
 
 from ..posterior import PosteriorProcess
+from ..utils.checks import (check_observations, check_time_points, host_array,
+                            is_uniform_grid)
 
 __all__ = ["MarkovFlowModel"]
 
@@ -30,3 +33,30 @@ class MarkovFlowModel(nn.Module, abc.ABC):
 
     def predict_f(self, new_time_points, full_output_cov: bool = False):
         return self.posterior.predict_f(new_time_points, full_output_cov)
+
+    def _set_data(self, input_data: Tuple) -> None:
+        """Check (time_points [..., N], observations [..., N, o]) on the
+        host, keep both as buffers in the observations' dtype and on their
+        device, and pick the prior's path once: the stationary uniform-grid
+        path (constant prior steps, no [d, d, N] array) where the time
+        points are evenly spaced and ``self.kernel`` has constant steps,
+        the per-step path otherwise.  Numpy time points skip the one
+        device-to-host copy that a CUDA tensor costs here."""
+        time_points, observations = input_data
+        tp_host = host_array(time_points)
+        check_time_points(tp_host)
+        check_observations(observations, tp_host)
+        kw = dict(dtype=observations.dtype, device=observations.device)
+        self.register_buffer("time_points", torch.as_tensor(time_points, **kw))
+        self.register_buffer("observations", observations)
+        self._uniform_grid = (is_uniform_grid(tp_host)
+                              and hasattr(self.kernel, "prior_const_tl"))
+
+    def _prior_kwargs(self) -> dict:
+        """The prior of the model's Kalman filter: ``prior_const_tl`` on the
+        uniform path, ``prior_tl`` on the per-step one."""
+        tp = self.time_points
+        if self._uniform_grid:
+            dt = (tp[..., -1:] - tp[..., :1]) / (tp.shape[-1] - 1)
+            return {"prior_const_tl": self.kernel.prior_const_tl(dt)}
+        return {"prior_tl": self.kernel.prior_arrays_tl(tp)}

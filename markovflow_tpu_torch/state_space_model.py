@@ -127,6 +127,13 @@ class StateSpaceModel(GaussMarkovDistribution):
                       _to_tl(self.cholesky_process_covariances)], dim=-1)
         return f_tl, c_tl, chols
 
+    def prior_tl(self):
+        """(F [..., d, d, T+1], c [..., d, 1, T+1], Q [..., d, d, T+1]), the
+        filters' per-step prior: element 0 the initial distribution
+        (F_0 = 0, c_0 = mu0, Q_0 = P0), then (A_k, b_k, Q_k)."""
+        f_tl, c_tl, chols = self._prefix_elements_tl()
+        return f_tl, c_tl, _mm_tl(chols, _t_tl(chols))
+
     def marginals_tl(self):
         """(means [..., d, 1, T+1], covs [..., d, d, T+1]) in time-last
         layout: the known moments, or one affine covariance scan."""
@@ -137,8 +144,7 @@ class StateSpaceModel(GaussMarkovDistribution):
     def rebuilt_marginals_tl(self):
         """:meth:`marginals_tl` by the affine covariance scan of the
         factors, whether or not the moments are known."""
-        f_tl, c_tl, chols = self._prefix_elements_tl()
-        return affine_cov_scan_tl(f_tl, c_tl, _mm_tl(chols, _t_tl(chols)))
+        return affine_cov_scan_tl(*self.prior_tl())
 
     def subsequent_covariances_tl(self, covs_tl=None) -> torch.Tensor:
         """Cov(x_{k+1}, x_k) [..., d, d, T]: the known one, or A_k P_k from

@@ -729,3 +729,120 @@ def test_extrapolation_and_exact_hits_are_finite_in_float32_on_cuda(cuda_device,
     scale = float(p_inf.abs().max())
     assert float((covs - p_inf).abs().max()) <= 2e-6 * scale
     assert float(means.abs().max()) <= 2e-6 * scale ** 0.5
+
+
+# ---------------------------------------------------------------------------
+# CVI and the SDE tools
+# ---------------------------------------------------------------------------
+def _cvi(n, uniform, dtype, likelihood, device):
+    """chip_smoke's CVI (Matern32(0.5, 1), learning rate 0.5) on n points
+    of [0, 10], jittered unless ``uniform``."""
+    from markovflow_tpu_torch.convert import cvi_from_numpy
+    from markovflow_tpu_torch.utils.bijectors import positive
+
+    rng = np.random.default_rng(n)
+    x = np.linspace(0.0, 10.0, n)
+    if not uniform:
+        x = x + 0.4 * (10.0 / max(n - 1, 1)) * rng.uniform(-1.0, 1.0, n)
+        x.sort()
+    params = {**chip_smoke.flagship_params(),
+              "likelihood.variance": positive().inverse(np.asarray(0.04))}
+    return cvi_from_numpy(params, x, chip_smoke.cvi_targets(x, likelihood, rng),
+                          dtype=dtype, device=device, likelihood=likelihood,
+                          learning_rate=0.5)
+
+
+def _cvi_outputs(n, uniform, dtype, likelihood, device):
+    """Two CVI iterations: the ELBOs, the kernel's gradients and the
+    sites, stacked."""
+    model = _cvi(n, uniform, dtype, likelihood, device)
+    elbos, grads, sites = chip_smoke.cvi_iterations(model, 2)
+    as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)  # noqa: E731
+    return model, {"ELBO": as_t(elbos), "gradients": as_t([list(g.values()) for g in grads]),
+                   "nat1": sites[0], "lam": sites[1]}
+
+
+@pytest.mark.parametrize("likelihood", ["Gaussian", "Bernoulli"])
+@pytest.mark.parametrize("uniform", [True, False], ids=["uniform", "jittered"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", list(chip_smoke.EDGE_NS))
+def test_cvi_iterations_kernels_match_plain(cuda_device, n, dtype, uniform, likelihood):
+    """Two CVI iterations (update_sites(), loss().backward()) on the kernel
+    path against the plain path: the ELBOs, the kernel's gradients and the
+    sites; float64 within F64_TOL, float32 by chip_smoke.check_f32_wide's
+    rule.  Each iteration launches the filter twice, the smoother and the
+    Koopman backward once (the uniform kernels on a uniform grid)."""
+    before = _launches()
+    model, got = _cvi_outputs(n, uniform, dtype, likelihood, cuda_device)
+    launched = {k: v - before[k] for k, v in _launches().items()}
+    on_uniform = model._uniform_grid
+    want = dict.fromkeys(launched, 0)
+    want.update({"filter_pipeline_uniform": 4, "smoother_pipeline_uniform": 2,
+                 "adjoint_pipeline_uniform": 2} if on_uniform else
+                {"filter_pipeline": 4, "smoother_scan": 2, "adjoint_pipeline": 2})
+    assert launched == want
+    with chip_smoke.plain_path(ops, adj, kf):
+        _, plain = _cvi_outputs(n, uniform, dtype, likelihood, cuda_device)
+    if dtype == torch.float64:
+        for key in got:
+            assert _rel(got[key], plain[key]) <= F64_TOL, key
+        return
+    _, ref = _cvi_outputs(n, uniform, torch.float64, likelihood, cuda_device)
+    chip_smoke.check_f32_wide(f"N={n} CVI", {k: (got[k], plain[k], ref[k]) for k in got},
+                              {"ELBO": chip_smoke.TOL_F32_LOGLIK,
+                               "gradients": chip_smoke.TOL_F32_VS_F64_GRAD,
+                               "nat1": chip_smoke.TOL_F32_MOMENTS,
+                               "lam": chip_smoke.TOL_F32_MOMENTS})
+
+
+def test_cvi_classic_elbo_on_cuda_has_a_value_and_no_gradient(cuda_device):
+    """classic_elbo on the card equals the CPU's; its backward raises (the
+    smoother kernels have no backward)."""
+    from markovflow_tpu_torch.convert import cvi_from_numpy
+
+    gpu = _cvi(500, True, torch.float64, "Bernoulli", cuda_device).update_sites()
+    x, y = gpu.time_points.cpu().numpy(), gpu.observations.cpu().numpy()
+    cpu = cvi_from_numpy({**chip_smoke.flagship_params(),
+                          "sites.nat1": gpu.sites.nat1.cpu().numpy(),
+                          "sites.nat2": gpu.sites.nat2.cpu().numpy()}, x, y,
+                         dtype=torch.float64, device="cpu", likelihood="Bernoulli")
+    value = gpu.classic_elbo()
+    np.testing.assert_allclose(value.item(), cpu.classic_elbo().item(), rtol=1e-10)
+    with pytest.raises(NotImplementedError):
+        value.backward()
+
+
+def _sde_outputs(prob):
+    kl, path = chip_smoke.sde_iteration(kf, prob, prob["path"])
+    return {"KL": kl, "mean": path.mu, "var": path.cov}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+# dt = 8 / n: the double well's Euler-Maruyama diverges at steps near 1
+@pytest.mark.parametrize("n", [257, 2049, 4099])
+def test_sde_iteration_kernels_match_plain(cuda_device, n, dtype):
+    """One VI iteration of bench config 5 at d = 1 (linearize_sde, the
+    Kalman filter of the linearised prior and its posterior state-space
+    model: one general filter and one smoother-scan launch) on the kernel
+    path against the plain path; float64 within F64_TOL, float32 by
+    chip_smoke.check_f32_wide's rule."""
+    prob = chip_smoke.sde_problem(dtype, n)
+    before = _launches()
+    with torch.no_grad():
+        got = _sde_outputs(prob)
+        launched = {k: v - before[k] for k, v in _launches().items()}
+        with chip_smoke.plain_path(ops, adj, kf):
+            plain = _sde_outputs(prob)
+    want = dict.fromkeys(launched, 0)
+    want.update({"filter_pipeline": 1, "smoother_scan": 1})
+    assert launched == want
+    if dtype == torch.float64:
+        for key in got:
+            assert _rel(got[key], plain[key]) <= F64_TOL, key
+        return
+    with torch.no_grad():
+        ref = _sde_outputs(chip_smoke.sde_problem(torch.float64, n))
+    chip_smoke.check_f32_wide(f"N={n} SDE", {k: (got[k], plain[k], ref[k]) for k in got},
+                              {"KL": chip_smoke.TOL_SDE_F32_KL,
+                               "mean": chip_smoke.TOL_F32_MOMENTS,
+                               "var": chip_smoke.TOL_F32_MOMENTS})

@@ -7,19 +7,50 @@ import numpy as np
 import pytest
 import torch
 
-from markovflow_tpu_torch import kernels
-from markovflow_tpu_torch.convert import gpr_from_numpy
+from markovflow_tpu_torch import kernels, likelihoods, sde
+from markovflow_tpu_torch.convert import cvi_from_numpy, gpr_from_numpy
 from markovflow_tpu_torch.kernels.sde_kernel import StationaryKernel
 from markovflow_tpu_torch.utils.module import Parameter
 
 
 @pytest.mark.parametrize("fn", [Parameter.__init__, StationaryKernel.__init__,
                                 kernels.Matern12.__init__, kernels.Matern32.__init__,
-                                kernels.Matern52.__init__, gpr_from_numpy],
+                                kernels.Matern52.__init__, gpr_from_numpy,
+                                likelihoods.Gaussian.__init__, likelihoods.StudentT.__init__,
+                                sde.OrnsteinUhlenbeckSDE.__init__,
+                                sde.DoubleWellSDE.__init__, cvi_from_numpy],
                          ids=["Parameter", "StationaryKernel", "Matern12",
-                              "Matern32", "Matern52", "gpr_from_numpy"])
+                              "Matern32", "Matern52", "gpr_from_numpy", "Gaussian",
+                              "StudentT", "OrnsteinUhlenbeckSDE", "DoubleWellSDE",
+                              "cvi_from_numpy"])
 def test_constructors_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("build", [
+    lambda: likelihoods.StudentT(0.3, dtype=torch.float64),
+    lambda: sde.DoubleWellSDE(q=0.5, dtype=torch.float64),
+    lambda: sde.OrnsteinUhlenbeckSDE(dtype=torch.float64),
+    lambda: cvi_from_numpy({}, np.linspace(0.0, 1.0, 5), np.zeros((5, 1)),
+                           dtype=torch.float64, likelihood="Bernoulli")],
+    ids=["StudentT", "DoubleWellSDE", "OrnsteinUhlenbeckSDE", "cvi_from_numpy"])
+def test_new_constructors_without_a_device_build_on_the_card(build):
+    """CVI's and the SDE tools' constructors, like the kernels': on the card
+    where there is one; without one they raise instead of building on the
+    CPU."""
+    if torch.cuda.is_available():
+        model = build()
+        assert all(t.is_cuda for t in list(model.parameters()) + list(model.buffers()))
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            build()
+
+
+def test_cvi_and_its_sites_live_where_the_observations_do():
+    m = cvi_from_numpy({}, np.linspace(0.0, 1.0, 5), np.zeros((5, 1)),
+                       dtype=torch.float64, device="cpu", likelihood="Poisson")
+    assert m.time_points.device.type == "cpu"
+    assert m.sites.nat1.device.type == m.sites.nat2.device.type == "cpu"
 
 
 def test_a_kernel_built_without_a_device_is_on_the_card():
