@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's GPR serving, training and prediction paths, CVI
-and SDE variational inference once on one CUDA card.
+"""Drive the PyTorch port's GPR serving, training and prediction paths, CVI,
+SDE variational inference and the natural-gradient family once on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -36,7 +37,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    on random prebuilt elements at d = 1, 2, 3, 4, 6 (d = 4 above its
    staged tile), and the smoother scan at d = 1..6 (d = 5, 6 above its
    staged tile) on the general problems' RTS elements and on random
-   prebuilt elements;
+   prebuilt elements; and at the same N the general filter at o x o
+   sites, o = 2..d for d = 2..6 (multi_output_problem: identity emission
+   rows, H and lam per step or stride 0, a mask; float32 on benign
+   sites, by check_f32_wide's rule), and in float64 at o = d = 2 on the
+   natural-gradient inversion's indefinite sites (natgrad_filter_problem);
 4. the slice at full size, T = 1e6, float32, flagship GPR (Matern32(0.5,
    1.0), noise Cholesky 0.2), each path with the launch counters set to 0
    just before it and read just after:
@@ -108,16 +113,27 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       once each), the posterior's linear drift and the KL surrogate, in
       float32 and float64: the KL falls, the float64 kernel path within
       1e-9 of the plain path, float32 against float64;
+   i. the natural-gradient family in float64: bench config 2 (a VGP,
+      Matern32(0.5, 1), Bernoulli, T = 1e5 on linspace(0, 100, T)) and
+      bench config 3 (an SVGP, Gaussian likelihood 0.04, N = 1e5 data,
+      M = 2048 inducing points), three steps of
+      SSMNaturalGradient(gamma=0.5, naturals_engine="parallel") each:
+      kernels 4 (o = 2) and 5 once a step, the ELBO rising at every
+      step; the first step against the plain path (TOL_NG, the ELBO
+      TOL_NG_ELBO), and at N = 256 the parallel engine against the
+      sequential one;
 5. times, kernel path against plain path, with CUDA events after a warm-up
    (median of several runs): serving requests (gpr.posterior and
    predict_f at 1e5 points among them), training steps on both
    grids, general-grid requests, the d9 requests and training step, the
-   CVI iteration on both grids and the SDE VI iteration (with each
-   wrapper's device time per iteration in its own kernels, which must add
-   up to all of the port's kernels in the trace); each
+   CVI iteration on both grids, the SDE VI iteration and one
+   natural-gradient step of configs 2 and 3 (median of 3 a turn; with
+   each wrapper's device time per iteration in its own kernels, which
+   must add up to all of the port's kernels in the trace); each
    kernel's device time per call from a torch.profiler trace (the wrapper's
    call time also holds its host work), at the flagship's d = 2 and at the
-   d9 model's d = 9, beside its bound: the least time an H100 needs for
+   d9 model's d = 9 (kernel 4 also at o = d = 2 on config 2's synthetic
+   model, float64), beside its bound: the least time an H100 needs for
    the bytes the call must move (each input read once, each output written
    once) or for the operations of the sequential Kalman recursion it
    computes, whichever is larger; and each kernel route's device time per
@@ -131,6 +147,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib.util
 import json
 import math
@@ -237,11 +254,39 @@ SDE_ITERS = 4
 #: posterior's linear drift divides A_post - 1 (float32 roundoff ~6e-8) by
 #: dt = 4.9e-4; measured on an H100 at n = 16384: 1.2e-6 (PERF.md)
 TOL_SDE_F32_KL = 1e-4
+#: phase 4i, bench configs 2 and 3 (benchmarks/run_all.py:186-257): T = 1e5
+#: points on linspace(0, 100, T), the SVGP's inducing points, natural-
+#: gradient steps (gamma 0.5, the parallel engine) on the card in float64,
+#: and the N at which the sequential engine (a loop over the states) is
+#: held against the parallel one
+NG_T = 100_000
+NG_M = 2048
+NG_GAMMA = 0.5
+NG_STEPS = 3
+NG_SMALL_N = 256
+#: a natural-gradient step on the kernel path against the plain path, and
+#: the parallel engine against the sequential one: the new SSM's fields
+#: (the offsets b_k = m_{k+1} - A_k m_k on the scale of the means they are
+#: differences of) and the new q's marginals; and the ELBO at the new q,
+#: relative.  Any two float64 inversions of bench config 2's naturals
+#: differ by more than 1e-8: under the CPU shim at T = 1e5 the kernel path,
+#: the plain path and the sequential engine differ pairwise by up to 3.5e-8
+#: in q's marginal means (the synthetic model's lam ~ 1e9 is indefinite),
+#: and by 6.6e-8 at T = 4000; their ELBOs by 2e-10 and 3.6e-10
+TOL_NG = 2e-7
+TOL_NG_ELBO = 1e-8
+#: phase 3 on the natgrad inversion's sites: a kernel output may differ
+#: from the plain version's by up to this many times the plain version's
+#: own change under a one-ulp perturbation of its inputs (at d = 2,
+#: N = 2048: 5.2e-8 in m_f on the CPU; on an H100 the kernel differed
+#: from the plain version by up to 3.2 times that spread over EDGE_NS)
+COND_FACTOR = 10.0
 DEVICE = torch.device("cuda")
-#: the H100's memory rate and float32 rate outside the tensor cores
-#: (NVIDIA's data sheet, SXM part, at a 700 W power limit)
+#: the H100's memory rate and float32 and float64 rates outside the tensor
+#: cores (NVIDIA's data sheet, SXM part, at a 700 W power limit)
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
+H100_F64_FLOPS = 34e12
 #: the launch counters the paths read: (module, wrapper name)
 COUNTED = (("cs", "filter_pipeline_uniform"), ("cs", "smoother_pipeline_uniform"),
            ("adj", "adjoint_pipeline_uniform"), ("cs", "filter_pipeline"),
@@ -377,7 +422,7 @@ def sites(n, batch, dtype, rng, masked):
     return nu, lam, maskf
 
 
-def sum_kernel(d, dtype):
+def sum_kernel(d, dtype, device=DEVICE):
     """A Sum of Matern kernels of state dim d = 4..12: the d9 model's
     Matern52s (the first for d <= 6, the first two for d < 9), then
     SUM_EXTRA[d]."""
@@ -385,9 +430,9 @@ def sum_kernel(d, dtype):
 
     base = 1 if d <= 6 else (2 if d < 9 else 3)
     kids = [kernels.Matern52(lengthscale=ell, variance=var, dtype=dtype,
-                             device=DEVICE) for ell, var in D9[:base]]
+                             device=device) for ell, var in D9[:base]]
     kids += [getattr(kernels, name)(lengthscale=1.0, variance=0.3, dtype=dtype,
-                                    device=DEVICE) for name in SUM_EXTRA[d]]
+                                    device=device) for name in SUM_EXTRA[d]]
     k = kernels.Sum(kids)
     assert k.state_dim == d
     return k
@@ -510,6 +555,19 @@ def phase_kernels_vs_plain(cs, adj):
                 filter_scan_random_case(cs, n, (3,), d, dtype)
             for d in range(1, 7):
                 smoother_scan_edges_case(cs, n, d, dtype)
+            # the general filter at o = 2..d: H and lam stored at every
+            # step, and stride 0 (definite sites; the indefinite ones of the
+            # natural-gradient inversion follow)
+            for d in range(2, 7):
+                for o in range(2, d + 1):
+                    for const_sites in (False, True):
+                        multi_output_case(cs, n, (3,), d, o, dtype, const_sites)
+            # at o = d = 2 on the inversion's own indefinite sites (the bench
+            # configs' Matern32; a Matern52's synthetic model at N = 2049
+            # is past float64: the plain version and the kernel, composing
+            # in two orders, differ by 1e-2)
+            if dtype == torch.float64:
+                natgrad_filter_case(cs, n, (3,), 2)
 
 
 def general_edges_case(cs, adj, n, d, dtype):
@@ -615,6 +673,119 @@ def random_smoother_elements(d, n, batch, dtype, device=DEVICE, seed=0):
     t = lambda x: torch.as_tensor(np.moveaxis(x, -3, -1), dtype=dtype,  # noqa: E731
                                   device=device)
     return t(e), t(rng.standard_normal(batch + (n, d, 1))), t(psd(ll))
+
+
+def multi_output_problem(d, o, n, batch, dtype, seed, device=DEVICE, const_sites=False):
+    """The general filter's inputs at o x o sites: the per-step Matern prior
+    of a jittered grid (a Sum's for d >= 4, made in float64 and cast), a
+    mask, the first o rows of I as H (the natural-gradient inversion's
+    identity emission), sites nu [o, 1, N] and lam = U diag(e) U^T
+    [o, o, N] with a random orthogonal U and e in [1, 25] (float64) or in
+    [0.04, 1] (float32, held on these benign sites only: at the larger ones
+    both versions cancel most digits of the prior's covariance, as o
+    observed states update it); H and lam stored at every step, or with
+    ``const_sites`` one H and one lam expanded (stride 0).  The indefinite sites of that inversion are
+    natgrad_filter_problem's.  The cuda tests and the CPU shim run (tests/)
+    take them from here."""
+    from markovflow_tpu_torch import kernels
+
+    rng = np.random.default_rng(seed + 17 * d + o)
+    k = (getattr(kernels, KERNEL_NAMES[d])(lengthscale=0.5, variance=1.0,
+                                          dtype=torch.float64, device=device)
+         if d <= 3 else sum_kernel(d, torch.float64, device))
+    tp = torch.as_tensor(jittered_grid(n, seed), device=device)
+    with torch.no_grad():
+        F, c, Q = (x.to(dtype) for x in k.prior_arrays_tl(tp))
+    steps = 1 if const_sites else n
+    u, _ = np.linalg.qr(rng.standard_normal(batch + (steps, o, o)))
+    scale = 1.0 if dtype == torch.float64 else 0.04
+    lam = (u * rng.uniform(scale, 25.0 * scale, batch + (steps, 1, o))) @ np.swapaxes(u, -1, -2)
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
+    lam = t(np.moveaxis(0.5 * (lam + np.swapaxes(lam, -1, -2)), -3, -1))
+    h = t(np.eye(o, d)[..., None]).expand(o, d, n)
+    if const_sites:
+        lam = lam.expand(batch + (o, o, n))
+    else:
+        h = h.contiguous()
+    nu = t(5.0 * rng.standard_normal(batch + (o, 1, n)))
+    maskf = t(rng.random(batch + (1, 1, n)) > 0.3)
+    return F, c, Q, h, nu, lam, maskf
+
+
+def natgrad_filter_problem(d, n, batch, seed, device=DEVICE):
+    """The general filter's inputs at o = d as the natural-gradient
+    inversion makes them (ssm_gaussian_transformations.
+    synthetic_filter_inputs_tl), float64: the naturals of a Matern prior on
+    a jittered grid (a Sum's for d >= 4) plus those of random sites on the
+    first state (precision in [0.1, 5], as a Bernoulli VGP's), so that lam
+    is indefinite and ~dt^-3 in scale."""
+    from markovflow_tpu_torch import kernels
+    from markovflow_tpu_torch.ssm_gaussian_transformations import (
+        ssm_to_naturals_tl, synthetic_filter_inputs_tl)
+
+    rng = np.random.default_rng(seed + 19 * d)
+    k = (getattr(kernels, KERNEL_NAMES[d])(lengthscale=0.5, variance=1.0,
+                                          dtype=torch.float64, device=device)
+         if d <= 3 else sum_kernel(d, torch.float64, device))
+    tp = torch.as_tensor(jittered_grid(n, seed), device=device)
+    with torch.no_grad():
+        th_lin, th_diag, th_sub = ssm_to_naturals_tl(k.state_space_model(tp))
+    t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=device)  # noqa: E731
+    prec = t(rng.uniform(0.1, 5.0, batch + (n,)))
+    th_diag = th_diag - 0.5 * prec[..., None, None, :] * t(np.eye(d, 1) @ np.eye(1, d))[..., None]
+    th_lin = th_lin + t(np.eye(d, 1))[..., None] * (prec * t(rng.standard_normal(batch + (n,))))[..., None, None, :]
+    return synthetic_filter_inputs_tl(th_lin, th_diag, th_sub.expand(batch + th_sub.shape))
+
+
+def natgrad_filter_case(cs, n, batch, d):
+    """The general filter at o = d on natgrad_filter_problem's indefinite
+    sites against its plain version, float64.  These filtered moments are
+    ill conditioned: each output passes within TOL_F64 of the plain
+    version's, or within COND_FACTOR times the plain version's own change
+    when its inputs move by one ulp (random, relative; the larger of two
+    draws), the float64 sensitivity of the problem itself."""
+    args = natgrad_filter_problem(d, n, batch, seed=n)
+    g = torch.Generator(device=args[0].device).manual_seed(n)
+    with torch.no_grad():
+        got, want = cs.filter_pipeline(*args), cs.filter_pipeline_plain(*args)
+        moved = [cs.filter_pipeline_plain(*(
+            x * (1.0 + 2.2e-16 * torch.randn(x.shape, generator=g, dtype=x.dtype,
+                                              device=x.device)) for x in args))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    names = ("m_f", "P_f", "loglik")
+    diffs = {k: rel_diff(gg, w) for k, gg, w in zip(names, got, want)}
+    spread = {k: max(rel_diff(m[i], want[i]) for m in moved) for i, k in enumerate(names)}
+    log(f"  general filter o={d} N={n} batch={batch} d={d} float64 natgrad's indefinite "
+        f"lam: max rel diff " + " ".join(f"{k}={v:.3e}" for k, v in diffs.items())
+        + "; the plain version's one-ulp spread "
+        + " ".join(f"{k}={v:.3e}" for k, v in spread.items()))
+    for k, v in diffs.items():
+        if not (np.isfinite(v) and (v <= TOL_F64 or v <= COND_FACTOR * spread[k])):
+            raise AssertionError(f"natgrad sites N={n} d={d}: {k} differs by {v:.3e} > "
+                                 f"{TOL_F64:g} and > {COND_FACTOR:g} x the plain version's "
+                                 f"one-ulp spread {spread[k]:.3e}")
+
+
+def multi_output_case(cs, n, batch, d, o, dtype, const_sites):
+    """The general filter at o x o sites against its plain version; in
+    float32 by check_f32_wide's rule."""
+    args = multi_output_problem(d, o, n, batch, dtype, seed=n, const_sites=const_sites)
+    with torch.no_grad():
+        got, want = cs.filter_pipeline(*args), cs.filter_pipeline_plain(*args)
+        ref = (cs.filter_pipeline_plain(*(x.double() for x in args))
+               if dtype == torch.float32 else None)
+    torch.cuda.synchronize()
+    tag = (f"general filter o={o} N={n} batch={batch} d={d} {str(dtype)[6:]} masked"
+           + (" stride-0 H, lam" if const_sites else ""))
+    names = ("m_f", "P_f", "loglik")
+    if ref is None:
+        check(tag, {k: rel_diff(g, w) for k, g, w in zip(names, got, want)},
+              dict.fromkeys(names, TOL_F64))
+    else:
+        check_f32_wide(tag, {k: v for k, *v in zip(names, got, want, ref)},
+                       {"m_f": TOL_F32_MOMENTS, "P_f": TOL_F32_MOMENTS,
+                        "loglik": TOL_F32_LOGLIK})
 
 
 def filter_scan_random_case(cs, n, batch, d, dtype=torch.float64):
@@ -1895,6 +2066,121 @@ def phase_sde(cs, adj, kf):
     return counts
 
 
+def vgp_config2(n):
+    """Bench config 2 (benchmarks/run_all.py:186-220): a VGP with
+    Matern32(0.5, 1) and a Bernoulli likelihood of the labels
+    sin(2x) + 0.3 N(0, 1) > 0 on linspace(0, n / 1000, n) (numpy seed 1),
+    float64, on the card."""
+    from markovflow_tpu_torch import kernels, likelihoods
+    from markovflow_tpu_torch.models import VariationalGaussianProcess
+
+    rng = np.random.default_rng(1)
+    x = np.linspace(0.0, n / 1000.0, n)
+    y = (np.sin(2.0 * x) + 0.3 * rng.standard_normal(n) > 0).astype(np.float64)[:, None]
+    k = kernels.Matern32(lengthscale=0.5, variance=1.0, dtype=torch.float64, device=DEVICE)
+    vgp = VariationalGaussianProcess((x, torch.as_tensor(y, device=DEVICE)), k,
+                                     likelihoods.Bernoulli())
+    return vgp, lambda m: m.loss()
+
+
+def svgp_config3(n, m):
+    """Bench config 3 (benchmarks/run_all.py:223-257): an SVGP with
+    Matern32(0.5, 1), a Gaussian likelihood of variance 0.04, the data
+    y = sin(2x) + 0.2 N(0, 1) on linspace(0, n / 1000, n) (numpy seed 2)
+    and m inducing points on linspace(-0.01, n / 1000 + 0.01, m), float64,
+    on the card."""
+    from markovflow_tpu_torch import kernels, likelihoods
+    from markovflow_tpu_torch.models import SparseVariationalGaussianProcess
+
+    kw = dict(dtype=torch.float64, device=DEVICE)
+    rng = np.random.default_rng(2)
+    span = n / 1000.0
+    x = np.linspace(0.0, span, n)
+    y = np.sin(2.0 * x) + 0.2 * rng.standard_normal(n)
+    data = (torch.as_tensor(x, **kw), torch.as_tensor(y[:, None], **kw))
+    svgp = SparseVariationalGaussianProcess(
+        kernels.Matern32(lengthscale=0.5, variance=1.0, **kw),
+        likelihoods.Gaussian(variance=0.04, **kw),
+        torch.as_tensor(np.linspace(-0.01, span + 0.01, m), **kw))
+    return svgp, lambda mm: mm.loss(data)
+
+
+def natgrad_steps(model, loss_of, steps, engine="parallel"):
+    """``steps`` natural-gradient steps (gamma NG_GAMMA) of q from the
+    model's initial q: the SSMs after each step."""
+    from markovflow_tpu_torch.ssm_natgrad import SSMNaturalGradient
+
+    opt = SSMNaturalGradient(gamma=NG_GAMMA, naturals_engine=engine)
+    step = opt.make_step(lambda s: loss_of(model.with_dist_q(s)))
+    ssm, state, out = model.dist_q.non_trainable_copy(), None, []
+    for _ in range(steps):
+        ssm, state, _ = step(ssm, state)
+        out.append(ssm)
+    return out
+
+
+def elbo_of(model, loss_of, ssm) -> float:
+    with torch.no_grad():
+        return -float(loss_of(model.with_dist_q(ssm)))
+
+
+def ssm_diffs(got, want) -> dict:
+    """Two SSMs' fields, each on its largest entry (the offsets on the
+    means'), and their marginals."""
+    with torch.no_grad():
+        (mg, pg), (mw, pw) = got.marginals, want.marginals
+        return {"mu0": rel_diff(got.initial_mean, want.initial_mean),
+                "chol_P0": rel_diff(got.cholesky_initial_covariance,
+                                    want.cholesky_initial_covariance),
+                "A": rel_diff(got.state_transitions, want.state_transitions),
+                "b": rel_diff(got.state_offsets, want.state_offsets, mw),
+                "chol_Q": rel_diff(got.cholesky_process_covariances,
+                                   want.cholesky_process_covariances),
+                "means": rel_diff(mg, mw), "covs": rel_diff(pg, pw)}
+
+
+def phase_natgrad(cs, adj, kf):
+    """Bench configs 2 and 3 at full size in float64: NG_STEPS natural-
+    gradient steps on the kernel path (kernels 4 at o = d = 2 and 5, once
+    each a step), the ELBO rising; the first step against the plain path;
+    and at N = NG_SMALL_N the parallel engine against the sequential
+    one."""
+    log(f"phase 4i: natural gradients, VGP (bench config 2, T = {NG_T}) and SVGP "
+        f"(bench config 3, N = {NG_T}, M = {NG_M}), float64")
+    counts = {}
+    for path, (model, loss_of) in (("natgrad vgp", vgp_config2(NG_T)),
+                                   ("natgrad svgp", svgp_config3(NG_T, NG_M))):
+        counts[path] = {}
+        with launches_of(cs, adj, counts[path]):
+            ssms = natgrad_steps(model, loss_of, NG_STEPS)
+        expect_launches(f"{path}: {NG_STEPS} steps", counts[path],
+                        no_launches(filter_pipeline=NG_STEPS, smoother_scan=NG_STEPS))
+        elbos = [elbo_of(model, loss_of, s)
+                 for s in [model.dist_q.non_trainable_copy()] + ssms]
+        log(f"  {path}: ELBO at q0 and after each step {elbos!r}")
+        if not all(b > a for a, b in zip(elbos, elbos[1:])):
+            raise AssertionError(f"{path}: the ELBO does not rise at every step")
+        with torch.no_grad():
+            check_finite(path, {"means": ssms[-1].marginal_means,
+                                "covs": ssms[-1].marginal_covariances})
+        with plain_path(cs, adj, kf):
+            plain = natgrad_steps(model, loss_of, 1)[0]
+        diffs = ssm_diffs(ssms[0], plain)
+        diffs["ELBO"] = abs(elbos[1] - elbo_of(model, loss_of, plain)) / abs(elbos[1])
+        check(f"{path}: one step, kernel path vs plain path", diffs,
+              {**dict.fromkeys(diffs, TOL_NG), "ELBO": TOL_NG_ELBO})
+    for path, (model, loss_of) in (("natgrad vgp", vgp_config2(NG_SMALL_N)),
+                                   ("natgrad svgp", svgp_config3(NG_SMALL_N, NG_SMALL_N // 2))):
+        par, seq = (natgrad_steps(model, loss_of, 1, engine)[0]
+                    for engine in ("parallel", "sequential"))
+        diffs = ssm_diffs(par, seq)
+        e_par, e_seq = elbo_of(model, loss_of, par), elbo_of(model, loss_of, seq)
+        diffs["ELBO"] = abs(e_par - e_seq) / abs(e_seq)
+        check(f"{path} at N = {NG_SMALL_N}: one step, parallel engine (kernels) vs "
+              f"sequential engine", diffs, {**dict.fromkeys(diffs, TOL_NG), "ELBO": TOL_NG_ELBO})
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # Phase 5
 # ---------------------------------------------------------------------------
@@ -2038,13 +2324,17 @@ def stored_bytes(x) -> int:
     return math.prod(n for n, st in zip(x.shape, x.stride()) if st != 0) * x.element_size()
 
 
-def step_flops(name: str, d: int) -> int:
+def step_flops(name: str, d: int, o: int = 1) -> int:
     """Operations of one step of the sequential recursion that a kernel's
-    function computes (o = 1, counting a d x d product as 2 d^3 and a d x d
+    function computes (counting a d x d product as 2 d^3 and a d x d
     inverse as 2 d^3): the least arithmetic of the function, whatever the
     kernel's parallel scan adds (each associative composition costs ~2x a
     sequential step).
-      filter: predict F P F^T (4 d^3), update and likelihood (6 d^2);
+      filter: predict F P F^T (4 d^3), update and likelihood (6 d^2); at
+        o > 1 also H P H^T and P H^T (2 d^2 o + 2 d o^2), the o x o solve
+        for the gain (2 o^2 (o + 1) + 2 o^3), the update P H^T lz H P
+        (2 d o^2 + 2 d^2 o) and the likelihood's lam S lam and two o x o
+        eliminations (8 o^3);
       RTS smoother: Pp (4 d^3), its inverse and the gain (4 d^3), the
         smoothed covariance G (Ps - Pp) G^T (4 d^3), the means;
       smoother scan of prebuilt (E, g, L): E P E^T + L, E m + g;
@@ -2054,6 +2344,9 @@ def step_flops(name: str, d: int) -> int:
         suffix E NDK E^T (4 d^3), N F P (4 d^3); the uniform one also the
         smoothed covariance for its summed gH (4 d^3)."""
     d2, d3 = d * d, d ** 3
+    if name == "filter_pipeline" and o > 1:
+        return (4 * d3 + 4 * d2 * o + 4 * d * o * o + 2 * o * o * (o + 1) + 10 * o ** 3
+                + 6 * d2)
     return {"filter_pipeline_uniform": 4 * d3 + 6 * d2,
             "filter_pipeline": 4 * d3 + 6 * d2,
             "smoother_pipeline_uniform": 12 * d3 + 6 * d2,
@@ -2066,11 +2359,14 @@ def step_flops(name: str, d: int) -> int:
 def bound(name, inputs, outputs, d, steps):
     """(bound_ms, bound_by) of one call: the larger of its bytes (each
     input read once, each output written once) over the H100's memory rate
-    and its float32 operations (step_flops per step) over its float32 rate."""
+    and its operations (step_flops per step, at the call's output dim)
+    over the H100's rate for its dtype."""
     nbytes = sum(stored_bytes(x) for x in list(inputs) + list(outputs)
                  if isinstance(x, torch.Tensor))
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = step_flops(name, d) * steps / H100_F32_FLOPS * 1e3
+    o = inputs[5].shape[-3] if name == "filter_pipeline" else 1
+    rate = H100_F64_FLOPS if inputs[0].dtype == torch.float64 else H100_F32_FLOPS
+    t_ops = step_flops(name, d, o) * steps / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2127,6 +2423,21 @@ def kernel_calls(cs, adj, uni, gen):
     return calls
 
 
+def natgrad_kernel_calls(cs):
+    """Kernel 4 at o = d = 2 as bench config 2's natural-gradient step calls
+    it: on the synthetic model of the naturals of q after one step (T =
+    NG_T, float64).  name -> (kernel call, plain call, inputs)."""
+    from markovflow_tpu_torch.ssm_gaussian_transformations import (
+        ssm_to_naturals_tl, synthetic_filter_inputs_tl)
+
+    model, loss_of = vgp_config2(NG_T)
+    q1 = natgrad_steps(model, loss_of, 1)[0]
+    with torch.no_grad():
+        syn = synthetic_filter_inputs_tl(*ssm_to_naturals_tl(q1))
+    return {"filter_pipeline": (lambda: cs.filter_pipeline(*syn),
+                                lambda: cs.filter_pipeline_plain(*syn), syn)}
+
+
 def compare_call(kfn, pfn):
     """A kernel call's outputs against its plain version's: the max abs
     difference and the largest plain entry, over the per-step and summed
@@ -2146,7 +2457,8 @@ def phase_times(cs, adj, kf, card, counts):
     d9u = build_gpr(T_D9, torch.float32, d9=True)
     d9j = build_gpr(T_D9, torch.float32, uniform=False, d9=True)
     sets = {"": (kernel_calls(cs, adj, uni, gen), 2, T_FULL),
-            " d=9": (kernel_calls(cs, adj, d9u, d9j), 9, T_D9)}
+            " d=9": (kernel_calls(cs, adj, d9u, d9j), 9, T_D9),
+            " o=2": (natgrad_kernel_calls(cs), 2, NG_T)}
     with torch.no_grad():
         tn = torch.as_tensor(prediction_points(N_NEW, flagship_data(T_FULL)[0])[0],
                              dtype=torch.float32, device=DEVICE)
@@ -2178,6 +2490,12 @@ def phase_times(cs, adj, kf, card, counts):
                                                           uniform=False))}
     calls = {name + tag: fns for tag, (c, _, _) in sets.items()
              for name, fns in c.items()}
+    natgrad = {}
+    for key, (model, loss_of) in (
+            (f"VGP natgrad step (config 2, T={NG_T}, float64)", vgp_config2(NG_T)),
+            (f"SVGP natgrad step (config 3, N={NG_T}, M={NG_M}, float64)",
+             svgp_config3(NG_T, NG_M))):
+        natgrad[key] = functools.partial(natgrad_steps, model, loss_of, 1)
     # turns: plain, kernel, kernel, plain; the medians of both turns
     t = {}
     for turn in ("plain", "kernel", "kernel", "plain"):
@@ -2189,20 +2507,23 @@ def phase_times(cs, adj, kf, card, counts):
                     t.setdefault((turn, key), []).append(cuda_ms(fn, reps))
             for key, fn in steps.items():
                 t.setdefault((turn, key), []).append(cuda_ms(fn, reps))
+            for key, fn in natgrad.items():
+                t.setdefault((turn, key), []).append(cuda_ms(fn, 3, warmup=1))
         with torch.no_grad():
             for key, (kfn, pfn, _) in calls.items():
                 t.setdefault((turn, key), []).append(
                     cuda_ms(kfn if turn == "kernel" else pfn, reps))
     ms = {k: statistics.median(v) for k, v in t.items()}
-    for key in list(requests) + list(steps):
+    for key in list(requests) + list(steps) + list(natgrad):
         log(f"  {key}: kernel path {ms[('kernel', key)]!r} ms, plain path "
             f"{ms[('plain', key)]!r} ms (CUDA events, median)  [{card}]")
     for key, fn in (("uniform CVI iteration", steps["uniform CVI iteration"]),
                     ("jittered CVI iteration", steps["jittered CVI iteration"]),
-                    (sde_key, requests[sde_key])):
+                    (sde_key, requests[sde_key]), *natgrad.items()):
         ctx = torch.no_grad() if key.startswith("SDE") else contextlib.nullcontext()
         with ctx:
-            total, per, traced = device_ms_by_kernel(cs, adj, kf, fn)
+            total, per, traced = device_ms_by_kernel(cs, adj, kf, fn,
+                                                     reps=3 if key in natgrad else 20)
         log(f"  {key}: device ms per iteration in the port's kernels {total!r} "
             f"(torch.profiler); by wrapper, in its own kernels: " + (", ".join(
                 f"{k} {v!r}" for k, v in per.items()) or "not measured") + f"  [{card}]")
@@ -2246,6 +2567,7 @@ def phase_times(cs, adj, kf, card, counts):
     cvi_uni = tuple(f"cvi {p} {t}" for p in ("uniform", "Bernoulli", "Poisson") for t in both)
     cvi_gen = tuple(f"cvi jittered {t}" for t in both)
     sde = tuple(f"sde {t}" for t in both)
+    natgrad_paths = ("natgrad vgp", "natgrad svgp")
     rows = [("filter_pipeline_uniform", "uniform_scan.cuh", "wide_scan.cuh",
              "pallas_scan.py:1036", ("serving",) + uni_post + cvi_uni, d9_paths),
             ("smoother_pipeline_uniform", "uniform_scan.cuh", "wide_scan.cuh",
@@ -2256,7 +2578,7 @@ def phase_times(cs, adj, kf, card, counts):
              "pallas_scan.py:849", ("general", "sparse") + gen_post + condensed
              + cvi_gen + sde, d9_paths + d9_post),
             ("smoother_scan", "general_scan.cuh", "wide_scan.cuh",
-             "pallas_scan.py:1313", ("general",) + gen_post + cvi_gen + sde,
+             "pallas_scan.py:1313", ("general",) + gen_post + cvi_gen + sde + natgrad_paths,
              d9_paths + d9_post),
             ("filter_scan", "general_scan.cuh", "wide_scan.cuh",
              "pallas_scan.py:793", ("ops",), ("ops d9",)),
@@ -2264,11 +2586,18 @@ def phase_times(cs, adj, kf, card, counts):
              "pallas_scan.py:681", ("general", "sparse") + cvi_gen, d9_paths)]
     out = []
     for name, src, wide_src, rep, paths, wide_paths in rows:
-        for tag, file, run in (("", src, paths), (" d=9", wide_src, wide_paths)):
+        tags = [("", src, paths), (" d=9", wide_src, wide_paths)]
+        if name == "filter_pipeline":
+            # kernel 4 at o = d = 2: the natural-gradient inversion's
+            tags.append((" o=2", "general_scan.cuh", natgrad_paths))
+        for tag, file, run in tags:
             if file is None:
                 continue
             key = name + tag
-            out.append({"name": key, "route": "cuda", "source": source + file,
+            # kernel 4 names its output dim
+            label = key.replace(name, name + " o=1") if name == "filter_pipeline" and \
+                tag != " o=2" else key
+            out.append({"name": label, "route": "cuda", "source": source + file,
                         "replaces": "markovflow_tpu/ops/" + rep,
                         "launches": sum(counts[path].get(name, 0) for path in run),
                         "max_abs_err": errs[key], "ms": dev[key],
@@ -2316,6 +2645,7 @@ def main() -> int:
     counts.update(phase_prediction(cs, adj, kf, load_numpy_oracle("dense_gp")))
     counts.update(phase_cvi(cs, adj, kf))
     counts.update(phase_sde(cs, adj, kf))
+    counts.update(phase_natgrad(cs, adj, kf))
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels = phase_times(cs, adj, kf, card, counts)

@@ -9,9 +9,12 @@ import torch
 
 from . import kernels, likelihoods, mean_function as mf
 from .kalman_filter import UnivariateGaussianSitesNat
-from .models import CVIGaussianProcess, GaussianProcessRegression
+from .models import (CVIGaussianProcess, GaussianProcessRegression,
+                     SparseVariationalGaussianProcess, VariationalGaussianProcess)
+from .state_space_model import StateSpaceModel
 
-__all__ = ["gpr_from_numpy", "cvi_from_numpy"]
+__all__ = ["gpr_from_numpy", "cvi_from_numpy", "vgp_from_numpy", "svgp_from_numpy",
+           "ssm_from_numpy"]
 
 _KERNELS = {"Matern12": kernels.Matern12, "Matern32": kernels.Matern32,
             "Matern52": kernels.Matern52}
@@ -128,3 +131,52 @@ def cvi_from_numpy(params: Dict[str, np.ndarray], time_points: np.ndarray,
         likelihood=_likelihood(likelihood, params, dtype, device),
         mean_function=_mean_function(mean_function, params, k, dtype, device),
         learning_rate=learning_rate, sites=sites)
+
+
+def ssm_from_numpy(fields: Sequence[np.ndarray], *, dtype: torch.dtype,
+                   device="cuda") -> StateSpaceModel:
+    """A :class:`StateSpaceModel` of plain tensors from the JAX
+    ``StateSpaceModel``'s fields as numpy arrays, in its order:
+    (initial_mean, cholesky_initial_covariance, state_transitions,
+    state_offsets, cholesky_process_covariances)."""
+    return StateSpaceModel(*(torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+                             for x in fields))
+
+
+def vgp_from_numpy(params: Dict[str, np.ndarray], time_points: np.ndarray,
+                   observations: np.ndarray, *, dtype: torch.dtype, device="cuda",
+                   kernel: Union[str, Sequence[str]] = "Matern32",
+                   likelihood: str = "Bernoulli",
+                   dist_q: Optional[Sequence[np.ndarray]] = None,
+                   mean_function: Optional[str] = None) -> VariationalGaussianProcess:
+    """A :class:`VariationalGaussianProcess` from numpy parameters under the
+    JAX model's attribute paths, on ``device`` (the CUDA card unless the
+    caller names another): the kernel, likelihood and mean function as in
+    :func:`cvi_from_numpy`, and q from ``dist_q``, the JAX model's
+    ``dist_q`` fields (:func:`ssm_from_numpy`), or the prior."""
+    k = _model_kernel(kernel, params, dtype, device)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)  # noqa: E731
+    init = None if dist_q is None else ssm_from_numpy(dist_q, dtype=dtype, device=device)
+    return VariationalGaussianProcess(
+        (np.asarray(time_points), as_t(observations)), k,
+        _likelihood(likelihood, params, dtype, device),
+        mean_function=_mean_function(mean_function, params, k, dtype, device),
+        initial_distribution=init)
+
+
+def svgp_from_numpy(params: Dict[str, np.ndarray], inducing_points: np.ndarray, *,
+                    dtype: torch.dtype, device="cuda",
+                    kernel: Union[str, Sequence[str]] = "Matern32",
+                    likelihood: str = "Gaussian", num_data: Optional[int] = None,
+                    dist_q: Optional[Sequence[np.ndarray]] = None,
+                    mean_function: Optional[str] = None
+                    ) -> SparseVariationalGaussianProcess:
+    """A :class:`SparseVariationalGaussianProcess` over ``inducing_points``
+    [M] from numpy parameters as :func:`vgp_from_numpy`'s, on ``device``."""
+    k = _model_kernel(kernel, params, dtype, device)
+    init = None if dist_q is None else ssm_from_numpy(dist_q, dtype=dtype, device=device)
+    return SparseVariationalGaussianProcess(
+        k, _likelihood(likelihood, params, dtype, device),
+        torch.as_tensor(np.asarray(inducing_points), dtype=dtype, device=device),
+        mean_function=_mean_function(mean_function, params, k, dtype, device),
+        num_data=num_data, initial_distribution=init)

@@ -16,6 +16,10 @@ class Kernel(nn.Module, abc.ABC):
     model projecting states to function values."""
 
     @abc.abstractmethod
+    def build_finite_distribution(self, time_points: torch.Tensor):
+        """The Gauss-Markov prior over the states at ``time_points``."""
+
+    @abc.abstractmethod
     def generate_emission_model(self, time_points: torch.Tensor) -> EmissionModel:
         ...
 

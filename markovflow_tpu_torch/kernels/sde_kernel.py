@@ -99,6 +99,9 @@ class SDEKernel(Kernel, abc.ABC):
         return StateSpaceModel(mu0, cholesky_or_zero(p0), a_s, b_s,
                                cholesky_or_zero(q_s))
 
+    def build_finite_distribution(self, time_points: torch.Tensor) -> StateSpaceModel:
+        return self.state_space_model(time_points)
+
 
 class StationaryKernel(SDEKernel, abc.ABC):
     """Stationary kernels: fixed feedback matrix F and steady state P_inf,

@@ -1,8 +1,9 @@
-"""Model base class (counterpart of ``markovflow_tpu/models/models.py``;
+"""Model base classes (counterpart of ``markovflow_tpu/models/models.py``;
 ``log_prior_density`` waits for parameter priors)."""
 from __future__ import annotations
 
 import abc
+import copy
 from typing import Tuple
 
 import torch
@@ -12,7 +13,7 @@ from ..posterior import PosteriorProcess
 from ..utils.checks import (check_observations, check_time_points, host_array,
                             is_uniform_grid)
 
-__all__ = ["MarkovFlowModel"]
+__all__ = ["MarkovFlowModel", "MarkovFlowSparseModel"]
 
 
 class MarkovFlowModel(nn.Module, abc.ABC):
@@ -33,6 +34,15 @@ class MarkovFlowModel(nn.Module, abc.ABC):
 
     def predict_f(self, new_time_points, full_output_cov: bool = False):
         return self.posterior.predict_f(new_time_points, full_output_cov)
+
+    def _replace(self, **attrs) -> "MarkovFlowModel":
+        """A shallow copy with ``attrs`` set (the JAX modules' ``replace``):
+        the copy shares every other submodule, buffer and parameter."""
+        new = copy.copy(self)
+        new._modules = dict(self._modules)
+        for name, value in attrs.items():
+            setattr(new, name, value)
+        return new
 
     def _set_data(self, input_data: Tuple) -> None:
         """Check (time_points [..., N], observations [..., N, o]) on the
@@ -60,3 +70,13 @@ class MarkovFlowModel(nn.Module, abc.ABC):
             dt = (tp[..., -1:] - tp[..., :1]) / (tp.shape[-1] - 1)
             return {"prior_const_tl": self.kernel.prior_const_tl(dt)}
         return {"prior_tl": self.kernel.prior_arrays_tl(tp)}
+
+
+class MarkovFlowSparseModel(MarkovFlowModel, abc.ABC):
+    """A model evaluated on data it is given (minibatches), with predictive
+    densities."""
+
+    def predict_log_density(self, input_data):
+        time_points, observations = input_data
+        f_means, f_covs = self.predict_f(time_points)
+        return self.likelihood.predict_density(f_means, f_covs, observations)

@@ -119,9 +119,15 @@ class GaussianProcessWithSitesBase(MarkovFlowModel):
 
     @property
     def dist_q_naturals(self) -> StateSpaceModel:
-        raise NotImplementedError(
-            "dist_q_naturals needs naturals_to_ssm and the block-tridiagonal "
-            "UDU factorisation, not ported yet (ROADMAP queue 1 item 6)")
+        """q(s) built through the naturals, as the JAX package keeps it for
+        parity: the prior's naturals plus the sites' back-projected ones,
+        inverted by the UDU factorisation (a loop over the states)."""
+        from ..ssm_gaussian_transformations import naturals_to_ssm, ssm_to_naturals
+
+        theta_linear, theta_diag, theta_subdiag = ssm_to_naturals(self.dist_p)
+        bp_nat1, bp_nat2 = back_project_nats(self.sites.nat1, self.sites.nat2[..., 0],
+                                             self.emission.emission_matrix)
+        return naturals_to_ssm(theta_linear + bp_nat1, theta_diag + bp_nat2, theta_subdiag)
 
     @property
     def posterior_kalman(self) -> KalmanFilterWithSites:

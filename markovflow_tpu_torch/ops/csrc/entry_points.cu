@@ -33,6 +33,12 @@
 MF_EXTERN_ALL_D(float)
 MF_EXTERN_ALL_D(double)
 
+#define MF_EXTERN_O(T, D, O)                                                             \
+  extern template int mf::launch_general_filter<mf::GeneralStepsO<T, D, O>>(             \
+      mf::FilterArgs<T>, mf::GeneralPrior<T>, T*, int64_t, cudaStream_t);
+#define MF_EXTERN_O_BOTH(D, O) MF_EXTERN_O(float, D, O) MF_EXTERN_O(double, D, O)
+MF_GENERAL_O_PAIRS(MF_EXTERN_O_BOTH)
+
 #define MF_EXTERN_WIDE(T)                                                                 \
   extern template int mf::launch_wide_filter<mf::WideUniformRow<T>>(                     \
       mf::FilterArgs<T>, mf::UniformPrior<T>, T*, int64_t, int, cudaStream_t);            \
@@ -55,7 +61,8 @@ MF_EXTERN_ALL_D(double)
 MF_EXTERN_WIDE(float)
 MF_EXTERN_WIDE(double)
 
-// Scratch sizes in elements of T (-1 for a state dimension with no kernel):
+// Scratch sizes in elements of T (-1 for a state (or output) dimension with
+// no kernel):
 // mf_smoother_scratch_* for the smoother scan; at d <= 6 the filters, the
 // Koopman backwards and the smoothers also keep each thread's in-block
 // prefix or suffix (the uniform backward also its partial sums),
@@ -79,8 +86,13 @@ MF_EXTERN_WIDE(double)
       return mf::wide_smoother_scratch<T>(int(d), batch, n);                            \
     MF_SWITCH_D(d, (mf::rts_scratch<mf::PrebuiltRts<T, D_>>(batch, n)), -1)             \
   }                                                                                     \
-  extern "C" int64_t mf_general_filter_scratch_##SUFFIX(int64_t d, int64_t batch,       \
-                                                        int64_t n) {                    \
+  /* the general filter at o x o sites (o = 1, or a pair of */                         \
+  /* MF_GENERAL_O_PAIRS) */                                                             \
+  extern "C" int64_t mf_general_filter_scratch_##SUFFIX(int64_t d, int64_t o,          \
+                                                        int64_t batch, int64_t n) {    \
+    if (o != 1)                                                                         \
+      MF_SWITCH_DO(d, o, (mf::general_filter_scratch<mf::GeneralStepsO<T, D_, O_>>(batch, n)), \
+                   -1)                                                                  \
     if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
       return mf::wide_filter_scratch<T>(int(d), batch, n);                              \
     MF_SWITCH_D(d, (mf::general_filter_scratch<mf::GeneralSteps<T, D_>>(batch, n)), -1) \

@@ -437,6 +437,337 @@ struct GeneralSteps {
   static MF_DEV T step(T* m, T* P, const In& in) { return kalman_step<T, D>(m, P, in); }
 };
 
+// ---------------------------------------------------------------------------
+// Kernel 4 at o = 2..d (d <= 6): o x o sites, as the natural-gradient
+// family's theta -> SSM inversion gives them (an identity emission and full
+// site precisions, ssm_gaussian_transformations.naturals_to_ssm_params_
+// parallel_tl).  The filter passes above over one more step source,
+// GeneralStepsO; kernels 1, 3, 5, 6 and 7 and kernel 4 at o = 1 keep
+// theirs.  Each step's filtering element is built in registers
+// (site_element_o: pallas_scan._make_elem_slice's element), and composed
+// as the filter scan composes prebuilt ones: pass 1 folds it into the run
+// with FilterOp (a d x d inverse a step), pass 3 carries the moments
+// through it (filter_moments_through).  The rank-one path's covariance-form
+// steps (fold_site, kalman_step) would subtract O(1) numbers to reach the
+// tiny conditional covariances of the inversion's synthetic model (lam ~
+// dt^-3, indefinite, so that P_f is too): 1e-7 of P_f at N = 4099 against
+// 1e-10 for the elements (a 40-digit reference, d = 2).  The site terms
+// come from one o x o solve
+//   (I + lam S) [X | y] = [lam | nu],   S = H Q H^T,
+// X = lam (I + S lam)^-1 (the element's lam z) and y = z^T nu; I + lam S is
+// neither symmetric nor definite, so the solve pivots
+// (gauss_jordan_solve), and X is averaged with its transpose after it, as
+// the TPU element symmetrises lam z after its inverse.  Pass 3's
+// log-likelihood is _ll_slice's lam form from the predicted moments:
+// w = nu - lam H mp, quad = w^T (lam + lam Sp lam)^-1 w and
+// log|det(I + Sp lam)| - log|det lam|, three more eliminations; a singular
+// lam makes it infinite, but the moments never read it.
+// ---------------------------------------------------------------------------
+
+// The staged values of a step at o: F, Q, c, then H (o d values), nu (o),
+// lam (o^2) and the mask where they change with the step.
+template <int D, int O, typename T>
+__host__ __device__ inline GeneralSlots general_slots_o(const GeneralPrior<T>& p,
+                                                        const FilterArgs<T>& a) {
+  GeneralSlots s{-1, -1, -1, -1, -1, -1, 0};
+  int v = 2 * D * D + D;
+  if (p.h_st != 0) {
+    s.h = v;
+    v += O * D;
+  }
+  if (a.nu_st != 0) {
+    s.nu = v;
+    v += O;
+  }
+  if (a.lam_st != 0) {
+    s.lam = v;
+    v += O * O;
+  }
+  if (a.mask != nullptr) s.mask = v++;
+  s.nv = v;
+  return s;
+}
+
+// The inputs of global step k at o: F, Q, c, H [o x d], nu [o], lam [o x o]
+// and the mask; H, nu and lam read only once when their step stride is 0.
+template <typename T, int D, int O>
+struct GeneralInO {
+  T f[D * D], q[D * D], c[D], h[O * D], nu[O], lam[O * O];
+  bool keep;
+
+  MF_DEV void read_sites(const GeneralPrior<T>& p, const FilterArgs<T>& a, int64_t b, int64_t k,
+                         bool once) {
+    if (once || p.h_st != 0) {
+#pragma unroll
+      for (int i = 0; i < O; ++i) {
+#pragma unroll
+        for (int j = 0; j < D; ++j)
+          h[i * D + j] = p.h[b * p.h_sb + i * p.h_si + j * p.h_sj + k * p.h_st];
+      }
+    }
+    if (once || a.nu_st != 0) {
+#pragma unroll
+      for (int i = 0; i < O; ++i) nu[i] = a.nu[b * a.nu_sb + i * a.nu_si + k * a.nu_st];
+    }
+    if (once || a.lam_st != 0) {
+#pragma unroll
+      for (int i = 0; i < O; ++i) {
+#pragma unroll
+        for (int j = 0; j < O; ++j)
+          lam[i * O + j] = a.lam[b * a.lam_sb + i * a.lam_si + j * a.lam_sj + k * a.lam_st];
+      }
+    }
+    keep = a.mask == nullptr || a.mask[b * a.mask_sb + k * a.mask_st] > T(0.5);
+  }
+
+  // Lane l's step r, global step k, as GeneralIn::read.
+  template <bool STAGED, int R>
+  MF_DEV void read(const WarpStage<T, R>& st, const GeneralSlots& sl, int l, int r,
+                   const GeneralPrior<T>& p, const FilterArgs<T>& a, int64_t b, int64_t k,
+                   bool once) {
+    if constexpr (!STAGED) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+#pragma unroll
+        for (int j = 0; j < D; ++j) {
+          f[i * D + j] = p.f[b * p.f_sb + i * p.f_si + j * p.f_sj + k * p.f_st];
+          q[i * D + j] = p.q[b * p.q_sb + i * p.q_si + j * p.q_sj + k * p.q_st];
+        }
+        c[i] = p.c[b * p.c_sb + i * p.c_si + k * p.c_st];
+      }
+      read_sites(p, a, b, k, once);
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) {
+      f[i] = *st.at(i, l, r);
+      q[i] = *st.at(D * D + i, l, r);
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i) c[i] = *st.at(2 * D * D + i, l, r);
+    if (once && (sl.h < 0 || sl.nu < 0 || sl.lam < 0)) read_sites(p, a, b, k, true);
+    if (sl.h >= 0) {
+#pragma unroll
+      for (int i = 0; i < O * D; ++i) h[i] = *st.at(sl.h + i, l, r);
+    }
+    if (sl.nu >= 0) {
+#pragma unroll
+      for (int i = 0; i < O; ++i) nu[i] = *st.at(sl.nu + i, l, r);
+    }
+    if (sl.lam >= 0) {
+#pragma unroll
+      for (int i = 0; i < O * O; ++i) lam[i] = *st.at(sl.lam + i, l, r);
+    }
+    keep = sl.mask < 0 || *st.at(sl.mask, l, r) > T(0.5);
+  }
+};
+
+// The site's gain terms from S = H P H^T [o x o] and hm = H m [o]:
+// lz = sym(lam (I + S lam)^-1) and r = (I + lam S)^-1 nu - lz hm.
+template <typename T, int O>
+MF_DEV void site_gain(const T* s, const T* lam, const T* nu, const T* hm, T* lz, T* r) {
+  constexpr int K = O + 1;
+  T mt[O * O], rhs[O * K], x[O * K];
+  mm<T, O, O, O>(lam, s, mt);
+  add_eye<T, O>(mt);
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+#pragma unroll
+    for (int j = 0; j < O; ++j) rhs[i * K + j] = lam[i * O + j];
+    rhs[i * K + O] = nu[i];
+  }
+  gauss_jordan_solve<T, O, K>(mt, rhs, x);
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+#pragma unroll
+    for (int j = 0; j < O; ++j) lz[i * O + j] = T(0.5) * (x[i * K + j] + x[j * K + i]);
+  }
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    T acc = x[i * K + O];
+#pragma unroll
+    for (int j = 0; j < O; ++j) acc -= lz[i * O + j] * hm[j];
+    r[i] = acc;
+  }
+}
+
+// The step's filtering element (make_filter_elements_tl), with
+// qht = Q H^T [d x o], hf = H F [o x d] and the site terms of S = H qht,
+// hm = H c:
+//   A = F - qht lz hf, b = c + qht r, C = sym(Q - qht lz qht^T),
+//   J = sym(hf^T lz hf), eta = hf^T r.
+template <typename T, int D, int O>
+MF_DEV void site_element_o(const GeneralInO<T, D, O>& in, FElem<T, D>& e) {
+  using E = FElem<T, D>;
+  T qht[D * O], s[O * O], hm[O], lz[O * O], r[O], hf[O * D], ql[D * O], lh[O * D];
+  mm_nt<T, D, D, O>(in.q, in.h, qht);
+  mm<T, O, D, O>(in.h, qht, s);
+  mm<T, O, D, 1>(in.h, in.c, hm);
+  site_gain<T, O>(s, in.lam, in.nu, hm, lz, r);
+  mm<T, O, D, D>(in.h, in.f, hf);
+  mm<T, D, O, O>(qht, lz, ql);
+  mm<T, D, O, D>(ql, hf, e.v + E::OA);
+#pragma unroll
+  for (int i = 0; i < D * D; ++i) e.v[E::OA + i] = in.f[i] - e.v[E::OA + i];
+  mm<T, D, O, 1>(qht, r, e.v + E::OB);
+  add_to<T, D>(e.v + E::OB, in.c);
+  mm_nt<T, D, O, D>(ql, qht, e.v + E::OC);
+#pragma unroll
+  for (int i = 0; i < D * D; ++i) e.v[E::OC + i] = in.q[i] - e.v[E::OC + i];
+  sym<T, D>(e.v + E::OC);
+  mm<T, O, O, D>(lz, hf, lh);
+  mm_tn<T, D, O, D>(hf, lh, e.v + E::OJ);
+  sym<T, D>(e.v + E::OJ);
+  mm_tn<T, D, O, 1>(hf, r, e.v + E::OE);
+}
+
+// The site log-likelihood of a step at o (_ll_slice) from the moments of
+// the step before, (m, P); masked steps give 0.
+template <typename T, int D, int O>
+MF_DEV T site_loglik_o(const GeneralInO<T, D, O>& in, const T* m, const T* P) {
+  if (!in.keep) return T(0);
+  T fp[D * D], pp[D * D], mp[D], ph[D * O], s[O * O], hm[O], w[O], ls[O * O], mmat[O * O],
+      sol[O];
+  mm<T, D, D, D>(in.f, P, fp);
+  mm_nt<T, D, D, D>(fp, in.f, pp);
+  add_to<T, D * D>(pp, in.q);
+  sym<T, D>(pp);
+  mm<T, D, D, 1>(in.f, m, mp);
+  add_to<T, D>(mp, in.c);
+  mm_nt<T, D, D, O>(pp, in.h, ph);
+  mm<T, O, D, O>(in.h, ph, s);
+  mm<T, O, D, 1>(in.h, mp, hm);
+  mm<T, O, O, 1>(in.lam, hm, w);
+#pragma unroll
+  for (int i = 0; i < O; ++i) w[i] = in.nu[i] - w[i];
+  mm<T, O, O, O>(s, in.lam, ls);
+  add_eye<T, O>(ls);
+  const T det_m = gauss_jordan_solve<T, O, 0>(ls, nullptr, nullptr);  // det(I + S lam)
+  mm<T, O, O, O>(in.lam, s, ls);
+  mm<T, O, O, O>(ls, in.lam, mmat);
+  add_to<T, O * O>(mmat, in.lam);
+  gauss_jordan_solve<T, O, 1>(mmat, w, sol);
+  const T det_lam = gauss_jordan_solve<T, O, 0>(in.lam, nullptr, nullptr);
+  const T log_det_s = log(fabs(det_m)) - log(fabs(det_lam));
+  return T(-0.5) * (dot<T, O>(w, sol) + log_det_s + T(O * 1.8378770664093453));
+}
+
+// Kernel 4 at o: GeneralSteps' passes and slots with o x o sites.
+template <typename T_, int D_, int O_>
+struct GeneralStepsO {
+  using T = T_;
+  static constexpr int D = D_, O = O_;
+  using Prior = GeneralPrior<T>;
+  using In = GeneralInO<T, D, O>;
+  static constexpr bool LOGLIK = true;
+  static constexpr int NV_IN = 2 * D * D + D + O * D + O + O * O + 1, NV = NV_IN;
+  static constexpr int P_OUT = D * D, M_OUT = 2 * D * D;
+
+  MF_DEV void load(const Prior&, int64_t) {}
+
+  static __host__ __device__ GeneralSlots slots(const Prior& p, const FilterArgs<T>& a, bool) {
+    return general_slots_o<D, O>(p, a);
+  }
+
+  template <class G, bool OUTPUTS>
+  MF_DEV void stage(const Prior& p, const FilterArgs<T>& a, int64_t b, int64_t t, int64_t n,
+                    WarpStage<T, G::R>& st, GeneralSlots& sl) const {
+    st = {nullptr, (t - lane_id()) * G::R, n};
+    if constexpr (G::STAGED) {
+      sl = general_slots_o<D, O>(p, a);
+      st.place(t, sl.nv, n);
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+#pragma unroll
+        for (int j = 0; j < D; ++j) {
+          st.fetch(i * D + j, p.f + (b * p.f_sb + i * p.f_si + j * p.f_sj), p.f_st);
+          st.fetch(D * D + i * D + j, p.q + (b * p.q_sb + i * p.q_si + j * p.q_sj), p.q_st);
+        }
+        st.fetch(2 * D * D + i, p.c + (b * p.c_sb + i * p.c_si), p.c_st);
+      }
+#pragma unroll
+      for (int i = 0; i < O; ++i) {
+        if (sl.h >= 0) {
+#pragma unroll
+          for (int j = 0; j < D; ++j)
+            st.fetch(sl.h + i * D + j, p.h + (b * p.h_sb + i * p.h_si + j * p.h_sj), p.h_st);
+        }
+        if (sl.nu >= 0) st.fetch(sl.nu + i, a.nu + (b * a.nu_sb + i * a.nu_si), a.nu_st);
+        if (sl.lam >= 0) {
+#pragma unroll
+          for (int j = 0; j < O; ++j)
+            st.fetch(sl.lam + i * O + j, a.lam + (b * a.lam_sb + i * a.lam_si + j * a.lam_sj),
+                     a.lam_st);
+        }
+      }
+      if (sl.mask >= 0) st.fetch(sl.mask, a.mask + b * a.mask_sb, a.mask_st);
+      wide_fetch_wait();
+    }
+  }
+
+  template <bool STAGED, int R>
+  MF_DEV void read(In& in, const WarpStage<T, R>& st, const GeneralSlots& sl, int l, int r,
+                   const Prior& p, const FilterArgs<T>& a, int64_t b, int64_t k,
+                   bool once) const {
+    in.template read<STAGED>(st, sl, l, r, p, a, b, k, once);
+  }
+
+  // the run's first step is its element (one composition fewer)
+  static MF_DEV void fold(FElem<T, D>& run, const In& in, bool first) {
+    FElem<T, D> e;
+    site_element_o<T, D, O>(in, e);
+    if (first) {
+      run = e;
+      return;
+    }
+    FElem<T, D> t;
+    FilterOp<T, D>::combine(run, e, t);
+    run = t;
+  }
+
+  // the log-likelihood from the moments before the step, then
+  // m <- A (I + P J)^-1 (m + P eta) + b, P <- sym(A (I + P J)^-1 P A^T + C)
+  static MF_DEV T step(T* m, T* P, const In& in) {
+    const T ll = site_loglik_o<T, D, O>(in, m, P);
+    FElem<T, D> e;
+    site_element_o<T, D, O>(in, e);
+    T m1[D], p1[D * D];
+    filter_moments_through<T, D>(m, P, e, m1, p1);
+#pragma unroll
+    for (int i = 0; i < D; ++i) m[i] = m1[i];
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) P[i] = p1[i];
+    return ll;
+  }
+};
+
+// The (d, o) pairs of GeneralStepsO that generalo_inst.cu instantiates
+// (-DMF_D, -DMF_O, as ops/cuda_scan.py's _UNITS list them): o = 2..d.
+#define MF_GENERAL_O_PAIRS(X)                                                      \
+  X(2, 2) X(3, 2) X(3, 3) X(4, 2) X(4, 3) X(4, 4) X(5, 2) X(5, 3) X(5, 4) X(5, 5) \
+  X(6, 2) X(6, 3) X(6, 4) X(6, 5) X(6, 6)
+
+// switch over the instantiated (d, o) pairs of MF_GENERAL_O_PAIRS
+#define MF_SWITCH_DO(d, o, EXPR_OF_DO, BAD) \
+  switch ((d) * 8 + (o)) { \
+    case 2 * 8 + 2: { constexpr int D_ = 2, O_ = 2; return EXPR_OF_DO; } \
+    case 3 * 8 + 2: { constexpr int D_ = 3, O_ = 2; return EXPR_OF_DO; } \
+    case 3 * 8 + 3: { constexpr int D_ = 3, O_ = 3; return EXPR_OF_DO; } \
+    case 4 * 8 + 2: { constexpr int D_ = 4, O_ = 2; return EXPR_OF_DO; } \
+    case 4 * 8 + 3: { constexpr int D_ = 4, O_ = 3; return EXPR_OF_DO; } \
+    case 4 * 8 + 4: { constexpr int D_ = 4, O_ = 4; return EXPR_OF_DO; } \
+    case 5 * 8 + 2: { constexpr int D_ = 5, O_ = 2; return EXPR_OF_DO; } \
+    case 5 * 8 + 3: { constexpr int D_ = 5, O_ = 3; return EXPR_OF_DO; } \
+    case 5 * 8 + 4: { constexpr int D_ = 5, O_ = 4; return EXPR_OF_DO; } \
+    case 5 * 8 + 5: { constexpr int D_ = 5, O_ = 5; return EXPR_OF_DO; } \
+    case 6 * 8 + 2: { constexpr int D_ = 6, O_ = 2; return EXPR_OF_DO; } \
+    case 6 * 8 + 3: { constexpr int D_ = 6, O_ = 3; return EXPR_OF_DO; } \
+    case 6 * 8 + 4: { constexpr int D_ = 6, O_ = 4; return EXPR_OF_DO; } \
+    case 6 * 8 + 5: { constexpr int D_ = 6, O_ = 5; return EXPR_OF_DO; } \
+    case 6 * 8 + 6: { constexpr int D_ = 6, O_ = 6; return EXPR_OF_DO; } \
+    default: return BAD; \
+  }
+
 // prebuilt filtering elements, contiguous: A, C, J [B, d, d, N],
 // b, eta [B, d, 1, N]
 template <typename T>
@@ -965,12 +1296,13 @@ struct WidePrebuiltSteps {
 
 // C entry points for one dtype (T, suffix), as in uniform_scan.cuh.  The
 // filter's strides: F (batch, row, column, step), c (batch, row, step),
-// Q and H as F, then the sites as set_site_strides takes them.
+// Q and H as F, then the sites as set_site_strides takes them; its output
+// dim o is 1 or, at d <= 6, one of MF_GENERAL_O_PAIRS.
 #define MF_DEFINE_GENERAL_ENTRY_POINTS(T, SUFFIX)                                      \
   extern "C" int mf_general_filter_##SUFFIX(                                           \
       const T* f, const T* c, const T* q, const T* h, const T* nu, const T* lam,       \
       const T* mask, const int64_t* st, T* m_f, T* p_f, T* loglik, T* scratch,         \
-      int64_t batch, int64_t n, int64_t d, void* stream) {                             \
+      int64_t batch, int64_t n, int64_t d, int64_t o, void* stream) {                  \
     if (batch < 1 || batch > 65535 || n < 1) return int(cudaErrorInvalidValue);        \
     mf::GeneralPrior<T> p{f, c, q, h,                                                  \
                           st[0], st[1], st[2], st[3],                                  \
@@ -982,6 +1314,10 @@ struct WidePrebuiltSteps {
     mf::set_site_strides(a, st + 15);                                                  \
     a.m_f = m_f; a.p_f = p_f; a.loglik = loglik; a.n = n;                              \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (o != 1)                                                                        \
+      MF_SWITCH_DO(d, o, (mf::launch_general_filter<mf::GeneralStepsO<T, D_, O_>>(      \
+                             a, p, scratch, batch, s)),                                \
+                   int(cudaErrorInvalidValue))                                         \
     if (d >= mf::WIDE_MIN_D)                                                           \
       return mf::launch_wide_filter<mf::WideGeneralRow<T>>(a, p, scratch, batch, int(d), \
                                                            s);                         \

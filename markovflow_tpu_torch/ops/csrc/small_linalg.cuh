@@ -9,8 +9,10 @@
 // filter composition inverts I + C J, which is not symmetric).  The plain
 // PyTorch version is _gauss_jordan_tl in markovflow_tpu_torch/ops/kalman.py.
 // The kernels for 7 <= d <= 12 invert with the same pivoting, a warp per
-// matrix (winv in wide_scan.cuh).  At o = 1 no kernel needs a determinant.
-// No output argument may alias an input.
+// matrix (winv in wide_scan.cuh).  The general filter at o > 1 solves its
+// o x o systems, which need not be symmetric, and takes their determinants
+// with the same elimination (gauss_jordan_solve).  No output argument may
+// alias an input.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -105,51 +107,63 @@ MF_DEV T cof(const T* m, int i1, int j1, int i2, int j2) {
   return m[i1 * 3 + j1] * m[i2 * 3 + j2] - m[i1 * 3 + j2] * m[i2 * 3 + j1];
 }
 
-// Gauss-Jordan elimination on [m | I] with partial pivoting, unrolled so
-// that the augmented matrix stays in registers.  The pivot search swaps row
-// j with each later row whose entry in column j is larger in magnitude, by
-// selects (no indexing by a runtime row); any row order gives the same
-// inverse.  Columns left of j are zero in the rows it touches, so each step
-// works on columns j.. only.  Writes the inverse to out.
-template <typename T, int D>
-MF_DEV void gauss_jordan(const T* m, T* out) {
-  T a[D][2 * D];
+// Gauss-Jordan elimination on [m | rhs], m [N x N], rhs [N x K], with
+// partial pivoting, unrolled so that the augmented matrix stays in
+// registers.  The pivot search swaps row j with each later row whose entry
+// in column j is larger in magnitude, by selects (no indexing by a runtime
+// row); any row order gives the same solution.  Columns left of j are zero
+// in the rows it touches, so each step works on columns j.. only.  Writes
+// m^-1 rhs to out (K = 0: neither is read) and returns the product of the
+// pivots, det(m) up to its sign.
+template <typename T, int N, int K>
+MF_DEV T gauss_jordan_solve(const T* m, const T* rhs, T* out) {
+  T a[N][N + K];
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
+  for (int i = 0; i < N; ++i) {
 #pragma unroll
-    for (int j = 0; j < D; ++j) {
-      a[i][j] = m[i * D + j];
-      a[i][D + j] = i == j ? T(1) : T(0);
-    }
+    for (int j = 0; j < N; ++j) a[i][j] = m[i * N + j];
+#pragma unroll
+    for (int j = 0; j < K; ++j) a[i][N + j] = rhs[i * K + j];
   }
+  T det = T(1);
 #pragma unroll
-  for (int j = 0; j < D; ++j) {
+  for (int j = 0; j < N; ++j) {
 #pragma unroll
-    for (int i = j + 1; i < D; ++i) {
+    for (int i = j + 1; i < N; ++i) {
       const bool s = fabs(a[i][j]) > fabs(a[j][j]);
 #pragma unroll
-      for (int c = j; c < 2 * D; ++c) {
+      for (int c = j; c < N + K; ++c) {
         const T x = a[j][c], y = a[i][c];
         a[j][c] = s ? y : x;
         a[i][c] = s ? x : y;
       }
     }
+    det *= a[j][j];
     const T r = T(1) / a[j][j];
 #pragma unroll
-    for (int c = j; c < 2 * D; ++c) a[j][c] *= r;
+    for (int c = j; c < N + K; ++c) a[j][c] *= r;
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
+    for (int i = 0; i < N; ++i) {
       if (i == j) continue;
       const T f = a[i][j];
 #pragma unroll
-      for (int c = j; c < 2 * D; ++c) a[i][c] -= f * a[j][c];
+      for (int c = j; c < N + K; ++c) a[i][c] -= f * a[j][c];
     }
   }
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
+  for (int i = 0; i < N; ++i) {
 #pragma unroll
-    for (int j = 0; j < D; ++j) out[i * D + j] = a[i][D + j];
+    for (int j = 0; j < K; ++j) out[i * K + j] = a[i][N + j];
   }
+  return det;
+}
+
+// The inverse of m by gauss_jordan_solve on [m | I].
+template <typename T, int D>
+MF_DEV void gauss_jordan(const T* m, T* out) {
+  T eye[D * D];
+  set_eye<T, D>(eye);
+  gauss_jordan_solve<T, D, D>(m, eye, out);
 }
 
 template <typename T, int D>

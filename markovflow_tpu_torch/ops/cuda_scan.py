@@ -58,6 +58,10 @@ __all__ = ["filter_pipeline_uniform", "smoother_pipeline_uniform",
 #: through one runtime-d instantiation whose warps compose elements held in
 #: shared memory (``csrc/wide_scan.cuh``)
 MAX_STATE_DIM = 12
+#: the general filter (:func:`filter_pipeline`) also takes o x o sites at
+#: o = 2..d for these state dims (``GeneralStepsO`` in
+#: ``csrc/general_scan.cuh``, one unit per (dtype, d, o))
+MULTI_OUTPUT_MAX_STATE_DIM = 6
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "_build" / "torch_kernels"
@@ -138,6 +142,9 @@ _UNITS = [
     for fam in ("general", "gadjoint", "uniform") for t in ("double", "float")] + [
     (f"{fam}_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}"])
     for d in range(6, 0, -1) for fam in _FAMILIES
+    for t in ("double", "float")] + [
+    ("generalo_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}", f"-DMF_O={o}"])
+    for d in range(MULTI_OUTPUT_MAX_STATE_DIM, 1, -1) for o in range(d, 1, -1)
     for t in ("double", "float")] + [("entry_points.cu", [])]
 
 
@@ -177,7 +184,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     for sfx in ("f32", "f64"):
         for kind in ("uniform_filter", "filter_scan", "smoother", "uniform_smoother",
-                     "adjoint", "general_filter", "general_adjoint"):
+                     "adjoint", "general_adjoint"):
             fn = getattr(lib, f"mf_{kind}_scratch_{sfx}")
             fn.argtypes = [i64, i64, i64]
             fn.restype = i64
@@ -188,8 +195,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.argtypes = [p] * 8 + [i64] * 3 + [p]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"mf_general_filter_{sfx}")
-        fn.argtypes = [p] * 8 + [p] * 4 + [i64] * 3 + [p]
+        fn.argtypes = [p] * 8 + [p] * 4 + [i64] * 4 + [p]
         fn.restype = ctypes.c_int
+        fn = getattr(lib, f"mf_general_filter_scratch_{sfx}")
+        fn.argtypes = [i64] * 4
+        fn.restype = i64
         fn = getattr(lib, f"mf_smoother_scan_{sfx}")
         fn.argtypes = [p] * 6 + [i64] * 3 + [p]
         fn.restype = ctypes.c_int
@@ -238,10 +248,12 @@ def build_kernels() -> ctypes.CDLL:
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _check_cuda(tensors, d: int, o: int, max_d: int = MAX_STATE_DIM) -> str:
+def _check_cuda(tensors, d: int, o: int, max_d: int = MAX_STATE_DIM,
+                multi_output: bool = False) -> str:
     """Raise unless every tensor is on one CUDA device with one supported
-    dtype and the dims are instantiated (state dims 1..``max_d``); return
-    the dtype suffix."""
+    dtype and the dims are instantiated (state dims 1..``max_d``; output
+    dim 1, or with ``multi_output`` (the general filter) 1..d at d <=
+    MULTI_OUTPUT_MAX_STATE_DIM); return the dtype suffix."""
     device, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != device:
@@ -253,9 +265,19 @@ def _check_cuda(tensors, d: int, o: int, max_d: int = MAX_STATE_DIM) -> str:
     if not 1 <= d <= max_d:
         raise NotImplementedError(
             f"this CUDA kernel takes state dims 1..{max_d}, got {d}")
-    if o != 1:
+    if o != 1 and not multi_output:
         raise NotImplementedError(
-            f"the CUDA kernels take output dim 1, got {o}")
+            f"this CUDA kernel takes output dim 1, got {o}: only the general "
+            f"filter has a kernel at o > 1")
+    if o != 1 and d > MULTI_OUTPUT_MAX_STATE_DIM:
+        raise NotImplementedError(
+            f"the CUDA general filter takes output dims o > 1 only at state "
+            f"dims 1..{MULTI_OUTPUT_MAX_STATE_DIM}, got o = {o} at d = {d} "
+            f"(o > 1 at d = 7..12 has no kernel)")
+    if not 1 <= o <= d:
+        raise NotImplementedError(
+            f"the CUDA general filter takes output dims 1..d, got o = {o} at "
+            f"d = {d} (o > d has no kernel)")
     return _SUFFIX[dtype]
 
 
@@ -431,7 +453,8 @@ def filter_pipeline(F, c, Q, H, nu, lam, maskf=None):
     nu [..., o, 1, N], lam [..., o, o, N] and an optional mask
     maskf [..., 1, 1, N] (steps with maskf <= 0.5 add 0 to the likelihood).
     Every input may be an expanded view: the kernel reads all of them
-    through their strides.
+    through their strides.  o = 1 at d = 1..12, o = 2..d at d = 1..6; lam
+    may be indefinite (the posterior must be proper).
 
     Returns (m_f [..., d, 1, N], P_f [..., d, d, N], loglik [...]).
     """
@@ -443,7 +466,7 @@ def filter_pipeline(F, c, Q, H, nu, lam, maskf=None):
     inputs = [F, c, Q, H, nu, lam]
     if maskf is not None:
         inputs.append(maskf)
-    sfx = _check_cuda(inputs, d, o)
+    sfx = _check_cuda(inputs, d, o, multi_output=True)
     lead = torch.broadcast_shapes(*(x.shape[:-3] for x in inputs))
     B = math.prod(lead)
     _check_grid(B, n)
@@ -452,11 +475,13 @@ def filter_pipeline(F, c, Q, H, nu, lam, maskf=None):
     m_f = torch.empty((B, d, 1, n), **kw)
     p_f = torch.empty((B, d, d, n), **kw)
     loglik = torch.empty((B,), **kw)
-    scratch = _scratch("general_filter", sfx, d, B, n, F)
+    lib = build_kernels()
+    scratch = torch.empty((getattr(lib, f"mf_general_filter_scratch_{sfx}")(d, o, B, n),),
+                          **kw)
     with torch.cuda.device(F.device):
-        err = getattr(build_kernels(), f"mf_general_filter_{sfx}")(
+        err = getattr(lib, f"mf_general_filter_{sfx}")(
             *ptrs, strides, m_f.data_ptr(), p_f.data_ptr(), loglik.data_ptr(),
-            scratch.data_ptr(), B, n, d, _stream(F.device))
+            scratch.data_ptr(), B, n, d, o, _stream(F.device))
     _raise_on(err, "filter_pipeline")
     filter_pipeline.launches += 1
     return (m_f.reshape(lead + (d, 1, n)), p_f.reshape(lead + (d, d, n)),

@@ -14,10 +14,8 @@ on the card).  A model whose moments are known exactly (the posterior
 SSM, from the smoother) carries them, and its marginals read them
 instead of rebuilding them from the factors by a scan.  Sampling takes a
 ``torch.Generator``, and its affine map of the standard-normal draw is
-:meth:`StateSpaceModel.sample_from_normals`.
-
-``precision()`` and ``normalizer`` need ``block_tri_diag.py`` and are not
-ported yet.
+:meth:`StateSpaceModel.sample_from_normals`.  ``precision()`` is the
+block-tridiagonal K^-1 (:mod:`.block_tri_diag`).
 """
 from __future__ import annotations
 
@@ -30,7 +28,8 @@ from .ops.kalman import _cat, _inv_tl, _no_tf32, _to_tl
 from .ops.scans import (_combine_affine, _mm_tl, _sym_tl, _t_tl, affine_cov_scan_tl,
                         scan_tl)
 from .utils.bijectors import triangular
-from .utils.linalg import cholesky_or_zero, mvn_logpdf, small_mm, small_mv, tlt
+from .utils.linalg import (cholesky_or_zero, mvn_logpdf, small_inv, small_mm, small_mv,
+                           symmetrize, tlt)
 from .utils.module import Parameter
 
 __all__ = ["StateSpaceModel", "state_space_model_from_covariances"]
@@ -256,6 +255,35 @@ class StateSpaceModel(GaussMarkovDistribution):
         term_t = term_t - 0.5 * (qp_inv * _sym_tl(r_cov)).sum((-3, -2))
         e_log_p = term0 + term_t.sum(-1)
         return e_log_q - e_log_p
+
+    # --- precision space -------------------------------------------------
+    def precision(self):
+        """The joint precision K^-1 = A^-T Q^-1 A^-1, block-tridiagonal: the
+        diagonal blocks Q_k^-1 + A_k^T Q_{k+1}^-1 A_k (P0^-1 first), the
+        block (k+1, k) -Q_{k+1}^-1 A_k."""
+        from .block_tri_diag import SymmetricBlockTriDiagonal
+
+        def inv_from_chol(l):
+            return small_inv(symmetrize(l @ tlt(l)))
+
+        a = self.state_transitions
+        p0_inv = inv_from_chol(self.cholesky_initial_covariance)
+        q_inv = inv_from_chol(self.cholesky_process_covariances)
+        at_qinv_a = (tlt(a) @ q_inv) @ a
+        diag_first = (p0_inv + at_qinv_a[..., 0, :, :])[..., None, :, :]
+        diag = torch.cat([diag_first, q_inv[..., :-1, :, :] + at_qinv_a[..., 1:, :, :],
+                          q_inv[..., -1:, :, :]], dim=-3)
+        return SymmetricBlockTriDiagonal(symmetrize(diag), -(q_inv @ a))
+
+    @property
+    def normalizer(self) -> torch.Tensor:
+        """The log-partition of the Gaussian in natural form,
+        0.5 (mu^T K^-1 mu + (T+1) d log 2pi - log|K^-1|)."""
+        means = self.marginal_means
+        quad = (means * self.precision().block_mult_vector(means)).sum((-1, -2))
+        n_states = self.num_transitions + 1
+        return 0.5 * (quad + n_states * self.state_dim * math.log(2.0 * math.pi)
+                      - self.log_det_precision)
 
     # --- trainability ------------------------------------------------------
     def trainable_copy(self) -> "StateSpaceModel":

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 __all__ = ["Bijector", "Identity", "Positive", "positive", "FillTriangular",
-           "triangular"]
+           "triangular", "Ordered", "ordered"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,3 +77,22 @@ class FillTriangular(Bijector):
 
 def triangular() -> FillTriangular:
     return FillTriangular()
+
+
+@dataclasses.dataclass(frozen=True)
+class Ordered(Bijector):
+    """Unconstrained vector -> strictly increasing vector, as the JAX
+    package's ``ordered()``: y_0 = x_0, y_k = y_{k-1} + exp(x_k)."""
+
+    def forward(self, x):
+        return torch.cumsum(torch.cat([x[..., :1], torch.exp(x[..., 1:])], dim=-1), dim=-1)
+
+    def inverse(self, y):
+        if isinstance(y, torch.Tensor):
+            return torch.cat([y[..., :1], torch.log(torch.diff(y, dim=-1))], dim=-1)
+        y = np.asarray(y)
+        return np.concatenate([y[..., :1], np.log(np.diff(y, axis=-1))], axis=-1)
+
+
+def ordered() -> Ordered:
+    return Ordered()

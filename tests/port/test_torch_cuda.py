@@ -846,3 +846,76 @@ def test_sde_iteration_kernels_match_plain(cuda_device, n, dtype):
                               {"KL": chip_smoke.TOL_SDE_F32_KL,
                                "mean": chip_smoke.TOL_F32_MOMENTS,
                                "var": chip_smoke.TOL_F32_MOMENTS})
+
+
+@pytest.mark.parametrize("const_sites", [False, True], ids=["per-step", "stride-0"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d, o", [(d, o) for d in range(2, 7) for o in range(2, d + 1)])
+@pytest.mark.parametrize("n", list(chip_smoke.EDGE_NS))
+def test_general_filter_at_o_sites_at_the_run_warp_and_block_edges(cuda_device, n, d, o,
+                                                                   dtype, const_sites):
+    """Kernel 4 at o x o sites (o = 2..d) against its plain version at the
+    edges of a thread's, a warp's and a block's run of steps, batch (3,),
+    masked, with H and lam stored at every step or stride 0: float64
+    within F64_TOL (chip_smoke.TOL_F64), float32 on its benign sites by
+    chip_smoke.check_f32_wide's rule (chip_smoke.multi_output_case)."""
+    chip_smoke.multi_output_case(ops, n, (3,), d, o, dtype, const_sites)
+
+
+@pytest.mark.parametrize("n", list(chip_smoke.EDGE_NS))
+def test_general_filter_on_the_natgrad_inversions_indefinite_sites(cuda_device, n):
+    """Kernel 4 at o = d = 2 on the synthetic model of the natural-gradient
+    inversion (lam indefinite, ~dt^-3), float64: within F64_TOL, or within
+    chip_smoke.COND_FACTOR times the plain version's own change under a
+    one-ulp perturbation of its inputs (chip_smoke.natgrad_filter_case)."""
+    chip_smoke.natgrad_filter_case(ops, n, (3,), 2)
+
+
+@pytest.mark.parametrize("config", ["vgp", "svgp"])
+def test_natgrad_step_kernels_match_plain(cuda_device, config):
+    """One natural-gradient step of bench config 2 (VGP) or 3 (SVGP) at
+    N = 4096 (M = 512), float64: kernels 4 (o = 2) and 5 once each, and the
+    new q within chip_smoke.TOL_NG of the plain path's (the ELBO within
+    TOL_NG_ELBO)."""
+    model, loss_of = (chip_smoke.vgp_config2(4096) if config == "vgp"
+                      else chip_smoke.svgp_config3(4096, 512))
+    before = _launches()
+    got = chip_smoke.natgrad_steps(model, loss_of, 1)[0]
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _launches().items()}
+    want = dict.fromkeys(launched, 0)
+    want.update({"filter_pipeline": 1, "smoother_scan": 1})
+    assert launched == want
+    with chip_smoke.plain_path(ops, adj, kf):
+        plain = chip_smoke.natgrad_steps(model, loss_of, 1)[0]
+    for key, val in chip_smoke.ssm_diffs(got, plain).items():
+        assert val <= chip_smoke.TOL_NG, key
+    e_k, e_p = (chip_smoke.elbo_of(model, loss_of, s) for s in (got, plain))
+    assert abs(e_k - e_p) <= chip_smoke.TOL_NG_ELBO * abs(e_p)
+
+
+def test_wrappers_raise_at_o_sites_they_have_no_kernel_for(cuda_device):
+    """o > 1 runs only in the general filter at d <= 6, o <= d: it raises
+    at d = 7..12, at o > d, and in kernels 1, 3 and 7."""
+    kw = dict(dtype=torch.float64, device=cuda_device)
+    for d, o in ((7, 2), (9, 9), (3, 4)):
+        eye = torch.eye(d, **kw)[..., None].expand(d, d, 64)
+        with pytest.raises(NotImplementedError):
+            ops.filter_pipeline(0.5 * eye, torch.zeros((d, 1, 64), **kw), eye,
+                                torch.ones((o, d, 64), **kw), torch.zeros((o, 1, 64), **kw),
+                                torch.eye(o, **kw)[..., None].expand(o, o, 64))
+    uni = _problem(3, 64, (), cuda_device)
+    two = list(uni)
+    two[5] = torch.ones((2, 3, 1), dtype=torch.float64, device=cuda_device)
+    two[6] = uni[6].expand(2, 1, 64)
+    two[7] = uni[7].expand(2, 2, 64)
+    with pytest.raises(NotImplementedError):
+        ops.filter_pipeline_uniform(*two)
+    m_f, p_f, _ = ops.filter_pipeline_uniform_plain(*uni)
+    gs = torch.ones((), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        adj.adjoint_pipeline_uniform(*two, m_f, p_f, gs)
+    gargs = chip_smoke.multi_output_problem(3, 2, 64, (), torch.float64, seed=0)
+    m_g, p_g, _ = ops.filter_pipeline_plain(*gargs)
+    with pytest.raises(NotImplementedError):
+        adj.adjoint_pipeline(*gargs, m_g, p_g, gs)

@@ -33,16 +33,28 @@ TOL = 1e-12
 # through shared memory and at d = 5 not (but the uniform kernels'),
 # sparse sites, d = 6 across three blocks of the uniform kernels' staged
 # passes (four warps a block in float64), and d = 4 across two blocks of
-# the smoother scan's last staged tile (five warps a block in float64)
+# the smoother scan's last staged tile (five warps a block in float64); and
+# the general filter alone at o = 2 (d = 2, staged, two blocks; H and lam
+# stored at every step and both stride 0).  At o >= 3 the plain version
+# itself strays from a sequential float64 recursion by up to ~2e-11 in P_f
+# (the kernel by 4e-12): the card's tests hold those at 1e-9
 CASES = ["7:97:(2,)", "9:300:()", "9:64:(2,):sparse", "12:50:(2,)",
          "2:2100:(2,)", "2:700:(2,):sparse", "5:600:()", "3:1100:(2,)", "6:1100:()",
-         "4:1100:(2,)"]
+         "4:1100:(2,)", "2:2100:(2,):multi"]
 # the outputs of a case: the uniform filter (3) and smoother (2), the
 # uniform Koopman backward (8, at d <= 6), the general filter (3), the
 # smoother scan of the problem's elements and of random ones (2 + 2), the
 # filter scan of the problem's elements and of random ones (2 + 2), the
-# general Koopman backward (6)
+# general Koopman backward (6); a multi case: m_f, P_f and loglik at each
+# o = 2..d, and at o = d also with stride-0 sites
 N_OUTPUTS = {True: 30, False: 22}
+
+
+def n_outputs(case: str) -> int:
+    d = int(case.split(":")[0])
+    return 3 * d if case.endswith(":multi") else N_OUTPUTS[d <= 6]
+# a case takes 5-15 s alone (lanes as fibers, one core each)
+CASE_SECONDS = 300
 
 
 @pytest.fixture(scope="module")
@@ -57,27 +69,21 @@ def shim_lib(tmp_path_factory):
     return out
 
 
-@pytest.fixture(scope="module")
-def shim_results(shim_lib):
-    """Every case in one process (the package copy and the imports once):
-    case -> its line of differences."""
-    run = subprocess.run([sys.executable, str(SHIM / "run_on_cpu.py"), str(shim_lib), *CASES],
-                         capture_output=True, text=True, timeout=900)
-    assert run.returncode == 0, run.stdout + run.stderr
-    return {case: ln[len(case) + 1:] for ln in run.stdout.splitlines()
-            for case in CASES if ln.startswith(case + ":")}
-
-
 @pytest.mark.parametrize("case", CASES)
-def test_kernels_match_plain_versions_under_the_shim(shim_results, case):
+def test_kernels_match_plain_versions_under_the_shim(shim_lib, case):
     """d = 7, 9 and 12, N below and above a few warps' runs of steps; d = 2,
     3, 4, 5 and 6 across a block's tile of steps; a batch, a mask, and sparse
     sites (lam = nu = 0 where masked): all seven kernels (the uniform Koopman
     backward at d <= 6, with the site gradients), and the smoother scan and
-    the filter scan also on random prebuilt elements."""
-    line = shim_results[case]
+    the filter scan also on random prebuilt elements; the general filter at
+    o x o sites."""
+    # each case in a process of its own, under a time limit of its own
+    run = subprocess.run([sys.executable, str(SHIM / "run_on_cpu.py"), str(shim_lib), case],
+                         capture_output=True, text=True, timeout=CASE_SECONDS)
+    assert run.returncode == 0, run.stdout + run.stderr
+    line = next(ln[len(case) + 1:] for ln in run.stdout.splitlines() if ln.startswith(case + ":"))
     diffs = [float(v) for v in re.findall(r"=(\S+)", line)]
-    assert len(diffs) == N_OUTPUTS[int(case.split(":")[0]) <= 6], line
+    assert len(diffs) == n_outputs(case), line
     assert all(v <= TOL for v in diffs), line
 
 

@@ -166,8 +166,6 @@ def test_cvi_starts_from_given_sites():
 
 def test_what_is_not_ported_raises():
     pm, _, _ = _pair("gaussian_uniform")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pm.dist_q_naturals
     x, y = data("Gaussian", True, np.random.default_rng(0))
     for kw in ({"grad_engine": "autodiff"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="item 9"):

@@ -1,14 +1,23 @@
 // A g++ stand-in for the CUDA runtime, to rehearse the kernels of
 // markovflow_tpu_torch/ops/csrc/ on the CPU (see build.py): each block's
-// threads run as std::threads, blocks one after another; __syncthreads and
-// __syncwarp are std::barriers (one per block, one per warp), the warp
+// threads run as fibers (ucontext) on the calling thread, blocks one after
+// another; __syncthreads and __syncwarp are barriers (one per block, one per
+// warp) at which a lane's fiber gives way to the next ready lane, the warp
 // shuffles go through a buffer per warp, and the dynamic shared memory of a
-// launch is a NaN-filled buffer.  Lanes are real threads, so a race between
-// the lanes of a warp, which a GPU may hide, shows here.  A launch beyond
-// the H100's limits (227 KB of shared memory, 1024 threads, 65535 rows of
-// blocks) fails as cudaGetLastError() reports it.
+// launch is a NaN-filled buffer.  Between two barriers each lane runs alone,
+// in turn, in ascending order of lanes in even blocks and descending in odd
+// ones: a lane that reads what another lane writes without a barrier between
+// them reads the NaN fill or a stale value in one of the two orders.  A
+// barrier that some lane never reaches aborts the process ("shim: lanes
+// stuck").  A launch beyond the H100's limits (227 KB of shared memory, 1024
+// threads, 65535 rows of blocks) fails as cudaGetLastError() reports it.
+//
+// Fibers, not threads: with a thread per lane, each barrier put hundreds of
+// threads to sleep and woke them on a few cores, and the kernel's scheduling
+// of them (system time above user time) made a run's length depend on the
+// load of the machine.
 #pragma once
-#include <barrier>
+#include <deque>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -16,8 +25,8 @@
 #include <cstdlib>
 #include <cstring>
 #include <memory>
-#include <thread>
 #include <vector>
+#include <ucontext.h>
 using std::fabs;
 using std::log;
 using std::sqrt;
@@ -43,15 +52,62 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin };
 
 namespace mf_shim {
-using Bar = std::barrier<>;
+// The lanes of the block that runs: one fiber each, with a stack of its own.
+struct Lane {
+  ucontext_t ctx;
+  std::unique_ptr<char[]> stack;
+  uint3 tid;
+  struct WarpState* warp;
+};
+inline constexpr size_t kStack = 512 * 1024;
+inline std::vector<Lane> lanes;
+inline std::deque<unsigned> ready;
+inline ucontext_t sched_ctx;
+inline unsigned cur = 0, finished = 0;
+
+// std::barrier's arrive_and_wait and arrive_and_drop between fibers: the
+// last lane to arrive makes the waiting ones ready and runs on.
+class Bar {
+ public:
+  explicit Bar(int n) : expected_(n), next_(n) {}
+  void arrive_and_wait() {
+    if (arrive(false)) return;
+    waiting_.push_back(cur);
+    swapcontext(&lanes[cur].ctx, &sched_ctx);
+  }
+  void arrive_and_drop() { arrive(true); }
+
+ private:
+  bool arrive(bool drop) {
+    if (drop) --next_;
+    if (++arrived_ < expected_) return false;
+    arrived_ = 0;
+    expected_ = next_;
+    for (unsigned l : waiting_) ready.push_back(l);
+    waiting_.clear();
+    return true;
+  }
+  std::vector<unsigned> waiting_;
+  int arrived_ = 0, expected_, next_;
+};
+
 struct WarpState { Bar bar{32}; alignas(8) unsigned char buf[32][8]; };
-inline thread_local uint3 tid, bid;
-inline thread_local dim3 bdim, gdim;
-inline thread_local unsigned char* dyn_smem;
-inline thread_local Bar* block_bar;
-inline thread_local WarpState* warp_state;
+inline uint3 tid, bid;
+inline dim3 bdim, gdim;
+inline unsigned char* dyn_smem;
+inline Bar* block_bar;
+inline WarpState* warp_state;
 inline int last_error = 0;
 inline size_t max_smem_seen = 0;
+inline void (*lane_body)(void*);
+inline void* lane_arg;
+
+inline void lane_main() {
+  lane_body(lane_arg);
+  warp_state->bar.arrive_and_drop();
+  block_bar->arrive_and_drop();
+  ++finished;
+}
 
 template <class F>
 void launch(dim3 g, dim3 b, size_t smem, void*, F&& body) {
@@ -62,28 +118,45 @@ void launch(dim3 g, dim3 b, size_t smem, void*, F&& body) {
     return;
   }
   if (smem > max_smem_seen) max_smem_seen = smem;
+  if (lanes.size() < nt) lanes.resize(nt);
+  lane_body = [](void* f) { (*static_cast<F*>(f))(); };
+  lane_arg = &body;
+  bdim = b;
+  gdim = g;
+  unsigned parity = 0;
   for (unsigned bz = 0; bz < g.z; ++bz)
     for (unsigned by = 0; by < g.y; ++by)
-      for (unsigned bx = 0; bx < g.x; ++bx) {
+      for (unsigned bx = 0; bx < g.x; ++bx, parity ^= 1) {
         std::vector<double> dyn(smem / 8 + 2, std::nan(""));
-        Bar blk(nt);
+        Bar blk{int(nt)};
         std::vector<std::unique_ptr<WarpState>> warps;
         for (unsigned w = 0; w < nt / 32; ++w) warps.emplace_back(new WarpState);
-        std::vector<std::thread> ts;
-        for (unsigned t = 0; t < nt; ++t)
-          ts.emplace_back([&, t] {
-            tid = {t % b.x, (t / b.x) % b.y, t / (b.x * b.y)};
-            bid = {bx, by, bz};
-            bdim = b;
-            gdim = g;
-            dyn_smem = reinterpret_cast<unsigned char*>(dyn.data());
-            block_bar = &blk;
-            warp_state = warps[t / 32].get();
-            body();
-            warp_state->bar.arrive_and_drop();
-            block_bar->arrive_and_drop();
-          });
-        for (auto& th : ts) th.join();
+        bid = {bx, by, bz};
+        dyn_smem = reinterpret_cast<unsigned char*>(dyn.data());
+        block_bar = &blk;
+        for (unsigned t = 0; t < nt; ++t) {
+          Lane& l = lanes[t];
+          if (!l.stack) l.stack.reset(new char[kStack]);
+          getcontext(&l.ctx);
+          l.ctx.uc_stack = {l.stack.get(), 0, kStack};
+          l.ctx.uc_link = &sched_ctx;
+          makecontext(&l.ctx, lane_main, 0);
+          l.tid = {t % b.x, (t / b.x) % b.y, t / (b.x * b.y)};
+          l.warp = warps[t / 32].get();
+          ready.push_back(parity ? nt - 1 - t : t);
+        }
+        finished = 0;
+        while (!ready.empty()) {
+          cur = ready.front();
+          ready.pop_front();
+          tid = lanes[cur].tid;
+          warp_state = lanes[cur].warp;
+          swapcontext(&sched_ctx, &lanes[cur].ctx);
+        }
+        if (finished != nt) {
+          std::fprintf(stderr, "shim: lanes stuck at a barrier (%u of %u finished)\n", finished, nt);
+          std::abort();
+        }
       }
 }
 }  // namespace mf_shim

@@ -1,10 +1,13 @@
 """Run the port's kernel wrappers' CUDA branch on CPU tensors through the
 library of build.py, against the plain versions, in float64:
 
-    python tests/tools/cuda_shim/run_on_cpu.py OUT_DIR D:N:BATCH[:sparse] ...
+    python tests/tools/cuda_shim/run_on_cpu.py OUT_DIR D:N:BATCH[:sparse|:multi] ...
 
-e.g. ``9:4099:(3,)`` (state dim 9, 4,099 steps, batch (3,), a mask) or
-``9:300:(2,):sparse`` (lam = nu = 0 at the masked steps).  A copy of the
+e.g. ``9:4099:(3,)`` (state dim 9, 4,099 steps, batch (3,), a mask),
+``9:300:(2,):sparse`` (lam = nu = 0 at the masked steps) or ``3:1100:(2,):multi``
+(only the general filter, at o x o sites for o = 2..d: chip_smoke's
+multi_output_problem with H and lam stored at every step, and for o = d
+also with both stride 0).  A copy of the
 package in OUT_DIR takes the CUDA branch for CPU tensors; each case prints
 every kernel's largest difference from its plain version, relative to the
 plain output's largest entry.  At small N, since the lanes run as threads:
@@ -84,6 +87,22 @@ def problems(d, n, batch, sparse):
     return uni, gen
 
 
+def check_multi(cs, d, n, batch):
+    """The general filter at o = 2..d against its plain version."""
+    import chip_smoke
+
+    out = {}
+    for o in range(2, d + 1):
+        for const in (False, True) if o == d else (False,):
+            args = chip_smoke.multi_output_problem(d, o, n, batch, torch.float64, seed=n,
+                                                   device="cpu", const_sites=const)
+            tag = f"o{o}{'c' if const else ''} "
+            for name, got, want in zip(("m_f", "P_f", "loglik"), cs.filter_pipeline(*args),
+                                       cs.filter_pipeline_plain(*args)):
+                out[tag + name] = rel(got, want)
+    return out
+
+
 def check(cs, adj, d, n, batch, sparse=False):
     import chip_smoke
     from markovflow_tpu_torch.ops.kalman import make_filter_elements_tl, smoother_elements_tl
@@ -135,7 +154,10 @@ if __name__ == "__main__":
     worst = 0.0
     for case in sys.argv[2:]:
         d, n, batch, *flag = case.split(":")
-        res = check(cs, adj, int(d), int(n), eval(batch), flag == ["sparse"])
+        if flag == ["multi"]:
+            res = check_multi(cs, int(d), int(n), eval(batch))
+        else:
+            res = check(cs, adj, int(d), int(n), eval(batch), flag == ["sparse"])
         worst = max(worst, *res.values())
         print(f"{case}: " + " ".join(f"{k}={v:.1e}" for k, v in res.items()), flush=True)
     print(f"worst {worst:.2e}")
