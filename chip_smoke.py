@@ -1,6 +1,6 @@
 """Drive the PyTorch port's GPR serving, training and prediction paths, CVI,
-SDE variational inference and the natural-gradient family once on one
-CUDA card.
+SDE variational inference, the natural-gradient family and multi-output
+GPR once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,8 +9,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. device: a CUDA card must be present (no CPU fallback); print its name and
    power limit as nvidia-smi reports them;
 2. build the CUDA kernels from the sources in the checkout (one nvcc unit
-   per kernel family, dtype and state dim 1..6, and one per family and
-   dtype for d = 7..12, compiled in parallel);
+   per kernel family, dtype and state dim 1..6, one per (dtype, d, o) of
+   the filters and one of the Koopman backwards at o x o sites, and one per
+   family and dtype for d = 7..12, compiled in parallel);
 3. hold each of the seven kernels against its plain PyTorch version on the
    card: N in {4099, 1e6}, batch () and (3,), d in {1, 2, 3}
    (Matern12/32/52), float64 and float32, plus one masked case; the uniform
@@ -42,6 +43,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    rows, H and lam per step or stride 0, a mask; float32 on benign
    sites, by check_f32_wide's rule), and in float64 at o = d = 2 on the
    natural-gradient inversion's indefinite sites (natgrad_filter_problem);
+   and kernels 1, 3 and 7 (and 4 beside them) at o x o sites, o = 2..d for
+   d = 2..6, N in O_EDGE_NS, batch (3,), a mask, per-step sites with a
+   random dense H and GPR's stride-0 H and lam, float64 and float32
+   (multi_output_kernels);
 4. the slice at full size, T = 1e6, float32, flagship GPR (Matern32(0.5,
    1.0), noise Cholesky 0.2), each path with the launch counters set to 0
    just before it and read just after:
@@ -122,6 +127,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       step; the first step against the plain path (TOL_NG, the ELBO
       TOL_NG_ELBO), and at N = 256 the parallel engine against the
       sequential one;
+   j. multi-output GPR, the slice mo3 (an IndependentMultiOutput of
+      Matern32(0.5, 1), Matern32(1, 1) and Matern32(2, 1): d = 6, o = 3,
+      with a full 3 x 3 noise Cholesky) at T = 1e6 on both grids, float64
+      and float32: a loss and its backward, posterior_marginals(),
+      gpr.posterior with predict_f (both output covariances) and predict_y
+      at 1e5 new points and sample_f (kernels 1 and 3 at o = 3 and 2 on the
+      uniform grid, 4 and 7 at o = 3 and 5 on the jittered one), and
+      FIT_STEPS fit steps in float32; float64 within 1e-9 of the plain path,
+      float32 against float64 (TOL_MO3_F32_*), float64 at N = 500 against
+      the numpy oracle and its finite differences; and a Product kernel's
+      loss and gradient (kernels 1 and 3);
 5. times, kernel path against plain path, with CUDA events after a warm-up
    (median of several runs): serving requests (gpr.posterior and
    predict_f at 1e5 points among them), training steps on both
@@ -133,7 +149,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    kernel's device time per call from a torch.profiler trace (the wrapper's
    call time also holds its host work), at the flagship's d = 2 and at the
    d9 model's d = 9 (kernel 4 also at o = d = 2 on config 2's synthetic
-   model, float64), beside its bound: the least time an H100 needs for
+   model, float64; kernels 1, 3, 4 and 7 at o = 3 and the smoothers at
+   d = 6 on mo3's inputs, whose requests and training steps are timed
+   too), beside its bound: the least time an H100 needs for
    the bytes the call must move (each input read once, each output written
    once) or for the operations of the sequential Kalman recursion it
    computes, whichever is larger; and each kernel route's device time per
@@ -281,6 +299,25 @@ TOL_NG_ELBO = 1e-8
 #: N = 2048: 5.2e-8 in m_f on the CPU; on an H100 the kernel differed
 #: from the plain version by up to 3.2 times that spread over EDGE_NS)
 COND_FACTOR = 10.0
+#: phase 4j, the multi-output slice "mo3": an IndependentMultiOutput of
+#: three Matern32 children (lengthscale, variance), d = 6, o = 3, with a
+#: full noise Cholesky (so that the sites' lam is not diagonal)
+MO3 = ((0.5, 1.0), (1.0, 1.0), (2.0, 1.0))
+MO3_CHOL = ((0.2, 0.0, 0.0), (0.05, 0.2, 0.0), (0.02, 0.05, 0.2))
+MO3_SPEC = ("IndependentMultiOutput", ("Matern32",) * 3)
+#: mo3 in float32 against float64 on the kernel path at T = 1e6: the loss
+#: (relative), the six gradients (normwise), the marginals and predictions
+#: (normwise).  The flagship's bounds; measured on an H100 (PERF.md),
+#: uniform / jittered grid: loss 7.2e-7 / 1.4e-7, gradients 1.0e-5 /
+#: 2.5e-6, marginals and predictions up to 9.5e-5 / 2.1e-4
+TOL_MO3_F32_LOSS = 1e-5
+TOL_MO3_F32_GRAD = 1e-4
+TOL_MO3_F32_MOMENTS = 1e-3
+#: phase 4j's Product kernel: steps on the uniform grid
+PRODUCT_T = 100_000
+#: phase 3, kernels 1, 3 and 7 at o x o sites: the edges of a thread's run
+#: of steps, a warp's, a block's and two blocks' (of every tiling they use)
+O_EDGE_NS = (1, 9, 257, 2049, 4099)
 DEVICE = torch.device("cuda")
 #: the H100's memory rate and float32 and float64 rates outside the tensor
 #: cores (NVIDIA's data sheet, SXM part, at a 700 W power limit)
@@ -318,12 +355,16 @@ def check(tag: str, diffs: dict, tols: dict) -> None:
 
 def check_f32_wide(tag: str, outs: dict, tols: dict) -> None:
     """outs: name -> (kernel output, plain output, float64 reference of the
-    plain version on the same inputs).  Each output passes within its
-    tolerance of the plain version, or if its error against float64 is at
-    most F32_NO_WORSE times the plain version's."""
-    diffs = {k: rel_diff(kk, pp) for k, (kk, pp, _) in outs.items()}
-    errs = {k: (rel_diff(kk.double(), rr), rel_diff(pp.double(), rr))
-            for k, (kk, pp, rr) in outs.items()}
+    plain version on the same inputs[, the scale of rel_diff or None]).
+    Each output passes within its tolerance of the plain version, or if its
+    error against float64 is at most F32_NO_WORSE times the plain
+    version's."""
+    def scale(sc, f64=False):
+        return None if not sc or sc[0] is None else sc[0].double() if f64 else sc[0]
+    diffs = {k: rel_diff(kk, pp, scale(sc)) for k, (kk, pp, _, *sc) in outs.items()}
+    errs = {k: (rel_diff(kk.double(), rr, scale(sc, True)),
+                rel_diff(pp.double(), rr, scale(sc, True)))
+            for k, (kk, pp, rr, *sc) in outs.items()}
     log(f"  {tag}: max rel diff "
         + " ".join(f"{k}={v:.3e}" for k, v in diffs.items())
         + "; against float64, kernel / plain: "
@@ -568,6 +609,14 @@ def phase_kernels_vs_plain(cs, adj):
             # in two orders, differ by 1e-2)
             if dtype == torch.float64:
                 natgrad_filter_case(cs, n, (3,), 2)
+            # kernels 1, 3 and 7 at o = 2..d: per-step sites with a dense H,
+            # and GPR's stride-0 H and lam
+            if n in O_EDGE_NS:
+                for d in range(2, 7):
+                    for o in range(2, d + 1):
+                        for const_sites in (False, True):
+                            multi_output_kernels_case(cs, adj, n, (3,), d, o, dtype,
+                                                      const_sites)
 
 
 def general_edges_case(cs, adj, n, d, dtype):
@@ -675,41 +724,146 @@ def random_smoother_elements(d, n, batch, dtype, device=DEVICE, seed=0):
     return t(e), t(rng.standard_normal(batch + (n, d, 1))), t(psd(ll))
 
 
-def multi_output_problem(d, o, n, batch, dtype, seed, device=DEVICE, const_sites=False):
-    """The general filter's inputs at o x o sites: the per-step Matern prior
-    of a jittered grid (a Sum's for d >= 4, made in float64 and cast), a
-    mask, the first o rows of I as H (the natural-gradient inversion's
-    identity emission), sites nu [o, 1, N] and lam = U diag(e) U^T
-    [o, o, N] with a random orthogonal U and e in [1, 25] (float64) or in
-    [0.04, 1] (float32, held on these benign sites only: at the larger ones
-    both versions cancel most digits of the prior's covariance, as o
-    observed states update it); H and lam stored at every step, or with
-    ``const_sites`` one H and one lam expanded (stride 0).  The indefinite sites of that inversion are
-    natgrad_filter_problem's.  The cuda tests and the CPU shim run (tests/)
-    take them from here."""
-    from markovflow_tpu_torch import kernels
-
+def multi_output_sites(d, o, n, batch, dtype, seed, device=DEVICE, const_sites=False,
+                       dense_h=None):
+    """Sites at o x o: the emission H [o, d, N] (the first o rows of I, or
+    with ``dense_h`` I's rows plus 0.5 N(0, 1) entries times ``dense_h``
+    [d], the prior's standard deviation of the first state over each
+    state's, so that H x mixes the states in units of their spread), nu
+    [o, 1, N] and
+    lam = U diag(e) U^T [o, o, N] with a random orthogonal U and e in
+    [1, 25] (float64 with identity rows) or in [0.04, 1] (float32, or a
+    dense H: with e in [1, 25] and H's entries unscaled, the plain
+    version's outputs moved by up to 8e-8 when its float64 inputs moved by
+    one ulp, at d = 3, o = 3, N = 1100), and a mask; H and lam stored at
+    every step, or with ``const_sites`` one H and one lam expanded
+    (stride 0)."""
     rng = np.random.default_rng(seed + 17 * d + o)
-    k = (getattr(kernels, KERNEL_NAMES[d])(lengthscale=0.5, variance=1.0,
-                                          dtype=torch.float64, device=device)
-         if d <= 3 else sum_kernel(d, torch.float64, device))
-    tp = torch.as_tensor(jittered_grid(n, seed), device=device)
-    with torch.no_grad():
-        F, c, Q = (x.to(dtype) for x in k.prior_arrays_tl(tp))
     steps = 1 if const_sites else n
     u, _ = np.linalg.qr(rng.standard_normal(batch + (steps, o, o)))
-    scale = 1.0 if dtype == torch.float64 else 0.04
+    scale = 1.0 if dtype == torch.float64 and dense_h is None else 0.04
     lam = (u * rng.uniform(scale, 25.0 * scale, batch + (steps, 1, o))) @ np.swapaxes(u, -1, -2)
     t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
     lam = t(np.moveaxis(0.5 * (lam + np.swapaxes(lam, -1, -2)), -3, -1))
-    h = t(np.eye(o, d)[..., None]).expand(o, d, n)
+    nu = t(5.0 * rng.standard_normal(batch + (o, 1, n)))
+    maskf = t(rng.random(batch + (1, 1, n)) > 0.3)
+    h = np.eye(o, d)[..., None]
+    if dense_h is not None:
+        h = h + 0.5 * rng.standard_normal((o, d, steps)) * np.asarray(dense_h)[:, None]
+    h = t(h).expand(o, d, n)
     if const_sites:
         lam = lam.expand(batch + (o, o, n))
     else:
         h = h.contiguous()
-    nu = t(5.0 * rng.standard_normal(batch + (o, 1, n)))
-    maskf = t(rng.random(batch + (1, 1, n)) > 0.3)
-    return F, c, Q, h, nu, lam, maskf
+    return h, nu, lam, maskf
+
+
+def multi_output_problem(d, o, n, batch, dtype, seed, device=DEVICE, const_sites=False,
+                         dense_h=False):
+    """The general filter's inputs at o x o sites: the per-step Matern prior
+    of a jittered grid (a Sum's for d >= 4, made in float64 and cast) and
+    multi_output_sites' H, sites and mask: the first o rows of I as H (the
+    natural-gradient inversion's identity emission) unless ``dense_h``,
+    lam's eigenvalues in [1, 25] (float64) or in [0.04, 1] (float32, held
+    on these benign sites only: at the larger ones both versions cancel
+    most digits of the prior's covariance, as o observed states update
+    it).  The indefinite sites of that inversion are
+    natgrad_filter_problem's.  The cuda tests and the CPU shim run (tests/)
+    take them from here."""
+    k = multi_output_kernel(d, device)
+    tp = torch.as_tensor(jittered_grid(n, seed), device=device)
+    with torch.no_grad():
+        F, c, Q = (x.to(dtype) for x in k.prior_arrays_tl(tp))
+    return (F, c, Q) + multi_output_sites(d, o, n, batch, dtype, seed, device, const_sites,
+                                          state_scales(k) if dense_h else None)
+
+
+def multi_output_kernel(d, device=DEVICE):
+    """The prior of the o x o problems: a Matern kernel for d <= 3, a Sum
+    (sum_kernel) above, float64."""
+    from markovflow_tpu_torch import kernels
+
+    return (getattr(kernels, KERNEL_NAMES[d])(lengthscale=0.5, variance=1.0,
+                                             dtype=torch.float64, device=device)
+            if d <= 3 else sum_kernel(d, torch.float64, device))
+
+
+def state_scales(k):
+    """The prior's standard deviation of the first state over each
+    state's, [d] (numpy)."""
+    with torch.no_grad():
+        var = torch.diagonal(k.steady_state_covariance).cpu().numpy()
+    return np.sqrt(var[0] / var)
+
+
+def multi_output_uniform_problem(d, o, n, batch, dtype, seed, device=DEVICE,
+                                 const_sites=False, dense_h=False):
+    """The uniform filter's and Koopman backward's inputs at o x o sites:
+    the constant Matern prior steps of linspace(0, 100, n) (a Sum's for
+    d >= 4, made in float64 and cast), multi_output_sites' H (its first
+    step as Hc [o, d, 1]), sites and mask."""
+    k = multi_output_kernel(d, device)
+    dt = torch.full((1,), 100.0 / max(n - 1, 1), dtype=torch.float64, device=device)
+    with torch.no_grad():
+        consts = tuple(x.to(dtype) for x in k.prior_const_tl(dt))
+    h, nu, lam, maskf = multi_output_sites(d, o, n, batch, dtype, seed, device, const_sites,
+                                           state_scales(k) if dense_h else None)
+    return consts + (h[..., :1].contiguous(), nu, lam, maskf)
+
+
+def multi_output_kernels(cs, adj, d, o, n, batch, dtype, seed, device=DEVICE,
+                         const_sites=False, dense_h=False):
+    """Kernels 1, 3 and 7 (and kernel 4, whose moments kernel 7 reads) at
+    o x o sites on multi_output_uniform_problem's and multi_output_problem's
+    inputs, beside their plain versions: name -> (kernel output, plain
+    output, scale or None), the scale of kernel 3's summed gradients being
+    the summed magnitudes of their terms (adjoint_sum_scales).  With
+    float32 inputs also the plain versions in float64 on the same inputs:
+    name -> float64 output.  The cuda tests and the CPU shim run (tests/)
+    take them from here."""
+    args = multi_output_uniform_problem(d, o, n, batch, dtype, seed, device, const_sites,
+                                        dense_h)
+    gargs = multi_output_problem(d, o, n, batch, dtype, seed, device, const_sites, dense_h)
+    gscale = torch.linspace(1.0, -0.5, max(1, math.prod(batch)), dtype=dtype,
+                            device=device).reshape(batch)
+    out, ref = {}, {}
+    f32 = dtype == torch.float32
+    with torch.no_grad():
+        m_p, p_p, ll_p = cs.filter_pipeline_uniform_plain(*args)
+        for name, g, w in zip(("uniform m_f", "uniform P_f", "uniform loglik"),
+                              cs.filter_pipeline_uniform(*args), (m_p, p_p, ll_p)):
+            out[name] = (g, w, None)
+        scales = adjoint_sum_scales(adj, args, m_p, p_p, gscale) + (None, None)
+        a_k = adj.adjoint_pipeline_uniform(*args, m_p, p_p, gscale)
+        a_k0 = adj.adjoint_pipeline_uniform(*args, m_p, p_p, gscale, site_grads=False)
+        a_p = adj.adjoint_pipeline_uniform_plain(*args, m_p, p_p, gscale)
+        assert a_k0[6] is None and a_k0[7] is None
+        for name, g, g0, w, sc in zip(ADJ_OUT, a_k, a_k0 + (None, None), a_p, scales):
+            out["uniform " + name] = (g, w, sc)
+            if g0 is not None:
+                out["uniform " + name + " (no site grads)"] = (g0, w, sc)
+        gm_p, gp_p, gll_p = cs.filter_pipeline_plain(*gargs)
+        for name, g, w in zip(("m_f", "P_f", "loglik"), cs.filter_pipeline(*gargs),
+                              (gm_p, gp_p, gll_p)):
+            out[name] = (g, w, None)
+        for name, g, w in zip(GADJ_OUT, adj.adjoint_pipeline(*gargs, gm_p, gp_p, gscale),
+                              adj.adjoint_pipeline_plain(*gargs, gm_p, gp_p, gscale)):
+            out[name] = (g, w, None)
+        if f32:
+            a64 = [None if x is None else x.double() for x in args]
+            g64 = [None if x is None else x.double() for x in gargs]
+            m6, p6, ll6 = cs.filter_pipeline_uniform_plain(*a64)
+            gm6, gp6, gll6 = cs.filter_pipeline_plain(*g64)
+            a6 = adj.adjoint_pipeline_uniform_plain(*a64, m_p.double(), p_p.double(),
+                                                    gscale.double())
+            ga6 = adj.adjoint_pipeline_plain(*g64, gm_p.double(), gp_p.double(),
+                                             gscale.double())
+            ref.update(zip(("uniform m_f", "uniform P_f", "uniform loglik"), (m6, p6, ll6)))
+            ref.update(("uniform " + k, v) for k, v in zip(ADJ_OUT, a6))
+            ref.update(("uniform " + k + " (no site grads)", v) for k, v in zip(ADJ_OUT[:6], a6))
+            ref.update(zip(("m_f", "P_f", "loglik"), (gm6, gp6, gll6)))
+            ref.update(zip(GADJ_OUT, ga6))
+    return out, ref
 
 
 def natgrad_filter_problem(d, n, batch, seed, device=DEVICE):
@@ -765,6 +919,28 @@ def natgrad_filter_case(cs, n, batch, d):
             raise AssertionError(f"natgrad sites N={n} d={d}: {k} differs by {v:.3e} > "
                                  f"{TOL_F64:g} and > {COND_FACTOR:g} x the plain version's "
                                  f"one-ulp spread {spread[k]:.3e}")
+
+
+def multi_output_kernels_case(cs, adj, n, batch, d, o, dtype, const_sites):
+    """Kernels 1, 3 and 7 (and 4 beside them) at o x o sites against their
+    plain versions (multi_output_kernels): per-step sites with a random
+    dense H, or GPR's stride-0 H and lam (identity rows); float64 within
+    TOL_F64, float32 within TOL_F32_MOMENTS (the log-likelihoods
+    TOL_F32_LOGLIK) of the plain version or, against float64, no less
+    accurate than it up to F32_NO_WORSE; kernel 3's sums against the
+    summed magnitudes of their terms."""
+    out, ref = multi_output_kernels(cs, adj, d, o, n, batch, dtype, seed=n, device=DEVICE,
+                                    const_sites=const_sites, dense_h=not const_sites)
+    torch.cuda.synchronize()
+    tag = (f"kernels 1, 3, 7 o={o} N={n} batch={batch} d={d} {str(dtype)[6:]} masked"
+           + (" stride-0 H, lam" if const_sites else " dense H per step"))
+    if not ref:
+        check(tag, {k: rel_diff(g, w, sc) for k, (g, w, sc) in out.items()},
+              dict.fromkeys(out, TOL_F64))
+        return
+    check_f32_wide(tag, {k: (g, w, ref[k], sc) for k, (g, w, sc) in out.items()},
+                   {k: TOL_F32_LOGLIK if k.endswith("loglik") else TOL_F32_MOMENTS
+                    for k in out})
 
 
 def multi_output_case(cs, n, batch, d, o, dtype, const_sites):
@@ -2182,6 +2358,203 @@ def phase_natgrad(cs, adj, kf):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4j
+# ---------------------------------------------------------------------------
+def mo3_data(n, uniform=True):
+    """mo3's data: x as the flagship's, y [n, 3] of sin(2x), sin(x) and
+    sin(x / 2) plus noise of MO3_CHOL's covariance, from seed 0."""
+    rng = np.random.default_rng(0)
+    x = np.linspace(0.0, 100.0, n) if uniform else jittered_grid(n, 0)
+    f = np.stack([np.sin(2.0 * x / 2.0 ** i) for i in range(3)], axis=-1)
+    return x, f + rng.standard_normal((n, 3)) @ np.asarray(MO3_CHOL).T
+
+
+def mo3_params():
+    """mo3's parameters under the JAX IndependentMultiOutput's paths."""
+    from markovflow_tpu_torch.utils.bijectors import positive
+
+    params = {"chol_obs_covariance": np.asarray(MO3_CHOL)}
+    for i, (ell, var) in enumerate(MO3):
+        params[f"kernel.kernels[{i}].lengthscale"] = positive().inverse(np.asarray(ell))
+        params[f"kernel.kernels[{i}].variance"] = positive().inverse(np.asarray(var))
+    return params
+
+
+def build_mo3(n, dtype, uniform=True, device=None):
+    """The multi-output GPR mo3 on a uniform or the jittered grid, on
+    ``device`` (DEVICE unless given)."""
+    from markovflow_tpu_torch.convert import gpr_from_numpy
+
+    x, y = mo3_data(n, uniform)
+    model = gpr_from_numpy(mo3_params(), x, y, device=device or DEVICE, dtype=dtype,
+                           kernel=MO3_SPEC)
+    if model._uniform_grid != uniform:
+        raise AssertionError(f"the grid was detected as uniform={model._uniform_grid}")
+    return model
+
+
+def mo3_outputs(model, tn, fit_steps=0):
+    """A float64 or float32 mo3 model's loss, gradients, smoothed marginals
+    and, from gpr.posterior, predict_f (diagonal and full output
+    covariances) and predict_y at tn: name -> tensor (gradients by
+    hyperparameter under "grad ...")."""
+    loss = model.loss()
+    loss.backward()
+    out = {"loss": loss.detach()}
+    out.update((f"grad {k}", v.grad.clone()) for k, v in hyper(model).items())
+    with torch.no_grad():
+        out["marginal means"], out["marginal covs"] = model.kalman.posterior_marginals()
+        post = model.posterior
+        out["f mean"], out["f var"] = post.predict_f(tn)
+        _, out["f cov"] = post.predict_f(tn, full_output_cov=True)
+        out["y mean"], out["y cov"] = post.predict_y(tn)
+    return out
+
+
+def mo3_oracle(npk, model, y):
+    """The numpy oracle's filter of a float64 mo3 model at its grid: H [3, 6],
+    R = L L^T [3, 3]."""
+    mu0, p0, a, b, q = oracle_steps(model)
+    h = model.kernel.generate_emission_model(
+        model.time_points[:1]).emission_matrix[0].cpu().numpy()
+    chol = np.asarray(MO3_CHOL)
+    return npk.kalman_filter(mu0, p0, a, b, q, h, chol @ chol.T, y), (a, b, q)
+
+
+def check_mo3_oracle(npk, n, uniform):
+    """float64 mo3 at N = n against the numpy oracle: log-likelihood and
+    smoothed marginals within 1e-9, gradients within TOL_FD of central
+    differences of the oracle's log-likelihood."""
+    model = build_mo3(n, torch.float64, uniform)
+    _, y = mo3_data(n, uniform)
+    loss = model.loss()
+    loss.backward()
+    with torch.no_grad():
+        m_s, p_s = model.kalman.posterior_marginals()
+    (mf, pf, _, _, ll_ref), (a, b, q) = mo3_oracle(npk, model, y)
+    ms_ref, ps_ref, _ = npk.rts_smoother(mf, pf, a, b, q)
+    errs = {"loglik": abs(-float(loss.detach()) - ll_ref) / abs(ll_ref),
+            "m_s": float(np.abs(m_s.cpu().numpy() - ms_ref).max()),
+            "P_s": float(np.abs(p_s.cpu().numpy() - ps_ref).max())}
+    fd = {}
+    for name, prm in hyper(model).items():
+        lls = []
+        for sign in (1.0, -1.0):
+            with torch.no_grad():
+                prm.add_(sign * FD_STEP)
+                lls.append(mo3_oracle(npk, model, y)[0][-1])
+                prm.sub_(sign * FD_STEP)
+        want = -(lls[0] - lls[1]) / (2.0 * FD_STEP)
+        fd[name] = abs(float(prm.grad) - want) / abs(want)
+    grid = "uniform" if uniform else "jittered"
+    check(f"mo3 N={n} f64 {grid} vs the numpy oracle", errs, dict.fromkeys(errs, 1e-9))
+    check(f"mo3 N={n} f64 {grid} gradients vs central differences of the oracle", fd,
+          dict.fromkeys(fd, TOL_FD))
+
+
+def phase_multi_output(cs, adj, kf, training, npk):
+    """The multi-output slice mo3 (IndependentMultiOutput of three Matern32,
+    d = 6, o = 3, a full noise Cholesky) at T = 1e6 on both grids, float32
+    and float64: serving (loss() and posterior_marginals()), a loss and its
+    backward, gpr.posterior with predict_f (both output covariances) and
+    predict_y at 1e5 new points and sample_f, and FIT_STEPS fit steps in
+    float32, each with its launch counts (kernels 1, 2, 3 on the uniform
+    grid, 4, 5, 7 on the jittered one, every one at o = 3 but the
+    smoothers); float64 against the plain path, float32 against float64,
+    float64 at N = 500 against the numpy oracle; and a Product kernel's loss
+    and gradient."""
+    log(f"phase 4j: multi-output GPR mo3 (IndependentMultiOutput of three Matern32, "
+        f"d = 6, o = 3) at T = {T_FULL}, float32 and float64")
+    counts = {}
+    for uniform in (True, False):
+        grid = "uniform" if uniform else "jittered"
+        filt, smooth, back = (("filter_pipeline_uniform", "smoother_pipeline_uniform",
+                               "adjoint_pipeline_uniform") if uniform else
+                              ("filter_pipeline", "smoother_scan", "adjoint_pipeline"))
+        x, _ = mo3_data(T_FULL, uniform)
+        pts, _ = prediction_points(N_NEW, x)
+        outs = {}
+        for dtype in (torch.float64, torch.float32):
+            name = str(dtype)[6:]
+            model = build_mo3(T_FULL, dtype, uniform)
+            tn = torch.as_tensor(pts, dtype=dtype, device=DEVICE)
+            path = f"mo3 {grid} {name}"
+            counts[path] = {}
+            with launches_of(cs, adj, counts[path]):
+                outs[name] = mo3_outputs(model, tn)
+            # loss + backward; marginals; gpr.posterior
+            expect_launches(f"{path}: loss, backward, marginals, posterior", counts[path],
+                            no_launches(**{filt: 3, back: 1, smooth: 2}))
+            check_finite(path, {k: v for k, v in outs[name].items()})
+            with torch.no_grad():
+                draws = model.posterior.sample_f(
+                    tn[:N_SAMPLE_POINTS], SAMPLES,
+                    generator=torch.Generator(device=DEVICE).manual_seed(0))
+            if draws.shape != (SAMPLES, N_SAMPLE_POINTS, 3):
+                raise AssertionError(f"{path}: sample_f shape {tuple(draws.shape)}")
+            check_finite(path + " sample_f", {"draws": draws})
+            if dtype == torch.float32:
+                fpath = f"mo3 {grid} training {name}"
+                counts[fpath] = {}
+                with launches_of(cs, adj, counts[fpath]):
+                    _, losses = training.fit(model, num_steps=FIT_STEPS)
+                expect_launches(f"{fpath}: {FIT_STEPS} fit steps", counts[fpath],
+                                no_launches(**{filt: FIT_STEPS, back: FIT_STEPS}))
+                check_fit(losses)
+            del model
+        log(f"  mo3 {grid}: loss (f64) = {float(outs['float64']['loss'])!r}, "
+            f"(f32) = {float(outs['float32']['loss'])!r}")
+        with plain_path(cs, adj, kf):
+            tn = torch.as_tensor(pts, dtype=torch.float64, device=DEVICE)
+            plain = mo3_outputs(build_mo3(T_FULL, torch.float64, uniform), tn)
+        k64, k32 = outs["float64"], outs["float32"]
+        check(f"mo3 {grid} f64: kernel path vs plain path",
+              {k: rel_diff(k64[k], plain[k]) for k in plain}, dict.fromkeys(plain, TOL_F64))
+        grads = [k for k in k64 if k.startswith("grad")]
+        gscale = torch.stack([k64[k].abs() for k in grads]).max()
+        diffs = {k: rel_diff(k32[k].double(), k64[k], gscale if k in grads else None)
+                 for k in k64}
+        tols = {k: (TOL_MO3_F32_LOSS if k == "loss" else TOL_MO3_F32_GRAD if k in grads
+                    else TOL_MO3_F32_MOMENTS) for k in k64}
+        check(f"mo3 {grid}: f32 vs f64 on the kernel path (gradients normwise)", diffs, tols)
+        del outs, plain
+        check_mo3_oracle(npk, 500, uniform)
+    counts.update(product_run(cs, adj, kf))
+    return counts
+
+
+def product_run(cs, adj, kf):
+    """A Product of Matern12(0.7, 1.3) and Matern32(1.1, 0.4) (d = 2, o = 1)
+    at T = PRODUCT_T on the uniform grid, float64: loss() and its backward
+    through kernels 1 and 3, against the plain path."""
+    from markovflow_tpu_torch.convert import gpr_from_numpy
+    from markovflow_tpu_torch.utils.bijectors import positive
+
+    x, y = flagship_data(PRODUCT_T)
+    params = {"chol_obs_covariance": np.asarray([[0.2]])}
+    for i, (ell, var) in enumerate(((0.7, 1.3), (1.1, 0.4))):
+        params[f"kernel.kernels[{i}].lengthscale"] = positive().inverse(np.asarray(ell))
+        params[f"kernel.kernels[{i}].variance"] = positive().inverse(np.asarray(var))
+    spec = ("Product", ("Matern12", "Matern32"))
+    runs, counts = {}, {"product": {}}
+    for tag, ctx in (("kernel", launches_of(cs, adj, counts["product"])),
+                     ("plain", plain_path(cs, adj, kf))):
+        with ctx:
+            model = gpr_from_numpy(params, x, y, device=DEVICE, dtype=torch.float64,
+                                   kernel=spec)
+            loss = model.loss()
+            loss.backward()
+        runs[tag] = {"loss": loss.detach(),
+                     **{f"grad {k}": v.grad for k, v in hyper(model).items()}}
+    expect_launches("product: loss and backward", counts["product"],
+                    no_launches(filter_pipeline_uniform=1, adjoint_pipeline_uniform=1))
+    check(f"product Matern12 x Matern32 T={PRODUCT_T} f64: kernel path vs plain path",
+          {k: rel_diff(runs["kernel"][k], runs["plain"][k]) for k in runs["plain"]},
+          dict.fromkeys(runs["plain"], TOL_F64))
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 5
 # ---------------------------------------------------------------------------
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -2342,12 +2715,18 @@ def step_flops(name: str, d: int, o: int = 1) -> int:
         A M C A^T (10 d^3), the means;
       Koopman backward, per step: Pp and L = F (I - K H) (6 d^3), the
         suffix E NDK E^T (4 d^3), N F P (4 d^3); the uniform one also the
-        smoothed covariance for its summed gH (4 d^3)."""
+        smoothed covariance for its summed gH (4 d^3); at o > 1 also
+        H Pp H^T and Pp H^T (2 d^2 o + 2 d o^2), the o x o solve for
+        Zt lam and e (2 o^2 (o + 1) + 2 o^3), W H, F Pp H^T, their product
+        and H^T W H (2 d o^2 + 6 d^2 o), and the observation terms:
+        Pp NDK Pp H^T (4 d^2 o), lam H A and H A H^T (4 d o^2) and lam^-1
+        (4 o^3)."""
     d2, d3 = d * d, d ** 3
-    if name == "filter_pipeline" and o > 1:
+    if name in ("filter_pipeline", "filter_pipeline_uniform") and o > 1:
         return (4 * d3 + 4 * d2 * o + 4 * d * o * o + 2 * o * o * (o + 1) + 10 * o ** 3
                 + 6 * d2)
-    return {"filter_pipeline_uniform": 4 * d3 + 6 * d2,
+    extra = (12 * d2 * o + 8 * d * o * o + 2 * o * o * (o + 1) + 6 * o ** 3) if o > 1 else 0
+    return extra + {"filter_pipeline_uniform": 4 * d3 + 6 * d2,
             "filter_pipeline": 4 * d3 + 6 * d2,
             "smoother_pipeline_uniform": 12 * d3 + 6 * d2,
             "smoother_scan": 4 * d3 + 2 * d2,
@@ -2364,7 +2743,10 @@ def bound(name, inputs, outputs, d, steps):
     nbytes = sum(stored_bytes(x) for x in list(inputs) + list(outputs)
                  if isinstance(x, torch.Tensor))
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    o = inputs[5].shape[-3] if name == "filter_pipeline" else 1
+    # the output dim of a filter's or a backward's lam [..., o, o, N]
+    lam_at = {"filter_pipeline": 5, "adjoint_pipeline": 5, "filter_pipeline_uniform": 7,
+              "adjoint_pipeline_uniform": 7}
+    o = inputs[lam_at[name]].shape[-3] if name in lam_at else 1
     rate = H100_F64_FLOPS if inputs[0].dtype == torch.float64 else H100_F32_FLOPS
     t_ops = step_flops(name, d, o) * steps / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -2456,13 +2838,20 @@ def phase_times(cs, adj, kf, card, counts):
     gen = build_gpr(T_FULL, torch.float32, uniform=False)
     d9u = build_gpr(T_D9, torch.float32, d9=True)
     d9j = build_gpr(T_D9, torch.float32, uniform=False, d9=True)
+    mo3u = build_mo3(T_FULL, torch.float32)
+    mo3j = build_mo3(T_FULL, torch.float32, uniform=False)
+    # mo3's kernels: 1, 3, 4 and 7 at o = 3, the smoothers at d = 6
+    mo3_calls = {k: v for k, v in kernel_calls(cs, adj, mo3u, mo3j).items()
+                 if k != "filter_scan"}
     sets = {"": (kernel_calls(cs, adj, uni, gen), 2, T_FULL),
             " d=9": (kernel_calls(cs, adj, d9u, d9j), 9, T_D9),
-            " o=2": (natgrad_kernel_calls(cs), 2, NG_T)}
+            " o=2": (natgrad_kernel_calls(cs), 2, NG_T),
+            " o=3": (mo3_calls, 6, T_FULL)}
     with torch.no_grad():
         tn = torch.as_tensor(prediction_points(N_NEW, flagship_data(T_FULL)[0])[0],
                              dtype=torch.float32, device=DEVICE)
-        held = {"uniform": uni.posterior, "jittered": gen.posterior}
+        held = {"uniform": uni.posterior, "jittered": gen.posterior,
+                "mo3 uniform": mo3u.posterior, "mo3 jittered": mo3j.posterior}
     requests = {
         # predict_f runs no kernel: its plain path is the same code
         "uniform posterior": lambda: uni.posterior,
@@ -2477,6 +2866,14 @@ def phase_times(cs, adj, kf, card, counts):
         "d9 posterior_marginals()": lambda: d9u.kalman.posterior_marginals(),
         "d9 jittered loss()": lambda: d9j.loss(),
         "d9 jittered posterior_marginals()": lambda: d9j.kalman.posterior_marginals(),
+        "mo3 uniform loss()": lambda: mo3u.loss(),
+        "mo3 uniform posterior_marginals()": lambda: mo3u.kalman.posterior_marginals(),
+        "mo3 uniform posterior": lambda: mo3u.posterior,
+        "mo3 uniform predict_f (1e5 points)": lambda: held["mo3 uniform"].predict_f(tn),
+        "mo3 jittered loss()": lambda: mo3j.loss(),
+        "mo3 jittered posterior_marginals()": lambda: mo3j.kalman.posterior_marginals(),
+        "mo3 jittered posterior": lambda: mo3j.posterior,
+        "mo3 jittered predict_f (1e5 points)": lambda: held["mo3 jittered"].predict_f(tn),
     }
     sde_prob = sde_problem(torch.float32, SDE_N)
     sde_key = f"SDE VI iteration (n={SDE_N})"
@@ -2485,6 +2882,8 @@ def phase_times(cs, adj, kf, card, counts):
              "jittered training step": train_step(gen),
              "d9 training step": train_step(d9u),
              "d9 jittered training step": train_step(d9j),
+             "mo3 uniform training step": train_step(mo3u),
+             "mo3 jittered training step": train_step(mo3j),
              "uniform CVI iteration": cvi_step(build_cvi(T_FULL, torch.float32)),
              "jittered CVI iteration": cvi_step(build_cvi(T_FULL, torch.float32,
                                                           uniform=False))}
@@ -2519,6 +2918,8 @@ def phase_times(cs, adj, kf, card, counts):
             f"{ms[('plain', key)]!r} ms (CUDA events, median)  [{card}]")
     for key, fn in (("uniform CVI iteration", steps["uniform CVI iteration"]),
                     ("jittered CVI iteration", steps["jittered CVI iteration"]),
+                    ("mo3 uniform training step", steps["mo3 uniform training step"]),
+                    ("mo3 jittered training step", steps["mo3 jittered training step"]),
                     (sde_key, requests[sde_key]), *natgrad.items()):
         ctx = torch.no_grad() if key.startswith("SDE") else contextlib.nullcontext()
         with ctx:
@@ -2568,12 +2969,14 @@ def phase_times(cs, adj, kf, card, counts):
     cvi_gen = tuple(f"cvi jittered {t}" for t in both)
     sde = tuple(f"sde {t}" for t in both)
     natgrad_paths = ("natgrad vgp", "natgrad svgp")
+    mo3_uni = tuple(f"mo3 uniform {t}" for t in both) + ("mo3 uniform training float32",)
+    mo3_gen = tuple(f"mo3 jittered {t}" for t in both) + ("mo3 jittered training float32",)
     rows = [("filter_pipeline_uniform", "uniform_scan.cuh", "wide_scan.cuh",
-             "pallas_scan.py:1036", ("serving",) + uni_post + cvi_uni, d9_paths),
+             "pallas_scan.py:1036", ("serving", "product") + uni_post + cvi_uni, d9_paths),
             ("smoother_pipeline_uniform", "uniform_scan.cuh", "wide_scan.cuh",
              "pallas_scan.py:1457", ("serving",) + uni_post + cvi_uni, d9_paths),
             ("adjoint_pipeline_uniform", "adjoint_scan.cuh", None,
-             "pallas_scan.py:1229", ("training",) + cvi_uni, ()),
+             "pallas_scan.py:1229", ("training", "product") + cvi_uni, ()),
             ("filter_pipeline", "general_scan.cuh", "wide_scan.cuh",
              "pallas_scan.py:849", ("general", "sparse") + gen_post + condensed
              + cvi_gen + sde, d9_paths + d9_post),
@@ -2584,19 +2987,31 @@ def phase_times(cs, adj, kf, card, counts):
              "pallas_scan.py:793", ("ops",), ("ops d9",)),
             ("adjoint_pipeline", "general_adjoint.cuh", "general_adjoint.cuh",
              "pallas_scan.py:681", ("general", "sparse") + cvi_gen, d9_paths)]
+    # mo3's paths by kernel: kernels 1, 3, 4 and 7 at o = 3, the smoothers
+    # at d = 6
+    mo3_paths = {"filter_pipeline_uniform": mo3_uni, "smoother_pipeline_uniform": mo3_uni,
+                 "adjoint_pipeline_uniform": mo3_uni, "filter_pipeline": mo3_gen,
+                 "smoother_scan": mo3_gen, "adjoint_pipeline": mo3_gen}
     out = []
     for name, src, wide_src, rep, paths, wide_paths in rows:
         tags = [("", src, paths), (" d=9", wide_src, wide_paths)]
         if name == "filter_pipeline":
             # kernel 4 at o = d = 2: the natural-gradient inversion's
             tags.append((" o=2", "general_scan.cuh", natgrad_paths))
+        if name in mo3_paths:
+            tags.append((" o=3", src, mo3_paths[name]))
         for tag, file, run in tags:
             if file is None:
                 continue
             key = name + tag
-            # kernel 4 names its output dim
-            label = key.replace(name, name + " o=1") if name == "filter_pipeline" and \
-                tag != " o=2" else key
+            # the filters and the backwards name their output dim, the
+            # smoothers mo3's state dim
+            if name in ("smoother_pipeline_uniform", "smoother_scan"):
+                label = name + " d=6" if tag == " o=3" else key
+            elif name != "filter_scan" and tag in ("", " d=9"):
+                label = key.replace(name, name + " o=1")
+            else:
+                label = key
             out.append({"name": label, "route": "cuda", "source": source + file,
                         "replaces": "markovflow_tpu/ops/" + rep,
                         "launches": sum(counts[path].get(name, 0) for path in run),
@@ -2646,6 +3061,7 @@ def main() -> int:
     counts.update(phase_cvi(cs, adj, kf))
     counts.update(phase_sde(cs, adj, kf))
     counts.update(phase_natgrad(cs, adj, kf))
+    counts.update(phase_multi_output(cs, adj, kf, training, npk))
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels = phase_times(cs, adj, kf, card, counts)

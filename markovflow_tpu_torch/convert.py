@@ -32,13 +32,26 @@ def _kernel(name: str, params, prefix: str, dtype, device):
     return k
 
 
-def _model_kernel(kernel: Union[str, Sequence[str]], params, dtype, device):
-    """The model's kernel: the Matern ``kernel`` under ``kernel.*``, or a
-    Sum of the named kernels under ``kernel.kernels[i].*``."""
+#: the kernels of several children, by the JAX class name
+_COMBINATORS = {"Sum": kernels.Sum, "IndependentMultiOutput": kernels.IndependentMultiOutput,
+                "Product": kernels.Product}
+KernelSpec = Union[str, Sequence]
+
+
+def _model_kernel(kernel: KernelSpec, params, dtype, device):
+    """The model's kernel: the Matern ``kernel`` under ``kernel.*``; a Sum
+    of the named kernels under ``kernel.kernels[i].*``; or, for a pair
+    (combinator, names) such as ``("IndependentMultiOutput", ("Matern32",
+    "Matern32"))``, that kernel of the named children under
+    ``kernel.kernels[i].*`` (combinators: Sum, IndependentMultiOutput,
+    Product)."""
     if isinstance(kernel, str):
         return _kernel(kernel, params, "kernel.", dtype, device)
-    return kernels.Sum([_kernel(name, params, f"kernel.kernels[{i}].", dtype,
-                                device) for i, name in enumerate(kernel)])
+    cls, names = kernels.Sum, kernel
+    if len(kernel) == 2 and not isinstance(kernel[1], str):
+        cls, names = _COMBINATORS[kernel[0]], kernel[1]
+    return cls([_kernel(name, params, f"kernel.kernels[{i}].", dtype, device)
+                for i, name in enumerate(names)])
 
 
 def _mean_function(name: Optional[str], params, k, dtype, device):
@@ -60,7 +73,7 @@ def _mean_function(name: Optional[str], params, k, dtype, device):
 
 def gpr_from_numpy(params: Dict[str, np.ndarray], time_points: np.ndarray,
                    observations: np.ndarray, *, dtype: torch.dtype,
-                   device="cuda", kernel: Union[str, Sequence[str]] = "Matern32",
+                   device="cuda", kernel: KernelSpec = "Matern32",
                    mean_function: Optional[str] = None
                    ) -> GaussianProcessRegression:
     """A :class:`GaussianProcessRegression` from numpy parameters under the
@@ -70,7 +83,11 @@ def gpr_from_numpy(params: Dict[str, np.ndarray], time_points: np.ndarray,
     ``kernel`` names the kernel class, or is a sequence of names for a
     :class:`~markovflow_tpu_torch.kernels.Sum` of those kernels, whose
     parameters are ``kernel.kernels[i].lengthscale`` and so on, as in a JAX
-    ``Sum([...])``.  ``mean_function`` names the mean function ("Zero",
+    ``Sum([...])``, or a pair (combinator, names) for an
+    :class:`~markovflow_tpu_torch.kernels.IndependentMultiOutput`, a
+    ``Product`` or a ``Sum`` of the named children, under the same paths;
+    a multi-output kernel takes observations [N, o] and an o x o
+    ``chol_obs_covariance``.  ``mean_function`` names the mean function ("Zero",
     "Linear", "Impulse" or "Step"; the last two respond through the
     model's kernel), whose arrays are ``params["mean_function.*"]``.  The
     time points, on any grid, are checked, and the
@@ -109,7 +126,7 @@ def _likelihood(name: str, params, dtype, device):
 
 def cvi_from_numpy(params: Dict[str, np.ndarray], time_points: np.ndarray,
                    observations: np.ndarray, *, dtype: torch.dtype,
-                   device="cuda", kernel: Union[str, Sequence[str]] = "Matern32",
+                   device="cuda", kernel: KernelSpec = "Matern32",
                    likelihood: str = "Gaussian", learning_rate: float = 0.1,
                    mean_function: Optional[str] = None) -> CVIGaussianProcess:
     """A :class:`CVIGaussianProcess` from numpy parameters under the JAX
@@ -145,7 +162,7 @@ def ssm_from_numpy(fields: Sequence[np.ndarray], *, dtype: torch.dtype,
 
 def vgp_from_numpy(params: Dict[str, np.ndarray], time_points: np.ndarray,
                    observations: np.ndarray, *, dtype: torch.dtype, device="cuda",
-                   kernel: Union[str, Sequence[str]] = "Matern32",
+                   kernel: KernelSpec = "Matern32",
                    likelihood: str = "Bernoulli",
                    dist_q: Optional[Sequence[np.ndarray]] = None,
                    mean_function: Optional[str] = None) -> VariationalGaussianProcess:
@@ -166,7 +183,7 @@ def vgp_from_numpy(params: Dict[str, np.ndarray], time_points: np.ndarray,
 
 def svgp_from_numpy(params: Dict[str, np.ndarray], inducing_points: np.ndarray, *,
                     dtype: torch.dtype, device="cuda",
-                    kernel: Union[str, Sequence[str]] = "Matern32",
+                    kernel: KernelSpec = "Matern32",
                     likelihood: str = "Gaussian", num_data: Optional[int] = None,
                     dist_q: Optional[Sequence[np.ndarray]] = None,
                     mean_function: Optional[str] = None

@@ -10,8 +10,9 @@ mean functions.
 Every tensor is built in the dtype and on the device of the kernel's
 parameters or of the time points it is given; nothing falls back to a
 global default dtype.  A kernel's parameters live on the CUDA card unless
-its constructor is given another ``device``; a :class:`Sum` holds no
-parameters of its own and lives where its children do.
+its constructor is given another ``device``; a :class:`Sum`, an
+:class:`IndependentMultiOutput` and a :class:`Product` hold no trainable
+parameters of their own and live where their children do.
 """
 from __future__ import annotations
 
@@ -24,11 +25,13 @@ from torch import nn
 
 from ..emission_model import EmissionModel
 from ..state_space_model import StateSpaceModel
-from ..utils.linalg import block_diag, cholesky_or_zero, small_mv, to_delta_time
+from ..utils.linalg import (batched_kron, block_diag, cholesky_or_zero, small_mv,
+                            to_delta_time)
 from ..utils.module import Parameter
 from .kernel import Kernel
 
-__all__ = ["SDEKernel", "StationaryKernel", "ConcatKernel", "Sum"]
+__all__ = ["SDEKernel", "StationaryKernel", "ConcatKernel", "Sum",
+           "IndependentMultiOutput", "Product"]
 
 
 def _mat_vec_tl(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -248,4 +251,98 @@ class Sum(ConcatKernel):
         [..., N, o, d] in the time points' dtype and device."""
         h = torch.cat([k.generate_emission_model(time_points).emission_matrix[..., :1, :, :]
                        for k in self.kernels], dim=-1)
+        return EmissionModel(h.expand(h.shape[:-3] + time_points.shape[-1:] + h.shape[-2:]))
+
+
+def _block_diag_tl(mats: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Block-diagonal of time-last blocks [..., d_i, e_i, N] ->
+    [..., sum d, sum e, N], contiguous in the time-last layout."""
+    return block_diag([m.movedim(-1, -3) for m in mats]).movedim(-3, -1).contiguous()
+
+
+class IndependentMultiOutput(ConcatKernel):
+    """One independent latent process per output: the state is the
+    children's, side by side, and H = H_1 (+) H_2 (+) ... (block diagonal),
+    so the output dim is the number of children.  The process noise is the
+    block-diagonal of the children's own Q (the Matern kernels' closed
+    forms), equal to the whole state's P_inf - A P_inf A^T of the JAX
+    package in exact arithmetic, and free of its cancellation at small
+    steps in float32; a child's own jitter is part of its Q."""
+
+    def __init__(self, kernels: Sequence[StationaryKernel], jitter: float = 0.0):
+        kernels = list(kernels)
+        super().__init__(kernels, jitter=jitter, output_dim=len(kernels))
+
+    def transition_statistics_tl(self, time_deltas: torch.Tensor):
+        """(A, Q) [..., d, d, N]: the children's, block-diagonal."""
+        stats = [k.transition_statistics_tl(time_deltas) for k in self.kernels]
+        a = _block_diag_tl([s[0] for s in stats])
+        q = _block_diag_tl([s[1] for s in stats])
+        if self._jitter:
+            q = q + self._jitter * torch.eye(self.state_dim, dtype=q.dtype,
+                                             device=q.device)[..., None]
+        return a, q
+
+    def generate_emission_model(self, time_points: torch.Tensor) -> EmissionModel:
+        """The children's rows on the block diagonal, as an expanded view
+        [..., N, o, d] in the time points' dtype and device."""
+        h = block_diag([k.generate_emission_model(time_points).emission_matrix[..., :1, :, :]
+                        for k in self.kernels])
+        return EmissionModel(h.expand(h.shape[:-3] + time_points.shape[-1:] + h.shape[-2:]))
+
+
+class Product(StationaryKernel):
+    """The product of stationary kernels: a Kronecker-structured state
+    (state dim the product of the children's), A and P_inf the Kronecker
+    products of the children's, F their Kronecker sum, H the Kronecker
+    product of their rows, and the generic process noise
+    Q = P_inf - A P_inf A^T, as in the JAX package."""
+
+    def __init__(self, kernels: Sequence[StationaryKernel], jitter: float = 0.0):
+        kernels = list(kernels)
+        SDEKernel.__init__(self, kernels[0].output_dim, jitter)
+        self.kernels = nn.ModuleList(kernels)
+        mean = kernels[0].state_mean
+        self._state_mean = Parameter(np.zeros((self.state_dim,)), trainable=False,
+                                     dtype=mean.dtype, device=mean.device)
+
+    @property
+    def state_dim(self) -> int:
+        return int(np.prod([k.state_dim for k in self.kernels]))
+
+    @property
+    def feedback_matrix(self) -> torch.Tensor:
+        """The Kronecker sum: sum_i I (x) ... F_i ... (x) I."""
+        kw = dict(dtype=self.state_mean.dtype, device=self.state_mean.device)
+        total = None
+        for i, k in enumerate(self.kernels):
+            mat = None
+            for j, kj in enumerate(self.kernels):
+                term = k.feedback_matrix if j == i else torch.eye(kj.state_dim, **kw)
+                mat = term if mat is None else batched_kron(mat, term)
+            total = mat if total is None else total + mat
+        return total
+
+    @property
+    def steady_state_covariance(self) -> torch.Tensor:
+        out = None
+        for k in self.kernels:
+            p = k.steady_state_covariance
+            out = p if out is None else batched_kron(out, p)
+        return out
+
+    def state_transitions_tl(self, time_deltas: torch.Tensor) -> torch.Tensor:
+        out = None
+        for k in self.kernels:
+            a = k.state_transitions_tl(time_deltas).movedim(-1, -3)
+            out = a if out is None else batched_kron(out, a)
+        return out.movedim(-3, -1)
+
+    def generate_emission_model(self, time_points: torch.Tensor) -> EmissionModel:
+        """The Kronecker product of the children's rows, as an expanded view
+        [..., N, o, d] in the time points' dtype and device."""
+        h = None
+        for k in self.kernels:
+            hk = k.generate_emission_model(time_points).emission_matrix[..., :1, :, :]
+            h = hk if h is None else batched_kron(h, hk)
         return EmissionModel(h.expand(h.shape[:-3] + time_points.shape[-1:] + h.shape[-2:]))

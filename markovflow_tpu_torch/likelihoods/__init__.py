@@ -1,2 +1,3 @@
 from .base import Likelihood, gauss_hermite
 from .scalar import Bernoulli, Gaussian, Poisson, StudentT, inv_probit
+from .multivariate_gaussian import MultivariateGaussian

@@ -8,7 +8,7 @@ import torch
 
 from ..kalman_filter import KalmanFilter
 from ..kernels import SDEKernel
-from ..likelihoods import Gaussian
+from ..likelihoods import Gaussian, MultivariateGaussian
 from ..mean_function import MeanFunction
 from ..posterior import AnalyticPosteriorProcess
 from .models import MarkovFlowModel
@@ -59,15 +59,16 @@ class GaussianProcessRegression(MarkovFlowModel):
     @property
     def posterior(self) -> AnalyticPosteriorProcess:
         """The exact posterior process: the filter's posterior state-space
-        model (one filter and one smoother launch) with a Gaussian
-        likelihood of the noise variance and the mean function.  Output dim
-        1 only: more needs the multivariate Gaussian likelihood and kernels
-        of output dim > 1, not ported yet."""
+        model (one filter and one smoother launch) with the noise as its
+        likelihood (a Gaussian of the noise variance at output dim 1, a
+        MultivariateGaussian of the noise Cholesky above it) and the mean
+        function."""
         chol = self.chol_obs_covariance
-        if chol.shape[-1] != 1:
-            raise NotImplementedError(
-                "GaussianProcessRegression.posterior takes output dim 1 only")
-        lik = Gaussian(chol[..., 0, 0] ** 2, dtype=chol.dtype, device=chol.device)
+        kw = dict(dtype=chol.dtype, device=chol.device)
+        if chol.shape[-1] == 1:
+            lik = Gaussian(chol[..., 0, 0] ** 2, **kw)
+        else:
+            lik = MultivariateGaussian(chol, **kw)
         return AnalyticPosteriorProcess(
             posterior_dist=self.kalman.posterior_state_space_model(),
             kernel=self.kernel, conditioning_time_points=self.time_points,

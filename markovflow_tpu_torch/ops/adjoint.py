@@ -183,14 +183,14 @@ def adjoint_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf, m_f,
     gp0 = torch.empty((B, d, d, 1), **kw)
     # the summed gradients, one row per series: Fc, cc, Qc, Hc
     gsums = torch.empty((B, 2 * d * d + d + o * d), **kw)
-    scratch = cs._scratch("adjoint", sfx, d, B, n, nu)
+    scratch = cs._scratch("adjoint", sfx, (d, o), B, n, nu)
     with torch.cuda.device(nu.device):
         err = getattr(cs.build_kernels(), f"mf_uniform_adjoint_{sfx}")(
             *(x.data_ptr() for x in consts), *sites,
             cs._strides(*site_strides), m_b.data_ptr(), p_b.data_ptr(),
             gs.data_ptr(), None if gnu is None else gnu.data_ptr(),
             None if glam is None else glam.data_ptr(), gm0.data_ptr(),
-            gp0.data_ptr(), gsums.data_ptr(), scratch.data_ptr(), B, n, d,
+            gp0.data_ptr(), gsums.data_ptr(), scratch.data_ptr(), B, n, d, o,
             cs._stream(nu.device))
     cs._raise_on(err, "adjoint_pipeline_uniform")
     adjoint_pipeline_uniform.launches += 1
@@ -263,12 +263,12 @@ def adjoint_pipeline(F, c, Q, H, nu, lam, maskf, m_f, p_f, gscale,
     shapes = ((d, d, n), (d, 1, n), (d, d, n), (o, d, n), (o, 1, n), (o, o, n))
     grads = [torch.empty((B,) + shape, **kw) if need else None
              for shape, need in zip(shapes, needs)]
-    scratch = cs._scratch("general_adjoint", sfx, d, B, n, F)
+    scratch = cs._scratch("general_adjoint", sfx, (d, o), B, n, F)
     with torch.cuda.device(F.device):
         err = getattr(cs.build_kernels(), f"mf_general_adjoint_{sfx}")(
             *ptrs, strides, m_b.data_ptr(), p_b.data_ptr(), gs.data_ptr(),
             *(None if g is None else g.data_ptr() for g in grads),
-            scratch.data_ptr(), B, n, d, cs._stream(F.device))
+            scratch.data_ptr(), B, n, d, o, cs._stream(F.device))
     cs._raise_on(err, "adjoint_pipeline")
     adjoint_pipeline.launches += 1
     return tuple(None if g is None else g.reshape(lead + shape)
@@ -351,6 +351,10 @@ def log_likelihood_koopman_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam,
     lam = lam.expand(lead + (o, o, n))
     maskf = _float_mask(mask, lead, n, nu.dtype)
     if Fc.shape[-3] > UNIFORM_ADJOINT_MAX_STATE_DIM:
+        if o > 1 and nu.device.type == "cuda":
+            raise NotImplementedError(
+                f"o = {o} at state dim {Fc.shape[-3]}: the CUDA kernels take "
+                f"o > 1 only at state dims 1..{cs.MULTI_OUTPUT_MAX_STATE_DIM}")
         F, c, Q, H = _materialize_uniform(Fc, cc, Qc, mu0, P0, Hc, n)
         return _Koopman.apply(F, c, Q, H, nu, lam, maskf)
     return _KoopmanUniform.apply(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf)

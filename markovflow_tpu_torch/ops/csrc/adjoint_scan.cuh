@@ -17,7 +17,8 @@
 //
 // Passes: those of the general Koopman backward at d <= 6
 // (general_adjoint.cuh: gadjoint_totals, scan_totals, gadjoint_outputs) with
-// the step source UniformAdjSteps below, then sum_partials.  At o = 1 stage
+// the step source UniformAdjSteps below (UniformAdjStepsO at o x o sites,
+// o = 2..d), then sum_partials.  At o = 1 stage
 // 1 is the rank-one GadjStage1 (no inverse, two d^3 products).  Pass 1 folds
 // each thread's steps with the full composition and stores its in-block
 // suffix; pass 3 composes the g and L legs of that suffix with the block's
@@ -73,6 +74,33 @@ struct AdjointPrior {
   T* partials;      // scratch: [B, nblk, NV] block partials of the sums
 };
 
+// Stage 2's prior-step terms at step k into the sums acc (AdjointSums
+// order, unscaled: sum_partials scales them) from r = rv, N = nm and stage
+// 1's fp = F P_{k-1}, mp = m_{k-1}: Fc += r m_{k-1}^T + 2 N F P_{k-1},
+// cc += r, Qc += N at k >= 1; gmu0 = gs r and gP0 = gs N at k = 0.
+template <typename T, int D, class S1>
+MF_DEV void adjoint_prior_sums(const AdjointPrior<T>& p, const S1& s1, const T* rv, const T* nm,
+                               T gs, T* acc, int64_t b, int64_t k) {
+  using S = AdjointSums<D, 1>;  // the offsets of Fc, cc and Qc do not depend on o
+  if (k == 0) {
+#pragma unroll
+    for (int i = 0; i < D; ++i) p.gm0[b * D + i] = gs * rv[i];
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) p.gp0[b * D * D + i] = gs * nm[i];
+    return;
+  }
+  T nfp[D * D];
+  mm<T, D, D, D>(nm, s1.fp, nfp);
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    acc[S::OC + i] += rv[i];
+#pragma unroll
+    for (int j = 0; j < D; ++j) acc[S::OF + i * D + j] += rv[i] * s1.mp[j] + T(2) * nfp[i * D + j];
+  }
+#pragma unroll
+  for (int i = 0; i < D * D; ++i) acc[S::OQ + i] += nm[i];
+}
+
 // Kernel 3's step source of the Koopman backward passes
 // (general_adjoint.cuh): the constants of batch row b in registers, loaded
 // once a thread (UniformRow), with the prior (F_0 = 0, Q_0 = P0, c_0 = mu0)
@@ -88,6 +116,7 @@ struct UniformAdjSteps : UniformRow<T_, D_, 1> {
   using Prior = AdjointPrior<T>;
   using G = StagedTiling<T, D, D * D + D + 3>;
   using In = GeneralIn<T, D>;
+  using Stage1 = GadjStage1<T, D>;
   using S = AdjointSums<D, 1>;
   static constexpr int NSUM = S::NV;
   static constexpr int GNU_OUT = 0, GLAM_OUT = 1;
@@ -154,29 +183,8 @@ struct UniformAdjSteps : UniformRow<T_, D_, 1> {
                   const T* ndk, T gs, const WarpStage<T, G::R>& st, int lane, int r, int64_t b,
                   int64_t k, int64_t) {
     T nm[D * D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-#pragma unroll
-      for (int j = 0; j < D; ++j) nm[i * D + j] = T(0.5) * (rv[i] * rv[j] - ndk[i * D + j]);
-    }
-    if (k == 0) {
-#pragma unroll
-      for (int i = 0; i < D; ++i) p.gm0[b * D + i] = gs * rv[i];
-#pragma unroll
-      for (int i = 0; i < D * D; ++i) p.gp0[b * D * D + i] = gs * nm[i];
-    } else {
-      T nfp[D * D];
-      mm<T, D, D, D>(nm, s1.fp, nfp);
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        acc[S::OC + i] += rv[i];
-#pragma unroll
-        for (int j = 0; j < D; ++j)
-          acc[S::OF + i * D + j] += rv[i] * s1.mp[j] + T(2) * nfp[i * D + j];
-      }
-#pragma unroll
-      for (int i = 0; i < D * D; ++i) acc[S::OQ + i] += nm[i];
-    }
+    gadjoint_n<T, D>(rv, ndk, nm);
+    adjoint_prior_sums<T, D>(p, s1, rv, nm, gs, acc, b, k);
     T gnu = T(0), glam = T(0);
     if (in.s.keep) {
       // A H^T = Pp H^T - Pp NDK (Pp H^T) + m_s (H m_s): d^2 products (Pp
@@ -221,17 +229,97 @@ struct UniformAdjSteps : UniformRow<T_, D_, 1> {
   }
 };
 
+// Kernel 3 at o = 2..d (d <= 6): UniformAdjSteps' passes with o x o
+// sites (general_adjoint.cuh: GadjStage1O, gadjoint_obs_o) and a constant
+// [o, d] Hc in registers; each step's nu, lam, mask and (m, P)_{k-1} read
+// where they lie and gnu, glam written to step k (GeneralAdjStepsO's
+// notes say why); the constants' gradients summed in registers to one
+// partial a block, as at o = 1.
+template <typename T_, int D_, int O_>
+struct UniformAdjStepsO : UniformRow<T_, D_, O_> {
+  using T = T_;
+  static constexpr int D = D_, O = O_;
+  using Prior = AdjointPrior<T>;
+  using G = UnstagedTiling<D>;
+  using In = GeneralInO<T, D, O>;
+  using Stage1 = GadjStage1O<T, D, O>;
+  using S = AdjointSums<D, O>;
+  static constexpr int NSUM = S::NV;
+  static constexpr bool STAGED1 = false;
+  T acc[NSUM];
+
+  MF_DEV void load(const Prior& p, int64_t b) {
+    UniformRow<T, D, O>::load(p.k, b);
+#pragma unroll
+    for (int i = 0; i < NSUM; ++i) acc[i] = T(0);
+  }
+
+  static __host__ __device__ GeneralSlots slots(const Prior&) {
+    return {-1, -1, -1, -1, -1, -1, 0};
+  }
+
+  template <bool STAGED>
+  MF_DEV void stage(const Prior&, int64_t, int64_t, int64_t, WarpStage<T, G::R>&,
+                    GeneralSlots&) const {}
+
+  MF_DEV void f_after(const Prior&, int64_t, int64_t, int64_t last, int64_t n,
+                      const WarpStage<T, G::R>&, T* fn) const {
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) fn[i] = last + 1 >= n ? T(0) : this->f[i];
+  }
+
+  template <bool STAGED>
+  MF_DEV void read(In& in, T* mp, T* pprev, const WarpStage<T, G::R>& st,
+                   const GeneralSlots& sl, int lane, int r, const Prior& p, int64_t b,
+                   int64_t k, bool once, int64_t n) const {
+    this->template read_step<false>(in, st, sl, lane, r, p, b, k, once);
+    read_prev_moments<false, D>(p, st, sl, lane, r, b, k, n, mp, pprev);
+  }
+
+  // Stage 2 into the sums, unscaled, as UniformAdjSteps::out; Hc += gH of
+  // every step (gadjoint_obs_o), and gnu, glam, scaled by gs, to step k
+  MF_DEV void out(const Prior& p, const In& in, const Stage1& s1, const T* rv, const T* ndk,
+                  T gs, const WarpStage<T, G::R>&, int, int, int64_t b, int64_t k, int64_t n) {
+    T nm[D * D];
+    gadjoint_n<T, D>(rv, ndk, nm);
+    adjoint_prior_sums<T, D>(p, s1, rv, nm, gs, acc, b, k);
+    T gh[O * D], gnu[O], glam[O * O];
+    gadjoint_obs_o<T, D, O>(in, s1, rv, ndk, p.gnu != nullptr, gh, gnu, glam);
+#pragma unroll
+    for (int i = 0; i < O * D; ++i) acc[S::OH + i] += gh[i];
+    if (p.gnu != nullptr) {
+#pragma unroll
+      for (int i = 0; i < O; ++i) p.gnu[(b * O + i) * n + k] = gs * gnu[i];
+#pragma unroll
+      for (int i = 0; i < O * O; ++i) p.glam[(b * O * O + i) * n + k] = gs * glam[i];
+    }
+  }
+
+  // the block's sums to its partial
+  template <int THREADS>
+  MF_DEV void finish(const Prior& p, const SmootherArgs<T>& a, const WarpStage<T, G::R>&,
+                     int64_t b, T* red) {
+    block_sum<T, THREADS, NSUM>(acc, red);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int i = 0; i < NSUM; ++i) p.partials[(b * a.nblk + blockIdx.x) * NSUM + i] = acc[i];
+    }
+  }
+};
+
 }  // namespace mf
 
 // C entry point for one dtype (T, suffix), as in uniform_scan.cuh.  gsums
 // [B, NV] receives the summed gradients in AdjointSums order, scaled by
-// gscale; gnu and glam may be null.  The scratch is mf_adjoint_scratch_*'s.
+// gscale; gnu and glam may be null.  The scratch is mf_adjoint_scratch_*'s;
+// the output dim o is 1 or one of MF_GENERAL_O_PAIRS (UniformAdjStepsO).
 #define MF_DEFINE_ADJOINT_ENTRY_POINTS(T, SUFFIX)                                      \
   extern "C" int mf_uniform_adjoint_##SUFFIX(                                          \
       const T* fc, const T* cc, const T* qc, const T* mu0, const T* p0, const T* hc,   \
       const T* nu, const T* lam, const T* mask, const int64_t* site_strides,           \
       const T* m_f, const T* p_f, const T* gscale, T* gnu, T* glam, T* gm0, T* gp0,    \
-      T* gsums, T* scratch, int64_t batch, int64_t n, int64_t d, void* stream) {       \
+      T* gsums, T* scratch, int64_t batch, int64_t n, int64_t d, int64_t o,            \
+      void* stream) {                                                                  \
     if (batch < 1 || batch > 65535 || n < 1) return int(cudaErrorInvalidValue);        \
     if ((gnu == nullptr) != (glam == nullptr)) return int(cudaErrorInvalidValue);      \
     mf::AdjointPrior<T> p{};                                                           \
@@ -241,6 +329,10 @@ struct UniformAdjSteps : UniformRow<T_, D_, 1> {
     p.m_f = m_f; p.p_f = p_f; p.gscale = gscale;                                       \
     p.gnu = gnu; p.glam = glam; p.gm0 = gm0; p.gp0 = gp0; p.gsums = gsums;             \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (o != 1)                                                                        \
+      MF_SWITCH_DO(d, o, (mf::launch_general_adjoint<mf::UniformAdjStepsO<T, D_, O_>>(  \
+                             p, scratch, batch, n, s)),                                \
+                   int(cudaErrorInvalidValue))                                         \
     MF_SWITCH_D(d, (mf::launch_general_adjoint<mf::UniformAdjSteps<T, D_>>(p, scratch, \
                                                                            batch, n, s)), \
                 int(cudaErrorInvalidValue))                                            \

@@ -1,8 +1,9 @@
 // C entry points of the scan kernels (see uniform_scan.cuh, general_scan.cuh,
 // adjoint_scan.cuh, general_adjoint.cuh and wide_scan.cuh).  The kernels
 // themselves are instantiated in the *_inst.cu units, one per (kernel family,
-// dtype, state dimension) for d <= 6 and one per (kernel family, dtype) for
-// d = 7..12.
+// dtype, state dimension) for d <= 6, one per (family, dtype, d, o) for the
+// o x o sites at d <= 6 (generalo_inst.cu: the filters; adjointo_inst.cu:
+// the Koopman backwards) and one per (kernel family, dtype) for d = 7..12.
 #include "adjoint_scan.cuh"
 
 #define MF_EXTERN(T, D)                                                                   \
@@ -35,7 +36,13 @@ MF_EXTERN_ALL_D(double)
 
 #define MF_EXTERN_O(T, D, O)                                                             \
   extern template int mf::launch_general_filter<mf::GeneralStepsO<T, D, O>>(             \
-      mf::FilterArgs<T>, mf::GeneralPrior<T>, T*, int64_t, cudaStream_t);
+      mf::FilterArgs<T>, mf::GeneralPrior<T>, T*, int64_t, cudaStream_t);                 \
+  extern template int mf::launch_general_filter<mf::UniformStepsO<T, D, O>>(             \
+      mf::FilterArgs<T>, mf::UniformPrior<T>, T*, int64_t, cudaStream_t);                 \
+  extern template int mf::launch_general_adjoint<mf::UniformAdjStepsO<T, D, O>>(         \
+      mf::AdjointPrior<T>, T*, int64_t, int64_t, cudaStream_t);                           \
+  extern template int mf::launch_general_adjoint<mf::GeneralAdjStepsO<T, D, O>>(         \
+      mf::GeneralAdjointPrior<T>, T*, int64_t, int64_t, cudaStream_t);
 #define MF_EXTERN_O_BOTH(D, O) MF_EXTERN_O(float, D, O) MF_EXTERN_O(double, D, O)
 MF_GENERAL_O_PAIRS(MF_EXTERN_O_BOTH)
 
@@ -62,15 +69,19 @@ MF_EXTERN_WIDE(float)
 MF_EXTERN_WIDE(double)
 
 // Scratch sizes in elements of T (-1 for a state (or output) dimension with
-// no kernel):
+// no kernel; the filters and the Koopman backwards take the output dim o,
+// 1 or a pair of MF_GENERAL_O_PAIRS, after d):
 // mf_smoother_scratch_* for the smoother scan; at d <= 6 the filters, the
 // Koopman backwards and the smoothers also keep each thread's in-block
 // prefix or suffix (the uniform backward also its partial sums),
 // and the uniform smoother's scratch keeps the E legs of its elements at
 // d = 7..12.
 #define MF_DEFINE_SCRATCH(T, SUFFIX)                                                    \
-  extern "C" int64_t mf_uniform_filter_scratch_##SUFFIX(int64_t d, int64_t batch,       \
-                                                        int64_t n) {                    \
+  extern "C" int64_t mf_uniform_filter_scratch_##SUFFIX(int64_t d, int64_t o,          \
+                                                        int64_t batch, int64_t n) {    \
+    if (o != 1)                                                                         \
+      MF_SWITCH_DO(d, o, (mf::general_filter_scratch<mf::UniformStepsO<T, D_, O_>>(batch, n)), \
+                   -1)                                                                  \
     if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
       return mf::wide_filter_scratch<T>(int(d), batch, n);                              \
     MF_SWITCH_D(d, (mf::general_filter_scratch<mf::UniformSteps<T, D_>>(batch, n)), -1) \
@@ -97,8 +108,12 @@ MF_EXTERN_WIDE(double)
       return mf::wide_filter_scratch<T>(int(d), batch, n);                              \
     MF_SWITCH_D(d, (mf::general_filter_scratch<mf::GeneralSteps<T, D_>>(batch, n)), -1) \
   }                                                                                     \
-  extern "C" int64_t mf_general_adjoint_scratch_##SUFFIX(int64_t d, int64_t batch,      \
-                                                         int64_t n) {                   \
+  extern "C" int64_t mf_general_adjoint_scratch_##SUFFIX(int64_t d, int64_t o,         \
+                                                         int64_t batch, int64_t n) {   \
+    if (o != 1)                                                                         \
+      MF_SWITCH_DO(d, o,                                                                \
+                   (mf::general_adjoint_scratch<mf::GeneralAdjStepsO<T, D_, O_>>(batch, n)), \
+                   -1)                                                                  \
     if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
       return mf::wide_smoother_scratch<T>(int(d), batch, n);                            \
     MF_SWITCH_D(d, (mf::general_adjoint_scratch<mf::GeneralAdjSteps<T, D_>>(batch, n)), -1) \
@@ -110,7 +125,12 @@ MF_EXTERN_WIDE(double)
                                           mf::WideUniformRtsRow<T>::BUILD);             \
     MF_SWITCH_D(d, (mf::rts_scratch<mf::UniformRtsRow<T, D_>>(batch, n)), -1)           \
   }                                                                                     \
-  extern "C" int64_t mf_adjoint_scratch_##SUFFIX(int64_t d, int64_t batch, int64_t n) { \
+  extern "C" int64_t mf_adjoint_scratch_##SUFFIX(int64_t d, int64_t o, int64_t batch,  \
+                                                 int64_t n) {                           \
+    if (o != 1)                                                                         \
+      MF_SWITCH_DO(d, o,                                                                \
+                   (mf::general_adjoint_scratch<mf::UniformAdjStepsO<T, D_, O_>>(batch, n)), \
+                   -1)                                                                  \
     MF_SWITCH_D(d, (mf::general_adjoint_scratch<mf::UniformAdjSteps<T, D_>>(batch, n)), -1) \
   }                                                                                     \
   /* the shared memory a warp and the warps an SM keeps resident of passes */           \

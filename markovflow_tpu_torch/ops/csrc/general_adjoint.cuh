@@ -64,12 +64,14 @@ struct GeneralAdjointPrior {
 };
 
 // ---------------------------------------------------------------------------
-// d = 1..6 (o = 1), with the elements in registers (the tiling and the
-// staging of steps through shared memory of general_scan.cuh, with the
-// moments P_{k-1}, m_{k-1} staged beside each step's inputs), for two step
-// sources: GeneralAdjSteps (kernel 7, below) and UniformAdjSteps (kernel 3,
+// d = 1..6, with the elements in registers (the tiling and the staging of
+// steps through shared memory of general_scan.cuh, with the moments
+// P_{k-1}, m_{k-1} staged beside each step's inputs), for two step sources
+// at o = 1: GeneralAdjSteps (kernel 7, below) and UniformAdjSteps (kernel 3,
 // the uniform grid, adjoint_scan.cuh, whose pass 3 sums the gradients over
-// the steps to one partial a block; sum_partials adds them).
+// the steps to one partial a block; sum_partials adds them); and two at
+// o x o sites, GeneralAdjStepsO and UniformAdjStepsO (after
+// GeneralAdjSteps).
 //
 // Each thread walks its R steps from the last to the first, carrying F_{k+1}
 // from the step it has just done (gadjoint_walk).  Stage 1 needs no inverse
@@ -136,7 +138,7 @@ MF_DEV void gadjoint_walk(const Src& src, const typename Src::Prior& p, int64_t 
   T fn[D * D], pprev[D * D];
   src.f_after(p, b, first, last, n, st, fn);
   typename Src::In in;
-  GadjStage1<T, D> s1;
+  typename Src::Stage1 s1;
   for (int r = int(last - first); r >= 0; --r) {
     const int64_t k = first + r;
     src.template read<STAGED>(in, s1.mp, pprev, st, sl, lane, r, p, b, k, k == last, n);
@@ -172,25 +174,23 @@ MF_DEV void gadjoint_fold(SElem<T, D>& x, const GadjStage1<T, D>& st, const T* h
   sym<T, D>(l);
 }
 
-// Stage 2: the step's gradients from r = g and NDK = L of the suffix from
-// step k on, scaled by the row's cotangent gs (adjoint_grads_from_scan):
-//   gF = r m_{k-1}^T + 2 N F P_{k-1},  gc = r,  gQ = N = (r r^T - NDK) / 2,
-// to gf[i * stride], gc[i * stride], gq[i * stride] (null: not asked for);
-// and, through the smoothed moments m_s = a + Pp r, A = sym(Pp - Pp NDK Pp)
-// + m_s m_s^T, with y = nu / lam: gH = nu m_s^T - lam H A, gnu = H m_s - y,
-// glam = (y^2 - H A H^T + 1 / lam) / 2 (0 at masked steps), to step k of
-// p's arrays.
+// nm = N = (r r^T - NDK) / 2
 template <typename T, int D>
-MF_DEV void gadjoint_stage2(const GeneralAdjointPrior<T>& p, const GeneralIn<T, D>& in,
-                            const GadjStage1<T, D>& st, const T* r, const T* ndk, T gs,
-                            T* gf, T* gc, T* gq, int64_t stride, int64_t b, int64_t k,
-                            int64_t n) {
-  T nm[D * D];
+MF_DEV void gadjoint_n(const T* r, const T* ndk, T* nm) {
 #pragma unroll
   for (int i = 0; i < D; ++i) {
 #pragma unroll
     for (int j = 0; j < D; ++j) nm[i * D + j] = T(0.5) * (r[i] * r[j] - ndk[i * D + j]);
   }
+}
+
+// Stage 2's prior-step gradients from r, N = nm and stage 1's fp = F P_{k-1}
+// and mp = m_{k-1}, scaled by gs: gF = r m_{k-1}^T + 2 N F P_{k-1}, gc = r,
+// gQ = N, to gf[i * stride], gc[i * stride], gq[i * stride] (null: not
+// asked for).
+template <typename T, int D, class S1>
+MF_DEV void gadjoint_prior_grads(const S1& st, const T* r, const T* nm, T gs, T* gf, T* gc,
+                                 T* gq, int64_t stride) {
   if (gf != nullptr) {
     T nfp[D * D];
     mm<T, D, D, D>(nm, st.fp, nfp);
@@ -209,6 +209,24 @@ MF_DEV void gadjoint_stage2(const GeneralAdjointPrior<T>& p, const GeneralIn<T, 
 #pragma unroll
     for (int i = 0; i < D * D; ++i) gq[i * stride] = gs * nm[i];
   }
+}
+
+// Stage 2: the step's gradients from r = g and NDK = L of the suffix from
+// step k on, scaled by the row's cotangent gs (adjoint_grads_from_scan):
+//   gF = r m_{k-1}^T + 2 N F P_{k-1},  gc = r,  gQ = N = (r r^T - NDK) / 2,
+// to gf[i * stride], gc[i * stride], gq[i * stride] (null: not asked for);
+// and, through the smoothed moments m_s = a + Pp r, A = sym(Pp - Pp NDK Pp)
+// + m_s m_s^T, with y = nu / lam: gH = nu m_s^T - lam H A, gnu = H m_s - y,
+// glam = (y^2 - H A H^T + 1 / lam) / 2 (0 at masked steps), to step k of
+// p's arrays.
+template <typename T, int D>
+MF_DEV void gadjoint_stage2(const GeneralAdjointPrior<T>& p, const GeneralIn<T, D>& in,
+                            const GadjStage1<T, D>& st, const T* r, const T* ndk, T gs,
+                            T* gf, T* gc, T* gq, int64_t stride, int64_t b, int64_t k,
+                            int64_t n) {
+  T nm[D * D];
+  gadjoint_n<T, D>(r, ndk, nm);
+  gadjoint_prior_grads<T, D>(st, r, nm, gs, gf, gc, gq, stride);
   if (p.gh == nullptr && p.gnu == nullptr && p.glam == nullptr) return;
   T gh[D], gnu = T(0), glam = T(0);
 #pragma unroll
@@ -266,7 +284,9 @@ MF_DEV void read_prev_moments(const P& p, const WarpStage<T, R>& st, const Gener
 
 // A step source of the Koopman backward passes below, for batch row b
 // (Src src; src.load(prior, b)):
-//   T, D, Prior; G, the tiling (StagedTiling): pass 3 stages when
+//   T, D, Prior; In, what a step's read fills; Stage1, its stage 1
+//   (GadjStage1, or GadjStage1O at o x o sites); G, the tiling
+//   (StagedTiling): pass 3 stages when
 //   G::STAGED, pass 1 when STAGED1; NSUM, the number of sums that pass 3
 //   reduces over the steps to one partial per block (0: none);
 //   slots(prior): the staged slots, (m, P)_{k-1} in mprev and pprev;
@@ -294,6 +314,7 @@ struct GeneralAdjSteps {
   using Prior = GeneralAdjointPrior<T>;
   using G = GeneralTiling<T, D, true>;
   using In = GeneralIn<T, D>;
+  using Stage1 = GadjStage1<T, D>;
   static constexpr int NSUM = 0;
   static constexpr bool STAGED1 = G::STAGED;
 
@@ -367,6 +388,244 @@ struct GeneralAdjSteps {
   }
 };
 
+// ---------------------------------------------------------------------------
+// Kernels 7 and 3 at o = 2..d (d <= 6): o x o sites, as a multi-output GPR
+// gives them (a block-diagonal [o, d] emission and one full noise
+// precision, IndependentMultiOutput with MultivariateGaussian noise).  The
+// passes above over two more step sources, GeneralAdjStepsO (kernel 7) and
+// UniformAdjStepsO (kernel 3, adjoint_scan.cuh); the sources at o = 1 keep
+// their code.  Stage 1 (GadjStage1O, _adjoint_elem_slice) takes one pivoted
+// o x o solve,
+//   (I + lam S) [X | e] = [lam | nu - lam H a],   S = H Pp H^T,
+// X = Zt lam, W = sym(X), and L_k = F_{k+1} - (F_{k+1} Pp H^T)(W H); the
+// element is (L_k^T, H^T e, sym(H^T W H)).  Stage 2's observation terms
+// (gadjoint_obs_o, _adjoint_grads_slice) take a second solve, lam [X | y] =
+// [I | nu], for lam^-1 and y; a masked step gives zero gH, gnu and glam.
+// Neither source stages its steps: each reads its values where they lie
+// and writes its per-step gradients to step k (a simple first version; at
+// d = 6 a step's values outgrow the warp's stage, StagedTiling::STAGED).
+// ---------------------------------------------------------------------------
+
+// The tiling of passes that read each step where it lies: Tiling<D>'s
+// block and run of steps, no stage.
+template <int D>
+struct UnstagedTiling {
+  static constexpr int R = Tiling<D>::R, NV = 0, THREADS = Tiling<D>::THREADS;
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr bool STAGED = false;
+  static constexpr int64_t TILE = int64_t(THREADS) * R;
+  static constexpr int SCAN_THREADS = 512;
+};
+
+// Stage 1 of step k at o x o sites: fp = F P_{k-1}, a = F m_{k-1} + c,
+// Pp = sym(fp F^T + Q), ph = Pp H^T [d x o], and the element's
+// lk = L_k, ge = H^T e, ell = sym(H^T W H).
+template <typename T, int D, int O>
+struct GadjStage1O {
+  T mp[D], fp[D * D], a[D], pp[D * D], ph[D * O], lk[D * D], ge[D], ell[D * D];
+
+  MF_DEV void build(const GeneralInO<T, D, O>& in, const T* pprev, const T* fn) {
+    constexpr int K = O + 1;
+    mm<T, D, D, D>(in.f, pprev, fp);
+    mm_nt<T, D, D, D>(fp, in.f, pp);
+    add_to<T, D * D>(pp, in.q);
+    sym<T, D>(pp);
+    mm<T, D, D, 1>(in.f, mp, a);
+    add_to<T, D>(a, in.c);
+    mm_nt<T, D, D, O>(pp, in.h, ph);
+    T s[O * O], ha[O], lha[O], mt[O * O], rhs[O * K], x[O * K];
+    mm<T, O, D, O>(in.h, ph, s);
+    mm<T, O, D, 1>(in.h, a, ha);
+    mm<T, O, O, 1>(in.lam, ha, lha);
+    mm<T, O, O, O>(in.lam, s, mt);
+    add_eye<T, O>(mt);  // I + lam S
+#pragma unroll
+    for (int i = 0; i < O; ++i) {
+#pragma unroll
+      for (int j = 0; j < O; ++j) rhs[i * K + j] = in.lam[i * O + j];
+      rhs[i * K + O] = in.nu[i] - lha[i];
+    }
+    gauss_jordan_solve<T, O, K>(mt, rhs, x);
+    T w[O * O], e[O], wh[O * D], fph[D * O];
+#pragma unroll
+    for (int i = 0; i < O; ++i) {
+#pragma unroll
+      for (int j = 0; j < O; ++j) w[i * O + j] = T(0.5) * (x[i * K + j] + x[j * K + i]);
+      e[i] = x[i * K + O];
+    }
+    mm<T, O, O, D>(w, in.h, wh);
+    mm<T, D, D, O>(fn, ph, fph);
+    mm<T, D, O, D>(fph, wh, lk);
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) lk[i] = fn[i] - lk[i];
+    mm_tn<T, D, O, 1>(in.h, e, ge);
+    mm_tn<T, D, O, D>(in.h, wh, ell);
+    sym<T, D>(ell);
+  }
+};
+
+// gadjoint_fold at o x o sites: g <- L_k^T g + H^T e,
+// L <- sym(L_k^T L L_k + ell) and, when FULL, E <- L_k^T E.
+template <typename T, int D, bool FULL, int O>
+MF_DEV void gadjoint_fold(SElem<T, D>& x, const GadjStage1O<T, D, O>& st, const T*) {
+  using E = SElem<T, D>;
+  T *ee = x.v + E::OE, *g = x.v + E::OG, *l = x.v + E::OL;
+  T t[D * D], u[D * D], v[D];
+  mm_tn<T, D, D, 1>(st.lk, g, v);
+  mm<T, D, D, D>(l, st.lk, t);
+  mm_tn<T, D, D, D>(st.lk, t, u);
+  if constexpr (FULL) {
+    mm_tn<T, D, D, D>(st.lk, ee, t);
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) ee[i] = t[i];
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) g[i] = v[i] + st.ge[i];
+#pragma unroll
+  for (int i = 0; i < D * D; ++i) l[i] = u[i] + st.ell[i];
+  sym<T, D>(l);
+}
+
+// Stage 2's observation terms at o x o sites, unscaled, through the
+// smoothed moments m_s = a + Pp r and A = Pp - Pp NDK Pp + m_s m_s^T (Pp
+// and NDK are symmetric, so A H^T = Pp H^T - Pp NDK (Pp H^T) + m_s (H m_s)^T
+// in d^2 o products), with y = lam^-1 nu:
+//   gh = nu m_s^T - lam H A [o x d],  gnu = H m_s - y [o],
+//   glam = (y y^T - H A H^T + lam^-1) / 2 [o x o];
+// gnu and glam only with `sites`; a masked step gives zeros.
+template <typename T, int D, int O>
+MF_DEV void gadjoint_obs_o(const GeneralInO<T, D, O>& in, const GadjStage1O<T, D, O>& s1,
+                           const T* r, const T* ndk, bool sites, T* gh, T* gnu, T* glam) {
+  if (!in.keep) {
+#pragma unroll
+    for (int i = 0; i < O * D; ++i) gh[i] = T(0);
+#pragma unroll
+    for (int i = 0; i < O; ++i) gnu[i] = T(0);
+#pragma unroll
+    for (int i = 0; i < O * O; ++i) glam[i] = T(0);
+    return;
+  }
+  T ms[D], t1[D * O], hak[D * O], hms[O];
+  mm<T, D, D, 1>(s1.pp, r, ms);
+  add_to<T, D>(ms, s1.a);
+  mm<T, D, D, O>(ndk, s1.ph, t1);
+  mm<T, D, D, O>(s1.pp, t1, hak);
+  mm<T, O, D, 1>(in.h, ms, hms);
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+#pragma unroll
+    for (int j = 0; j < O; ++j) hak[i * O + j] = s1.ph[i * O + j] - hak[i * O + j] + ms[i] * hms[j];
+  }
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      T acc = in.nu[i] * ms[j];
+#pragma unroll
+      for (int k = 0; k < O; ++k) acc -= in.lam[i * O + k] * hak[j * O + k];
+      gh[i * D + j] = acc;
+    }
+  }
+  if (!sites) return;
+  constexpr int K = O + 1;
+  T rhs[O * K], x[O * K], hah[O * O];
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+#pragma unroll
+    for (int j = 0; j < O; ++j) rhs[i * K + j] = T(i == j);
+    rhs[i * K + O] = in.nu[i];
+  }
+  gauss_jordan_solve<T, O, K>(in.lam, rhs, x);  // [lam^-1 | y]
+  mm<T, O, D, O>(in.h, hak, hah);
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    gnu[i] = hms[i] - x[i * K + O];
+#pragma unroll
+    for (int j = 0; j < O; ++j)
+      glam[i * O + j] =
+          T(0.5) * (x[i * K + O] * x[j * K + O] - hah[i * O + j] + x[i * K + j]);
+  }
+}
+
+// Kernel 7 at o = 2..d: per-step F, Q, c and H [o, d] through their
+// strides, each step read where it lies, every gradient written to step k.
+template <typename T_, int D_, int O_>
+struct GeneralAdjStepsO {
+  using T = T_;
+  static constexpr int D = D_, O = O_;
+  using Prior = GeneralAdjointPrior<T>;
+  using G = UnstagedTiling<D>;
+  using In = GeneralInO<T, D, O>;
+  using Stage1 = GadjStage1O<T, D, O>;
+  static constexpr int NSUM = 0;
+  static constexpr bool STAGED1 = false;
+
+  MF_DEV void load(const Prior&, int64_t) {}
+
+  static __host__ __device__ GeneralSlots slots(const Prior&) {
+    return {-1, -1, -1, -1, -1, -1, 0};
+  }
+
+  template <bool STAGED>
+  MF_DEV void stage(const Prior&, int64_t, int64_t, int64_t, WarpStage<T, G::R>&,
+                    GeneralSlots&) const {}
+
+  MF_DEV void f_after(const Prior& p, int64_t b, int64_t first, int64_t last, int64_t n,
+                      const WarpStage<T, G::R>&, T* fn) const {
+    const GeneralPrior<T>& q = p.k;
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        fn[i * D + j] = last < first || last + 1 >= n
+                            ? T(0)
+                            : q.f[b * q.f_sb + i * q.f_si + j * q.f_sj + (last + 1) * q.f_st];
+    }
+  }
+
+  template <bool STAGED>
+  MF_DEV void read(In& in, T* mp, T* pprev, const WarpStage<T, G::R>& st,
+                   const GeneralSlots& sl, int lane, int r, const Prior& p, int64_t b,
+                   int64_t k, bool once, int64_t n) const {
+    in.template read<false>(st, sl, lane, r, p.k, p, b, k, once);
+    read_prev_moments<false, D>(p, st, sl, lane, r, b, k, n, mp, pprev);
+  }
+
+  // gF, gc, gQ (gadjoint_prior_grads) and the observation terms, scaled by
+  // gs, at step k (null: not asked for)
+  MF_DEV void out(const Prior& p, const In& in, const Stage1& s1, const T* rv, const T* ndk,
+                  T gs, const WarpStage<T, G::R>&, int, int, int64_t b, int64_t k,
+                  int64_t n) {
+    T nm[D * D];
+    gadjoint_n<T, D>(rv, ndk, nm);
+    const auto at = [&](T* arr, int rows) { return arr == nullptr ? arr : arr + b * rows * n + k; };
+    gadjoint_prior_grads<T, D>(s1, rv, nm, gs, at(p.gf, D * D), at(p.gc, D), at(p.gq, D * D), n);
+    if (p.gh == nullptr && p.gnu == nullptr && p.glam == nullptr) return;
+    T gh[O * D], gnu[O], glam[O * O];
+    gadjoint_obs_o<T, D, O>(in, s1, rv, ndk, p.gnu != nullptr || p.glam != nullptr, gh, gnu,
+                            glam);
+    if (p.gh != nullptr) {
+#pragma unroll
+      for (int i = 0; i < O * D; ++i) p.gh[(b * O * D + i) * n + k] = gs * gh[i];
+    }
+    if (p.gnu != nullptr) {
+#pragma unroll
+      for (int i = 0; i < O; ++i) p.gnu[(b * O + i) * n + k] = gs * gnu[i];
+    }
+    if (p.glam != nullptr) {
+#pragma unroll
+      for (int i = 0; i < O * O; ++i) p.glam[(b * O * O + i) * n + k] = gs * glam[i];
+    }
+  }
+
+  template <int THREADS>
+  MF_DEV void finish(const Prior&, const SmootherArgs<T>&, const WarpStage<T, G::R>&, int64_t,
+                     T*) const {}
+};
+
+// The (d, o) pairs of the Koopman backwards at o > 1 are those of the
+// general filter (MF_GENERAL_O_PAIRS): adjointo_inst.cu instantiates both.
+
 template <class Src>
 __global__ void __launch_bounds__(Src::G::THREADS)
 gadjoint_totals(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
@@ -386,7 +645,7 @@ gadjoint_totals(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
   E run, excl, total;
   Op::identity(run);
   gadjoint_walk<Src::STAGED1>(src, p, b, t, a.n, st, sl,
-                [&](const typename Src::In& in, const GadjStage1<T, D>& s1, int64_t, int) {
+                [&](const typename Src::In& in, const typename Src::Stage1& s1, int64_t, int) {
                   gadjoint_fold<T, D, true>(run, s1, in.h);
                 });
   block_scan<Op, THREADS, true>(run, excl, total, smem);
@@ -421,7 +680,8 @@ gadjoint_outputs(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
   }
   const T gs = p.gscale[b];
   gadjoint_walk<G::STAGED>(src, p, b, t, n, st, sl,
-                [&](const typename Src::In& in, const GadjStage1<T, D>& s1, int64_t k, int r) {
+                [&](const typename Src::In& in, const typename Src::Stage1& s1, int64_t k,
+                    int r) {
                   gadjoint_fold<T, D, false>(run, s1, in.h);
                   src.out(p, in, s1, run.v + E::OG, run.v + E::OL, gs, st, lane, r, b, k, n);
                 });
@@ -756,13 +1016,13 @@ int launch_wide_general_adjoint(GeneralAdjointPrior<T> p, T* scratch, int64_t ba
 // C entry point for one dtype (T, suffix), as in general_scan.cuh: the
 // strides of F, c, Q, H and the sites in the general filter's order; the
 // scratch is mf_general_adjoint_scratch_*'s; any gradient pointer may be
-// null.
+// null; the output dim o is 1 or, at d <= 6, one of MF_GENERAL_O_PAIRS.
 #define MF_DEFINE_GENERAL_ADJOINT_ENTRY_POINTS(T, SUFFIX)                              \
   extern "C" int mf_general_adjoint_##SUFFIX(                                          \
       const T* f, const T* c, const T* q, const T* h, const T* nu, const T* lam,       \
       const T* mask, const int64_t* st, const T* m_f, const T* p_f, const T* gscale,   \
       T* gf, T* gc, T* gq, T* gh, T* gnu, T* glam, T* scratch, int64_t batch,          \
-      int64_t n, int64_t d, void* stream) {                                            \
+      int64_t n, int64_t d, int64_t o, void* stream) {                                 \
     if (batch < 1 || batch > 65535 || n < 1) return int(cudaErrorInvalidValue);        \
     mf::GeneralAdjointPrior<T> p{};                                                    \
     p.k = mf::GeneralPrior<T>{f, c, q, h,                                              \
@@ -775,6 +1035,10 @@ int launch_wide_general_adjoint(GeneralAdjointPrior<T> p, T* scratch, int64_t ba
     p.m_f = m_f; p.p_f = p_f; p.gscale = gscale;                                       \
     p.gf = gf; p.gc = gc; p.gq = gq; p.gh = gh; p.gnu = gnu; p.glam = glam;            \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (o != 1)                                                                        \
+      MF_SWITCH_DO(d, o, (mf::launch_general_adjoint<mf::GeneralAdjStepsO<T, D_, O_>>(  \
+                             p, scratch, batch, n, s)),                                \
+                   int(cudaErrorInvalidValue))                                         \
     if (d >= mf::WIDE_MIN_D)                                                           \
       return mf::launch_wide_general_adjoint<T>(p, scratch, batch, n, int(d), s);      \
     MF_SWITCH_D(d, (mf::launch_general_adjoint<mf::GeneralAdjSteps<T, D_>>(p, scratch, \

@@ -55,11 +55,12 @@ struct GeneralPrior {
 };
 
 // ---------------------------------------------------------------------------
-// The d = 1..6 filter passes, o = 1, with the elements in registers and a
-// run of R consecutive steps a thread, for three step sources (below):
+// The d = 1..6 filter passes, with the elements in registers and a run of R
+// consecutive steps a thread, for three step sources at o = 1 (below):
 // GeneralSteps (kernel 4, the general filter), UniformSteps (kernel 1, the
 // uniform-grid filter, uniform_scan.cuh) and PrebuiltSteps (kernel 6, the
-// filter scan).  The general Koopman backward (kernel 7, general_adjoint.cuh)
+// filter scan); and two at o x o sites, GeneralStepsO and UniformStepsO
+// (after GeneralSteps).  The general Koopman backward (kernel 7, general_adjoint.cuh)
 // shares the tiling and the staging.
 //   1. each thread folds its steps into its run: kernels 1 and 4 as
 //      rank-one site updates (fold_site, the register twin of
@@ -441,9 +442,11 @@ struct GeneralSteps {
 // Kernel 4 at o = 2..d (d <= 6): o x o sites, as the natural-gradient
 // family's theta -> SSM inversion gives them (an identity emission and full
 // site precisions, ssm_gaussian_transformations.naturals_to_ssm_params_
-// parallel_tl).  The filter passes above over one more step source,
-// GeneralStepsO; kernels 1, 3, 5, 6 and 7 and kernel 4 at o = 1 keep
-// theirs.  Each step's filtering element is built in registers
+// parallel_tl) and a multi-output GPR on an irregular grid (a
+// block-diagonal emission, one full noise precision).  The filter passes
+// above over one more step source, GeneralStepsO; kernel 1 at o = 2..d
+// builds and composes its elements the same way (UniformStepsO,
+// uniform_scan.cuh), and the two filters at o = 1 keep their sources.  Each step's filtering element is built in registers
 // (site_element_o: pallas_scan._make_elem_slice's element), and composed
 // as the filter scan composes prebuilt ones: pass 1 folds it into the run
 // with FilterOp (a d x d inverse a step), pass 3 carries the moments
@@ -490,21 +493,16 @@ __host__ __device__ inline GeneralSlots general_slots_o(const GeneralPrior<T>& p
 
 // The inputs of global step k at o: F, Q, c, H [o x d], nu [o], lam [o x o]
 // and the mask; H, nu and lam read only once when their step stride is 0.
+// A (the site fields): FilterArgs, or a Koopman backward's prior.
 template <typename T, int D, int O>
 struct GeneralInO {
   T f[D * D], q[D * D], c[D], h[O * D], nu[O], lam[O * O];
   bool keep;
 
-  MF_DEV void read_sites(const GeneralPrior<T>& p, const FilterArgs<T>& a, int64_t b, int64_t k,
-                         bool once) {
-    if (once || p.h_st != 0) {
-#pragma unroll
-      for (int i = 0; i < O; ++i) {
-#pragma unroll
-        for (int j = 0; j < D; ++j)
-          h[i * D + j] = p.h[b * p.h_sb + i * p.h_si + j * p.h_sj + k * p.h_st];
-      }
-    }
+  // nu, lam (through their strides, only once, once, where the step stride
+  // is 0) and the mask of step k
+  template <class A>
+  MF_DEV void read_site_values(const A& a, int64_t b, int64_t k, bool once) {
     if (once || a.nu_st != 0) {
 #pragma unroll
       for (int i = 0; i < O; ++i) nu[i] = a.nu[b * a.nu_sb + i * a.nu_si + k * a.nu_st];
@@ -520,36 +518,22 @@ struct GeneralInO {
     keep = a.mask == nullptr || a.mask[b * a.mask_sb + k * a.mask_st] > T(0.5);
   }
 
-  // Lane l's step r, global step k, as GeneralIn::read.
-  template <bool STAGED, int R>
-  MF_DEV void read(const WarpStage<T, R>& st, const GeneralSlots& sl, int l, int r,
-                   const GeneralPrior<T>& p, const FilterArgs<T>& a, int64_t b, int64_t k,
-                   bool once) {
-    if constexpr (!STAGED) {
+  // H of step k
+  MF_DEV void read_h(const GeneralPrior<T>& p, int64_t b, int64_t k) {
 #pragma unroll
-      for (int i = 0; i < D; ++i) {
+    for (int i = 0; i < O; ++i) {
 #pragma unroll
-        for (int j = 0; j < D; ++j) {
-          f[i * D + j] = p.f[b * p.f_sb + i * p.f_si + j * p.f_sj + k * p.f_st];
-          q[i * D + j] = p.q[b * p.q_sb + i * p.q_si + j * p.q_sj + k * p.q_st];
-        }
-        c[i] = p.c[b * p.c_sb + i * p.c_si + k * p.c_st];
-      }
-      read_sites(p, a, b, k, once);
-      return;
+      for (int j = 0; j < D; ++j)
+        h[i * D + j] = p.h[b * p.h_sb + i * p.h_si + j * p.h_sj + k * p.h_st];
     }
-#pragma unroll
-    for (int i = 0; i < D * D; ++i) {
-      f[i] = *st.at(i, l, r);
-      q[i] = *st.at(D * D + i, l, r);
-    }
-#pragma unroll
-    for (int i = 0; i < D; ++i) c[i] = *st.at(2 * D * D + i, l, r);
-    if (once && (sl.h < 0 || sl.nu < 0 || sl.lam < 0)) read_sites(p, a, b, k, true);
-    if (sl.h >= 0) {
-#pragma unroll
-      for (int i = 0; i < O * D; ++i) h[i] = *st.at(sl.h + i, l, r);
-    }
+  }
+
+  // nu, lam and the mask of lane l's step r from the warp's stage where sl
+  // has slots for them; what has none is read once, once, from step k
+  template <int R, class A>
+  MF_DEV void read_staged_sites(const WarpStage<T, R>& st, const GeneralSlots& sl, int l, int r,
+                                const A& a, int64_t b, int64_t k, bool once) {
+    if (once && (sl.nu < 0 || sl.lam < 0)) read_site_values(a, b, k, true);
     if (sl.nu >= 0) {
 #pragma unroll
       for (int i = 0; i < O; ++i) nu[i] = *st.at(sl.nu + i, l, r);
@@ -560,7 +544,59 @@ struct GeneralInO {
     }
     keep = sl.mask < 0 || *st.at(sl.mask, l, r) > T(0.5);
   }
+
+  // Lane l's step r, global step k, as GeneralIn::read.
+  template <bool STAGED, int R, class A>
+  MF_DEV void read(const WarpStage<T, R>& st, const GeneralSlots& sl, int l, int r,
+                   const GeneralPrior<T>& p, const A& a, int64_t b, int64_t k, bool once) {
+    if constexpr (!STAGED) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+#pragma unroll
+        for (int j = 0; j < D; ++j) {
+          f[i * D + j] = p.f[b * p.f_sb + i * p.f_si + j * p.f_sj + k * p.f_st];
+          q[i * D + j] = p.q[b * p.q_sb + i * p.q_si + j * p.q_sj + k * p.q_st];
+        }
+        c[i] = p.c[b * p.c_sb + i * p.c_si + k * p.c_st];
+      }
+      if (once || p.h_st != 0) read_h(p, b, k);
+      read_site_values(a, b, k, once);
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) {
+      f[i] = *st.at(i, l, r);
+      q[i] = *st.at(D * D + i, l, r);
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i) c[i] = *st.at(2 * D * D + i, l, r);
+    if (sl.h >= 0) {
+#pragma unroll
+      for (int i = 0; i < O * D; ++i) h[i] = *st.at(sl.h + i, l, r);
+    } else if (once) {
+      read_h(p, b, k);
+    }
+    read_staged_sites(st, sl, l, r, a, b, k, once);
+  }
 };
+
+// Starts the copies of nu, lam and the mask of a warp's steps of batch row b
+// into their slots of sl (those with a slot: the strided ones).
+template <int O, typename T, int R>
+MF_DEV void fetch_sites_o(const WarpStage<T, R>& st, const GeneralSlots& sl,
+                          const FilterArgs<T>& a, int64_t b) {
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    if (sl.nu >= 0) st.fetch(sl.nu + i, a.nu + (b * a.nu_sb + i * a.nu_si), a.nu_st);
+    if (sl.lam >= 0) {
+#pragma unroll
+      for (int j = 0; j < O; ++j)
+        st.fetch(sl.lam + i * O + j, a.lam + (b * a.lam_sb + i * a.lam_si + j * a.lam_sj),
+                 a.lam_st);
+    }
+  }
+  if (sl.mask >= 0) st.fetch(sl.mask, a.mask + b * a.mask_sb, a.mask_st);
+}
 
 // The site's gain terms from S = H P H^T [o x o] and hm = H m [o]:
 // lz = sym(lam (I + S lam)^-1) and r = (I + lam S)^-1 nu - lz hm.
@@ -685,22 +721,15 @@ struct GeneralStepsO {
         }
         st.fetch(2 * D * D + i, p.c + (b * p.c_sb + i * p.c_si), p.c_st);
       }
+      if (sl.h >= 0) {
 #pragma unroll
-      for (int i = 0; i < O; ++i) {
-        if (sl.h >= 0) {
+        for (int i = 0; i < O; ++i) {
 #pragma unroll
           for (int j = 0; j < D; ++j)
             st.fetch(sl.h + i * D + j, p.h + (b * p.h_sb + i * p.h_si + j * p.h_sj), p.h_st);
         }
-        if (sl.nu >= 0) st.fetch(sl.nu + i, a.nu + (b * a.nu_sb + i * a.nu_si), a.nu_st);
-        if (sl.lam >= 0) {
-#pragma unroll
-          for (int j = 0; j < O; ++j)
-            st.fetch(sl.lam + i * O + j, a.lam + (b * a.lam_sb + i * a.lam_si + j * a.lam_sj),
-                     a.lam_st);
-        }
       }
-      if (sl.mask >= 0) st.fetch(sl.mask, a.mask + b * a.mask_sb, a.mask_st);
+      fetch_sites_o<O>(st, sl, a, b);
       wide_fetch_wait();
     }
   }

@@ -1,8 +1,10 @@
-// One instantiation of the general-grid filter at o x o sites (see
-// general_scan.cuh, GeneralStepsO), for the dtype MF_T, state dimension MF_D
-// and output dimension MF_O that ops/cuda_scan.py passes, one of
-// MF_GENERAL_O_PAIRS.
-#include "general_scan.cuh"
+// One instantiation of the filters at o x o sites (see general_scan.cuh,
+// GeneralStepsO, and uniform_scan.cuh, UniformStepsO: kernels 4 and 1), for
+// the dtype MF_T, state dimension MF_D and output dimension MF_O that
+// ops/cuda_scan.py passes, one of MF_GENERAL_O_PAIRS.
+#include "uniform_scan.cuh"
 
 template int mf::launch_general_filter<mf::GeneralStepsO<MF_T, MF_D, MF_O>>(
     mf::FilterArgs<MF_T>, mf::GeneralPrior<MF_T>, MF_T*, int64_t, cudaStream_t);
+template int mf::launch_general_filter<mf::UniformStepsO<MF_T, MF_D, MF_O>>(
+    mf::FilterArgs<MF_T>, mf::UniformPrior<MF_T>, MF_T*, int64_t, cudaStream_t);

@@ -9,9 +9,9 @@
 // filter composition inverts I + C J, which is not symmetric).  The plain
 // PyTorch version is _gauss_jordan_tl in markovflow_tpu_torch/ops/kalman.py.
 // The kernels for 7 <= d <= 12 invert with the same pivoting, a warp per
-// matrix (winv in wide_scan.cuh).  The general filter at o > 1 solves its
-// o x o systems, which need not be symmetric, and takes their determinants
-// with the same elimination (gauss_jordan_solve).  No output argument may
+// matrix (winv in wide_scan.cuh).  The filters and the Koopman backwards at
+// o > 1 solve their o x o systems, which need not be symmetric, and take
+// their determinants with the same elimination (gauss_jordan_solve).  No output argument may
 // alias an input.
 #pragma once
 

@@ -12,7 +12,9 @@
 // sites staged through shared memory; the smoother runs the RTS smoother
 // passes of general_scan.cuh with the step source UniformRtsRow (below):
 // the RTS element built in registers from the filtered moments (staged the
-// same way in pass 3) and the boundary element at global step N-1.
+// same way in pass 3) and the boundary element at global step N-1.  At
+// o x o sites (o = 2..d, d <= 6) the filter's source is UniformStepsO, which
+// builds each step's element and composes it as kernel 4 does at o > 1.
 //
 // What bounds them on an H100: at d = 2, o = 1, float32 the filter reads
 // one site value a step (nu; GPR's lam is one expanded value) in each of
@@ -92,6 +94,28 @@ struct UniformRow {
     if (sl.lam >= 0) in.s.lam = *st.at(sl.lam, l, r);
     in.s.keep = sl.mask < 0 || *st.at(sl.mask, l, r) > T(0.5);
   }
+
+  // The same at o x o sites (GeneralInO): the constants as above and Hc;
+  // when STAGED, nu, lam and the mask from the stage where sl has slots
+  // for them and what has none read once, once; else each from step k
+  // (only once, once, where its step stride is 0).
+  template <bool STAGED, int R, class A>
+  MF_DEV void read_step(GeneralInO<T, D, O>& in, const WarpStage<T, R>& st,
+                        const GeneralSlots& sl, int l, int r, const A& a, int64_t b, int64_t k,
+                        bool once) const {
+    const bool first = r == 0 && k == 0;  // global step 0 is a thread's first
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) {
+      in.f[i] = first ? T(0) : f[i];
+      in.q[i] = first ? p0[i] : q[i];
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i) in.c[i] = first ? m0[i] : c[i];
+#pragma unroll
+    for (int i = 0; i < O * D; ++i) in.h[i] = h[i];
+    if constexpr (STAGED) in.read_staged_sites(st, sl, l, r, a, b, k, once);
+    else in.read_site_values(a, b, k, once);
+  }
 };
 
 // Kernel 1's step source of the filter passes (general_scan.cuh): the
@@ -142,6 +166,63 @@ struct UniformSteps : UniformRow<T_, D_, 1> {
 
   static MF_DEV void fold(FElem<T, D>& run, const In& in, bool) { fold_site<T, D>(run, in); }
   static MF_DEV T step(T* m, T* P, const In& in) { return kalman_step<T, D>(m, P, in); }
+};
+
+// Kernel 1 at o = 2..d (d <= 6): UniformSteps with o x o sites and a
+// constant [o, d] Hc in registers, each step's element built and composed
+// as kernel 4's at o (GeneralStepsO: site_element_o, FilterOp in pass 1,
+// the moments through the element and _ll_slice's likelihood in pass 3).
+// nu (o values), lam (o^2) and the mask staged where they change with the
+// step, and in pass 3 P_f and m_f over them from slot 0; at most
+// max(d^2 + d, o^2 + o + 1) values a step: every pair is staged (5,504
+// values a warp at d = o = 6, R = 4).
+template <typename T_, int D_, int O_>
+struct UniformStepsO : UniformRow<T_, D_, O_> {
+  using T = T_;
+  static constexpr int D = D_, O = O_;
+  using Prior = UniformPrior<T>;
+  using In = GeneralInO<T, D, O>;
+  static constexpr bool LOGLIK = true;
+  static constexpr int NV_IN = O * O + O + 1, NV = D * D + D > NV_IN ? D * D + D : NV_IN;
+  static constexpr int P_OUT = 0, M_OUT = D * D;
+
+  static __host__ __device__ GeneralSlots slots(const Prior&, const FilterArgs<T>& a,
+                                                bool outputs) {
+    GeneralSlots s{-1, -1, -1, -1, -1, -1, 0};
+    if (a.nu_st != 0) {
+      s.nu = s.nv;
+      s.nv += O;
+    }
+    if (a.lam_st != 0) {
+      s.lam = s.nv;
+      s.nv += O * O;
+    }
+    s.mask = a.mask != nullptr ? s.nv++ : -1;
+    if (outputs && s.nv < D * D + D) s.nv = D * D + D;
+    return s;
+  }
+
+  template <class G, bool OUTPUTS>
+  MF_DEV void stage(const Prior& p, const FilterArgs<T>& a, int64_t b, int64_t t, int64_t n,
+                    WarpStage<T, G::R>& st, GeneralSlots& sl) const {
+    static_assert(G::STAGED, "kernel 1 stages every (d, o) pair");
+    sl = slots(p, a, OUTPUTS);
+    st.place(t, sl.nv, n);
+    fetch_sites_o<O>(st, sl, a, b);
+    wide_fetch_wait();
+  }
+
+  template <bool STAGED, int R>
+  MF_DEV void read(In& in, const WarpStage<T, R>& st, const GeneralSlots& sl, int l, int r,
+                   const Prior&, const FilterArgs<T>& a, int64_t b, int64_t k,
+                   bool once) const {
+    this->template read_step<STAGED>(in, st, sl, l, r, a, b, k, once);
+  }
+
+  static MF_DEV void fold(FElem<T, D>& run, const In& in, bool first) {
+    GeneralStepsO<T, D, O>::fold(run, in, first);
+  }
+  static MF_DEV T step(T* m, T* P, const In& in) { return GeneralStepsO<T, D, O>::step(m, P, in); }
 };
 
 // constants Fc, cc, Qc as UniformPrior; filtered moments, contiguous:
@@ -330,14 +411,15 @@ struct WideUniformRtsRow {
 
 // C entry points for one dtype (T, suffix).  The state dimension is a
 // runtime argument dispatched to the compile-time instantiations d = 1..6,
-// or to the runtime-d kernels for d = 7..12; the output dimension is 1.
+// or to the runtime-d kernels for d = 7..12; the filter's output dimension
+// o is 1 or, at d <= 6, one of MF_GENERAL_O_PAIRS (UniformStepsO).
 // Sizes are int64; every pointer, and the stream, is passed as an address;
 // strides come as a host array of int64.
 #define MF_DEFINE_UNIFORM_ENTRY_POINTS(T, SUFFIX)                                      \
   extern "C" int mf_uniform_filter_##SUFFIX(                                           \
       const T* fc, const T* cc, const T* qc, const T* mu0, const T* p0, const T* hc,   \
       const T* nu, const T* lam, const T* mask, const int64_t* site_strides, T* m_f,   \
-      T* p_f, T* loglik, T* scratch, int64_t batch, int64_t n, int64_t d,              \
+      T* p_f, T* loglik, T* scratch, int64_t batch, int64_t n, int64_t d, int64_t o,   \
       void* stream) {                                                                  \
     if (batch < 1 || batch > 65535 || n < 1) return int(cudaErrorInvalidValue);        \
     mf::UniformPrior<T> p{fc, cc, qc, mu0, p0, hc};                                    \
@@ -346,6 +428,10 @@ struct WideUniformRtsRow {
     mf::set_site_strides(a, site_strides);                                             \
     a.m_f = m_f; a.p_f = p_f; a.loglik = loglik; a.n = n;                              \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (o != 1)                                                                        \
+      MF_SWITCH_DO(d, o, (mf::launch_general_filter<mf::UniformStepsO<T, D_, O_>>(      \
+                             a, p, scratch, batch, s)),                                \
+                   int(cudaErrorInvalidValue))                                         \
     if (d >= mf::WIDE_MIN_D)                                                           \
       return mf::launch_wide_filter<mf::WideUniformRow<T>>(a, p, scratch, batch, int(d), \
                                                            s);                         \

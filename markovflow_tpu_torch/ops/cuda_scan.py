@@ -58,9 +58,12 @@ __all__ = ["filter_pipeline_uniform", "smoother_pipeline_uniform",
 #: through one runtime-d instantiation whose warps compose elements held in
 #: shared memory (``csrc/wide_scan.cuh``)
 MAX_STATE_DIM = 12
-#: the general filter (:func:`filter_pipeline`) also takes o x o sites at
-#: o = 2..d for these state dims (``GeneralStepsO`` in
-#: ``csrc/general_scan.cuh``, one unit per (dtype, d, o))
+#: the two filters and the two Koopman backwards (:func:`filter_pipeline`,
+#: :func:`filter_pipeline_uniform`, ``adjoint.adjoint_pipeline`` and
+#: ``adjoint.adjoint_pipeline_uniform``) also take o x o sites at o = 2..d
+#: for these state dims (``GeneralStepsO``, ``UniformStepsO``,
+#: ``GeneralAdjStepsO``, ``UniformAdjStepsO`` in ``csrc/``; one unit per
+#: (dtype, d, o) for the filters and one for the backwards)
 MULTI_OUTPUT_MAX_STATE_DIM = 6
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -132,19 +135,22 @@ def _find_nvcc() -> str:
 
 #: compilation units: one per (family, dtype) of the runtime-d kernels for
 #: d = 7..12, one per (kernel family, dtype, state dim) instantiation of the
-#: unrolled kernels for d = 1..6, and the C entry points, so that nvcc runs
-#: them in parallel; the slowest to build (the runtime-d units, then the
-#: largest state dims) start first.  "gadjoint" is the general-grid Koopman
-#: backward.
+#: unrolled kernels for d = 1..6, one per (dtype, d, o) of the filters and
+#: one of the Koopman backwards at o x o sites, and the C entry points, so
+#: that nvcc runs them in parallel; the runtime-d units start first, then
+#: the o x o units, then the others from the largest state dim.
+#: "gadjoint" is the general-grid Koopman backward.
 _FAMILIES = ("uniform", "general", "adjoint", "gadjoint")
+_O_PAIRS = [(d, o) for d in range(MULTI_OUTPUT_MAX_STATE_DIM, 1, -1)
+            for o in range(d, 1, -1)]
 _UNITS = [
     ("wide_inst.cu", [f"-DMF_T={t}", f"-DMF_{fam.upper()}"])
     for fam in ("general", "gadjoint", "uniform") for t in ("double", "float")] + [
+    (f"{fam}o_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}", f"-DMF_O={o}"])
+    for fam in ("adjoint", "general") for d, o in _O_PAIRS
+    for t in ("double", "float")] + [
     (f"{fam}_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}"])
     for d in range(6, 0, -1) for fam in _FAMILIES
-    for t in ("double", "float")] + [
-    ("generalo_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}", f"-DMF_O={o}"])
-    for d in range(MULTI_OUTPUT_MAX_STATE_DIM, 1, -1) for o in range(d, 1, -1)
     for t in ("double", "float")] + [("entry_points.cu", [])]
 
 
@@ -183,13 +189,17 @@ def _compile(nvcc: str, out_dir: Path) -> Path:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     for sfx in ("f32", "f64"):
-        for kind in ("uniform_filter", "filter_scan", "smoother", "uniform_smoother",
-                     "adjoint", "general_adjoint"):
+        for kind in ("filter_scan", "smoother", "uniform_smoother"):
             fn = getattr(lib, f"mf_{kind}_scratch_{sfx}")
             fn.argtypes = [i64, i64, i64]
             fn.restype = i64
+        # (d, o, batch, n)
+        for kind in ("uniform_filter", "general_filter", "adjoint", "general_adjoint"):
+            fn = getattr(lib, f"mf_{kind}_scratch_{sfx}")
+            fn.argtypes = [i64] * 4
+            fn.restype = i64
         fn = getattr(lib, f"mf_uniform_filter_{sfx}")
-        fn.argtypes = [p] * 10 + [p] * 4 + [i64] * 3 + [p]
+        fn.argtypes = [p] * 10 + [p] * 4 + [i64] * 4 + [p]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"mf_uniform_smoother_{sfx}")
         fn.argtypes = [p] * 8 + [i64] * 3 + [p]
@@ -197,20 +207,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, f"mf_general_filter_{sfx}")
         fn.argtypes = [p] * 8 + [p] * 4 + [i64] * 4 + [p]
         fn.restype = ctypes.c_int
-        fn = getattr(lib, f"mf_general_filter_scratch_{sfx}")
-        fn.argtypes = [i64] * 4
-        fn.restype = i64
         fn = getattr(lib, f"mf_smoother_scan_{sfx}")
         fn.argtypes = [p] * 6 + [i64] * 3 + [p]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"mf_uniform_adjoint_{sfx}")
-        fn.argtypes = [p] * 10 + [p] * 3 + [p] * 6 + [i64] * 3 + [p]
+        fn.argtypes = [p] * 10 + [p] * 3 + [p] * 6 + [i64] * 4 + [p]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"mf_filter_scan_{sfx}")
         fn.argtypes = [p] * 5 + [p] * 3 + [i64] * 3 + [p]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"mf_general_adjoint_{sfx}")
-        fn.argtypes = [p] * 8 + [p] * 3 + [p] * 7 + [i64] * 3 + [p]
+        fn.argtypes = [p] * 8 + [p] * 3 + [p] * 7 + [i64] * 4 + [p]
         fn.restype = ctypes.c_int
         for kind in ("wide", "general"):
             fn = getattr(lib, f"mf_{kind}_occupancy_{sfx}")
@@ -248,12 +255,12 @@ def build_kernels() -> ctypes.CDLL:
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _check_cuda(tensors, d: int, o: int, max_d: int = MAX_STATE_DIM,
-                multi_output: bool = False) -> str:
+def _check_cuda(tensors, d: int, o: int, max_d: int = MAX_STATE_DIM) -> str:
     """Raise unless every tensor is on one CUDA device with one supported
     dtype and the dims are instantiated (state dims 1..``max_d``; output
-    dim 1, or with ``multi_output`` (the general filter) 1..d at d <=
-    MULTI_OUTPUT_MAX_STATE_DIM); return the dtype suffix."""
+    dim 1, or 1..d at d <= MULTI_OUTPUT_MAX_STATE_DIM: the smoothers and
+    the filter scan, which have no output dim, pass 1); return the dtype
+    suffix."""
     device, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != device:
@@ -265,19 +272,15 @@ def _check_cuda(tensors, d: int, o: int, max_d: int = MAX_STATE_DIM,
     if not 1 <= d <= max_d:
         raise NotImplementedError(
             f"this CUDA kernel takes state dims 1..{max_d}, got {d}")
-    if o != 1 and not multi_output:
-        raise NotImplementedError(
-            f"this CUDA kernel takes output dim 1, got {o}: only the general "
-            f"filter has a kernel at o > 1")
     if o != 1 and d > MULTI_OUTPUT_MAX_STATE_DIM:
         raise NotImplementedError(
-            f"the CUDA general filter takes output dims o > 1 only at state "
-            f"dims 1..{MULTI_OUTPUT_MAX_STATE_DIM}, got o = {o} at d = {d} "
-            f"(o > 1 at d = 7..12 has no kernel)")
+            f"the CUDA kernels take output dims o > 1 only at state dims "
+            f"1..{MULTI_OUTPUT_MAX_STATE_DIM}, got o = {o} at d = {d} (o > 1 "
+            f"at d = 7..12 has no kernel)")
     if not 1 <= o <= d:
         raise NotImplementedError(
-            f"the CUDA general filter takes output dims 1..d, got o = {o} at "
-            f"d = {d} (o > d has no kernel)")
+            f"the CUDA kernels take output dims 1..d, got o = {o} at d = {d} "
+            f"(o > d has no kernel)")
     return _SUFFIX[dtype]
 
 
@@ -348,9 +351,11 @@ def _general_views(lead, B, F, c, Q, H, nu, lam, maskf):
     return [x.data_ptr() for x in prior] + list(sites), strides
 
 
-def _scratch(kind: str, sfx: str, d: int, B: int, n: int, like):
+def _scratch(kind: str, sfx: str, dims, B: int, n: int, like):
+    """The kernel's scratch; ``dims``: (d,), or (d, o) for the filters and
+    the Koopman backwards."""
     lib = build_kernels()
-    size = getattr(lib, f"mf_{kind}_scratch_{sfx}")(d, B, n)
+    size = getattr(lib, f"mf_{kind}_scratch_{sfx}")(*dims, B, n)
     return torch.empty((size,), dtype=like.dtype, device=like.device)
 
 
@@ -362,7 +367,8 @@ def filter_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf=None):
     constant emission Hc [..., o, d, 1]; sites nu [..., o, 1, N],
     lam [..., o, o, N] and an optional mask maskf [..., 1, 1, N] (steps with
     maskf <= 0.5 add 0 to the likelihood).  Site inputs may be expanded
-    views: the kernel reads them through their strides.
+    views: the kernel reads them through their strides.  o = 1 at
+    d = 1..12, o = 2..d at d = 1..6.
 
     Returns (m_f [..., d, 1, N], P_f [..., d, d, N], loglik [...]).
     """
@@ -387,12 +393,12 @@ def filter_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf=None):
     m_f = torch.empty((B, d, 1, n), **kw)
     p_f = torch.empty((B, d, d, n), **kw)
     loglik = torch.empty((B,), **kw)
-    scratch = _scratch("uniform_filter", sfx, d, B, n, nu)
+    scratch = _scratch("uniform_filter", sfx, (d, o), B, n, nu)
     with torch.cuda.device(nu.device):
         err = getattr(build_kernels(), f"mf_uniform_filter_{sfx}")(
             *(x.data_ptr() for x in consts), *sites, _strides(*site_strides),
             m_f.data_ptr(), p_f.data_ptr(), loglik.data_ptr(),
-            scratch.data_ptr(), B, n, d, _stream(nu.device))
+            scratch.data_ptr(), B, n, d, o, _stream(nu.device))
     _raise_on(err, "filter_pipeline_uniform")
     filter_pipeline_uniform.launches += 1
     return (m_f.reshape(lead + (d, 1, n)), p_f.reshape(lead + (d, d, n)),
@@ -421,7 +427,7 @@ def smoother_pipeline_uniform(Fc, cc, Qc, m_f, p_f):
                                (Qc, (d, d, 1)))
     m_s = torch.empty_like(m_f)
     p_s = torch.empty_like(p_f)
-    scratch = _scratch("uniform_smoother", sfx, d, B, n, m_f)
+    scratch = _scratch("uniform_smoother", sfx, (d,), B, n, m_f)
     with torch.cuda.device(m_f.device):
         err = getattr(build_kernels(), f"mf_uniform_smoother_{sfx}")(
             fc.data_ptr(), ccf.data_ptr(), qc.data_ptr(), m_f.data_ptr(),
@@ -466,7 +472,7 @@ def filter_pipeline(F, c, Q, H, nu, lam, maskf=None):
     inputs = [F, c, Q, H, nu, lam]
     if maskf is not None:
         inputs.append(maskf)
-    sfx = _check_cuda(inputs, d, o, multi_output=True)
+    sfx = _check_cuda(inputs, d, o)
     lead = torch.broadcast_shapes(*(x.shape[:-3] for x in inputs))
     B = math.prod(lead)
     _check_grid(B, n)
@@ -475,11 +481,9 @@ def filter_pipeline(F, c, Q, H, nu, lam, maskf=None):
     m_f = torch.empty((B, d, 1, n), **kw)
     p_f = torch.empty((B, d, d, n), **kw)
     loglik = torch.empty((B,), **kw)
-    lib = build_kernels()
-    scratch = torch.empty((getattr(lib, f"mf_general_filter_scratch_{sfx}")(d, o, B, n),),
-                          **kw)
+    scratch = _scratch("general_filter", sfx, (d, o), B, n, F)
     with torch.cuda.device(F.device):
-        err = getattr(lib, f"mf_general_filter_{sfx}")(
+        err = getattr(build_kernels(), f"mf_general_filter_{sfx}")(
             *ptrs, strides, m_f.data_ptr(), p_f.data_ptr(), loglik.data_ptr(),
             scratch.data_ptr(), B, n, d, o, _stream(F.device))
     _raise_on(err, "filter_pipeline")
@@ -510,7 +514,7 @@ def smoother_scan(E, g, L):
                                       (L, (d, d, n))))
     m_s = torch.empty_like(g_b)
     p_s = torch.empty_like(l_b)
-    scratch = _scratch("smoother", sfx, d, B, n, E)
+    scratch = _scratch("smoother", sfx, (d,), B, n, E)
     with torch.cuda.device(E.device):
         err = getattr(build_kernels(), f"mf_smoother_scan_{sfx}")(
             e_b.data_ptr(), g_b.data_ptr(), l_b.data_ptr(), m_s.data_ptr(),
@@ -549,7 +553,7 @@ def filter_scan(A, b, C, J, eta):
     kw = dict(dtype=A.dtype, device=A.device)
     m_f = torch.empty((B, d, 1, n), **kw)
     p_f = torch.empty((B, d, d, n), **kw)
-    scratch = _scratch("filter_scan", sfx, d, B, n, A)
+    scratch = _scratch("filter_scan", sfx, (d,), B, n, A)
     with torch.cuda.device(A.device):
         err = getattr(build_kernels(), f"mf_filter_scan_{sfx}")(
             *(x.data_ptr() for x in elems), m_f.data_ptr(), p_f.data_ptr(),

@@ -7,7 +7,7 @@ from typing import Sequence
 import torch
 
 __all__ = ["tlt", "symmetrize", "small_det", "small_inv", "small_solve",
-           "block_diag", "small_cholesky", "psd_cholesky", "cholesky_or_zero",
+           "block_diag", "batched_kron", "small_cholesky", "psd_cholesky", "cholesky_or_zero",
            "to_delta_time", "solve_from_chol", "mvn_logpdf", "small_mm", "small_mv",
            "searchsorted", "take_last", "take_rows"]
 
@@ -43,6 +43,16 @@ def block_diag(mats: Sequence[torch.Tensor]) -> torch.Tensor:
         r += dr
         c += dc
     return out
+
+
+def batched_kron(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched Kronecker product of [..., m, n] and [..., p, q] ->
+    [..., m p, n q] (elementwise products: no matmul).  Batch shapes
+    broadcast."""
+    m, n = a.shape[-2:]
+    p, q = b.shape[-2:]
+    out = a[..., :, None, :, None] * b[..., None, :, None, :]
+    return out.reshape(out.shape[:-4] + (m * p, n * q))
 
 
 def symmetrize(x: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,12 @@ tests/unit/test_uniform_path.py runs them; chunk=1, r_blk=1 for state dims
   ``pallas_filter_scan`` on them, saving the elements too;
 * ``gadjoint:CASE`` (a general case) runs ``pallas_filter_pipeline`` and,
   on its output, ``pallas_adjoint_pipeline`` (the fused general-grid
-  Koopman backward) with the per-row cotangent :func:`general_gscale`.
+  Koopman backward) with the per-row cotangent :func:`general_gscale`;
+* ``mo:CASE`` (a case of :data:`MO_CASES`, o x o sites with a full,
+  non-diagonal lam at every step) runs ``pallas_filter_pipeline_uniform``
+  and ``pallas_adjoint_pipeline_uniform`` on :func:`mo_inputs`' uniform
+  inputs, and ``pallas_filter_pipeline`` and ``pallas_adjoint_pipeline``
+  on its general ones (outputs ``u_*`` and ``g_*``).
 
 The port's tests run it in fresh processes (:func:`run_refs`):
 interpret-mode Pallas programs can crash XLA:CPU in a process that has
@@ -67,6 +72,11 @@ WIDE_GENERAL_CASES = {
     "g_d7_n37": (7, 37, (), False),
     "g_d9_n37_masked": (9, 37, (2,), True),
     "g_d12_n37": (12, 37, (), False),
+}
+#: o x o sites: name -> (state dim, output dim, steps, batch shape, masked)
+MO_CASES = {
+    "mo_d2_o2": (2, 2, 64, (), False),
+    "mo_d3_o3": (3, 3, 73, (2,), True),
 }
 _UNIFORM = {**CASES, **WIDE_CASES}
 _GENERAL = {**GENERAL_CASES, **WIDE_GENERAL_CASES}
@@ -149,6 +159,44 @@ def general_inputs(name: str) -> dict:
     }
 
 
+def mo_inputs(name: str):
+    """The uniform inputs (INPUT_NAMES) and the general ones
+    (GENERAL_INPUT_NAMES) of a case of :data:`MO_CASES`: a random stable SSM
+    (constant, and per step with F_0 = 0), a dense emission [o, d] (constant,
+    and per step), nu [o, 1, N] and a full lam = L L^T + I / 2 [o, o, N] at
+    every step (numpy float64, time-last)."""
+    d, o, n, batch, masked = MO_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    lq = 0.3 * rng.standard_normal((d, d)) + np.eye(d)
+    ll = 0.6 * rng.standard_normal(batch + (n, o, o))
+    lam = np.moveaxis(ll @ np.swapaxes(ll, -1, -2) + 0.5 * np.eye(o), -3, -1)
+    nu = rng.standard_normal(batch + (o, 1, n))
+    maskf = ((rng.random(batch + (1, 1, n)) > 0.3).astype(np.float64)
+             if masked else None)
+    uni = {"fc": (0.8 * np.eye(d) + 0.05 * rng.standard_normal((d, d)))[..., None],
+           "cc": 0.1 * rng.standard_normal((d, 1, 1)),
+           "qc": (0.3 * lq @ lq.T)[..., None],
+           "mu0": rng.standard_normal((d, 1, 1)),
+           "p0": (1.5 * np.eye(d))[..., None],
+           "hc": rng.standard_normal((o, d, 1)),
+           "nu": nu, "lam": lam, "maskf": maskf}
+    f = 0.8 * np.eye(d) + 0.1 * rng.standard_normal(batch + (n, d, d))
+    lq = 0.3 * rng.standard_normal(batch + (n, d, d)) + np.eye(d)
+    q = 0.3 * lq @ np.swapaxes(lq, -1, -2)
+    f[..., 0, :, :] = 0.0
+    q[..., 0, :, :] = 1.5 * np.eye(d)
+    gen = {"F": np.moveaxis(f, -3, -1), "c": 0.1 * rng.standard_normal(batch + (d, 1, n)),
+           "Q": np.moveaxis(q, -3, -1), "H": rng.standard_normal(batch + (o, d, n)),
+           "nu": nu, "lam": lam, "maskf": maskf}
+    return uni, gen
+
+
+def mo_gscale(name: str) -> np.ndarray:
+    """The per-row cotangent of a multi-output case's log-likelihoods."""
+    batch = MO_CASES[name][3]
+    return np.linspace(0.7, -1.3, int(np.prod(batch))).reshape(batch)
+
+
 def scan_inputs(name: str) -> tuple:
     """Random smoothing elements (E, g, L) for the reverse scan; E's entries
     shrink as 1 / sqrt(d) above d = 3, so that the suffix products do not
@@ -183,7 +231,8 @@ def main(out_path: str, names) -> None:
     out = {}
     for name in names:
         kind, case = name.split(":") if ":" in name else ("", name)
-        kw = interpret_kw((_GENERAL if case in _GENERAL else _UNIFORM)[case][0])
+        kw = interpret_kw(MO_CASES[case][0] if kind == "mo" else
+                          (_GENERAL if case in _GENERAL else _UNIFORM)[case][0])
         filt = jax.jit(lambda *a: pallas_filter_pipeline_uniform(*a, **kw))
         smooth = jax.jit(lambda *a: pallas_smoother_pipeline_uniform(*a, **kw))
         adjoint = jax.jit(lambda *a: pallas_adjoint_pipeline_uniform(*a, **kw))
@@ -191,7 +240,21 @@ def main(out_path: str, names) -> None:
         gscan = jax.jit(lambda e: pallas_smoother_scan(e, **kw))
         fscan = jax.jit(lambda e: pallas_filter_scan(e, **kw))
         gadjoint = jax.jit(lambda *a: pallas_adjoint_pipeline(*a, **kw))
-        if kind in ("fscan", "gadjoint"):
+        if kind == "mo":
+            uni, gen = ({k: None if v is None else jnp.asarray(v) for k, v in x.items()}
+                        for x in mo_inputs(case))
+            gs = jnp.asarray(mo_gscale(case))
+            uargs = [uni[k] for k in INPUT_NAMES]
+            m_f, p_f, ll = filt(*uargs)
+            vals = {"u_m_f": m_f, "u_p_f": p_f, "u_loglik": ll}
+            vals.update(("u_" + k, v) for k, v in zip(ADJOINT_NAMES,
+                                                      adjoint(*uargs, m_f, p_f, gs)))
+            gargs = [gen[k] for k in GENERAL_INPUT_NAMES]
+            m_f, p_f, ll = gfilt(*gargs)
+            vals.update({"g_m_f": m_f, "g_p_f": p_f, "g_loglik": ll})
+            vals.update(("g_" + k, v) for k, v in zip(GADJOINT_NAMES,
+                                                      gadjoint(*gargs, m_f, p_f, gs)))
+        elif kind in ("fscan", "gadjoint"):
             x = {k: None if v is None else jnp.asarray(v)
                  for k, v in general_inputs(case).items()}
             args = [x[k] for k in GENERAL_INPUT_NAMES]

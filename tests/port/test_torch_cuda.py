@@ -372,11 +372,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(NotImplementedError):
         ops.filter_pipeline_uniform(*_problem(13, 64, (), cuda_device))
     big = _problem(7, 64, (), cuda_device)
-    two_out = list(args)
-    two_out[5] = torch.ones((2, 2, 1), dtype=args[0].dtype, device=cuda_device)
-    two_out[7] = args[7].expand(2, 2, 64)
+    three_out = list(args)      # o = 3 > d = 2
+    three_out[5] = torch.ones((3, 2, 1), dtype=args[0].dtype, device=cuda_device)
+    three_out[7] = args[7].expand(3, 3, 64)
     with pytest.raises(NotImplementedError):
-        ops.filter_pipeline_uniform(*two_out)
+        ops.filter_pipeline_uniform(*three_out)
     with pytest.raises(NotImplementedError):    # the batch is grid axis y
         ops.filter_pipeline_uniform(*_problem(2, 1, (65536,), cuda_device,
                                               masked=False))
@@ -895,27 +895,92 @@ def test_natgrad_step_kernels_match_plain(cuda_device, config):
 
 
 def test_wrappers_raise_at_o_sites_they_have_no_kernel_for(cuda_device):
-    """o > 1 runs only in the general filter at d <= 6, o <= d: it raises
-    at d = 7..12, at o > d, and in kernels 1, 3 and 7."""
+    """o > 1 runs in the two filters and the two Koopman backwards at
+    d <= 6, o <= d: each raises at o > d and at o > 1 with d = 7..12, and
+    so does the uniform log-likelihood, rather than take the materialised
+    route of d > 6."""
     kw = dict(dtype=torch.float64, device=cuda_device)
-    for d, o in ((7, 2), (9, 9), (3, 4)):
+    gs = torch.ones((), **kw)
+    for d, o in ((7, 2), (9, 9), (3, 4), (2, 3)):
         eye = torch.eye(d, **kw)[..., None].expand(d, d, 64)
+        gargs = (0.5 * eye, torch.zeros((d, 1, 64), **kw), eye, torch.ones((o, d, 64), **kw),
+                 torch.zeros((o, 1, 64), **kw), torch.eye(o, **kw)[..., None].expand(o, o, 64))
+        m_f, p_f = torch.zeros((d, 1, 64), **kw), eye.contiguous()
         with pytest.raises(NotImplementedError):
-            ops.filter_pipeline(0.5 * eye, torch.zeros((d, 1, 64), **kw), eye,
-                                torch.ones((o, d, 64), **kw), torch.zeros((o, 1, 64), **kw),
-                                torch.eye(o, **kw)[..., None].expand(o, o, 64))
-    uni = _problem(3, 64, (), cuda_device)
-    two = list(uni)
-    two[5] = torch.ones((2, 3, 1), dtype=torch.float64, device=cuda_device)
-    two[6] = uni[6].expand(2, 1, 64)
-    two[7] = uni[7].expand(2, 2, 64)
-    with pytest.raises(NotImplementedError):
-        ops.filter_pipeline_uniform(*two)
-    m_f, p_f, _ = ops.filter_pipeline_uniform_plain(*uni)
-    gs = torch.ones((), dtype=torch.float64, device=cuda_device)
-    with pytest.raises(NotImplementedError):
-        adj.adjoint_pipeline_uniform(*two, m_f, p_f, gs)
-    gargs = chip_smoke.multi_output_problem(3, 2, 64, (), torch.float64, seed=0)
-    m_g, p_g, _ = ops.filter_pipeline_plain(*gargs)
-    with pytest.raises(NotImplementedError):
-        adj.adjoint_pipeline(*gargs, m_g, p_g, gs)
+            ops.filter_pipeline(*gargs)
+        with pytest.raises(NotImplementedError):
+            adj.adjoint_pipeline(*gargs, None, m_f, p_f, gs)
+        uargs = (0.5 * eye[..., :1], torch.zeros((d, 1, 1), **kw), eye[..., :1],
+                 torch.zeros((d, 1, 1), **kw), eye[..., :1], torch.ones((o, d, 1), **kw),
+                 gargs[4], gargs[5])
+        with pytest.raises(NotImplementedError):
+            ops.filter_pipeline_uniform(*uargs)
+        with pytest.raises(NotImplementedError):
+            adj.adjoint_pipeline_uniform(*uargs, None, m_f, p_f, gs)
+        with pytest.raises(NotImplementedError):
+            adj.log_likelihood_koopman_uniform(*uargs)
+
+
+@pytest.mark.parametrize("const_sites", [False, True], ids=["per-step-dense-H", "stride-0"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d, o", [(d, o) for d in range(2, 7) for o in range(2, d + 1)])
+@pytest.mark.parametrize("n", list(chip_smoke.EDGE_NS))
+def test_kernels_1_3_7_at_o_sites_at_the_run_warp_and_block_edges(cuda_device, n, d, o,
+                                                                  dtype, const_sites):
+    """Kernels 1, 3 and 7 (and 4) at o x o sites (o = 2..d) against their
+    plain versions at the edges of a thread's, a warp's and a block's run
+    of steps, batch (3,), masked, with per-step sites and a random dense H
+    or GPR's stride-0 H and lam: float64 within chip_smoke.TOL_F64, float32
+    by chip_smoke.check_f32_wide's rule (chip_smoke.multi_output_kernels_case)."""
+    chip_smoke.multi_output_kernels_case(ops, adj, n, (3,), d, o, dtype, const_sites)
+
+
+@pytest.mark.parametrize("uniform", [True, False], ids=["uniform", "jittered"])
+def test_multi_output_gpr_runs_through_the_kernels(cuda_device, uniform):
+    """mo3 (chip_smoke.build_mo3: d = 6, o = 3, a full noise Cholesky) at
+    N = 4099, float64: loss, backward, marginals, predict_f (both output
+    covariances) and predict_y through kernels 1, 3 and 2 (uniform grid)
+    or 4, 7 and 5 (jittered), against the same model on the CPU (the plain
+    versions)."""
+    filt, smooth, back = (("filter_pipeline_uniform", "smoother_pipeline_uniform",
+                           "adjoint_pipeline_uniform") if uniform else
+                          ("filter_pipeline", "smoother_scan", "adjoint_pipeline"))
+    n = 4099
+    x, _ = chip_smoke.mo3_data(n, uniform)
+    pts = np.sort(np.concatenate([x[::97], np.linspace(-1.0, 101.0, 57)]))
+    before = _launches()
+    outs = chip_smoke.mo3_outputs(chip_smoke.build_mo3(n, torch.float64, uniform,
+                                                       device=cuda_device),
+                                  torch.as_tensor(pts, device=cuda_device))
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _launches().items()}
+    want = dict.fromkeys(launched, 0)
+    want.update({filt: 3, back: 1, smooth: 2})
+    assert launched == want
+    cpu = chip_smoke.mo3_outputs(chip_smoke.build_mo3(n, torch.float64, uniform,
+                                                      device="cpu"), torch.as_tensor(pts))
+    for key, val in cpu.items():
+        assert chip_smoke.rel_diff(outs[key].cpu(), val) <= F64_TOL, key
+
+
+def test_product_gpr_runs_through_the_kernels(cuda_device):
+    """A Product of Matern12 and Matern32 (d = 2) on a uniform grid:
+    loss and gradient through kernels 1 and 3, against the CPU."""
+    x, y = chip_smoke.flagship_data(2049)
+    params = {"chol_obs_covariance": np.asarray([[0.2]])}
+    runs = []
+    for dev in (cuda_device, "cpu"):
+        m = gpr_from_numpy(params, x, y, device=dev, dtype=torch.float64,
+                           kernel=("Product", ("Matern12", "Matern32")))
+        before = _launches()
+        loss = m.loss()
+        loss.backward()
+        runs.append([loss.detach().cpu()] + [p.grad.cpu() for p in
+                                             chip_smoke.hyper(m).values()])
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in _launches().items()}
+            assert launched["filter_pipeline_uniform"] == 1
+            assert launched["adjoint_pipeline_uniform"] == 1
+    for got, want in zip(*runs):
+        assert chip_smoke.rel_diff(got, want) <= F64_TOL

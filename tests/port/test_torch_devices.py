@@ -20,12 +20,13 @@ from markovflow_tpu_torch.utils.module import Parameter
                                 likelihoods.Gaussian.__init__, likelihoods.StudentT.__init__,
                                 sde.OrnsteinUhlenbeckSDE.__init__,
                                 sde.DoubleWellSDE.__init__, cvi_from_numpy,
-                                vgp_from_numpy, svgp_from_numpy, ssm_from_numpy],
+                                vgp_from_numpy, svgp_from_numpy, ssm_from_numpy,
+                                likelihoods.MultivariateGaussian.__init__],
                          ids=["Parameter", "StationaryKernel", "Matern12",
                               "Matern32", "Matern52", "gpr_from_numpy", "Gaussian",
                               "StudentT", "OrnsteinUhlenbeckSDE", "DoubleWellSDE",
                               "cvi_from_numpy", "vgp_from_numpy", "svgp_from_numpy",
-                              "ssm_from_numpy"])
+                              "ssm_from_numpy", "MultivariateGaussian"])
 def test_constructors_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -38,9 +39,14 @@ def test_constructors_default_to_the_card(fn):
                            dtype=torch.float64, likelihood="Bernoulli"),
     lambda: vgp_from_numpy({}, np.linspace(0.0, 1.0, 5), np.zeros((5, 1)),
                            dtype=torch.float64),
-    lambda: svgp_from_numpy({}, np.linspace(0.0, 1.0, 5), dtype=torch.float64)],
+    lambda: svgp_from_numpy({}, np.linspace(0.0, 1.0, 5), dtype=torch.float64),
+    lambda: likelihoods.MultivariateGaussian(np.eye(2), dtype=torch.float64),
+    lambda: gpr_from_numpy({"chol_obs_covariance": np.eye(2)}, np.linspace(0.0, 1.0, 5),
+                           np.zeros((5, 2)), dtype=torch.float64,
+                           kernel=("IndependentMultiOutput", ("Matern32", "Matern12")))],
     ids=["StudentT", "DoubleWellSDE", "OrnsteinUhlenbeckSDE", "cvi_from_numpy",
-         "vgp_from_numpy", "svgp_from_numpy"])
+         "vgp_from_numpy", "svgp_from_numpy", "MultivariateGaussian",
+         "gpr_from_numpy multi-output"])
 def test_new_constructors_without_a_device_build_on_the_card(build):
     """CVI's and the SDE tools' constructors, like the kernels': on the card
     where there is one; without one they raise instead of building on the
@@ -90,3 +96,17 @@ def test_sum_lives_where_its_children_do():
     tp = torch.linspace(0.0, 1.0, 7, dtype=torch.float64)
     assert all(x.device.type == "cpu" for x in k.prior_arrays_tl(tp))
     assert k.state_mean.device.type == "cpu"
+
+
+@pytest.mark.parametrize("cls", [kernels.IndependentMultiOutput, kernels.Product])
+def test_multi_output_and_product_kernels_live_where_their_children_do(cls):
+    """Like a Sum, an IndependentMultiOutput and a Product take no device:
+    their arrays (and a Product's state mean) are built where the children
+    live."""
+    k = cls([kernels.Matern12(dtype=torch.float64, device="cpu"),
+             kernels.Matern32(dtype=torch.float64, device="cpu")])
+    tp = torch.linspace(0.0, 1.0, 7, dtype=torch.float64)
+    assert all(x.device.type == "cpu" for x in k.prior_arrays_tl(tp))
+    assert k.state_mean.device.type == "cpu"
+    assert k.generate_emission_model(tp).emission_matrix.device.type == "cpu"
+    assert "device" not in inspect.signature(cls.__init__).parameters

@@ -264,12 +264,25 @@ def test_posterior_moments_are_the_smoothers(served):
 
 
 def test_posterior_takes_output_dim_one_only():
+    """Its likelihood: a Gaussian of the noise variance at output dim 1, a
+    MultivariateGaussian of the noise Cholesky above it (multi-output GPR,
+    test_torch_multi_output.py holds its predictions against the JAX
+    package's)."""
+    from markovflow_tpu_torch.likelihoods import Gaussian, MultivariateGaussian
+
     x = np.linspace(0.0, 1.0, 8)
-    params = {"kernel.lengthscale": np.asarray(0.0), "kernel.variance": np.asarray(0.0),
+    params = {"kernel.kernels[0].lengthscale": np.asarray(0.0),
+              "kernel.kernels[1].lengthscale": np.asarray(0.0),
               "chol_obs_covariance": np.eye(2) * 0.2}
-    model = gpr_from_numpy(params, x, np.zeros((8, 2)), dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError):
-        model.posterior
+    model = gpr_from_numpy(params, x, np.zeros((8, 2)), dtype=torch.float64, device="cpu",
+                           kernel=("IndependentMultiOutput", ("Matern32", "Matern12")))
+    lik = model.posterior.likelihood
+    assert isinstance(lik, MultivariateGaussian)
+    np.testing.assert_array_equal(lik.chol_covariance.value.detach().numpy(), np.eye(2) * 0.2)
+    params["chol_obs_covariance"] = np.eye(1) * 0.2
+    single = gpr_from_numpy(params, x, np.zeros((8, 1)), dtype=torch.float64, device="cpu",
+                            kernel=("Sum", ("Matern32", "Matern12")))
+    assert isinstance(single.posterior.likelihood, Gaussian)
 
 
 def test_new_constructors_default_to_the_card():

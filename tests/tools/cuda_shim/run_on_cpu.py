@@ -1,13 +1,15 @@
 """Run the port's kernel wrappers' CUDA branch on CPU tensors through the
 library of build.py, against the plain versions, in float64:
 
-    python tests/tools/cuda_shim/run_on_cpu.py OUT_DIR D:N:BATCH[:sparse|:multi] ...
+    python tests/tools/cuda_shim/run_on_cpu.py OUT_DIR D:N:BATCH[:sparse|:multi|:oO] ...
 
 e.g. ``9:4099:(3,)`` (state dim 9, 4,099 steps, batch (3,), a mask),
 ``9:300:(2,):sparse`` (lam = nu = 0 at the masked steps) or ``3:1100:(2,):multi``
 (only the general filter, at o x o sites for o = 2..d: chip_smoke's
 multi_output_problem with H and lam stored at every step, and for o = d
-also with both stride 0).  A copy of the
+also with both stride 0), or ``3:1100:(2,):o2`` (kernels 1, 3 and 7, and 4, at
+o x o sites for that o: chip_smoke's multi_output_kernels, per-step sites
+with a dense H and stride-0 ones).  A copy of the
 package in OUT_DIR takes the CUDA branch for CPU tensors; each case prints
 every kernel's largest difference from its plain version, relative to the
 plain output's largest entry.  At small N, since the lanes run as threads:
@@ -103,6 +105,23 @@ def check_multi(cs, d, n, batch):
     return out
 
 
+def check_o(cs, adj, d, o, n, batch):
+    """Kernels 1, 3 and 7 (and 4) at o x o sites against their plain
+    versions (chip_smoke.multi_output_kernels): per-step sites with a dense
+    H, and GPR's stride-0 H and lam."""
+    import chip_smoke
+
+    out = {}
+    for const in (False, True):
+        res, _ = chip_smoke.multi_output_kernels(cs, adj, d, o, n, batch, torch.float64,
+                                                 seed=n, device="cpu", const_sites=const,
+                                                 dense_h=not const)
+        for name, (got, want, scale) in res.items():
+            den = (want if scale is None else scale).abs().max().clamp_min(1e-300)
+            out[f"{'c' if const else 'p'} {name}"] = float((got - want).abs().max() / den)
+    return out
+
+
 def check(cs, adj, d, n, batch, sparse=False):
     import chip_smoke
     from markovflow_tpu_torch.ops.kalman import make_filter_elements_tl, smoother_elements_tl
@@ -156,6 +175,8 @@ if __name__ == "__main__":
         d, n, batch, *flag = case.split(":")
         if flag == ["multi"]:
             res = check_multi(cs, int(d), int(n), eval(batch))
+        elif flag and flag[0].startswith("o"):
+            res = check_o(cs, adj, int(d), int(flag[0][1:]), int(n), eval(batch))
         else:
             res = check(cs, adj, int(d), int(n), eval(batch), flag == ["sparse"])
         worst = max(worst, *res.values())
