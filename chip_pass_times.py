@@ -3,6 +3,11 @@
     python3 chip_pass_times.py
 
 at d = 2, 3 and 6 (DIMS), T = N = chip_smoke.T_FULL (1e6), REPS calls each,
+and kernels 1 and 4 at o x o sites as their main paths call them: at
+(d, o) = (6, 3) on mo3's inputs (chip_smoke.build_mo3, T = N, float32:
+GPR's stride-0 H and lam, no mask) and kernel 4 at (2, 2) on bench config
+2's natural-gradient synthetic model (chip_smoke.natgrad_kernel_calls,
+T = 1e5, float64),
 in two series: the calls back to back, and each call after a write of
 FLUSH_BYTES (five times the H100's 50 MB L2), so that no pass reads what an
 earlier call left in L2.
@@ -70,6 +75,17 @@ def calls(cs, adj, d, n):
     }
 
 
+def multi_output_calls(cs, adj):
+    """name -> the kernel call of kernels 1 and 4 at o x o sites (above)."""
+    f32 = torch.float32
+    mo3 = chip_smoke.kernel_calls(cs, adj, chip_smoke.build_mo3(N, f32),
+                                  chip_smoke.build_mo3(N, f32, uniform=False))
+    return {"filter_pipeline_uniform o=3 d=6": mo3["filter_pipeline_uniform"][0],
+            "filter_pipeline o=3 d=6": mo3["filter_pipeline"][0],
+            "filter_pipeline o=2 d=2 float64": chip_smoke.natgrad_kernel_calls(cs)[
+                "filter_pipeline"][0]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_pass_times: no CUDA device", file=sys.stderr)
@@ -81,15 +97,16 @@ def main() -> int:
     cs.build_kernels()
     buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=chip_smoke.DEVICE)
     out = {}
-    for d in DIMS:
-        for name, fn in calls(cs, adj, d, N).items():
-            for series, f in (("", fn), (" L2 flushed", after_flush(fn, buf))):
-                with torch.no_grad():
-                    ms, passes = chip_smoke.kernel_device_ms(f, REPS)
-                out[f"{name} d={d}{series}"] = {
-                    "ms": ms, "passes": {k: t for k, (t, _) in passes.items()}}
-                print(f"  {name} d={d}{series}: {ms!r} ms; " + "; ".join(
-                    f"{k} {t!r}" for k, (t, _) in passes.items()), flush=True)
+    named = [(f"{name} d={d}", fn) for d in DIMS for name, fn in calls(cs, adj, d, N).items()]
+    named += list(multi_output_calls(cs, adj).items())
+    for name, fn in named:
+        for series, f in (("", fn), (" L2 flushed", after_flush(fn, buf))):
+            with torch.no_grad():
+                ms, passes = chip_smoke.kernel_device_ms(f, REPS)
+            out[f"{name}{series}"] = {
+                "ms": ms, "passes": {k: t for k, (t, _) in passes.items()}}
+            print(f"  {name}{series}: {ms!r} ms; " + "; ".join(
+                f"{k} {t!r}" for k, (t, _) in passes.items()), flush=True)
     print(json.dumps({"card": card, "n": N, "times": out}), flush=True)
     return 0
 

@@ -40,13 +40,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    staged tile) on the general problems' RTS elements and on random
    prebuilt elements; and at the same N the general filter at o x o
    sites, o = 2..d for d = 2..6 (multi_output_problem: identity emission
-   rows, H and lam per step or stride 0, a mask; float32 on benign
-   sites, by check_f32_wide's rule), and in float64 at o = d = 2 on the
+   rows, H and lam per step with a mask (the element form), or stride 0
+   (the rank-o route) with a mask and without; float32 on benign sites,
+   by check_f32_wide's rule), and in float64 at o = d = 2 on the
    natural-gradient inversion's indefinite sites (natgrad_filter_problem);
    and kernels 1, 3 and 7 (and 4 beside them) at o x o sites, o = 2..d for
-   d = 2..6, N in O_EDGE_NS, batch (3,), a mask, per-step sites with a
-   random dense H and GPR's stride-0 H and lam, float64 and float32
-   (multi_output_kernels);
+   d = 2..6, N in O_EDGE_NS, batch (3,), per-step sites with a mask and a
+   random dense H, scaled to the states' spread and not, and GPR's
+   stride-0 H and lam with a mask and without, float64 and float32
+   (multi_output_kernels, O_KERNEL_SITES);
 4. the slice at full size, T = 1e6, float32, flagship GPR (Matern32(0.5,
    1.0), noise Cholesky 0.2), each path with the launch counters set to 0
    just before it and read just after:
@@ -316,8 +318,18 @@ TOL_MO3_F32_MOMENTS = 1e-3
 #: phase 4j's Product kernel: steps on the uniform grid
 PRODUCT_T = 100_000
 #: phase 3, kernels 1, 3 and 7 at o x o sites: the edges of a thread's run
-#: of steps, a warp's, a block's and two blocks' (of every tiling they use)
+#: of steps, a warp's, a block's and two blocks' (of every tiling they use;
+#: 4099: two of pass 1's 4,096-step blocks of kernel 1's rank-o route at
+#: d >= 4 in float32)
 O_EDGE_NS = (1, 9, 257, 2049, 4099)
+#: the o x o cases' sites, (const_sites, masked): per-step H and lam with a
+#: mask (the element form), stride-0 ones with a mask and without (the
+#: rank-o routes of kernels 1 and 4; a mask changes only the likelihood)
+O_SITES = ((False, True), (True, True), (True, False))
+#: the same for kernels 1, 3 and 7, (const_sites, masked, scaled): the
+#: per-step sites' dense H scaled to the states' spread and not
+O_KERNEL_SITES = ((False, True, True), (False, True, False), (True, True, True),
+                  (True, False, True))
 DEVICE = torch.device("cuda")
 #: the H100's memory rate and float32 and float64 rates outside the tensor
 #: cores (NVIDIA's data sheet, SXM part, at a 700 W power limit)
@@ -597,26 +609,27 @@ def phase_kernels_vs_plain(cs, adj):
             for d in range(1, 7):
                 smoother_scan_edges_case(cs, n, d, dtype)
             # the general filter at o = 2..d: H and lam stored at every
-            # step, and stride 0 (definite sites; the indefinite ones of the
-            # natural-gradient inversion follow)
+            # step, and stride 0 with a mask and without (definite sites;
+            # the indefinite ones of the natural-gradient inversion follow)
             for d in range(2, 7):
                 for o in range(2, d + 1):
-                    for const_sites in (False, True):
-                        multi_output_case(cs, n, (3,), d, o, dtype, const_sites)
+                    for const_sites, masked in O_SITES:
+                        multi_output_case(cs, n, (3,), d, o, dtype, const_sites, masked)
             # at o = d = 2 on the inversion's own indefinite sites (the bench
             # configs' Matern32; a Matern52's synthetic model at N = 2049
             # is past float64: the plain version and the kernel, composing
             # in two orders, differ by 1e-2)
             if dtype == torch.float64:
                 natgrad_filter_case(cs, n, (3,), 2)
-            # kernels 1, 3 and 7 at o = 2..d: per-step sites with a dense H,
-            # and GPR's stride-0 H and lam
-            if n in O_EDGE_NS:
-                for d in range(2, 7):
-                    for o in range(2, d + 1):
-                        for const_sites in (False, True):
-                            multi_output_kernels_case(cs, adj, n, (3,), d, o, dtype,
-                                                      const_sites)
+        # kernels 1, 3 and 7 at o = 2..d: per-step sites with a dense H,
+        # scaled to the states' spread and not, and GPR's stride-0 H and lam
+        # with a mask and without
+        for n in O_EDGE_NS:
+            for d in range(2, 7):
+                for o in range(2, d + 1):
+                    for const_sites, masked, scaled in O_KERNEL_SITES:
+                        multi_output_kernels_case(cs, adj, n, (3,), d, o, dtype,
+                                                  const_sites, masked, scaled)
 
 
 def general_edges_case(cs, adj, n, d, dtype):
@@ -725,7 +738,7 @@ def random_smoother_elements(d, n, batch, dtype, device=DEVICE, seed=0):
 
 
 def multi_output_sites(d, o, n, batch, dtype, seed, device=DEVICE, const_sites=False,
-                       dense_h=None):
+                       dense_h=None, masked=True):
     """Sites at o x o: the emission H [o, d, N] (the first o rows of I, or
     with ``dense_h`` I's rows plus 0.5 N(0, 1) entries times ``dense_h``
     [d], the prior's standard deviation of the first state over each
@@ -735,9 +748,9 @@ def multi_output_sites(d, o, n, batch, dtype, seed, device=DEVICE, const_sites=F
     [1, 25] (float64 with identity rows) or in [0.04, 1] (float32, or a
     dense H: with e in [1, 25] and H's entries unscaled, the plain
     version's outputs moved by up to 8e-8 when its float64 inputs moved by
-    one ulp, at d = 3, o = 3, N = 1100), and a mask; H and lam stored at
-    every step, or with ``const_sites`` one H and one lam expanded
-    (stride 0)."""
+    one ulp, at d = 3, o = 3, N = 1100), and a mask (None unless
+    ``masked``); H and lam stored at every step, or with ``const_sites``
+    one H and one lam expanded (stride 0)."""
     rng = np.random.default_rng(seed + 17 * d + o)
     steps = 1 if const_sites else n
     u, _ = np.linalg.qr(rng.standard_normal(batch + (steps, o, o)))
@@ -746,7 +759,7 @@ def multi_output_sites(d, o, n, batch, dtype, seed, device=DEVICE, const_sites=F
     t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
     lam = t(np.moveaxis(0.5 * (lam + np.swapaxes(lam, -1, -2)), -3, -1))
     nu = t(5.0 * rng.standard_normal(batch + (o, 1, n)))
-    maskf = t(rng.random(batch + (1, 1, n)) > 0.3)
+    maskf = t(rng.random(batch + (1, 1, n)) > 0.3) if masked else None
     h = np.eye(o, d)[..., None]
     if dense_h is not None:
         h = h + 0.5 * rng.standard_normal((o, d, steps)) * np.asarray(dense_h)[:, None]
@@ -759,7 +772,7 @@ def multi_output_sites(d, o, n, batch, dtype, seed, device=DEVICE, const_sites=F
 
 
 def multi_output_problem(d, o, n, batch, dtype, seed, device=DEVICE, const_sites=False,
-                         dense_h=False):
+                         dense_h=False, scaled=True, masked=True):
     """The general filter's inputs at o x o sites: the per-step Matern prior
     of a jittered grid (a Sum's for d >= 4, made in float64 and cast) and
     multi_output_sites' H, sites and mask: the first o rows of I as H (the
@@ -769,13 +782,14 @@ def multi_output_problem(d, o, n, batch, dtype, seed, device=DEVICE, const_sites
     most digits of the prior's covariance, as o observed states update
     it).  The indefinite sites of that inversion are
     natgrad_filter_problem's.  The cuda tests and the CPU shim run (tests/)
-    take them from here."""
+    take them from here.  ``scaled=False`` leaves the dense H's entries
+    unscaled (dense_scales)."""
     k = multi_output_kernel(d, device)
     tp = torch.as_tensor(jittered_grid(n, seed), device=device)
     with torch.no_grad():
         F, c, Q = (x.to(dtype) for x in k.prior_arrays_tl(tp))
     return (F, c, Q) + multi_output_sites(d, o, n, batch, dtype, seed, device, const_sites,
-                                          state_scales(k) if dense_h else None)
+                                          dense_scales(k, dense_h, scaled), masked)
 
 
 def multi_output_kernel(d, device=DEVICE):
@@ -796,8 +810,18 @@ def state_scales(k):
     return np.sqrt(var[0] / var)
 
 
+def dense_scales(k, dense_h, scaled=True):
+    """multi_output_sites' ``dense_h`` for the prior of kernel k: None
+    (identity rows), state_scales(k), or with ``scaled=False`` ones: 0.5
+    N(0, 1) entries whatever each state's spread (a Matern52's f'', of
+    variance ~400, then dominates H x)."""
+    if not dense_h:
+        return None
+    return state_scales(k) if scaled else np.ones(k.state_dim)
+
+
 def multi_output_uniform_problem(d, o, n, batch, dtype, seed, device=DEVICE,
-                                 const_sites=False, dense_h=False):
+                                 const_sites=False, dense_h=False, scaled=True, masked=True):
     """The uniform filter's and Koopman backward's inputs at o x o sites:
     the constant Matern prior steps of linspace(0, 100, n) (a Sum's for
     d >= 4, made in float64 and cast), multi_output_sites' H (its first
@@ -807,12 +831,12 @@ def multi_output_uniform_problem(d, o, n, batch, dtype, seed, device=DEVICE,
     with torch.no_grad():
         consts = tuple(x.to(dtype) for x in k.prior_const_tl(dt))
     h, nu, lam, maskf = multi_output_sites(d, o, n, batch, dtype, seed, device, const_sites,
-                                           state_scales(k) if dense_h else None)
+                                           dense_scales(k, dense_h, scaled), masked)
     return consts + (h[..., :1].contiguous(), nu, lam, maskf)
 
 
 def multi_output_kernels(cs, adj, d, o, n, batch, dtype, seed, device=DEVICE,
-                         const_sites=False, dense_h=False):
+                         const_sites=False, dense_h=False, scaled=True, masked=True):
     """Kernels 1, 3 and 7 (and kernel 4, whose moments kernel 7 reads) at
     o x o sites on multi_output_uniform_problem's and multi_output_problem's
     inputs, beside their plain versions: name -> (kernel output, plain
@@ -822,8 +846,9 @@ def multi_output_kernels(cs, adj, d, o, n, batch, dtype, seed, device=DEVICE,
     name -> float64 output.  The cuda tests and the CPU shim run (tests/)
     take them from here."""
     args = multi_output_uniform_problem(d, o, n, batch, dtype, seed, device, const_sites,
-                                        dense_h)
-    gargs = multi_output_problem(d, o, n, batch, dtype, seed, device, const_sites, dense_h)
+                                        dense_h, scaled, masked)
+    gargs = multi_output_problem(d, o, n, batch, dtype, seed, device, const_sites, dense_h,
+                                 scaled, masked)
     gscale = torch.linspace(1.0, -0.5, max(1, math.prod(batch)), dtype=dtype,
                             device=device).reshape(batch)
     out, ref = {}, {}
@@ -921,19 +946,26 @@ def natgrad_filter_case(cs, n, batch, d):
                                  f"one-ulp spread {spread[k]:.3e}")
 
 
-def multi_output_kernels_case(cs, adj, n, batch, d, o, dtype, const_sites):
+def multi_output_kernels_case(cs, adj, n, batch, d, o, dtype, const_sites, masked=True,
+                              scaled=True):
     """Kernels 1, 3 and 7 (and 4 beside them) at o x o sites against their
     plain versions (multi_output_kernels): per-step sites with a random
-    dense H, or GPR's stride-0 H and lam (identity rows); float64 within
+    dense H, scaled to the states' spread or not (``scaled``), or GPR's
+    stride-0 H and lam (identity rows; kernels 1 and 4 then take their
+    rank-o routes), with a mask or, as GPR feeds them, without
+    (``masked``); float64 within
     TOL_F64, float32 within TOL_F32_MOMENTS (the log-likelihoods
     TOL_F32_LOGLIK) of the plain version or, against float64, no less
     accurate than it up to F32_NO_WORSE; kernel 3's sums against the
     summed magnitudes of their terms."""
     out, ref = multi_output_kernels(cs, adj, d, o, n, batch, dtype, seed=n, device=DEVICE,
-                                    const_sites=const_sites, dense_h=not const_sites)
+                                    const_sites=const_sites, dense_h=not const_sites,
+                                    scaled=scaled, masked=masked)
     torch.cuda.synchronize()
-    tag = (f"kernels 1, 3, 7 o={o} N={n} batch={batch} d={d} {str(dtype)[6:]} masked"
-           + (" stride-0 H, lam" if const_sites else " dense H per step"))
+    tag = (f"kernels 1, 3, 7 o={o} N={n} batch={batch} d={d} {str(dtype)[6:]} "
+           + ("masked" if masked else "maskless")
+           + (" stride-0 H, lam" if const_sites else " dense H per step")
+           + ("" if scaled or const_sites else " unscaled"))
     if not ref:
         check(tag, {k: rel_diff(g, w, sc) for k, (g, w, sc) in out.items()},
               dict.fromkeys(out, TOL_F64))
@@ -943,17 +975,19 @@ def multi_output_kernels_case(cs, adj, n, batch, d, o, dtype, const_sites):
                     for k in out})
 
 
-def multi_output_case(cs, n, batch, d, o, dtype, const_sites):
-    """The general filter at o x o sites against its plain version; in
-    float32 by check_f32_wide's rule."""
-    args = multi_output_problem(d, o, n, batch, dtype, seed=n, const_sites=const_sites)
+def multi_output_case(cs, n, batch, d, o, dtype, const_sites, masked=True):
+    """The general filter at o x o sites against its plain version (with a
+    mask or, as GPR feeds it, without: ``masked``; stride-0 lam takes the
+    rank-o route); in float32 by check_f32_wide's rule."""
+    args = multi_output_problem(d, o, n, batch, dtype, seed=n, const_sites=const_sites,
+                                masked=masked)
     with torch.no_grad():
         got, want = cs.filter_pipeline(*args), cs.filter_pipeline_plain(*args)
-        ref = (cs.filter_pipeline_plain(*(x.double() for x in args))
+        ref = (cs.filter_pipeline_plain(*(None if x is None else x.double() for x in args))
                if dtype == torch.float32 else None)
     torch.cuda.synchronize()
-    tag = (f"general filter o={o} N={n} batch={batch} d={d} {str(dtype)[6:]} masked"
-           + (" stride-0 H, lam" if const_sites else ""))
+    tag = (f"general filter o={o} N={n} batch={batch} d={d} {str(dtype)[6:]} "
+           + ("masked" if masked else "maskless") + (" stride-0 H, lam" if const_sites else ""))
     names = ("m_f", "P_f", "loglik")
     if ref is None:
         check(tag, {k: rel_diff(g, w) for k, g, w in zip(names, got, want)},

@@ -10,7 +10,10 @@ backwards (kernels 1 to 7):
    dtype) and of the uniform, general, adjoint and gadjoint units at d = 2,
    3 and 6 in float32, and of the uniform and adjoint units in float64
    (uniform_inst.cu, general_inst.cu, adjoint_inst.cu, gadjoint_inst.cu;
-   kernels 1 and 2, 4, 5 and 6, 3, and 7),
+   kernels 1 and 2, 4, 5 and 6, 3, and 7), and of the o x o units of mo3's
+   filters, (d, o) = (6, 3) in float32 (generalo_inst.cu: kernels 4 and 1),
+   of the natural-gradient inversion's, (2, 2) in float64, and of mo3's
+   Koopman backwards, (6, 3) in float32 (adjointo_inst.cu: kernels 7 and 3),
    compiled in parallel, and the static count of each kernel's SASS
    instructions by kind (cuobjdump -sass): shared-memory loads and stores
    (LDS, STS), generic loads and stores (LD, ST), global loads and stores
@@ -56,7 +59,10 @@ SASS_KINDS = {"LDS": ("LDS",), "STS": ("STS",), "LD": ("LD",), "ST": ("ST",),
 NARROW_UNITS = [(f"{fam}_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}"])
                 for fam, dtypes in (("uniform", ("float", "double")), ("general", ("float",)),
                                     ("adjoint", ("float", "double")), ("gadjoint", ("float",)))
-                for t in dtypes for d in (2, 3, 6)]
+                for t in dtypes for d in (2, 3, 6)] + [
+    (f"{fam}o_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}", f"-DMF_O={o}"])
+    for fam, t, d, o in (("general", "float", 6, 3), ("general", "double", 2, 2),
+                         ("adjoint", "float", 6, 3))]
 
 
 def sass_counts(sass: str, demangle) -> dict:

@@ -39,6 +39,10 @@ MF_EXTERN_ALL_D(double)
       mf::FilterArgs<T>, mf::GeneralPrior<T>, T*, int64_t, cudaStream_t);                 \
   extern template int mf::launch_general_filter<mf::UniformStepsO<T, D, O>>(             \
       mf::FilterArgs<T>, mf::UniformPrior<T>, T*, int64_t, cudaStream_t);                 \
+  extern template int mf::launch_general_filter<mf::GeneralStepsRankO<T, D, O>>(         \
+      mf::FilterArgs<T>, mf::GeneralPrior<T>, T*, int64_t, cudaStream_t);                 \
+  extern template int mf::launch_general_filter<mf::UniformStepsRankO<T, D, O>>(         \
+      mf::FilterArgs<T>, mf::UniformPrior<T>, T*, int64_t, cudaStream_t);                 \
   extern template int mf::launch_general_adjoint<mf::UniformAdjStepsO<T, D, O>>(         \
       mf::AdjointPrior<T>, T*, int64_t, int64_t, cudaStream_t);                           \
   extern template int mf::launch_general_adjoint<mf::GeneralAdjStepsO<T, D, O>>(         \
@@ -80,7 +84,9 @@ MF_EXTERN_WIDE(double)
   extern "C" int64_t mf_uniform_filter_scratch_##SUFFIX(int64_t d, int64_t o,          \
                                                         int64_t batch, int64_t n) {    \
     if (o != 1)                                                                         \
-      MF_SWITCH_DO(d, o, (mf::general_filter_scratch<mf::UniformStepsO<T, D_, O_>>(batch, n)), \
+      MF_SWITCH_DO(d, o, (mf::general_filter_scratch_max<mf::UniformStepsO<T, D_, O_>,   \
+                                                           mf::UniformStepsRankO<T, D_, O_>>( \
+                             batch, n)),                                                \
                    -1)                                                                  \
     if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
       return mf::wide_filter_scratch<T>(int(d), batch, n);                              \
@@ -102,7 +108,9 @@ MF_EXTERN_WIDE(double)
   extern "C" int64_t mf_general_filter_scratch_##SUFFIX(int64_t d, int64_t o,          \
                                                         int64_t batch, int64_t n) {    \
     if (o != 1)                                                                         \
-      MF_SWITCH_DO(d, o, (mf::general_filter_scratch<mf::GeneralStepsO<T, D_, O_>>(batch, n)), \
+      MF_SWITCH_DO(d, o, (mf::general_filter_scratch_max<mf::GeneralStepsO<T, D_, O_>,   \
+                                                           mf::GeneralStepsRankO<T, D_, O_>>( \
+                             batch, n)),                                                \
                    -1)                                                                  \
     if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
       return mf::wide_filter_scratch<T>(int(d), batch, n);                              \

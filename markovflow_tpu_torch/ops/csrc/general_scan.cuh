@@ -38,6 +38,8 @@
 // warp-per-element kernels of wide_scan.cuh with the Wide* sources below.
 #pragma once
 
+#include <type_traits>
+
 #include "scan_core.cuh"
 #include "wide_scan.cuh"
 
@@ -59,9 +61,11 @@ struct GeneralPrior {
 // consecutive steps a thread, for three step sources at o = 1 (below):
 // GeneralSteps (kernel 4, the general filter), UniformSteps (kernel 1, the
 // uniform-grid filter, uniform_scan.cuh) and PrebuiltSteps (kernel 6, the
-// filter scan); and two at o x o sites, GeneralStepsO and UniformStepsO
-// (after GeneralSteps).  The general Koopman backward (kernel 7, general_adjoint.cuh)
-// shares the tiling and the staging.
+// filter scan); and four at o x o sites, GeneralStepsO and UniformStepsO
+// (the element form) and GeneralStepsRankO and UniformStepsRankO (rank-o
+// folds, with longer runs in pass 1 than in pass 3: FilterSplit), after
+// GeneralSteps.  The general Koopman backward (kernel 7,
+// general_adjoint.cuh) shares the tiling and the staging.
 //   1. each thread folds its steps into its run: kernels 1 and 4 as
 //      rank-one site updates (fold_site, the register twin of
 //      wide_fold_site: three d^3 products and no inverse a step), kernel 6
@@ -98,10 +102,11 @@ struct GeneralPrior {
 // values where they lie.
 // ---------------------------------------------------------------------------
 
-// The tiling of passes that stage at most NV_ values a step.
-template <typename T, int D, int NV_>
+// The tiling of passes that stage at most NV_ values a step, R_ steps a
+// thread (and WARPS_ warps a block where it is not 0).
+template <typename T, int D, int NV_, int R_ = Tiling<D>::R, int WARPS_ = 0>
 struct StagedTiling {
-  static constexpr int R = Tiling<D>::R;
+  static constexpr int R = R_;
   static constexpr int NV = NV_;
   static constexpr int WARP_BYTES = NV * 32 * R * int(sizeof(T));
   static constexpr bool STAGED = NV * 32 * R <= 6144;
@@ -109,7 +114,9 @@ struct StagedTiling {
   // block's tile of steps sets the number of totals that pass 2 scans in
   // one block, whose chain of compositions grows with them
   static constexpr int WARPS =
-      !STAGED ? Tiling<D>::THREADS / 32 : (8 * WARP_BYTES <= 196608 ? 8 : 196608 / WARP_BYTES);
+      WARPS_ != 0 ? WARPS_
+      : !STAGED   ? Tiling<D>::THREADS / 32
+                  : (8 * WARP_BYTES <= 196608 ? 8 : 196608 / WARP_BYTES);
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int64_t TILE = int64_t(THREADS) * R;
   static constexpr int SCAN_THREADS = 512;  // pass 2's block: 1 or 2 totals a thread at N = 1e6
@@ -444,9 +451,11 @@ struct GeneralSteps {
 // site precisions, ssm_gaussian_transformations.naturals_to_ssm_params_
 // parallel_tl) and a multi-output GPR on an irregular grid (a
 // block-diagonal emission, one full noise precision).  The filter passes
-// above over one more step source, GeneralStepsO; kernel 1 at o = 2..d
-// builds and composes its elements the same way (UniformStepsO,
-// uniform_scan.cuh), and the two filters at o = 1 keep their sources.  Each step's filtering element is built in registers
+// above over one more step source, GeneralStepsO, in the element form;
+// kernel 1 at o = 2..d builds and composes its elements the same way
+// (UniformStepsO, uniform_scan.cuh).  Where lam does not change with the
+// step both take the rank-o sources below instead (GeneralStepsRankO,
+// UniformStepsRankO).  Each step's filtering element is built in registers
 // (site_element_o: pallas_scan._make_elem_slice's element), and composed
 // as the filter scan composes prebuilt ones: pass 1 folds it into the run
 // with FilterOp (a d x d inverse a step), pass 3 carries the moments
@@ -455,16 +464,19 @@ struct GeneralSteps {
 // tiny conditional covariances of the inversion's synthetic model (lam ~
 // dt^-3, indefinite, so that P_f is too): 1e-7 of P_f at N = 4099 against
 // 1e-10 for the elements (a 40-digit reference, d = 2).  The site terms
-// come from one o x o solve
-//   (I + lam S) [X | y] = [lam | nu],   S = H Q H^T,
-// X = lam (I + S lam)^-1 (the element's lam z) and y = z^T nu; I + lam S is
-// neither symmetric nor definite, so the solve pivots
-// (gauss_jordan_solve), and X is averaged with its transpose after it, as
-// the TPU element symmetrises lam z after its inverse.  Pass 3's
-// log-likelihood is _ll_slice's lam form from the predicted moments:
+// come from one o x o solve (site_solve)
+//   (I + lam S) [X | W | y] = [lam | I | nu],   S = H Q H^T,
+// X = lam (I + S lam)^-1 (the element's lam z), W = (I + lam S)^-1 and
+// y = z^T nu; I + lam S is neither symmetric nor definite, so the solve
+// pivots (gauss_jordan_solve), and X is averaged with its transpose after
+// it, as the TPU element symmetrises lam z after its inverse.  The
+// element's C leg is Q after the site in Joseph's form (joseph_update),
+// which the solve's error reaches only at second order.  Pass 3's
+// log-likelihood is _ll_slice's lam form from the predicted moments,
 // w = nu - lam H mp, quad = w^T (lam + lam Sp lam)^-1 w and
-// log|det(I + Sp lam)| - log|det lam|, three more eliminations; a singular
-// lam makes it infinite, but the moments never read it.
+// log|det(I + Sp lam)| - log|det lam|, by two more eliminations
+// (site_loglik_o); a singular lam makes it infinite, but the moments never
+// read it.
 // ---------------------------------------------------------------------------
 
 // The staged values of a step at o: F, Q, c, then H (o d values), nu (o),
@@ -598,48 +610,100 @@ MF_DEV void fetch_sites_o(const WarpStage<T, R>& st, const GeneralSlots& sl,
   if (sl.mask >= 0) st.fetch(sl.mask, a.mask + b * a.mask_sb, a.mask_st);
 }
 
-// The site's gain terms from S = H P H^T [o x o] and hm = H m [o]:
-// lz = sym(lam (I + S lam)^-1) and r = (I + lam S)^-1 nu - lz hm.
+// The site's terms from S = H P H^T [o x o] and hm = H m [o], by one
+// pivoted solve (I + lam S) [X | W | y] = [lam | I | nu]:
+// lz = sym(X) = sym(lam (I + S lam)^-1), W = (I + lam S)^-1 and
+// r = y - lz hm; returns det(I + lam S) up to its sign.
 template <typename T, int O>
-MF_DEV void site_gain(const T* s, const T* lam, const T* nu, const T* hm, T* lz, T* r) {
-  constexpr int K = O + 1;
+MF_DEV T site_solve(const T* s, const T* lam, const T* nu, const T* hm, T* lz, T* r, T* w) {
+  constexpr int K = 2 * O + 1;
   T mt[O * O], rhs[O * K], x[O * K];
   mm<T, O, O, O>(lam, s, mt);
   add_eye<T, O>(mt);
 #pragma unroll
   for (int i = 0; i < O; ++i) {
 #pragma unroll
-    for (int j = 0; j < O; ++j) rhs[i * K + j] = lam[i * O + j];
-    rhs[i * K + O] = nu[i];
+    for (int j = 0; j < O; ++j) {
+      rhs[i * K + j] = lam[i * O + j];
+      rhs[i * K + O + j] = T(i == j);
+    }
+    rhs[i * K + 2 * O] = nu[i];
   }
-  gauss_jordan_solve<T, O, K>(mt, rhs, x);
+  const T det = gauss_jordan_solve<T, O, K>(mt, rhs, x);
 #pragma unroll
   for (int i = 0; i < O; ++i) {
 #pragma unroll
-    for (int j = 0; j < O; ++j) lz[i * O + j] = T(0.5) * (x[i * K + j] + x[j * K + i]);
+    for (int j = 0; j < O; ++j) {
+      lz[i * O + j] = T(0.5) * (x[i * K + j] + x[j * K + i]);
+      w[i * O + j] = x[i * K + O + j];
+    }
   }
 #pragma unroll
   for (int i = 0; i < O; ++i) {
-    T acc = x[i * K + O];
+    T acc = x[i * K + 2 * O];
 #pragma unroll
     for (int j = 0; j < O; ++j) acc -= lz[i * O + j] * hm[j];
     r[i] = acc;
+  }
+  return det;
+}
+
+// The covariance a [d x d] after the site, in Joseph's form, over the
+// upper triangle, mirrored, with ph = a H^T [d x o] and W (site_solve):
+//   c = (I - u H) a (I - u H)^T + v lam v^T,  u = ph W lam, v = ph W,
+// u the gain and v lam v^T = u lam^-1 u^T without lam^-1.  As a function
+// of W it is stationary at the exact W, so the solve's error in W (which
+// grows with the condition of I + lam S) enters only at second order;
+// a - ph lz ph^T takes it at first order: where the site cancels most of a
+// state's variance (a dense H over a Matern52's f'', of variance ~400) that
+// form lost 2-3 more digits in float32 than this one.
+template <typename T, int D, int O>
+MF_DEV void joseph_update(const T* a, const T* h, const T* ph, const T* w, const T* lam,
+                          T* c) {
+  T wl[O * O], u[D * O], v[D * O], ikh[D * D], t[D * D], vl[D * O];
+  mm<T, O, O, O>(w, lam, wl);
+  mm<T, D, O, O>(ph, wl, u);
+  mm<T, D, O, O>(ph, w, v);
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      T acc = T(i == j);
+#pragma unroll
+      for (int k = 0; k < O; ++k) acc -= u[i * O + k] * h[k * D + j];
+      ikh[i * D + j] = acc;
+    }
+  }
+  mm<T, D, D, D>(ikh, a, t);
+  mm<T, D, O, O>(v, lam, vl);
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+#pragma unroll
+    for (int j = i; j < D; ++j) {
+      T acc = vl[i * O] * v[j * O];
+#pragma unroll
+      for (int k = 1; k < O; ++k) acc += vl[i * O + k] * v[j * O + k];
+#pragma unroll
+      for (int k = 0; k < D; ++k) acc += t[i * D + k] * ikh[j * D + k];
+      c[i * D + j] = acc;
+      c[j * D + i] = acc;
+    }
   }
 }
 
 // The step's filtering element (make_filter_elements_tl), with
 // qht = Q H^T [d x o], hf = H F [o x d] and the site terms of S = H qht,
-// hm = H c:
-//   A = F - qht lz hf, b = c + qht r, C = sym(Q - qht lz qht^T),
-//   J = sym(hf^T lz hf), eta = hf^T r.
+// hm = H c (site_solve):
+//   A = F - qht lz hf, b = c + qht r, C = Q after the site in Joseph's form
+//   (joseph_update), J = sym(hf^T lz hf), eta = hf^T r.
 template <typename T, int D, int O>
 MF_DEV void site_element_o(const GeneralInO<T, D, O>& in, FElem<T, D>& e) {
   using E = FElem<T, D>;
-  T qht[D * O], s[O * O], hm[O], lz[O * O], r[O], hf[O * D], ql[D * O], lh[O * D];
+  T qht[D * O], s[O * O], hm[O], lz[O * O], r[O], w[O * O], hf[O * D], ql[D * O], lh[O * D];
   mm_nt<T, D, D, O>(in.q, in.h, qht);
   mm<T, O, D, O>(in.h, qht, s);
   mm<T, O, D, 1>(in.h, in.c, hm);
-  site_gain<T, O>(s, in.lam, in.nu, hm, lz, r);
+  site_solve<T, O>(s, in.lam, in.nu, hm, lz, r, w);
   mm<T, O, D, D>(in.h, in.f, hf);
   mm<T, D, O, O>(qht, lz, ql);
   mm<T, D, O, D>(ql, hf, e.v + E::OA);
@@ -647,10 +711,7 @@ MF_DEV void site_element_o(const GeneralInO<T, D, O>& in, FElem<T, D>& e) {
   for (int i = 0; i < D * D; ++i) e.v[E::OA + i] = in.f[i] - e.v[E::OA + i];
   mm<T, D, O, 1>(qht, r, e.v + E::OB);
   add_to<T, D>(e.v + E::OB, in.c);
-  mm_nt<T, D, O, D>(ql, qht, e.v + E::OC);
-#pragma unroll
-  for (int i = 0; i < D * D; ++i) e.v[E::OC + i] = in.q[i] - e.v[E::OC + i];
-  sym<T, D>(e.v + E::OC);
+  joseph_update<T, D, O>(in.q, in.h, qht, w, in.lam, e.v + E::OC);
   mm<T, O, O, D>(lz, hf, lh);
   mm_tn<T, D, O, D>(hf, lh, e.v + E::OJ);
   sym<T, D>(e.v + E::OJ);
@@ -658,12 +719,16 @@ MF_DEV void site_element_o(const GeneralInO<T, D, O>& in, FElem<T, D>& e) {
 }
 
 // The site log-likelihood of a step at o (_ll_slice) from the moments of
-// the step before, (m, P); masked steps give 0.
+// the step before, (m, P); masked steps give 0.  With w = nu - lam H mp,
+// quad = w^T (lam + lam Sp lam)^-1 w = e^T v for v = (I + lam Sp)^-1 w and
+// e = lam^-1 w: two eliminations, whose pivots also give det(I + lam Sp)
+// and det(lam), and no lam Sp lam (its entries reach lam^2 Sp, and the
+// third elimination on it lost float32 digits at a dense H over a
+// Matern52's f'').
 template <typename T, int D, int O>
 MF_DEV T site_loglik_o(const GeneralInO<T, D, O>& in, const T* m, const T* P) {
   if (!in.keep) return T(0);
-  T fp[D * D], pp[D * D], mp[D], ph[D * O], s[O * O], hm[O], w[O], ls[O * O], mmat[O * O],
-      sol[O];
+  T fp[D * D], pp[D * D], mp[D], ph[D * O], s[O * O], hm[O], w[O], mt[O * O], v[O], e[O];
   mm<T, D, D, D>(in.f, P, fp);
   mm_nt<T, D, D, D>(fp, in.f, pp);
   add_to<T, D * D>(pp, in.q);
@@ -676,16 +741,12 @@ MF_DEV T site_loglik_o(const GeneralInO<T, D, O>& in, const T* m, const T* P) {
   mm<T, O, O, 1>(in.lam, hm, w);
 #pragma unroll
   for (int i = 0; i < O; ++i) w[i] = in.nu[i] - w[i];
-  mm<T, O, O, O>(s, in.lam, ls);
-  add_eye<T, O>(ls);
-  const T det_m = gauss_jordan_solve<T, O, 0>(ls, nullptr, nullptr);  // det(I + S lam)
-  mm<T, O, O, O>(in.lam, s, ls);
-  mm<T, O, O, O>(ls, in.lam, mmat);
-  add_to<T, O * O>(mmat, in.lam);
-  gauss_jordan_solve<T, O, 1>(mmat, w, sol);
-  const T det_lam = gauss_jordan_solve<T, O, 0>(in.lam, nullptr, nullptr);
+  mm<T, O, O, O>(in.lam, s, mt);
+  add_eye<T, O>(mt);
+  const T det_m = gauss_jordan_solve<T, O, 1>(mt, w, v);  // det(I + lam S)
+  const T det_lam = gauss_jordan_solve<T, O, 1>(in.lam, w, e);
   const T log_det_s = log(fabs(det_m)) - log(fabs(det_lam));
-  return T(-0.5) * (dot<T, O>(w, sol) + log_det_s + T(O * 1.8378770664093453));
+  return T(-0.5) * (dot<T, O>(e, v) + log_det_s + T(O * 1.8378770664093453));
 }
 
 // Kernel 4 at o: GeneralSteps' passes and slots with o x o sites.
@@ -768,6 +829,236 @@ struct GeneralStepsO {
     for (int i = 0; i < D * D; ++i) P[i] = p1[i];
     return ll;
   }
+};
+
+// ---------------------------------------------------------------------------
+// Kernels 4 and 1 at o = 2..d (d <= 6) where lam does not change with the
+// step (stride 0: a multi-output GPR's one noise precision), the rank-o
+// twins of the rank-one passes: pass 1 folds each step into the run as a
+// conditional Kalman step (fold_site_o: one o x o solve, no d x d inverse,
+// one FElem live), pass 3 carries the moments by the Kalman step
+// (kalman_step_o), whose one o x o solve also gives the step's
+// log-likelihood.  The launch takes them when lam's step stride is 0 and
+// the element form above (GeneralStepsO, UniformStepsO) otherwise: the
+// natural-gradient inversion's per-step, indefinite sites lose digits in
+// the covariance form (above).  A cheaper fold pays for a longer run a
+// thread in pass 1 (RUN), which cuts the block scan's full compositions a
+// step; pass 3 keeps short runs (FilterSplit).
+// ---------------------------------------------------------------------------
+
+// The inputs of a step at o with lam constant: GeneralInO, and lam^-1 and
+// log|det lam| for the log-likelihood, made when lam is read (prep).
+template <typename T, int D, int O>
+struct RankInO : GeneralInO<T, D, O> {
+  T linv[O * O], log_det_lam;
+
+  MF_DEV void prep() {
+    T eye[O * O];
+    set_eye<T, O>(eye);
+    log_det_lam = log(fabs(gauss_jordan_solve<T, O, O>(this->lam, eye, linv)));
+  }
+};
+
+// The site terms of a step at o from the predicted Pp and mp: ph = Pp H^T
+// [d x o], hm = H mp, and site_solve's lz, r and W of S = H ph; returns
+// det(I + lam S) up to its sign.
+template <typename T, int D, int O>
+MF_DEV T site_terms_o(const GeneralInO<T, D, O>& in, const T* pp, const T* mp, T* ph, T* hm,
+                      T* lz, T* r, T* w) {
+  T s[O * O];
+  mm_nt<T, D, D, O>(pp, in.h, ph);
+  mm<T, O, D, O>(in.h, ph, s);
+  mm<T, O, D, 1>(in.h, mp, hm);
+  return site_solve<T, O>(s, in.lam, in.nu, hm, lz, r, w);
+}
+
+// Pass 1 at o: fold_site with o x o sites.  With G = H F A [o x d] (the
+// site's view of the state before the run):
+//   Pp = sym(F C F^T + Q), mp = F b + c, ph = Pp H^T, lz, r, W (site_terms_o);
+//   A <- F A - ph lz G, b <- mp + ph r, C <- Pp after the site in Joseph's
+//   form (joseph_update), J <- J + G^T lz G, eta <- eta + G^T r.
+template <typename T, int D, int O, bool TERMS = false>
+MF_DEV void fold_site_o(FElem<T, D>& x, const GeneralInO<T, D, O>& in, T* terms = nullptr) {
+  using E = FElem<T, D>;
+  T *A = x.v + E::OA, *bb = x.v + E::OB, *C = x.v + E::OC, *J = x.v + E::OJ,
+    *eta = x.v + E::OE;
+  T fa[D * D], pp[D * D], mp[D], ph[D * O], hm[O], lz[O * O], r[O], w[O * O], g[O * D];
+  {
+    T fc[D * D];
+    mm<T, D, D, D>(in.f, C, fc);
+    mm_nt<T, D, D, D>(fc, in.f, pp);
+  }
+  add_to<T, D * D>(pp, in.q);
+  sym<T, D>(pp);
+  mm<T, D, D, D>(in.f, A, fa);
+  mm<T, D, D, 1>(in.f, bb, mp);
+  add_to<T, D>(mp, in.c);
+  site_terms_o<T, D, O>(in, pp, mp, ph, hm, lz, r, w);
+  mm<T, O, D, D>(in.h, fa, g);
+  if constexpr (TERMS) {  // what fold_site_terms needs of the step: W, lz, ph, G
+#pragma unroll
+    for (int i = 0; i < O * O; ++i) {
+      terms[i] = w[i];
+      terms[O * O + i] = lz[i];
+    }
+#pragma unroll
+    for (int i = 0; i < D * O; ++i) {
+      terms[2 * O * O + i] = ph[i];
+      terms[2 * O * O + D * O + i] = g[i];
+    }
+  }
+  joseph_update<T, D, O>(pp, in.h, ph, w, in.lam, C);
+  T pl[D * O], lg[O * D];
+  mm<T, D, O, O>(ph, lz, pl);
+  mm<T, O, O, D>(lz, g, lg);
+  // A <- fa - pl g; J <- J + g^T lg over the upper triangle, mirrored
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      T acc = fa[i * D + j];
+#pragma unroll
+      for (int k = 0; k < O; ++k) acc -= pl[i * O + k] * g[k * D + j];
+      A[i * D + j] = acc;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+#pragma unroll
+    for (int j = i; j < D; ++j) {
+      T acc = J[i * D + j];
+#pragma unroll
+      for (int k = 0; k < O; ++k) acc += g[k * D + i] * lg[k * D + j];
+      J[i * D + j] = acc;
+      J[j * D + i] = acc;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    T bi = mp[i], ei = eta[i];
+#pragma unroll
+    for (int k = 0; k < O; ++k) {
+      bi += ph[i * O + k] * r[k];
+      ei += g[k * D + i] * r[k];
+    }
+    bb[i] = bi;
+    eta[i] = ei;
+  }
+}
+
+// fold_site_o where a pass folds most steps otherwise (kernel 1's rank-o
+// route: the runs that hold step 0 or end short): from d = 4 a call, on
+// copies of the run and the step, so that neither is kept in local memory
+// for the rest of the pass.
+template <typename T, int D, int O>
+__device__ __noinline__ void fold_site_o_call(FElem<T, D>& x, const GeneralInO<T, D, O>& in) {
+  fold_site_o<T, D, O>(x, in);
+}
+
+template <typename T, int D, int O>
+MF_DEV void fold_site_o_aside(FElem<T, D>& run, const GeneralInO<T, D, O>& in) {
+  if constexpr (D >= 4) {
+    FElem<T, D> x = run;
+    GeneralInO<T, D, O> g = in;
+    fold_site_o_call<T, D, O>(x, g);
+    run = x;
+  } else {
+    fold_site_o<T, D, O>(run, in);
+  }
+}
+
+// fold_site_o's b and eta legs alone, from the step's terms (W, lz, ph, G,
+// as fold_site_o<..., true> writes them) where the run's A, C and J legs
+// do not depend on the data: mp = F b + c, r = W nu - lz H mp,
+// b <- mp + ph r, eta <- eta + G^T r.
+template <typename T, int D, int O>
+MF_DEV void fold_site_terms(FElem<T, D>& x, const GeneralInO<T, D, O>& in, const T* terms) {
+  using E = FElem<T, D>;
+  const T *w = terms, *lz = terms + O * O, *ph = terms + 2 * O * O, *g = ph + D * O;
+  T mp[D], hm[O], r[O];
+  mm<T, D, D, 1>(in.f, x.v + E::OB, mp);
+  add_to<T, D>(mp, in.c);
+  mm<T, O, D, 1>(in.h, mp, hm);
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    T acc = T(0);
+#pragma unroll
+    for (int j = 0; j < O; ++j) acc += w[i * O + j] * in.nu[j] - lz[i * O + j] * hm[j];
+    r[i] = acc;
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    T bi = mp[i], ei = x.v[E::OE + i];
+#pragma unroll
+    for (int k = 0; k < O; ++k) {
+      bi += ph[i * O + k] * r[k];
+      ei += g[k * D + i] * r[k];
+    }
+    x.v[E::OB + i] = bi;
+    x.v[E::OE + i] = ei;
+  }
+}
+
+// Pass 3 at o: the Kalman step from the filtered moments (m, P) of the step
+// before to this step's, in place (P in Joseph's form); returns the step's
+// site log-likelihood (0 where masked) from the same solve: with
+// e = lam^-1 nu - H mp (the observation less its prediction),
+// (S + lam^-1)^-1 e = r and det(S + lam^-1) = det(I + lam S) / det(lam), so
+//   ll = -(e^T r + log|det(I + lam S)| - log|det lam| + o log 2 pi) / 2.
+template <typename T, int D, int O>
+MF_DEV T kalman_step_o(T* m, T* P, const RankInO<T, D, O>& in) {
+  T pp[D * D], mp[D], ph[D * O], hm[O], lz[O * O], r[O], w[O * O];
+  {
+    T fp[D * D];
+    mm<T, D, D, D>(in.f, P, fp);
+    mm_nt<T, D, D, D>(fp, in.f, pp);
+  }
+  add_to<T, D * D>(pp, in.q);
+  sym<T, D>(pp);
+  mm<T, D, D, 1>(in.f, m, mp);
+  add_to<T, D>(mp, in.c);
+  const T det = site_terms_o<T, D, O>(in, pp, mp, ph, hm, lz, r, w);
+  joseph_update<T, D, O>(pp, in.h, ph, w, in.lam, P);
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    T mi = mp[i];
+#pragma unroll
+    for (int k = 0; k < O; ++k) mi += ph[i * O + k] * r[k];
+    m[i] = mi;
+  }
+  if (!in.keep) return T(0);
+  T quad = T(0);
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    T e = -hm[i];
+#pragma unroll
+    for (int j = 0; j < O; ++j) e += in.linv[i * O + j] * in.nu[j];
+    quad += e * r[i];
+  }
+  return T(-0.5) * (quad + log(fabs(det)) - in.log_det_lam + T(O * 1.8378770664093453));
+}
+
+// Kernel 4 at o with lam constant: GeneralStepsO's slots and staging, the
+// rank-o fold and Kalman step, and from d = 4 (where no step is staged)
+// runs of 8 steps a thread in pass 1 (4 in pass 3, FilterSplit).
+template <typename T_, int D_, int O_>
+struct GeneralStepsRankO : GeneralStepsO<T_, D_, O_> {
+  using T = T_;
+  static constexpr int D = D_, O = O_;
+  using Prior = GeneralPrior<T>;
+  using In = RankInO<T, D, O>;
+  static constexpr int RUN = D <= 3 ? Tiling<D>::R : 8;
+
+  template <bool STAGED, int R>
+  MF_DEV void read(In& in, const WarpStage<T, R>& st, const GeneralSlots& sl, int l, int r,
+                   const Prior& p, const FilterArgs<T>& a, int64_t b, int64_t k,
+                   bool once) const {
+    in.template read<STAGED>(st, sl, l, r, p, a, b, k, once);
+    if (once) in.prep();
+  }
+
+  static MF_DEV void fold(FElem<T, D>& run, const In& in, bool) { fold_site_o<T, D, O>(run, in); }
+  static MF_DEV T step(T* m, T* P, const In& in) { return kalman_step_o<T, D, O>(m, P, in); }
 };
 
 // The (d, o) pairs of GeneralStepsO that generalo_inst.cu instantiates
@@ -897,20 +1188,90 @@ struct PrebuiltSteps {
   }
 };
 
+// Pass 3's tiling, and pass 1's unless the source sets a longer run.
 template <class Src>
 using FilterTiling = StagedTiling<typename Src::T, Src::D, Src::NV>;
 
+// A step source's run of steps a thread in pass 1: Src::RUN where it sets
+// one, else pass 3's.
+template <class Src, class = void>
+struct RunOf {
+  static constexpr int value = FilterTiling<Src>::R;
+};
 template <class Src>
-__global__ void __launch_bounds__(FilterTiling<Src>::THREADS)
+struct RunOf<Src, std::void_t<decltype(Src::RUN)>> {
+  static constexpr int value = Src::RUN;
+};
+
+// Pass 1's tiling: with a longer run (RUN) only the NV_IN values a step of
+// pass 1 are staged, in blocks of at most pass 3's warps.  Its tile is BPB of
+// pass 3's tiles, and each thread's run SUB of pass 3's threads' runs:
+// pass 1 keeps its exclusive prefix and its run as it stood before each
+// later pass-3 run, and each pass-3 thread carries the moments through
+// both, so that pass 3 runs short runs (its steps' values read, and its
+// outputs written, as at SUB = 1) while pass 1 folds long ones (fewer
+// block-scan compositions a step).
+constexpr int split_warps(int w3, int cap, int sub) {
+  int w = w3 < cap ? w3 : cap;  // the most warps whose tile is whole pass-3 tiles
+  while (w > 1 && (w * sub) % w3 != 0) --w;
+  return w;
+}
+
+template <class Src>
+using FilterTiling1 = std::conditional_t<
+    RunOf<Src>::value == FilterTiling<Src>::R, FilterTiling<Src>,
+    StagedTiling<typename Src::T, Src::D, Src::NV_IN, RunOf<Src>::value,
+                 split_warps(FilterTiling<Src>::WARPS,
+                             StagedTiling<typename Src::T, Src::D, Src::NV_IN,
+                                          RunOf<Src>::value>::WARPS,
+                             RunOf<Src>::value / FilterTiling<Src>::R)>>;
+
+// Sources whose fold leaves the A, C and J legs to Src::finish(run, r)
+// (r: the steps folded), and the values a batch row of their table holds
+// (Src::TABLE; gfilter_table fills it before pass 1).
+template <class Src, class = void>
+struct FinishesRuns : std::false_type {};
+template <class Src>
+struct FinishesRuns<Src, std::void_t<decltype(&Src::template finish<0>)>> : std::true_type {};
+template <class Src, class = void>
+struct TableOf {
+  static constexpr int value = 0;
+};
+template <class Src>
+struct TableOf<Src, std::void_t<decltype(Src::TABLE)>> {
+  static constexpr int value = Src::TABLE;
+};
+
+// The slot of pass-3 thread t's stored prefix among the pre of a row: with
+// SUB > 1 the j-th of each pass-1 thread's SUB prefixes in the j-th run of
+// pre / SUB slots, so that pass 1's lanes store to neighbouring slots.
+template <int SUB>
+MF_DEV int64_t prefix_slot(int64_t t, int64_t pre) {
+  return SUB == 1 ? t : (t % SUB) * (pre / SUB) + t / SUB;
+}
+
+template <class Src>
+struct FilterSplit {
+  using G1 = FilterTiling1<Src>;
+  using G3 = FilterTiling<Src>;
+  static_assert(G1::R % G3::R == 0 && G1::TILE % G3::TILE == 0,
+                "pass 1's runs and tile are whole pass-3 runs and tiles");
+  static constexpr int SUB = G1::R / G3::R;
+  static constexpr int BPB = int(G1::TILE / G3::TILE);
+};
+
+template <class Src>
+__global__ void __launch_bounds__(FilterTiling1<Src>::THREADS)
 gfilter_totals(FilterArgs<typename Src::T> a, typename Src::Prior p) {
   using T = typename Src::T;
   constexpr int D = Src::D;
-  using G = FilterTiling<Src>;
+  using G = FilterTiling1<Src>;
   using Op = FilterOp<T, D>;
   using E = FElem<T, D>;
-  constexpr int THREADS = G::THREADS, R = G::R;
+  constexpr int THREADS = G::THREADS, R = G::R, SUB = FilterSplit<Src>::SUB, R3 = R / SUB;
   __shared__ E smem[THREADS / 32 + 1];
   const int64_t b = blockIdx.y, n = a.n, t = blockIdx.x * int64_t(THREADS) + threadIdx.x;
+  const int64_t pre = a.nblk * THREADS * SUB;  // the stored prefixes of a row
   const int lane = lane_id();
   Src src;
   src.load(p, b);
@@ -920,13 +1281,21 @@ gfilter_totals(FilterArgs<typename Src::T> a, typename Src::Prior p) {
   E run, excl, total;
   Op::identity(run);
   typename Src::In in;
+  int folded = 0;
   for (int r = 0; r < R; ++r) {
     if (t * R + r >= n) break;
+    // the run so far: what comes before pass-3 run r / R3 within the run
+    if (SUB > 1 && r > 0 && r % R3 == 0) {
+      if constexpr (FinishesRuns<Src>::value) src.template finish<R3>(run, r);
+      store_thread_elem(a.prefix, run, b, prefix_slot<SUB>(t * SUB + r / R3, pre), pre);
+    }
     src.template read<G::STAGED>(in, st, sl, lane, r, p, a, b, t * R + r, r == 0);
-    Src::fold(run, in, r == 0);
+    src.fold(run, in, r == 0);
+    folded = r + 1;
   }
+  if constexpr (FinishesRuns<Src>::value) src.template finish<R3>(run, folded);
   block_scan<Op, THREADS, false>(run, excl, total, smem);
-  store_thread_elem(a.prefix, excl, b, t, a.nblk * THREADS);
+  store_thread_elem(a.prefix, excl, b, prefix_slot<SUB>(t * SUB, pre), pre);
   if (threadIdx.x == 0) reinterpret_cast<E*>(a.totals)[b * a.nblk + blockIdx.x] = total;
 }
 
@@ -937,18 +1306,30 @@ gfilter_outputs(FilterArgs<typename Src::T> a, typename Src::Prior p) {
   constexpr int D = Src::D;
   using G = FilterTiling<Src>;
   using E = FElem<T, D>;
-  constexpr int THREADS = G::THREADS, R = G::R;
+  constexpr int THREADS = G::THREADS, R = G::R, BPB = FilterSplit<Src>::BPB,
+                SUB = FilterSplit<Src>::SUB;
   __shared__ T red[THREADS / 32];
   const int64_t b = blockIdx.y, n = a.n, t = blockIdx.x * int64_t(THREADS) + threadIdx.x;
+  const int64_t pre = a.nblk * BPB * THREADS;  // the stored prefixes of a row
   const int lane = lane_id();
-  // the moments before the thread's first step: all earlier blocks, then
-  // the earlier threads of this block (b = 0, C = 0 before step 0)
+  // the moments before the thread's first step: all earlier blocks of pass
+  // 1, then the earlier threads of this one (b = 0, C = 0 before step 0),
+  // then, where SUB > 1, the earlier steps of its pass-1 thread's run
   T m[D], P[D * D];
   {
     E y;
-    load_thread_elem(a.prefix, y, b, t, a.nblk * THREADS);
-    const E& x = reinterpret_cast<const E*>(a.totals)[b * a.nblk + blockIdx.x];
+    load_thread_elem(a.prefix, y, b, prefix_slot<SUB>(t - t % SUB, pre), pre);
+    const E& x = reinterpret_cast<const E*>(a.totals)[b * a.nblk + blockIdx.x / BPB];
     filter_moments_through<T, D>(x.v + E::OB, x.v + E::OC, y, m, P);
+    if (SUB > 1 && t % SUB != 0) {
+      T m1[D], p1[D * D];
+      load_thread_elem(a.prefix, y, b, prefix_slot<SUB>(t, pre), pre);
+      filter_moments_through<T, D>(m, P, y, m1, p1);
+#pragma unroll
+      for (int i = 0; i < D; ++i) m[i] = m1[i];
+#pragma unroll
+      for (int i = 0; i < D * D; ++i) P[i] = p1[i];
+    }
   }
   Src src;
   src.load(p, b);
@@ -980,16 +1361,35 @@ gfilter_outputs(FilterArgs<typename Src::T> a, typename Src::Prior p) {
   }
   if constexpr (Src::LOGLIK) {
     block_sum<T, THREADS, 1>(ll, red);
-    if (threadIdx.x == 0) a.partials[b * a.nblk + blockIdx.x] = ll[0];
+    if (threadIdx.x == 0) a.partials[b * a.nblk * BPB + blockIdx.x] = ll[0];
   }
 }
 
-// Scratch of the filter passes in elements of T: the block totals, the
-// partial sums and every thread's in-block prefix.
+// The source's table of batch row blockIdx.x (one thread a row).
+template <class Src>
+__global__ void __launch_bounds__(32) gfilter_table(FilterArgs<typename Src::T> a,
+                                                    typename Src::Prior p) {
+  if (threadIdx.x == 0) Src::build_table(a, p, blockIdx.x);
+}
+
+// Scratch of the filter passes in elements of T: pass 1's block totals,
+// pass 3's partial sums, every pass-3 thread's in-block prefix and the
+// source's table.
 template <class Src>
 int64_t general_filter_scratch(int64_t batch, int64_t n) {
-  using G = FilterTiling<Src>;
-  return batch * num_blocks(n, G::TILE) * (FElem<typename Src::T, Src::D>::SIZE * (1 + G::THREADS) + 1);
+  using G1 = FilterTiling1<Src>;
+  constexpr int64_t BPB = FilterSplit<Src>::BPB;
+  return batch * num_blocks(n, G1::TILE) *
+             (FElem<typename Src::T, Src::D>::SIZE * (1 + BPB * FilterTiling<Src>::THREADS) + BPB) +
+         batch * TableOf<Src>::value;
+}
+
+// The larger scratch of two step sources, for an entry point that takes
+// either.
+template <class S1, class S2>
+int64_t general_filter_scratch_max(int64_t batch, int64_t n) {
+  const int64_t a = general_filter_scratch<S1>(batch, n), b = general_filter_scratch<S2>(batch, n);
+  return a > b ? a : b;
 }
 
 // Dynamic shared memory of a staged pass: nv values of 32 R steps a warp.
@@ -1004,10 +1404,11 @@ template <class Src>
 int general_filter_occupancy(int64_t* out) {
   using T = typename Src::T;
   using G = FilterTiling<Src>;
-  const size_t b1 = general_stage_bytes<G, T>(Src::NV_IN), b3 = general_stage_bytes<G, T>(Src::NV);
+  using G1 = FilterTiling1<Src>;
+  const size_t b1 = general_stage_bytes<G1, T>(Src::NV_IN), b3 = general_stage_bytes<G, T>(Src::NV);
   int err = wide_smem_bytes(gfilter_totals<Src>, b1);
   if (err == 0) err = wide_smem_bytes(gfilter_outputs<Src>, b3);
-  if (err == 0) err = pass_occupancy(gfilter_totals<Src>, G::THREADS, b1, out);
+  if (err == 0) err = pass_occupancy(gfilter_totals<Src>, G1::THREADS, b1, out);
   if (err == 0) err = pass_occupancy(gfilter_outputs<Src>, G::THREADS, b3, out + 4);
   if (err == 0)
     err = pass_occupancy(scan_totals<FilterOp<T, Src::D>, G::SCAN_THREADS, false>,
@@ -1020,28 +1421,34 @@ int launch_general_filter(FilterArgs<typename Src::T> a, typename Src::Prior p,
                           typename Src::T* scratch, int64_t batch, cudaStream_t stream) {
   using T = typename Src::T;
   using G = FilterTiling<Src>;
-  constexpr int SIZE = FElem<T, Src::D>::SIZE;
-  a.nblk = num_blocks(a.n, G::TILE);
+  using G1 = FilterTiling1<Src>;
+  constexpr int SIZE = FElem<T, Src::D>::SIZE, BPB = FilterSplit<Src>::BPB;
+  a.nblk = num_blocks(a.n, G1::TILE);
+  const int64_t nblk3 = a.nblk * BPB;
   a.totals = scratch;
   a.partials = scratch + batch * a.nblk * SIZE;
-  a.prefix = a.partials + batch * a.nblk;
-  const size_t b1 = general_stage_bytes<G, T>(Src::slots(p, a, false).nv),
+  a.prefix = a.partials + batch * nblk3;
+  a.table = a.prefix + batch * SIZE * nblk3 * G::THREADS;
+  const size_t b1 = general_stage_bytes<G1, T>(Src::slots(p, a, false).nv),
                b3 = general_stage_bytes<G, T>(Src::slots(p, a, true).nv);
   int err = wide_smem_bytes(gfilter_totals<Src>, b1);
   if (err == 0) err = wide_smem_bytes(gfilter_outputs<Src>, b3);
   if (err != 0) return err;
-  const dim3 grid(unsigned(a.nblk), unsigned(batch));
-  gfilter_totals<Src><<<grid, G::THREADS, b1, stream>>>(a, p);
+  if constexpr (TableOf<Src>::value > 0) {
+    gfilter_table<Src><<<unsigned(batch), 32, 0, stream>>>(a, p);
+    MF_CHECK_LAUNCH();
+  }
+  gfilter_totals<Src><<<dim3(unsigned(a.nblk), unsigned(batch)), G1::THREADS, b1, stream>>>(a, p);
   MF_CHECK_LAUNCH();
   scan_totals<FilterOp<T, Src::D>, G::SCAN_THREADS, false>
       <<<unsigned(batch), G::SCAN_THREADS, 0, stream>>>(
       reinterpret_cast<FElem<T, Src::D>*>(a.totals), a.nblk);
   MF_CHECK_LAUNCH();
-  gfilter_outputs<Src><<<grid, G::THREADS, b3, stream>>>(a, p);
+  gfilter_outputs<Src><<<dim3(unsigned(nblk3), unsigned(batch)), G::THREADS, b3, stream>>>(a, p);
   MF_CHECK_LAUNCH();
   if constexpr (Src::LOGLIK) {
     sum_partials<T, 256><<<dim3(1u, unsigned(batch)), 256, 0, stream>>>(
-        a.partials, a.nblk, 1, nullptr, a.loglik);
+        a.partials, nblk3, 1, nullptr, a.loglik);
     MF_CHECK_LAUNCH();
   }
   return 0;
@@ -1326,7 +1733,8 @@ struct WidePrebuiltSteps {
 // C entry points for one dtype (T, suffix), as in uniform_scan.cuh.  The
 // filter's strides: F (batch, row, column, step), c (batch, row, step),
 // Q and H as F, then the sites as set_site_strides takes them; its output
-// dim o is 1 or, at d <= 6, one of MF_GENERAL_O_PAIRS.
+// dim o is 1 or, at d <= 6, one of MF_GENERAL_O_PAIRS (GeneralStepsRankO
+// where lam's step stride is 0, else GeneralStepsO).
 #define MF_DEFINE_GENERAL_ENTRY_POINTS(T, SUFFIX)                                      \
   extern "C" int mf_general_filter_##SUFFIX(                                           \
       const T* f, const T* c, const T* q, const T* h, const T* nu, const T* lam,       \
@@ -1343,6 +1751,10 @@ struct WidePrebuiltSteps {
     mf::set_site_strides(a, st + 15);                                                  \
     a.m_f = m_f; a.p_f = p_f; a.loglik = loglik; a.n = n;                              \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (o != 1 && a.lam_st == 0)                                                       \
+      MF_SWITCH_DO(d, o, (mf::launch_general_filter<mf::GeneralStepsRankO<T, D_, O_>>(  \
+                             a, p, scratch, batch, s)),                                \
+                   int(cudaErrorInvalidValue))                                         \
     if (o != 1)                                                                        \
       MF_SWITCH_DO(d, o, (mf::launch_general_filter<mf::GeneralStepsO<T, D_, O_>>(      \
                              a, p, scratch, batch, s)),                                \

@@ -369,8 +369,9 @@ struct FilterArgs {
   T *m_f, *p_f, *loglik;
   // scratch: block totals [B, nblk] elements, then partial sums [B, nblk];
   // the d <= 6 passes also keep each thread's in-block prefix
-  // (store_thread_elem)
-  T *totals, *partials, *prefix;
+  // (store_thread_elem), and kernel 1's rank-o route its table of the
+  // steps' constant terms (UniformStepsRankO)
+  T *totals, *partials, *prefix, *table;
   int64_t n, nblk;
 };
 

@@ -225,6 +225,111 @@ struct UniformStepsO : UniformRow<T_, D_, O_> {
   static MF_DEV T step(T* m, T* P, const In& in) { return GeneralStepsO<T, D, O>::step(m, P, in); }
 };
 
+// Kernel 1 at o with lam constant (GPR's sites): UniformStepsO's constants,
+// slots and staging, the rank-o fold and Kalman step of GeneralStepsRankO,
+// and from d = 4 runs of 16 steps a thread in pass 1 (4 in pass 3,
+// FilterSplit; on an H100 runs of 32 took 6% longer at (6, 3), of 64
+// 19%).  lam is never staged; nu and the mask are staged in both passes,
+// and pass 3's outputs over them (slot 0 on).  Every step after step 0
+// has the same F, Q, H and lam, so the A, C and J legs of a thread's run,
+// and what its fold of step r takes from them (fold_site_o's W, lz, ph
+// and G), do not depend on the data: gfilter_table
+// folds them once a batch row into the table (build_table), and a thread
+// whose run is whole and holds no step 0 folds only the b and eta legs
+// (fold_site_terms, ~1/20 of fold_site_o's work) and takes its A, C and J
+// legs from the table (finish).  The thread that holds step 0 (the prior
+// element) and a run cut short by the last step fold in full.  A mask
+// changes only the likelihood.
+template <typename T_, int D_, int O_>
+struct UniformStepsRankO : UniformStepsO<T_, D_, O_> {
+  using T = T_;
+  static constexpr int D = D_, O = O_;
+  using Prior = UniformPrior<T>;
+  using In = RankInO<T, D, O>;
+  using E = FElem<T, D>;
+  static constexpr int RUN = D <= 3 ? Tiling<D>::R : 16;
+  static constexpr int NV_IN = O + 1, NV = D * D + D > NV_IN ? D * D + D : NV_IN;
+  // a row of the table: the terms of step r < RUN of a run, then the A, C
+  // and J legs of runs of j R3 steps, j = 1..RUN / R3 (R3: pass 3's run)
+  static constexpr int TERMS = 2 * O * O + 2 * D * O, LEGS = 3 * D * D;
+  static constexpr int TABLE = RUN * TERMS + RUN / Tiling<D>::R * LEGS;
+  const T* tab = nullptr;  // this row's table
+  bool table_run = false;  // this thread's run folds from the table
+  int r_ = 0;              // the step of the run read last
+
+  template <bool STAGED, int R>
+  MF_DEV void read(In& in, const WarpStage<T, R>& st, const GeneralSlots& sl, int l, int r,
+                   const Prior&, const FilterArgs<T>& a, int64_t b, int64_t k, bool once) {
+    this->template read_step<STAGED>(in, st, sl, l, r, a, b, k, once);
+    if (once) {
+      in.prep();
+      tab = a.table + b * TABLE;
+      table_run = k != 0 && k + R <= a.n;  // pass 1: R = RUN
+    }
+    r_ = r;
+  }
+
+  MF_DEV void fold(E& run, const In& in, bool) const {
+    if (table_run) fold_site_terms<T, D, O>(run, in, tab + r_ * TERMS);
+    else fold_site_o_aside<T, D, O>(run, in);
+  }
+
+  // the A, C and J legs of a table run of r steps (r a multiple of R3)
+  template <int R3>
+  MF_DEV void finish(E& run, int r) const {
+    if (!table_run) return;
+    const T* legs = tab + RUN * TERMS + (r / R3 - 1) * LEGS;
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) {
+      run.v[E::OA + i] = legs[i];
+      run.v[E::OC + i] = legs[D * D + i];
+      run.v[E::OJ + i] = legs[2 * D * D + i];
+    }
+  }
+
+  // Row b's table: the A, C and J legs of a run folded from the identity
+  // over steps with the constants and lam (nu = 0: the b and eta legs are
+  // not kept), and each step's terms.
+  static MF_DEV void build_table(const FilterArgs<T>& a, const Prior& p, int64_t b) {
+    constexpr int R3 = Tiling<D>::R;
+    UniformStepsRankO src;
+    src.load(p, b);
+    In in;
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) {
+      in.f[i] = src.f[i];
+      in.q[i] = src.q[i];
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i) in.c[i] = src.c[i];
+#pragma unroll
+    for (int i = 0; i < O * D; ++i) in.h[i] = src.h[i];
+#pragma unroll
+    for (int i = 0; i < O; ++i) {
+      in.nu[i] = T(0);
+#pragma unroll
+      for (int j = 0; j < O; ++j)
+        in.lam[i * O + j] = a.lam[b * a.lam_sb + i * a.lam_si + j * a.lam_sj];
+    }
+    T* tab = a.table + b * TABLE;
+    E run;
+    FilterOp<T, D>::identity(run);
+    for (int r = 0; r < RUN; ++r) {
+      fold_site_o<T, D, O, true>(run, in, tab + r * TERMS);
+      if ((r + 1) % R3 == 0) {
+        T* legs = tab + RUN * TERMS + ((r + 1) / R3 - 1) * LEGS;
+        for (int i = 0; i < D * D; ++i) {
+          legs[i] = run.v[E::OA + i];
+          legs[D * D + i] = run.v[E::OC + i];
+          legs[2 * D * D + i] = run.v[E::OJ + i];
+        }
+      }
+    }
+  }
+
+  static MF_DEV T step(T* m, T* P, const In& in) { return kalman_step_o<T, D, O>(m, P, in); }
+};
+
 // constants Fc, cc, Qc as UniformPrior; filtered moments, contiguous:
 // m_f [B, d, 1, N], P_f [B, d, d, N]
 template <typename T>
@@ -412,7 +517,8 @@ struct WideUniformRtsRow {
 // C entry points for one dtype (T, suffix).  The state dimension is a
 // runtime argument dispatched to the compile-time instantiations d = 1..6,
 // or to the runtime-d kernels for d = 7..12; the filter's output dimension
-// o is 1 or, at d <= 6, one of MF_GENERAL_O_PAIRS (UniformStepsO).
+// o is 1 or, at d <= 6, one of MF_GENERAL_O_PAIRS (UniformStepsRankO where
+// lam's step stride is 0, else UniformStepsO).
 // Sizes are int64; every pointer, and the stream, is passed as an address;
 // strides come as a host array of int64.
 #define MF_DEFINE_UNIFORM_ENTRY_POINTS(T, SUFFIX)                                      \
@@ -428,6 +534,10 @@ struct WideUniformRtsRow {
     mf::set_site_strides(a, site_strides);                                             \
     a.m_f = m_f; a.p_f = p_f; a.loglik = loglik; a.n = n;                              \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (o != 1 && a.lam_st == 0)                                                       \
+      MF_SWITCH_DO(d, o, (mf::launch_general_filter<mf::UniformStepsRankO<T, D_, O_>>(  \
+                             a, p, scratch, batch, s)),                                \
+                   int(cudaErrorInvalidValue))                                         \
     if (o != 1)                                                                        \
       MF_SWITCH_DO(d, o, (mf::launch_general_filter<mf::UniformStepsO<T, D_, O_>>(      \
                              a, p, scratch, batch, s)),                                \

@@ -63,7 +63,12 @@ MAX_STATE_DIM = 12
 #: ``adjoint.adjoint_pipeline_uniform``) also take o x o sites at o = 2..d
 #: for these state dims (``GeneralStepsO``, ``UniformStepsO``,
 #: ``GeneralAdjStepsO``, ``UniformAdjStepsO`` in ``csrc/``; one unit per
-#: (dtype, d, o) for the filters and one for the backwards)
+#: (dtype, d, o) for the filters and one for the backwards).  The filters
+#: take a rank-o route where lam's step stride is 0, as GPR's noise
+#: precision is expanded (``GeneralStepsRankO``, ``UniformStepsRankO``: a
+#: conditional Kalman step a step, no d x d inverse), and the element form
+#: where lam changes with the step, as the natural-gradient inversion's
+#: indefinite sites do (the covariance form loses their digits)
 MULTI_OUTPUT_MAX_STATE_DIM = 6
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -460,7 +465,8 @@ def filter_pipeline(F, c, Q, H, nu, lam, maskf=None):
     maskf [..., 1, 1, N] (steps with maskf <= 0.5 add 0 to the likelihood).
     Every input may be an expanded view: the kernel reads all of them
     through their strides.  o = 1 at d = 1..12, o = 2..d at d = 1..6; lam
-    may be indefinite (the posterior must be proper).
+    may be indefinite (the posterior must be proper) where it changes with
+    the step; a lam of step stride 0 takes the rank-o route.
 
     Returns (m_f [..., d, 1, N], P_f [..., d, d, N], loglik [...]).
     """

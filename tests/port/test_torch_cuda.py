@@ -848,18 +848,20 @@ def test_sde_iteration_kernels_match_plain(cuda_device, n, dtype):
                                "var": chip_smoke.TOL_F32_MOMENTS})
 
 
-@pytest.mark.parametrize("const_sites", [False, True], ids=["per-step", "stride-0"])
+@pytest.mark.parametrize("const_sites, masked", list(chip_smoke.O_SITES),
+                         ids=["per-step", "stride-0", "stride-0-maskless"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("d, o", [(d, o) for d in range(2, 7) for o in range(2, d + 1)])
 @pytest.mark.parametrize("n", list(chip_smoke.EDGE_NS))
 def test_general_filter_at_o_sites_at_the_run_warp_and_block_edges(cuda_device, n, d, o,
-                                                                   dtype, const_sites):
+                                                                   dtype, const_sites, masked):
     """Kernel 4 at o x o sites (o = 2..d) against its plain version at the
     edges of a thread's, a warp's and a block's run of steps, batch (3,),
-    masked, with H and lam stored at every step or stride 0: float64
-    within F64_TOL (chip_smoke.TOL_F64), float32 on its benign sites by
+    with H and lam stored at every step (masked: the element form) or
+    stride 0 (the rank-o route), masked or not: float64 within F64_TOL
+    (chip_smoke.TOL_F64), float32 on its benign sites by
     chip_smoke.check_f32_wide's rule (chip_smoke.multi_output_case)."""
-    chip_smoke.multi_output_case(ops, n, (3,), d, o, dtype, const_sites)
+    chip_smoke.multi_output_case(ops, n, (3,), d, o, dtype, const_sites, masked)
 
 
 @pytest.mark.parametrize("n", list(chip_smoke.EDGE_NS))
@@ -921,18 +923,24 @@ def test_wrappers_raise_at_o_sites_they_have_no_kernel_for(cuda_device):
             adj.log_likelihood_koopman_uniform(*uargs)
 
 
-@pytest.mark.parametrize("const_sites", [False, True], ids=["per-step-dense-H", "stride-0"])
+@pytest.mark.parametrize("const_sites, masked, scaled", list(chip_smoke.O_KERNEL_SITES),
+                         ids=["per-step-dense-H", "per-step-dense-H-unscaled", "stride-0",
+                              "stride-0-maskless"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("d, o", [(d, o) for d in range(2, 7) for o in range(2, d + 1)])
 @pytest.mark.parametrize("n", list(chip_smoke.EDGE_NS))
 def test_kernels_1_3_7_at_o_sites_at_the_run_warp_and_block_edges(cuda_device, n, d, o,
-                                                                  dtype, const_sites):
+                                                                  dtype, const_sites, masked,
+                                                                  scaled):
     """Kernels 1, 3 and 7 (and 4) at o x o sites (o = 2..d) against their
     plain versions at the edges of a thread's, a warp's and a block's run
-    of steps, batch (3,), masked, with per-step sites and a random dense H
-    or GPR's stride-0 H and lam: float64 within chip_smoke.TOL_F64, float32
-    by chip_smoke.check_f32_wide's rule (chip_smoke.multi_output_kernels_case)."""
-    chip_smoke.multi_output_kernels_case(ops, adj, n, (3,), d, o, dtype, const_sites)
+    of steps, batch (3,), with per-step sites and a random dense H, scaled
+    to the states' spread or not (masked: the element form of kernels 1 and
+    4), or GPR's stride-0 H and lam (their rank-o routes), masked or not:
+    float64 within chip_smoke.TOL_F64, float32 by chip_smoke.check_f32_wide's
+    rule (chip_smoke.multi_output_kernels_case)."""
+    chip_smoke.multi_output_kernels_case(ops, adj, n, (3,), d, o, dtype, const_sites, masked,
+                                         scaled)
 
 
 @pytest.mark.parametrize("uniform", [True, False], ids=["uniform", "jittered"])

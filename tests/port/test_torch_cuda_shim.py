@@ -40,7 +40,11 @@ TOL = 1e-12
 # (the kernel by 4e-12): the card's tests hold those at 1e-9.  Then kernels
 # 1, 3 and 7 (and 4) at o x o sites, (d, o) = (3, 2) and (4, 3), across
 # two blocks of kernel 1's staged passes and three of the backwards'
-# unstaged ones, per-step sites with a dense H and stride-0 ones
+# unstaged ones, per-step sites with a dense H, stride-0 ones (the rank-o
+# routes of kernels 1 and 4) over 2 N + 1 steps, across pass 1's blocks of
+# kernel 4's 8-step runs at d = 4 (kernel 1's 16-step blocks, 3,072 steps
+# there, are crossed on the card at N = 4099), and stride-0 ones without a
+# mask
 CASES = ["7:97:(2,)", "9:300:()", "9:64:(2,):sparse", "12:50:(2,)",
          "2:2100:(2,)", "2:700:(2,):sparse", "5:600:()", "3:1100:(2,)", "6:1100:()",
          "4:1100:(2,)", "2:2100:(2,):multi", "3:1100:(2,):o2", "4:1100:(2,):o3"]
@@ -55,7 +59,7 @@ TOL_O = 1e-10
 # o = 2..d, and at o = d also with stride-0 sites; an o case: the uniform
 # filter (3), the uniform Koopman backward with and without the site
 # gradients (8 + 6), the general filter (3) and Koopman backward (6), for
-# per-step and for stride-0 sites
+# per-step sites, stride-0 ones and stride-0 ones without a mask
 N_OUTPUTS = {True: 30, False: 22}
 
 
@@ -63,7 +67,7 @@ def n_outputs(case: str) -> int:
     d = int(case.split(":")[0])
     if case.endswith(":multi"):
         return 3 * d
-    return 52 if ":o" in case else N_OUTPUTS[d <= 6]
+    return 78 if ":o" in case else N_OUTPUTS[d <= 6]
 # a case takes 5-15 s alone (lanes as fibers, one core each)
 CASE_SECONDS = 300
 

@@ -9,7 +9,8 @@ e.g. ``9:4099:(3,)`` (state dim 9, 4,099 steps, batch (3,), a mask),
 multi_output_problem with H and lam stored at every step, and for o = d
 also with both stride 0), or ``3:1100:(2,):o2`` (kernels 1, 3 and 7, and 4, at
 o x o sites for that o: chip_smoke's multi_output_kernels, per-step sites
-with a dense H and stride-0 ones).  A copy of the
+with a dense H, stride-0 ones over 2 N + 1 steps and stride-0 ones
+without a mask).  A copy of the
 package in OUT_DIR takes the CUDA branch for CPU tensors; each case prints
 every kernel's largest difference from its plain version, relative to the
 plain output's largest entry.  At small N, since the lanes run as threads:
@@ -108,17 +109,21 @@ def check_multi(cs, d, n, batch):
 def check_o(cs, adj, d, o, n, batch):
     """Kernels 1, 3 and 7 (and 4) at o x o sites against their plain
     versions (chip_smoke.multi_output_kernels): per-step sites with a dense
-    H, and GPR's stride-0 H and lam."""
+    H and a mask over N steps (the element form of kernels 1 and 4), and
+    GPR's stride-0 H and lam (their rank-o routes) with a mask over 2 N + 1
+    steps, so that kernel 4's longer pass-1 runs cross a block at d = 4,
+    and without one over N."""
     import chip_smoke
 
     out = {}
-    for const in (False, True):
-        res, _ = chip_smoke.multi_output_kernels(cs, adj, d, o, n, batch, torch.float64,
+    for tag, const, masked, steps in (("p", False, True, n), ("c", True, True, 2 * n + 1),
+                                      ("u", True, False, n)):
+        res, _ = chip_smoke.multi_output_kernels(cs, adj, d, o, steps, batch, torch.float64,
                                                  seed=n, device="cpu", const_sites=const,
-                                                 dense_h=not const)
+                                                 dense_h=not const, masked=masked)
         for name, (got, want, scale) in res.items():
             den = (want if scale is None else scale).abs().max().clamp_min(1e-300)
-            out[f"{'c' if const else 'p'} {name}"] = float((got - want).abs().max() / den)
+            out[f"{tag} {name}"] = float((got - want).abs().max() / den)
     return out
 
 
