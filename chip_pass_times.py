@@ -3,11 +3,12 @@
     python3 chip_pass_times.py
 
 at d = 2, 3 and 6 (DIMS), T = N = chip_smoke.T_FULL (1e6), REPS calls each,
-and kernels 1 and 4 at o x o sites as their main paths call them: at
-(d, o) = (6, 3) on mo3's inputs (chip_smoke.build_mo3, T = N, float32:
-GPR's stride-0 H and lam, no mask) and kernel 4 at (2, 2) on bench config
-2's natural-gradient synthetic model (chip_smoke.natgrad_kernel_calls,
-T = 1e5, float64),
+and kernels 1, 3, 4 and 7 at o x o sites as their main paths call them
+(chip_smoke.kernel_calls): at (d, o) = (6, 3) on mo3's inputs
+(chip_smoke.build_mo3, T = N, float32: GPR's stride-0 H and lam, no mask;
+the Koopman backwards as GPR's backward calls them, writing only what it
+asks for) and kernel 4 at (2, 2) on bench config 2's natural-gradient
+synthetic model (chip_smoke.natgrad_kernel_calls, T = 1e5, float64),
 in two series: the calls back to back, and each call after a write of
 FLUSH_BYTES (five times the H100's 50 MB L2), so that no pass reads what an
 earlier call left in L2.
@@ -76,14 +77,17 @@ def calls(cs, adj, d, n):
 
 
 def multi_output_calls(cs, adj):
-    """name -> the kernel call of kernels 1 and 4 at o x o sites (above)."""
+    """name -> the kernel call of kernels 1, 3, 4 and 7 at o x o sites
+    (above)."""
     f32 = torch.float32
     mo3 = chip_smoke.kernel_calls(cs, adj, chip_smoke.build_mo3(N, f32),
                                   chip_smoke.build_mo3(N, f32, uniform=False))
-    return {"filter_pipeline_uniform o=3 d=6": mo3["filter_pipeline_uniform"][0],
-            "filter_pipeline o=3 d=6": mo3["filter_pipeline"][0],
-            "filter_pipeline o=2 d=2 float64": chip_smoke.natgrad_kernel_calls(cs)[
-                "filter_pipeline"][0]}
+    out = {f"{name} o=3 d=6": mo3[name][0]
+           for name in ("filter_pipeline_uniform", "adjoint_pipeline_uniform",
+                        "filter_pipeline", "adjoint_pipeline")}
+    out["filter_pipeline o=2 d=2 float64"] = chip_smoke.natgrad_kernel_calls(cs)[
+        "filter_pipeline"][0]
+    return out
 
 
 def main() -> int:

@@ -48,7 +48,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    d = 2..6, N in O_EDGE_NS, batch (3,), per-step sites with a mask and a
    random dense H, scaled to the states' spread and not, and GPR's
    stride-0 H and lam with a mask and without, float64 and float32
-   (multi_output_kernels, O_KERNEL_SITES);
+   (multi_output_kernels, O_KERNEL_SITES), kernel 3 with and without the
+   site gradients and gHc (ADJ_ASKS) and kernel 7 with all six outputs and
+   GPR's three (both without any observation term: their lean pass 3);
 4. the slice at full size, T = 1e6, float32, flagship GPR (Matern32(0.5,
    1.0), noise Cholesky 0.2), each path with the launch counters set to 0
    just before it and read just after:
@@ -320,7 +322,8 @@ PRODUCT_T = 100_000
 #: phase 3, kernels 1, 3 and 7 at o x o sites: the edges of a thread's run
 #: of steps, a warp's, a block's and two blocks' (of every tiling they use;
 #: 4099: two of pass 1's 4,096-step blocks of kernel 1's rank-o route at
-#: d >= 4 in float32)
+#: d >= 4 in float32; 2049 and 4099: two and three of the 2,048-step
+#: pass-1 blocks of kernels 3 and 7 at d >= 4, with a short last run)
 O_EDGE_NS = (1, 9, 257, 2049, 4099)
 #: the o x o cases' sites, (const_sites, masked): per-step H and lam with a
 #: mask (the element form), stride-0 ones with a mask and without (the
@@ -423,7 +426,7 @@ def launches_of(cs, adj, out: dict):
 def plain_path(cs, adj, kf):
     """Swap every kernel wrapper for its plain PyTorch version (in the
     modules that call them), for the plain-path timings."""
-    def adjoint_plain(*args, site_grads=True):
+    def adjoint_plain(*args, site_grads=True, hc_grad=True):
         return adj.adjoint_pipeline_uniform_plain(*args)
 
     def gadjoint_plain(*args, needs=None):
@@ -564,6 +567,12 @@ def adjoint_sum_scales(adj, args, m_f, p_f, gscale):
 # ---------------------------------------------------------------------------
 ADJ_OUT = ("gFc", "gcc", "gQc", "gmu0", "gP0", "gHc", "gnu", "glam")
 GADJ_OUT = ("gF", "gc", "gQ", "gH", "gnu", "glam")
+#: kernel 3's calls at o x o sites, (site_grads, hc_grad) -> the tag of
+#: their outputs: all eight, no site gradients, and neither gHc nor the
+#: site gradients (as GPR's backward asks: the lean pass 3).  With the site
+#: gradients and without gHc the kernel runs as with all eight, and the
+#: wrapper returns None for gHc (tests/port/test_torch_adjoint.py holds that)
+ADJ_ASKS = {(True, True): "", (False, True): " (no site grads)", (False, False): " (GPR's)"}
 
 
 def phase_kernels_vs_plain(cs, adj):
@@ -841,7 +850,9 @@ def multi_output_kernels(cs, adj, d, o, n, batch, dtype, seed, device=DEVICE,
     o x o sites on multi_output_uniform_problem's and multi_output_problem's
     inputs, beside their plain versions: name -> (kernel output, plain
     output, scale or None), the scale of kernel 3's summed gradients being
-    the summed magnitudes of their terms (adjoint_sum_scales).  With
+    the summed magnitudes of their terms (adjoint_sum_scales); kernel 3
+    with and without the site gradients and gHc (ADJ_ASKS), kernel 7 with
+    all six outputs and with GPR_NEEDS ("(GPR's)": the lean pass 3).  With
     float32 inputs also the plain versions in float64 on the same inputs:
     name -> float64 output.  The cuda tests and the CPU shim run (tests/)
     take them from here."""
@@ -859,21 +870,26 @@ def multi_output_kernels(cs, adj, d, o, n, batch, dtype, seed, device=DEVICE,
                               cs.filter_pipeline_uniform(*args), (m_p, p_p, ll_p)):
             out[name] = (g, w, None)
         scales = adjoint_sum_scales(adj, args, m_p, p_p, gscale) + (None, None)
-        a_k = adj.adjoint_pipeline_uniform(*args, m_p, p_p, gscale)
-        a_k0 = adj.adjoint_pipeline_uniform(*args, m_p, p_p, gscale, site_grads=False)
         a_p = adj.adjoint_pipeline_uniform_plain(*args, m_p, p_p, gscale)
-        assert a_k0[6] is None and a_k0[7] is None
-        for name, g, g0, w, sc in zip(ADJ_OUT, a_k, a_k0 + (None, None), a_p, scales):
-            out["uniform " + name] = (g, w, sc)
-            if g0 is not None:
-                out["uniform " + name + " (no site grads)"] = (g0, w, sc)
+        for (site_grads, hc_grad), tail in ADJ_ASKS.items():
+            a_k = adj.adjoint_pipeline_uniform(*args, m_p, p_p, gscale, site_grads=site_grads,
+                                               hc_grad=hc_grad)
+            asked = (True,) * 5 + (hc_grad,) + (site_grads,) * 2
+            assert all((g is not None) == a for g, a in zip(a_k, asked)), tail
+            for name, g, w, sc in zip(ADJ_OUT, a_k, a_p, scales):
+                if g is not None:
+                    out["uniform " + name + tail] = (g, w, sc)
         gm_p, gp_p, gll_p = cs.filter_pipeline_plain(*gargs)
         for name, g, w in zip(("m_f", "P_f", "loglik"), cs.filter_pipeline(*gargs),
                               (gm_p, gp_p, gll_p)):
             out[name] = (g, w, None)
-        for name, g, w in zip(GADJ_OUT, adj.adjoint_pipeline(*gargs, gm_p, gp_p, gscale),
-                              adj.adjoint_pipeline_plain(*gargs, gm_p, gp_p, gscale)):
-            out[name] = (g, w, None)
+        ga_p = adj.adjoint_pipeline_plain(*gargs, gm_p, gp_p, gscale)
+        for needs, tail in ((None, ""), (GPR_NEEDS, " (GPR's)")):
+            kw = {} if needs is None else {"needs": needs}
+            for name, g, w in zip(GADJ_OUT, adj.adjoint_pipeline(*gargs, gm_p, gp_p, gscale, **kw),
+                                  ga_p):
+                if g is not None:
+                    out[name + tail] = (g, w, None)
         if f32:
             a64 = [None if x is None else x.double() for x in args]
             g64 = [None if x is None else x.double() for x in gargs]
@@ -884,10 +900,10 @@ def multi_output_kernels(cs, adj, d, o, n, batch, dtype, seed, device=DEVICE,
             ga6 = adj.adjoint_pipeline_plain(*g64, gm_p.double(), gp_p.double(),
                                              gscale.double())
             ref.update(zip(("uniform m_f", "uniform P_f", "uniform loglik"), (m6, p6, ll6)))
-            ref.update(("uniform " + k, v) for k, v in zip(ADJ_OUT, a6))
-            ref.update(("uniform " + k + " (no site grads)", v) for k, v in zip(ADJ_OUT[:6], a6))
+            ref.update(("uniform " + k + tail, v) for k, v in zip(ADJ_OUT, a6)
+                       for tail in ADJ_ASKS.values())
             ref.update(zip(("m_f", "P_f", "loglik"), (gm6, gp6, gll6)))
-            ref.update(zip(GADJ_OUT, ga6))
+            ref.update((k + tail, v) for k, v in zip(GADJ_OUT, ga6) for tail in ("", " (GPR's)"))
     return out, ref
 
 
@@ -2830,10 +2846,10 @@ def kernel_calls(cs, adj, uni, gen):
             gargs + (gm_fp, gp_fp, gs)),
     }
     if Fc.shape[-3] <= adj.UNIFORM_ADJOINT_MAX_STATE_DIM:
-        # as the flagship's backward calls it: no site gradients
+        # as the GPR backward calls it: no site gradients, no gHc
         calls["adjoint_pipeline_uniform"] = (
             lambda: adj.adjoint_pipeline_uniform(*args, None, m_fp, p_fp, gs,
-                                                 site_grads=False),
+                                                 site_grads=False, hc_grad=False),
             lambda: adj.adjoint_pipeline_uniform_plain(*args, None, m_fp, p_fp, gs),
             args + (m_fp, p_fp, gs))
     return calls

@@ -13,7 +13,8 @@ backwards (kernels 1 to 7):
    kernels 1 and 2, 4, 5 and 6, 3, and 7), and of the o x o units of mo3's
    filters, (d, o) = (6, 3) in float32 (generalo_inst.cu: kernels 4 and 1),
    of the natural-gradient inversion's, (2, 2) in float64, and of mo3's
-   Koopman backwards, (6, 3) in float32 (adjointo_inst.cu: kernels 7 and 3),
+   Koopman backwards, (6, 3) in float32 and float64 (adjointo_inst.cu:
+   kernels 7 and 3),
    compiled in parallel, and the static count of each kernel's SASS
    instructions by kind (cuobjdump -sass): shared-memory loads and stores
    (LDS, STS), generic loads and stores (LD, ST), global loads and stores
@@ -62,7 +63,7 @@ NARROW_UNITS = [(f"{fam}_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}"])
                 for t in dtypes for d in (2, 3, 6)] + [
     (f"{fam}o_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}", f"-DMF_O={o}"])
     for fam, t, d, o in (("general", "float", 6, 3), ("general", "double", 2, 2),
-                         ("adjoint", "float", 6, 3))]
+                         ("adjoint", "float", 6, 3), ("adjoint", "double", 6, 3))]
 
 
 def sass_counts(sass: str, demangle) -> dict:

@@ -142,7 +142,8 @@ def adjoint_pipeline_uniform_plain(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf,
 
 
 def adjoint_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf, m_f,
-                             p_f, gscale, site_grads: bool = True):
+                             p_f, gscale, site_grads: bool = True,
+                             hc_grad: bool = True):
     """Koopman backward on a uniform grid (the port of
     ``pallas_adjoint_pipeline_uniform``).
 
@@ -152,12 +153,15 @@ def adjoint_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf, m_f,
     gnu, glam), all scaled by ``gscale``: the constant inputs' gradients are
     sums over their steps (k >= 1 for Fc, cc, Qc; step 0 for mu0, P0; all
     steps for Hc), shaped [..., d1, d2, 1]; gnu [..., o, 1, N] and
-    glam [..., o, o, N] are per step.  With ``site_grads=False`` a CUDA call
-    writes neither and returns None for both.
+    glam [..., o, o, N] are per step.  With ``site_grads=False`` a call
+    returns None for gnu and glam, with ``hc_grad=False`` None for gHc: a
+    CUDA call does not compute them (at o = 1 it sums gHc all the same).
     """
     if nu.device.type == "cpu":
-        return adjoint_pipeline_uniform_plain(Fc, cc, Qc, mu0, P0, Hc, nu, lam,
-                                              maskf, m_f, p_f, gscale)
+        out = adjoint_pipeline_uniform_plain(Fc, cc, Qc, mu0, P0, Hc, nu, lam,
+                                             maskf, m_f, p_f, gscale)
+        return (out[:5] + (out[5] if hc_grad else None,)
+                + (out[6:] if site_grads else (None, None)))
     if nu.device.type != "cuda":
         raise ValueError(f"no kernel for device {nu.device}")
     d, o, n = Fc.shape[-3], lam.shape[-3], nu.shape[-1]
@@ -190,14 +194,15 @@ def adjoint_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf, m_f,
             cs._strides(*site_strides), m_b.data_ptr(), p_b.data_ptr(),
             gs.data_ptr(), None if gnu is None else gnu.data_ptr(),
             None if glam is None else glam.data_ptr(), gm0.data_ptr(),
-            gp0.data_ptr(), gsums.data_ptr(), scratch.data_ptr(), B, n, d, o,
-            cs._stream(nu.device))
+            gp0.data_ptr(), gsums.data_ptr(), int(hc_grad), scratch.data_ptr(),
+            B, n, d, o, cs._stream(nu.device))
     cs._raise_on(err, "adjoint_pipeline_uniform")
     adjoint_pipeline_uniform.launches += 1
     gfc, gcc, gqc, ghc = torch.split(gsums, [d * d, d, d * d, o * d], dim=1)
     out = (gfc.reshape(lead + (d, d, 1)), gcc.reshape(lead + (d, 1, 1)),
            gqc.reshape(lead + (d, d, 1)), gm0.reshape(lead + (d, 1, 1)),
-           gp0.reshape(lead + (d, d, 1)), ghc.reshape(lead + (o, d, 1)))
+           gp0.reshape(lead + (d, d, 1)),
+           ghc.reshape(lead + (o, d, 1)) if hc_grad else None)
     if not site_grads:
         return out + (None, None)
     return out + (gnu.reshape(lead + (o, 1, n)), glam.reshape(lead + (o, o, n)))
@@ -301,7 +306,8 @@ class _KoopmanUniform(torch.autograd.Function):
             return (None,) * 9
         inputs = ctx.saved_tensors
         grads = adjoint_pipeline_uniform(*inputs, grad,
-                                         site_grads=needs[6] or needs[7])
+                                         site_grads=needs[6] or needs[7],
+                                         hc_grad=needs[5])
         return tuple(_reduce_to(g, x) if need else None
                      for g, x, need in zip(grads, inputs, needs)) + (None,)
 

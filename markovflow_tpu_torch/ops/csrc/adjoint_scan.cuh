@@ -72,13 +72,15 @@ struct AdjointPrior {
   T *gm0, *gp0;     // [B, d], [B, d, d]
   T* gsums;         // [B, NV]: the summed gradients (AdjointSums), scaled by gscale
   T* partials;      // scratch: [B, nblk, NV] block partials of the sums
+  T* kept;          // scratch: the stage 1 pass 1 keeps for the lean pass 3 (o > 1), or null
 };
 
 // Stage 2's prior-step terms at step k into the sums acc (AdjointSums
-// order, unscaled: sum_partials scales them) from r = rv, N = nm and stage
-// 1's fp = F P_{k-1}, mp = m_{k-1}: Fc += r m_{k-1}^T + 2 N F P_{k-1},
-// cc += r, Qc += N at k >= 1; gmu0 = gs r and gP0 = gs N at k = 0.
-template <typename T, int D, class S1>
+// order, sum v at acc[v * STRIDE], unscaled: sum_partials scales them)
+// from r = rv, N = nm and stage 1's fp = F P_{k-1}, mp = m_{k-1}:
+// Fc += r m_{k-1}^T + 2 N F P_{k-1}, cc += r, Qc += N at k >= 1; gmu0 =
+// gs r and gP0 = gs N at k = 0.
+template <typename T, int D, class S1, int STRIDE = 1>
 MF_DEV void adjoint_prior_sums(const AdjointPrior<T>& p, const S1& s1, const T* rv, const T* nm,
                                T gs, T* acc, int64_t b, int64_t k) {
   using S = AdjointSums<D, 1>;  // the offsets of Fc, cc and Qc do not depend on o
@@ -93,12 +95,13 @@ MF_DEV void adjoint_prior_sums(const AdjointPrior<T>& p, const S1& s1, const T* 
   mm<T, D, D, D>(nm, s1.fp, nfp);
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    acc[S::OC + i] += rv[i];
+    acc[(S::OC + i) * STRIDE] += rv[i];
 #pragma unroll
-    for (int j = 0; j < D; ++j) acc[S::OF + i * D + j] += rv[i] * s1.mp[j] + T(2) * nfp[i * D + j];
+    for (int j = 0; j < D; ++j)
+      acc[(S::OF + i * D + j) * STRIDE] += rv[i] * s1.mp[j] + T(2) * nfp[i * D + j];
   }
 #pragma unroll
-  for (int i = 0; i < D * D; ++i) acc[S::OQ + i] += nm[i];
+  for (int i = 0; i < D * D; ++i) acc[(S::OQ + i) * STRIDE] += nm[i];
 }
 
 // Kernel 3's step source of the Koopman backward passes
@@ -230,79 +233,139 @@ struct UniformAdjSteps : UniformRow<T_, D_, 1> {
 };
 
 // Kernel 3 at o = 2..d (d <= 6): UniformAdjSteps' passes with o x o
-// sites (general_adjoint.cuh: GadjStage1O, gadjoint_obs_o) and a constant
-// [o, d] Hc in registers; each step's nu, lam, mask and (m, P)_{k-1} read
-// where they lie and gnu, glam written to step k (GeneralAdjStepsO's
-// notes say why); the constants' gradients summed in registers to one
-// partial a block, as at o = 1.
-template <typename T_, int D_, int O_>
-struct UniformAdjStepsO : UniformRow<T_, D_, O_> {
+// sites (general_adjoint.cuh: GadjStage1O, gadjoint_obs_o; from d = 4
+// pass 1's runs of 8 steps, 8 warps a block: G1).  The constants of the
+// block's batch row (F, Q, c, Hc, P0, mu0: 3 d^2 + 2 d + o d values) lie
+// in shared memory, read at each step: in registers they held 138 of 255
+// at d = 6.  Each step's nu, lam, mask and (m, P)_{k-1} are read where
+// they lie and gnu, glam written to step k (GeneralAdjStepsO's notes say
+// why).  In pass 3 each thread sums the constants' gradients in its column
+// of the block's dynamic shared memory (NSUM values; Hc's only with OBS_,
+// without which they stay 0, not asked for), and the block adds the
+// columns to one partial, in a fixed order (in registers the 96 sums at
+// d = 6, o = 3 spilled).
+template <typename T_, int D_, int O_, bool OBS_>
+struct UniformAdjStepsO {
   using T = T_;
   static constexpr int D = D_, O = O_;
+  static constexpr bool OBS = OBS_;
   using Prior = AdjointPrior<T>;
   using G = UnstagedTiling<D>;
   using In = GeneralInO<T, D, O>;
-  using Stage1 = GadjStage1O<T, D, O>;
+  using Stage1 = std::conditional_t<OBS, GadjStage1ObsO<T, D, O>, GadjStage1O<T, D, O>>;
+  using G1 = UnstagedTiling<D, D <= 3 ? G::R : 8, D <= 3 ? G::WARPS : 8>;  // pass 1's
+  using Totals = UniformAdjStepsO<T, D, O, false>;
   using S = AdjointSums<D, O>;
   static constexpr int NSUM = S::NV;
-  static constexpr bool STAGED1 = false;
-  T acc[NSUM];
+  // float64 keeps stage 1 for the lean pass 3 (general_adjoint.cuh): built
+  // there, ptxas kept 32 registers and pass 3 took 18 ms at (6, 3); in
+  // float32 pass 1's stores cost more than pass 3 saved
+  static constexpr bool STAGED1 = false, KEEP = std::is_same_v<T, double>;
+  // the constants' offsets in the block's row
+  static constexpr int OF = 0, OQ = D * D, OC = 2 * D * D, OH = OC + D, OP0 = OH + O * D,
+                       OM0 = OP0 + D * D, NROW = OM0 + D;
+  // pass 3's dynamic shared memory, values a thread: its column of sums
+  static constexpr int SMEM3 = NSUM;
+  const volatile T* row;
+  T* acc;  // sum v at acc[v * G::THREADS]
 
+  // Every thread of the block calls it (a barrier).
   MF_DEV void load(const Prior& p, int64_t b) {
-    UniformRow<T, D, O>::load(p.k, b);
+    __shared__ T consts[NROW];
+    const UniformPrior<T>& u = p.k;
+    for (int i = threadIdx.x; i < NROW; i += blockDim.x)
+      consts[i] = i < OQ    ? u.fc[b * D * D + i - OF]
+                  : i < OC  ? u.qc[b * D * D + i - OQ]
+                  : i < OH  ? u.cc[b * D + i - OC]
+                  : i < OP0 ? u.hc[b * O * D + i - OH]
+                  : i < OM0 ? u.p0[b * D * D + i - OP0]
+                            : u.mu0[b * D + i - OM0];
+    __syncthreads();
+    row = consts;
+  }
+
+  // pass 3: the thread's sums in column threadIdx.x of smem, zeroed
+  MF_DEV void sums_in(T* smem) {
+    acc = smem + threadIdx.x;
 #pragma unroll
-    for (int i = 0; i < NSUM; ++i) acc[i] = T(0);
+    for (int i = 0; i < NSUM; ++i) acc[i * G::THREADS] = T(0);
   }
 
   static __host__ __device__ GeneralSlots slots(const Prior&) {
     return {-1, -1, -1, -1, -1, -1, 0};
   }
 
-  template <bool STAGED>
-  MF_DEV void stage(const Prior&, int64_t, int64_t, int64_t, WarpStage<T, G::R>&,
+  template <bool STAGED, int R>
+  MF_DEV void stage(const Prior&, int64_t, int64_t, int64_t, WarpStage<T, R>&,
                     GeneralSlots&) const {}
 
+  template <int R>
   MF_DEV void f_after(const Prior&, int64_t, int64_t, int64_t last, int64_t n,
-                      const WarpStage<T, G::R>&, T* fn) const {
+                      const WarpStage<T, R>&, T* fn) const {
 #pragma unroll
-    for (int i = 0; i < D * D; ++i) fn[i] = last + 1 >= n ? T(0) : this->f[i];
+    for (int i = 0; i < D * D; ++i) fn[i] = last + 1 >= n ? T(0) : row[OF + i];
   }
 
-  template <bool STAGED>
-  MF_DEV void read(In& in, T* mp, T* pprev, const WarpStage<T, G::R>& st,
-                   const GeneralSlots& sl, int lane, int r, const Prior& p, int64_t b,
-                   int64_t k, bool once, int64_t n) const {
-    this->template read_step<false>(in, st, sl, lane, r, p, b, k, once);
+  // The constant prior step, (0, P0, mu0) at global step 0, and Hc from
+  // the row; nu, lam (only once, once, where their step stride is 0) and
+  // the mask of step k and (m, P)_{k-1} where they lie.
+  template <bool STAGED, int R>
+  MF_DEV void read(In& in, T* mp, T* pprev, const WarpStage<T, R>& st, const GeneralSlots& sl,
+                   int lane, int r, const Prior& p, int64_t b, int64_t k, bool once,
+                   int64_t n) const {
+    const bool first = k == 0;
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) {
+      in.f[i] = first ? T(0) : row[OF + i];
+      in.q[i] = row[(first ? OP0 : OQ) + i];
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i) in.c[i] = row[(first ? OM0 : OC) + i];
+#pragma unroll
+    for (int i = 0; i < O * D; ++i) in.h[i] = row[OH + i];
+    in.read_site_values(p, b, k, once);
     read_prev_moments<false, D>(p, st, sl, lane, r, b, k, n, mp, pprev);
   }
 
-  // Stage 2 into the sums, unscaled, as UniformAdjSteps::out; Hc += gH of
-  // every step (gadjoint_obs_o), and gnu, glam, scaled by gs, to step k
+  // Hc to h (once, from the row)
+  MF_DEV void read_h(const Prior&, int64_t, int64_t, bool once, T* h) const {
+    if (!once) return;
+#pragma unroll
+    for (int i = 0; i < O * D; ++i) h[i] = row[OH + i];
+  }
+
+  // Stage 2 into the sums, unscaled, as UniformAdjSteps::out; with OBS,
+  // Hc += gH of every step (gadjoint_obs_o), and gnu, glam, scaled by gs,
+  // to step k
   MF_DEV void out(const Prior& p, const In& in, const Stage1& s1, const T* rv, const T* ndk,
                   T gs, const WarpStage<T, G::R>&, int, int, int64_t b, int64_t k, int64_t n) {
     T nm[D * D];
     gadjoint_n<T, D>(rv, ndk, nm);
-    adjoint_prior_sums<T, D>(p, s1, rv, nm, gs, acc, b, k);
-    T gh[O * D], gnu[O], glam[O * O];
-    gadjoint_obs_o<T, D, O>(in, s1, rv, ndk, p.gnu != nullptr, gh, gnu, glam);
+    adjoint_prior_sums<T, D, Stage1, G::THREADS>(p, s1, rv, nm, gs, acc, b, k);
+    if constexpr (OBS) {
+      T gh[O * D], gnu[O], glam[O * O];
+      gadjoint_obs_o<T, D, O>(in, s1, rv, ndk, p.gnu != nullptr, gh, gnu, glam);
 #pragma unroll
-    for (int i = 0; i < O * D; ++i) acc[S::OH + i] += gh[i];
-    if (p.gnu != nullptr) {
+      for (int i = 0; i < O * D; ++i) acc[(S::OH + i) * G::THREADS] += gh[i];
+      if (p.gnu != nullptr) {
 #pragma unroll
-      for (int i = 0; i < O; ++i) p.gnu[(b * O + i) * n + k] = gs * gnu[i];
+        for (int i = 0; i < O; ++i) p.gnu[(b * O + i) * n + k] = gs * gnu[i];
 #pragma unroll
-      for (int i = 0; i < O * O; ++i) p.glam[(b * O * O + i) * n + k] = gs * glam[i];
+        for (int i = 0; i < O * O; ++i) p.glam[(b * O * O + i) * n + k] = gs * glam[i];
+      }
     }
   }
 
-  // the block's sums to its partial
+  // the block's sums to its partial: sum v of the columns in thread order
   template <int THREADS>
   MF_DEV void finish(const Prior& p, const SmootherArgs<T>& a, const WarpStage<T, G::R>&,
-                     int64_t b, T* red) {
-    block_sum<T, THREADS, NSUM>(acc, red);
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int i = 0; i < NSUM; ++i) p.partials[(b * a.nblk + blockIdx.x) * NSUM + i] = acc[i];
+                     int64_t b, T*) {
+    __syncthreads();
+    const T* col0 = acc - threadIdx.x;
+    for (int v = threadIdx.x; v < NSUM; v += THREADS) {
+      T sum = T(0);
+      for (int i = 0; i < THREADS; ++i) sum += col0[v * THREADS + i];
+      p.partials[(b * a.nblk + blockIdx.x) * NSUM + v] = sum;
     }
   }
 };
@@ -311,14 +374,16 @@ struct UniformAdjStepsO : UniformRow<T_, D_, O_> {
 
 // C entry point for one dtype (T, suffix), as in uniform_scan.cuh.  gsums
 // [B, NV] receives the summed gradients in AdjointSums order, scaled by
-// gscale; gnu and glam may be null.  The scratch is mf_adjoint_scratch_*'s;
-// the output dim o is 1 or one of MF_GENERAL_O_PAIRS (UniformAdjStepsO).
+// gscale, Hc's where sum_hc is not 0 (at o = 1 always); gnu and glam may be
+// null.  The scratch is mf_adjoint_scratch_*'s; the output dim o is 1 or
+// one of MF_GENERAL_O_PAIRS (UniformAdjStepsO, the lean pass 3 where
+// neither Hc's sums nor gnu and glam are asked for).
 #define MF_DEFINE_ADJOINT_ENTRY_POINTS(T, SUFFIX)                                      \
   extern "C" int mf_uniform_adjoint_##SUFFIX(                                          \
       const T* fc, const T* cc, const T* qc, const T* mu0, const T* p0, const T* hc,   \
       const T* nu, const T* lam, const T* mask, const int64_t* site_strides,           \
       const T* m_f, const T* p_f, const T* gscale, T* gnu, T* glam, T* gm0, T* gp0,    \
-      T* gsums, T* scratch, int64_t batch, int64_t n, int64_t d, int64_t o,            \
+      T* gsums, int64_t sum_hc, T* scratch, int64_t batch, int64_t n, int64_t d, int64_t o, \
       void* stream) {                                                                  \
     if (batch < 1 || batch > 65535 || n < 1) return int(cudaErrorInvalidValue);        \
     if ((gnu == nullptr) != (glam == nullptr)) return int(cudaErrorInvalidValue);      \
@@ -329,9 +394,15 @@ struct UniformAdjStepsO : UniformRow<T_, D_, O_> {
     p.m_f = m_f; p.p_f = p_f; p.gscale = gscale;                                       \
     p.gnu = gnu; p.glam = glam; p.gm0 = gm0; p.gp0 = gp0; p.gsums = gsums;             \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (o != 1 && sum_hc == 0 && gnu == nullptr)                                         \
+      MF_SWITCH_DO(d, o,                                                               \
+                   (mf::launch_general_adjoint<mf::UniformAdjStepsO<T, D_, O_, false>>( \
+                       p, scratch, batch, n, s)),                                      \
+                   int(cudaErrorInvalidValue))                                         \
     if (o != 1)                                                                        \
-      MF_SWITCH_DO(d, o, (mf::launch_general_adjoint<mf::UniformAdjStepsO<T, D_, O_>>(  \
-                             p, scratch, batch, n, s)),                                \
+      MF_SWITCH_DO(d, o,                                                               \
+                   (mf::launch_general_adjoint<mf::UniformAdjStepsO<T, D_, O_, true>>(  \
+                       p, scratch, batch, n, s)),                                      \
                    int(cudaErrorInvalidValue))                                         \
     MF_SWITCH_D(d, (mf::launch_general_adjoint<mf::UniformAdjSteps<T, D_>>(p, scratch, \
                                                                            batch, n, s)), \

@@ -34,6 +34,11 @@
 MF_EXTERN_ALL_D(float)
 MF_EXTERN_ALL_D(double)
 
+#define MF_EXTERN_ADJOINT_O(T, D, O, OBS)                                                \
+  extern template int mf::launch_general_adjoint<mf::UniformAdjStepsO<T, D, O, OBS>>(    \
+      mf::AdjointPrior<T>, T*, int64_t, int64_t, cudaStream_t);                           \
+  extern template int mf::launch_general_adjoint<mf::GeneralAdjStepsO<T, D, O, OBS>>(    \
+      mf::GeneralAdjointPrior<T>, T*, int64_t, int64_t, cudaStream_t);
 #define MF_EXTERN_O(T, D, O)                                                             \
   extern template int mf::launch_general_filter<mf::GeneralStepsO<T, D, O>>(             \
       mf::FilterArgs<T>, mf::GeneralPrior<T>, T*, int64_t, cudaStream_t);                 \
@@ -43,10 +48,7 @@ MF_EXTERN_ALL_D(double)
       mf::FilterArgs<T>, mf::GeneralPrior<T>, T*, int64_t, cudaStream_t);                 \
   extern template int mf::launch_general_filter<mf::UniformStepsRankO<T, D, O>>(         \
       mf::FilterArgs<T>, mf::UniformPrior<T>, T*, int64_t, cudaStream_t);                 \
-  extern template int mf::launch_general_adjoint<mf::UniformAdjStepsO<T, D, O>>(         \
-      mf::AdjointPrior<T>, T*, int64_t, int64_t, cudaStream_t);                           \
-  extern template int mf::launch_general_adjoint<mf::GeneralAdjStepsO<T, D, O>>(         \
-      mf::GeneralAdjointPrior<T>, T*, int64_t, int64_t, cudaStream_t);
+  MF_EXTERN_ADJOINT_O(T, D, O, false) MF_EXTERN_ADJOINT_O(T, D, O, true)
 #define MF_EXTERN_O_BOTH(D, O) MF_EXTERN_O(float, D, O) MF_EXTERN_O(double, D, O)
 MF_GENERAL_O_PAIRS(MF_EXTERN_O_BOTH)
 
@@ -120,7 +122,7 @@ MF_EXTERN_WIDE(double)
                                                          int64_t batch, int64_t n) {   \
     if (o != 1)                                                                         \
       MF_SWITCH_DO(d, o,                                                                \
-                   (mf::general_adjoint_scratch<mf::GeneralAdjStepsO<T, D_, O_>>(batch, n)), \
+                   (mf::general_adjoint_scratch<mf::GeneralAdjStepsO<T, D_, O_, true>>(batch, n)), \
                    -1)                                                                  \
     if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
       return mf::wide_smoother_scratch<T>(int(d), batch, n);                            \
@@ -137,7 +139,7 @@ MF_EXTERN_WIDE(double)
                                                  int64_t n) {                           \
     if (o != 1)                                                                         \
       MF_SWITCH_DO(d, o,                                                                \
-                   (mf::general_adjoint_scratch<mf::UniformAdjStepsO<T, D_, O_>>(batch, n)), \
+                   (mf::general_adjoint_scratch<mf::UniformAdjStepsO<T, D_, O_, true>>(batch, n)), \
                    -1)                                                                  \
     MF_SWITCH_D(d, (mf::general_adjoint_scratch<mf::UniformAdjSteps<T, D_>>(batch, n)), -1) \
   }                                                                                     \

@@ -61,6 +61,7 @@ struct GeneralAdjointPrior {
   // gc [B, d, 1, N], gQ [B, d, d, N], gH [B, o, d, N], gnu [B, o, 1, N],
   // glam [B, o, o, N]
   T *gf, *gc, *gq, *gh, *gnu, *glam;
+  T* kept;  // scratch: the stage 1 pass 1 keeps for the lean pass 3 (o > 1), or null
 };
 
 // ---------------------------------------------------------------------------
@@ -121,18 +122,18 @@ struct GadjStage1 {
   }
 };
 
-// Walks thread t's steps t R .. t R + R - 1 (those below n) of batch row b
-// from the last to the first: reads each step's inputs and the filtered
-// moments of the step before (from the warp's stage when STAGED), builds
-// stage 1 with F_{k+1} carried from the later step (F_{last + 1} from
-// src.f_after) and calls body(in, st, k, r).  Every lane of the warp must
-// call it.
-template <bool STAGED, class Src, class Body>
+// Walks thread t's steps t R .. t R + R - 1 (those below n; R: the pass's
+// tiling GP's run) of batch row b from the last to the first: reads each
+// step's inputs and the filtered moments of the step before (from the
+// warp's stage when STAGED), builds stage 1 with F_{k+1} carried from the
+// later step (F_{last + 1} from src.f_after) and calls body(in, st, k, r).
+// Every lane of the warp must call it.
+template <class GP, bool STAGED, class Src, class Body>
 MF_DEV void gadjoint_walk(const Src& src, const typename Src::Prior& p, int64_t b, int64_t t,
-                          int64_t n, const WarpStage<typename Src::T, Src::G::R>& st,
+                          int64_t n, const WarpStage<typename Src::T, GP::R>& st,
                           const GeneralSlots& sl, const Body& body) {
   using T = typename Src::T;
-  constexpr int D = Src::D, R = Src::G::R;
+  constexpr int D = Src::D, R = GP::R;
   const int lane = lane_id();
   const int64_t first = t * R, last = imin(first + R, n) - 1;
   T fn[D * D], pprev[D * D];
@@ -398,33 +399,145 @@ struct GeneralAdjSteps {
 // o x o solve,
 //   (I + lam S) [X | e] = [lam | nu - lam H a],   S = H Pp H^T,
 // X = Zt lam, W = sym(X), and L_k = F_{k+1} - (F_{k+1} Pp H^T)(W H); the
-// element is (L_k^T, H^T e, sym(H^T W H)).  Stage 2's observation terms
-// (gadjoint_obs_o, _adjoint_grads_slice) take a second solve, lam [X | y] =
-// [I | nu], for lam^-1 and y; a masked step gives zero gH, gnu and glam.
-// Neither source stages its steps: each reads its values where they lie
-// and writes its per-step gradients to step k (a simple first version; at
-// d = 6 a step's values outgrow the warp's stage, StagedTiling::STAGED).
+// element is (L_k^T, H^T e, H^T W H), whose g and L legs the fold forms
+// from e and W.  Stage 2's observation terms (gadjoint_obs_o,
+// _adjoint_grads_slice) take a second solve, lam [X | y] = [I | nu], for
+// lam^-1 and y; a masked step gives zero gH, gnu and glam.  Each source
+// reads a step's values where they lie (at d = 6 they outgrow the warp's
+// stage, StagedTiling::STAGED) and writes its per-step gradients to step k.
+//
+// What bounds them at d = 6, o = 3 (PERF.md has the times): the arithmetic of a
+// step (stage 1 ~1.1k FMAs, the fold ~0.7k), in pass 1 the block scan's
+// full compositions (~0.65k FMAs each, six or seven a thread) and pass 2's
+// chain of them, at 255 registers a thread; and kernel 7's reads of its
+// 120 values a step (F, Q, c, P_{k-1}, m_{k-1}) where they lie, lanes R
+// steps apart, in passes 1 and 3, and its writes of gF, gQ and gc.  So:
+//   - where no observation term is asked for (GPR's backward: no gH, gnu
+//     or glam, and for kernel 3 no gHc), the entry points launch a lean
+//     pass 3 (OBS = false), whose stage 1 (GadjStage1O) is m_{k-1},
+//     F P_{k-1}, L_k, e and W alone (not Pp, a and Pp H^T: GadjStage1ObsO)
+//     and whose kernel 3 sums no gHc.  Kernel 7's pass 1 then keeps each
+//     step's stage 1 (KEEP: 90 values at d = 6, o = 3) in the scratch, in
+//     rows of pass-1 threads, so that its stores and pass 3's loads are
+//     whole rows, and its lean pass 3 reads that and H, not the step's
+//     inputs, and builds no stage 1 (pass 3 1.52 -> 0.87 ms, pass 1 +0.4 at
+//     (6, 3)).  Kernel 3 in float32 rebuilds stage 1 in pass 3 (it reads
+//     only P_{k-1} and m_{k-1} there; kept, pass 1's stores cost it more
+//     than pass 3 gained), in float64 it keeps it too (UniformAdjStepsO);
+//   - from d = 4 pass 1 runs 8 warps a block and runs of 8 steps a thread
+//     (pass 3: Tiling<D>'s 4 warps and 4 steps; the source's G1): 4x fewer
+//     block totals for pass 2 and half the block-scan compositions a step
+//     (RunSplit, as the filters' FilterSplit; runs of 16 took longer, as a
+//     thread's steps read where they lie outgrew L1).  Walking its run from
+//     the last step, pass 1 stores, as it enters each of its pass-3 runs
+//     but the last, the element of its later steps, and its in-block
+//     exclusive suffix where the last pass-3 run's is kept (prefix_slot); a
+//     pass-3 thread composes the g and L legs of its block's carry with the
+//     suffix and, but for the last of its pass-1 run, with that element;
+//   - in float32 passes 1 and 2 inline the composition (SmootherOp's
+//     CALL = false): as a call, its two elements went through local
+//     memory, and passes 1 and 2 took 1.3x and 2x as long;
+//   - kernel 3 sums the constants' gradients in shared memory, not in
+//     registers (UniformAdjStepsO).
+// Pass 1 is the lean source's for both routes (Pass1Of).
 // ---------------------------------------------------------------------------
 
-// The tiling of passes that read each step where it lies: Tiling<D>'s
-// block and run of steps, no stage.
-template <int D>
+// The tiling of passes that read each step where they lie: R_ steps a
+// thread (Tiling<D>'s by default) and WARPS_ warps a block, no stage.
+template <int D, int R_ = Tiling<D>::R, int WARPS_ = Tiling<D>::THREADS / 32>
 struct UnstagedTiling {
-  static constexpr int R = Tiling<D>::R, NV = 0, THREADS = Tiling<D>::THREADS;
-  static constexpr int WARPS = THREADS / 32;
+  static constexpr int R = R_, NV = 0, WARPS = WARPS_, THREADS = 32 * WARPS;
   static constexpr bool STAGED = false;
   static constexpr int64_t TILE = int64_t(THREADS) * R;
   static constexpr int SCAN_THREADS = 512;
 };
 
-// Stage 1 of step k at o x o sites: fp = F P_{k-1}, a = F m_{k-1} + c,
-// Pp = sym(fp F^T + Q), ph = Pp H^T [d x o], and the element's
-// lk = L_k, ge = H^T e, ell = sym(H^T W H).
+// Pass 1's source and tiling of a Koopman backward: a source with a lean
+// twin (Src::Totals) runs the twin's pass 1, in the twin's tiling G1; any
+// other source runs its own pass 1 in its own tiling G.  KEPT: the twin
+// sets KEEP, so pass 1 keeps its stage 1 where the lean pass 3 follows;
+// keeps: this source's pass 3 is that lean one, and reads it.
+// Op: the composition of passes 1 and 2, inlined for the sources with a
+// lean twin in float32 (in float64, inlined at d = 6, ptxas kept 32
+// registers, spilled 114 KB and pass 1 took 3-5x as long).
+template <class Src, class = void>
+struct Pass1Of {
+  using type = Src;
+  using G1 = typename Src::G;
+  using Op = SmootherOp<typename Src::T, Src::D>;
+  static constexpr bool KEPT = false, keeps = false;
+};
+template <class Src>
+struct Pass1Of<Src, std::void_t<typename Src::Totals>> {
+  using type = typename Src::Totals;
+  using G1 = typename type::G1;
+  using Op = SmootherOp<typename Src::T, Src::D,
+                        std::is_same_v<typename Src::T, double> && (Src::D >= 4)>;
+  static constexpr bool KEPT = type::KEEP, keeps = type::KEEP && !Src::OBS;
+};
+
+template <class Src>
+using AdjointSplit = RunSplit<typename Pass1Of<Src>::G1, typename Src::G>;
+
+// Values a thread of pass 3 keeps in the block's dynamic shared memory
+// (Src::SMEM3, after the stage; the source takes them in sums_in), else 0.
+template <class Src, class = void>
+struct Smem3Of {
+  static constexpr int value = 0;
+};
+template <class Src>
+struct Smem3Of<Src, std::void_t<decltype(Src::SMEM3)>> {
+  static_assert(!Src::G::STAGED, "its pass 3 reads its steps where they lie");
+  static constexpr int value = Src::SMEM3;
+};
+
+// Dynamic shared memory of pass 3: the stage of nv values a step, and
+// Smem3Of.
+template <class Src>
+size_t adjoint_pass3_bytes(int nv) {
+  using G = typename Src::G;
+  return general_stage_bytes<G, typename Src::T>(nv) +
+         size_t(Smem3Of<Src>::value) * G::THREADS * sizeof(typename Src::T);
+}
+
+// Stage 1 of step k at o x o sites: fp = F P_{k-1} and, for the element,
+// lk = L_k, e and W (mp = m_{k-1} is read into it first).
 template <typename T, int D, int O>
 struct GadjStage1O {
-  T mp[D], fp[D * D], a[D], pp[D * D], ph[D * O], lk[D * D], ge[D], ell[D * D];
+  static constexpr int SIZE = D + 2 * D * D + O + O * O;
+  T mp[D], fp[D * D], lk[D * D], e[O], w[O * O];
+
+  // the SIZE values, mp, fp, lk, e, w, to and from base[v * stride], each
+  // read once: marked first to go from the caches
+  MF_DEV void store(T* base, int64_t stride) const {
+    each(*this, [&](int v, const T& x) { __stcs(base + v * stride, x); });
+  }
+  MF_DEV void load(const T* base, int64_t stride) {
+    each(*this, [&](int v, T& x) { x = __ldcs(base + v * stride); });
+  }
+  template <class S, class F>
+  static MF_DEV void each(S& s, const F& f) {
+    int v = 0;
+#pragma unroll
+    for (int i = 0; i < D; ++i) f(v++, s.mp[i]);
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) f(v++, s.fp[i]);
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) f(v++, s.lk[i]);
+#pragma unroll
+    for (int i = 0; i < O; ++i) f(v++, s.e[i]);
+#pragma unroll
+    for (int i = 0; i < O * O; ++i) f(v++, s.w[i]);
+  }
 
   MF_DEV void build(const GeneralInO<T, D, O>& in, const T* pprev, const T* fn) {
+    T pp[D * D], a[D], ph[D * O];
+    terms(in, pprev, fn, pp, a, ph);
+  }
+
+  // ... and Pp, a = F m_{k-1} + c and ph = Pp H^T [d x o] to pp, a and ph
+  MF_DEV void terms(const GeneralInO<T, D, O>& in, const T* pprev, const T* fn, T* pp, T* a,
+                    T* ph) {
     constexpr int K = O + 1;
     mm<T, D, D, D>(in.f, pprev, fp);
     mm_nt<T, D, D, D>(fp, in.f, pp);
@@ -446,7 +559,7 @@ struct GadjStage1O {
       rhs[i * K + O] = in.nu[i] - lha[i];
     }
     gauss_jordan_solve<T, O, K>(mt, rhs, x);
-    T w[O * O], e[O], wh[O * D], fph[D * O];
+    T wh[O * D], fph[D * O];
 #pragma unroll
     for (int i = 0; i < O; ++i) {
 #pragma unroll
@@ -458,19 +571,26 @@ struct GadjStage1O {
     mm<T, D, O, D>(fph, wh, lk);
 #pragma unroll
     for (int i = 0; i < D * D; ++i) lk[i] = fn[i] - lk[i];
-    mm_tn<T, D, O, 1>(in.h, e, ge);
-    mm_tn<T, D, O, D>(in.h, wh, ell);
-    sym<T, D>(ell);
+  }
+};
+
+// GadjStage1O that also keeps Pp, a and Pp H^T for the observation terms.
+template <typename T, int D, int O>
+struct GadjStage1ObsO : GadjStage1O<T, D, O> {
+  T pp[D * D], a[D], ph[D * O];
+
+  MF_DEV void build(const GeneralInO<T, D, O>& in, const T* pprev, const T* fn) {
+    this->terms(in, pprev, fn, pp, a, ph);
   }
 };
 
 // gadjoint_fold at o x o sites: g <- L_k^T g + H^T e,
-// L <- sym(L_k^T L L_k + ell) and, when FULL, E <- L_k^T E.
+// L <- sym(L_k^T L L_k + H^T W H) and, when FULL, E <- L_k^T E.
 template <typename T, int D, bool FULL, int O>
-MF_DEV void gadjoint_fold(SElem<T, D>& x, const GadjStage1O<T, D, O>& st, const T*) {
+MF_DEV void gadjoint_fold(SElem<T, D>& x, const GadjStage1O<T, D, O>& st, const T* h) {
   using E = SElem<T, D>;
   T *ee = x.v + E::OE, *g = x.v + E::OG, *l = x.v + E::OL;
-  T t[D * D], u[D * D], v[D];
+  T t[D * D], u[D * D], v[D], he[D], wh[O * D];
   mm_tn<T, D, D, 1>(st.lk, g, v);
   mm<T, D, D, D>(l, st.lk, t);
   mm_tn<T, D, D, D>(st.lk, t, u);
@@ -479,10 +599,13 @@ MF_DEV void gadjoint_fold(SElem<T, D>& x, const GadjStage1O<T, D, O>& st, const 
 #pragma unroll
     for (int i = 0; i < D * D; ++i) ee[i] = t[i];
   }
+  mm_tn<T, D, O, 1>(h, st.e, he);
+  mm<T, O, O, D>(st.w, h, wh);
+  mm_tn<T, D, O, D>(h, wh, t);  // H^T W H
 #pragma unroll
-  for (int i = 0; i < D; ++i) g[i] = v[i] + st.ge[i];
+  for (int i = 0; i < D; ++i) g[i] = v[i] + he[i];
 #pragma unroll
-  for (int i = 0; i < D * D; ++i) l[i] = u[i] + st.ell[i];
+  for (int i = 0; i < D * D; ++i) l[i] = u[i] + t[i];
   sym<T, D>(l);
 }
 
@@ -494,7 +617,7 @@ MF_DEV void gadjoint_fold(SElem<T, D>& x, const GadjStage1O<T, D, O>& st, const 
 //   glam = (y y^T - H A H^T + lam^-1) / 2 [o x o];
 // gnu and glam only with `sites`; a masked step gives zeros.
 template <typename T, int D, int O>
-MF_DEV void gadjoint_obs_o(const GeneralInO<T, D, O>& in, const GadjStage1O<T, D, O>& s1,
+MF_DEV void gadjoint_obs_o(const GeneralInO<T, D, O>& in, const GadjStage1ObsO<T, D, O>& s1,
                            const T* r, const T* ndk, bool sites, T* gh, T* gnu, T* glam) {
   if (!in.keep) {
 #pragma unroll
@@ -548,17 +671,21 @@ MF_DEV void gadjoint_obs_o(const GeneralInO<T, D, O>& in, const GadjStage1O<T, D
 }
 
 // Kernel 7 at o = 2..d: per-step F, Q, c and H [o, d] through their
-// strides, each step read where it lies, every gradient written to step k.
-template <typename T_, int D_, int O_>
+// strides, each step read where it lies, every gradient written to step k;
+// with OBS_ also the observation terms (gH, gnu, glam) where asked for.
+template <typename T_, int D_, int O_, bool OBS_>
 struct GeneralAdjStepsO {
   using T = T_;
   static constexpr int D = D_, O = O_;
+  static constexpr bool OBS = OBS_;
   using Prior = GeneralAdjointPrior<T>;
   using G = UnstagedTiling<D>;
   using In = GeneralInO<T, D, O>;
-  using Stage1 = GadjStage1O<T, D, O>;
+  using Stage1 = std::conditional_t<OBS, GadjStage1ObsO<T, D, O>, GadjStage1O<T, D, O>>;
+  using G1 = UnstagedTiling<D, D <= 3 ? G::R : 8, D <= 3 ? G::WARPS : 8>;  // pass 1's
+  using Totals = GeneralAdjStepsO<T, D, O, false>;
   static constexpr int NSUM = 0;
-  static constexpr bool STAGED1 = false;
+  static constexpr bool STAGED1 = false, KEEP = true;
 
   MF_DEV void load(const Prior&, int64_t) {}
 
@@ -566,12 +693,13 @@ struct GeneralAdjStepsO {
     return {-1, -1, -1, -1, -1, -1, 0};
   }
 
-  template <bool STAGED>
-  MF_DEV void stage(const Prior&, int64_t, int64_t, int64_t, WarpStage<T, G::R>&,
+  template <bool STAGED, int R>
+  MF_DEV void stage(const Prior&, int64_t, int64_t, int64_t, WarpStage<T, R>&,
                     GeneralSlots&) const {}
 
+  template <int R>
   MF_DEV void f_after(const Prior& p, int64_t b, int64_t first, int64_t last, int64_t n,
-                      const WarpStage<T, G::R>&, T* fn) const {
+                      const WarpStage<T, R>&, T* fn) const {
     const GeneralPrior<T>& q = p.k;
 #pragma unroll
     for (int i = 0; i < D; ++i) {
@@ -583,16 +711,28 @@ struct GeneralAdjStepsO {
     }
   }
 
-  template <bool STAGED>
-  MF_DEV void read(In& in, T* mp, T* pprev, const WarpStage<T, G::R>& st,
-                   const GeneralSlots& sl, int lane, int r, const Prior& p, int64_t b,
-                   int64_t k, bool once, int64_t n) const {
+  template <bool STAGED, int R>
+  MF_DEV void read(In& in, T* mp, T* pprev, const WarpStage<T, R>& st, const GeneralSlots& sl,
+                   int lane, int r, const Prior& p, int64_t b, int64_t k, bool once,
+                   int64_t n) const {
     in.template read<false>(st, sl, lane, r, p.k, p, b, k, once);
     read_prev_moments<false, D>(p, st, sl, lane, r, b, k, n, mp, pprev);
   }
 
-  // gF, gc, gQ (gadjoint_prior_grads) and the observation terms, scaled by
-  // gs, at step k (null: not asked for)
+  // H of step k to h (only once, once, where its step stride is 0)
+  MF_DEV void read_h(const Prior& p, int64_t b, int64_t k, bool once, T* h) const {
+    const GeneralPrior<T>& q = p.k;
+    if (!once && q.h_st == 0) return;
+#pragma unroll
+    for (int i = 0; i < O; ++i) {
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        h[i * D + j] = q.h[b * q.h_sb + i * q.h_si + j * q.h_sj + k * q.h_st];
+    }
+  }
+
+  // gF, gc, gQ (gadjoint_prior_grads) and, with OBS, the observation
+  // terms, scaled by gs, at step k (null: not asked for)
   MF_DEV void out(const Prior& p, const In& in, const Stage1& s1, const T* rv, const T* ndk,
                   T gs, const WarpStage<T, G::R>&, int, int, int64_t b, int64_t k,
                   int64_t n) {
@@ -600,21 +740,23 @@ struct GeneralAdjStepsO {
     gadjoint_n<T, D>(rv, ndk, nm);
     const auto at = [&](T* arr, int rows) { return arr == nullptr ? arr : arr + b * rows * n + k; };
     gadjoint_prior_grads<T, D>(s1, rv, nm, gs, at(p.gf, D * D), at(p.gc, D), at(p.gq, D * D), n);
-    if (p.gh == nullptr && p.gnu == nullptr && p.glam == nullptr) return;
-    T gh[O * D], gnu[O], glam[O * O];
-    gadjoint_obs_o<T, D, O>(in, s1, rv, ndk, p.gnu != nullptr || p.glam != nullptr, gh, gnu,
-                            glam);
-    if (p.gh != nullptr) {
+    if constexpr (OBS) {
+      if (p.gh == nullptr && p.gnu == nullptr && p.glam == nullptr) return;
+      T gh[O * D], gnu[O], glam[O * O];
+      gadjoint_obs_o<T, D, O>(in, s1, rv, ndk, p.gnu != nullptr || p.glam != nullptr, gh, gnu,
+                              glam);
+      if (p.gh != nullptr) {
 #pragma unroll
-      for (int i = 0; i < O * D; ++i) p.gh[(b * O * D + i) * n + k] = gs * gh[i];
-    }
-    if (p.gnu != nullptr) {
+        for (int i = 0; i < O * D; ++i) p.gh[(b * O * D + i) * n + k] = gs * gh[i];
+      }
+      if (p.gnu != nullptr) {
 #pragma unroll
-      for (int i = 0; i < O; ++i) p.gnu[(b * O + i) * n + k] = gs * gnu[i];
-    }
-    if (p.glam != nullptr) {
+        for (int i = 0; i < O; ++i) p.gnu[(b * O + i) * n + k] = gs * gnu[i];
+      }
+      if (p.glam != nullptr) {
 #pragma unroll
-      for (int i = 0; i < O * O; ++i) p.glam[(b * O * O + i) * n + k] = gs * glam[i];
+        for (int i = 0; i < O * O; ++i) p.glam[(b * O * O + i) * n + k] = gs * glam[i];
+      }
     }
   }
 
@@ -624,35 +766,63 @@ struct GeneralAdjStepsO {
 };
 
 // The (d, o) pairs of the Koopman backwards at o > 1 are those of the
-// general filter (MF_GENERAL_O_PAIRS): adjointo_inst.cu instantiates both.
+// general filter (MF_GENERAL_O_PAIRS): adjointo_inst.cu instantiates both,
+// each with and without the observation terms.
+
+// The kept stage 1 of pass-1 thread t1's step r1 (of its run), batch row b
+// (nblk1: pass 1's blocks a row): value v at the result + v nblk1 TILE1, in
+// rows of pass-1 threads, so that pass 1's lanes store whole rows and pass
+// 3's (SUB to a pass-1 thread) load SUB whole half rows.
+template <class Src>
+MF_DEV typename Src::T* kept_stage1(typename Src::T* kept, int64_t b, int64_t t1, int r1,
+                                    int64_t nblk1) {
+  using G1 = typename Pass1Of<Src>::G1;
+  constexpr int SIZE1 = Pass1Of<Src>::type::Stage1::SIZE;
+  return kept + (b * SIZE1 * G1::R + r1) * (nblk1 * G1::THREADS) + t1;
+}
 
 template <class Src>
-__global__ void __launch_bounds__(Src::G::THREADS)
+__global__ void __launch_bounds__(Pass1Of<Src>::G1::THREADS)
 gadjoint_totals(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
   using T = typename Src::T;
   constexpr int D = Src::D;
-  using G = typename Src::G;
-  using Op = SmootherOp<T, D>;
+  using G = typename Pass1Of<Src>::G1;
+  using Op = typename Pass1Of<Src>::Op;
   using E = SElem<T, D>;
-  constexpr int THREADS = G::THREADS;
+  constexpr int THREADS = G::THREADS, SUB = AdjointSplit<Src>::SUB, R3 = G::R / SUB;
   __shared__ E smem[THREADS / 32 + 1];
-  const int64_t b = blockIdx.y, t = blockIdx.x * int64_t(THREADS) + threadIdx.x;
+  const int64_t b = blockIdx.y, n = a.n, t = blockIdx.x * int64_t(THREADS) + threadIdx.x;
+  const int64_t pre = a.nblk * THREADS * SUB;  // the stored elements of a row
   Src src;
   src.load(p, b);
   WarpStage<T, G::R> st;
   GeneralSlots sl{};
-  src.template stage<Src::STAGED1>(p, b, t, a.n, st, sl);
+  src.template stage<Src::STAGED1>(p, b, t, n, st, sl);
   E run, excl, total;
   Op::identity(run);
-  gadjoint_walk<Src::STAGED1>(src, p, b, t, a.n, st, sl,
-                [&](const typename Src::In& in, const typename Src::Stage1& s1, int64_t, int) {
+  gadjoint_walk<G, Src::STAGED1>(src, p, b, t, n, st, sl,
+                [&](const typename Src::In& in, const typename Src::Stage1& s1, int64_t k,
+                    int r) {
+                  // stage 1 kept for the lean pass 3 (kept_stage1)
+                  if constexpr (Pass1Of<Src>::keeps) {
+                    if (p.kept != nullptr)
+                      s1.store(kept_stage1<Src>(p.kept, b, t, r, a.nblk), a.nblk * G::TILE);
+                  }
+                  // entering one of its pass-3 runs but the last (its first
+                  // step walked): the element of the run's later steps
+                  if constexpr (SUB > 1) {
+                    if (((r + 1) % R3 == 0 || k + 1 == n) && r / R3 < SUB - 1)
+                      store_thread_elem(a.prefix, run, b,
+                                        prefix_slot<SUB>(t * SUB + r / R3, pre), pre);
+                  }
                   gadjoint_fold<T, D, true>(run, s1, in.h);
                 });
   block_scan<Op, THREADS, true>(run, excl, total, smem);
-  store_thread_elem(a.prefix, excl, b, t, a.nblk * THREADS);
+  store_thread_elem(a.prefix, excl, b, prefix_slot<SUB>(t * SUB + SUB - 1, pre), pre);
   if (threadIdx.x == 0) reinterpret_cast<E*>(a.totals)[b * a.nblk + blockIdx.x] = total;
 }
 
+// a.nblk: pass 3's blocks a row, AdjointSplit's BPB to each of pass 1's
 template <class Src>
 __global__ void __launch_bounds__(Src::G::THREADS)
 gadjoint_outputs(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
@@ -660,31 +830,61 @@ gadjoint_outputs(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
   constexpr int D = Src::D;
   using G = typename Src::G;
   using E = SElem<T, D>;
-  constexpr int THREADS = G::THREADS;
+  constexpr int THREADS = G::THREADS, SUB = AdjointSplit<Src>::SUB,
+                BPB = AdjointSplit<Src>::BPB;
   const int64_t b = blockIdx.y, n = a.n, t = blockIdx.x * int64_t(THREADS) + threadIdx.x;
+  const int64_t pre = a.nblk * THREADS;  // the stored elements of a row
   const int lane = lane_id();
   Src src;
   src.load(p, b);
   WarpStage<T, G::R> st;
   GeneralSlots sl{};
   src.template stage<G::STAGED>(p, b, t, n, st, sl);
-  // the g and L legs of the later threads of this block, then all later
-  // blocks
+  if constexpr (Smem3Of<Src>::value > 0) src.sums_in(reinterpret_cast<T*>(mf_wide_smem));
+  // the g and L legs of all later blocks of pass 1, then the later threads
+  // of this one, then, where SUB > 1, the later steps of its pass-1
+  // thread's run
   E run;
   {
     E x;
-    load_thread_elem(a.prefix, x, b, t, a.nblk * THREADS);
-    const E& c = reinterpret_cast<const E*>(a.totals)[b * a.nblk + blockIdx.x];
+    load_thread_elem(a.prefix, x, b, prefix_slot<SUB>(t - t % SUB + SUB - 1, pre), pre);
+    const E& c = reinterpret_cast<const E*>(a.totals)[b * (a.nblk / BPB) + blockIdx.x / BPB];
     smoother_gl<T, D>(x.v + E::OE, x.v + E::OG, x.v + E::OL, c.v + E::OG, c.v + E::OL,
                       run.v + E::OG, run.v + E::OL);
+    if constexpr (SUB > 1) {
+      if (t % SUB != SUB - 1) {
+        T g[D], l[D * D];
+        load_thread_elem(a.prefix, x, b, prefix_slot<SUB>(t, pre), pre);
+        smoother_gl<T, D>(x.v + E::OE, x.v + E::OG, x.v + E::OL, run.v + E::OG, run.v + E::OL,
+                          g, l);
+#pragma unroll
+        for (int i = 0; i < D; ++i) run.v[E::OG + i] = g[i];
+#pragma unroll
+        for (int i = 0; i < D * D; ++i) run.v[E::OL + i] = l[i];
+      }
+    }
   }
   const T gs = p.gscale[b];
-  gadjoint_walk<G::STAGED>(src, p, b, t, n, st, sl,
-                [&](const typename Src::In& in, const typename Src::Stage1& s1, int64_t k,
-                    int r) {
-                  gadjoint_fold<T, D, false>(run, s1, in.h);
-                  src.out(p, in, s1, run.v + E::OG, run.v + E::OL, gs, st, lane, r, b, k, n);
-                });
+  const auto step = [&](const typename Src::In& in, const typename Src::Stage1& s1, int64_t k,
+                        int r) {
+    gadjoint_fold<T, D, false>(run, s1, in.h);
+    src.out(p, in, s1, run.v + E::OG, run.v + E::OL, gs, st, lane, r, b, k, n);
+  };
+  if constexpr (Pass1Of<Src>::keeps) {
+    // stage 1 as pass 1 kept it, H where it lies: no other input of a step
+    const int64_t first = t * G::R, last = imin(first + G::R, n) - 1;
+    typename Src::In in;
+    typename Src::Stage1 s1;
+    for (int r = int(last - first); r >= 0; --r) {
+      const int64_t k = first + r;
+      src.read_h(p, b, k, k == last, in.h);
+      s1.load(kept_stage1<Src>(p.kept, b, t / SUB, int(t % SUB) * G::R + r, a.nblk / BPB),
+              a.nblk / BPB * Pass1Of<Src>::G1::TILE);
+      step(in, s1, k, r);
+    }
+  } else {
+    gadjoint_walk<G, G::STAGED>(src, p, b, t, n, st, sl, step);
+  }
   if constexpr (Src::NSUM > 0) {
     __shared__ T red[Src::NSUM * (THREADS / 32)];
     src.template finish<THREADS>(p, a, st, b, red);
@@ -693,13 +893,18 @@ gadjoint_outputs(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
   }
 }
 
-// Scratch of the Koopman backward passes in elements of T: the block
-// totals, every thread's in-block suffix and the NSUM partial sums a block.
+// Scratch of the Koopman backward passes in elements of T: pass 1's block
+// totals, every pass-3 thread's stored element, the NSUM partial sums of
+// each pass-3 block and, for a source with a lean twin, the kept stage 1
+// of every step.
 template <class Src>
 int64_t general_adjoint_scratch(int64_t batch, int64_t n) {
-  using G = typename Src::G;
-  return batch * num_blocks(n, G::TILE) *
-         (SElem<typename Src::T, Src::D>::SIZE * (1 + G::THREADS) + Src::NSUM);
+  using P1 = Pass1Of<Src>;
+  constexpr int SIZE = SElem<typename Src::T, Src::D>::SIZE;
+  const int64_t nblk = num_blocks(n, P1::G1::TILE), nblk3 = nblk * AdjointSplit<Src>::BPB;
+  int64_t kept = 0;
+  if constexpr (P1::KEPT) kept = nblk * P1::G1::TILE * P1::type::Stage1::SIZE;
+  return batch * (nblk * SIZE + nblk3 * (SIZE * Src::G::THREADS + Src::NSUM) + kept);
 }
 
 // pass_occupancy of passes 1, 3 and 2 (out[0..11]), staged for the largest
@@ -707,14 +912,17 @@ int64_t general_adjoint_scratch(int64_t batch, int64_t n) {
 template <class Src>
 int general_adjoint_occupancy(int64_t* out) {
   using T = typename Src::T;
+  using S1 = typename Pass1Of<Src>::type;
   using G = typename Src::G;
-  const size_t bytes = general_stage_bytes<G, T>(G::NV), b1 = Src::STAGED1 ? bytes : 0;
-  int err = wide_smem_bytes(gadjoint_totals<Src>, b1);
+  using G1 = typename Pass1Of<Src>::G1;
+  const size_t bytes = adjoint_pass3_bytes<Src>(G::NV),
+               b1 = S1::STAGED1 ? general_stage_bytes<G1, T>(G1::NV) : 0;
+  int err = wide_smem_bytes(gadjoint_totals<S1>, b1);
   if (err == 0) err = wide_smem_bytes(gadjoint_outputs<Src>, bytes);
-  if (err == 0) err = pass_occupancy(gadjoint_totals<Src>, G::THREADS, b1, out);
+  if (err == 0) err = pass_occupancy(gadjoint_totals<S1>, G1::THREADS, b1, out);
   if (err == 0) err = pass_occupancy(gadjoint_outputs<Src>, G::THREADS, bytes, out + 4);
   if (err == 0)
-    err = pass_occupancy(scan_totals<SmootherOp<T, Src::D>, G::SCAN_THREADS, true>,
+    err = pass_occupancy(scan_totals<typename Pass1Of<Src>::Op, G::SCAN_THREADS, true>,
                          G::SCAN_THREADS, 0, out + 8);
   return err;
 }
@@ -723,28 +931,36 @@ template <class Src>
 int launch_general_adjoint(typename Src::Prior p, typename Src::T* scratch, int64_t batch,
                            int64_t n, cudaStream_t stream) {
   using T = typename Src::T;
-  constexpr int D = Src::D;
+  constexpr int D = Src::D, SIZE = SElem<T, D>::SIZE;
+  using S1 = typename Pass1Of<Src>::type;
   using G = typename Src::G;
-  SmootherArgs<T> a{nullptr, nullptr, scratch, n, num_blocks(n, G::TILE)};
-  a.prefix = scratch + batch * a.nblk * SElem<T, D>::SIZE;
-  const size_t bytes = general_stage_bytes<G, T>(Src::slots(p).nv),
-               b1 = Src::STAGED1 ? bytes : 0;
-  int err = wide_smem_bytes(gadjoint_totals<Src>, b1);
+  using G1 = typename Pass1Of<Src>::G1;
+  SmootherArgs<T> a{nullptr, nullptr, scratch, n, num_blocks(n, G1::TILE)};
+  a.prefix = scratch + batch * a.nblk * SIZE;
+  SmootherArgs<T> a3 = a;  // pass 3's blocks
+  a3.nblk = a.nblk * AdjointSplit<Src>::BPB;
+  T* partials = a.prefix + batch * a3.nblk * G::THREADS * SIZE;
+  if constexpr (Src::NSUM > 0) p.partials = partials;
+  // the kept stage 1, where the lean pass 3 reads it
+  if constexpr (Pass1Of<Src>::KEPT)
+    p.kept = Pass1Of<Src>::keeps ? partials + batch * a3.nblk * Src::NSUM : nullptr;
+  const size_t bytes = adjoint_pass3_bytes<Src>(Src::slots(p).nv),
+               b1 = S1::STAGED1 ? general_stage_bytes<G1, T>(S1::slots(p).nv) : 0;
+  int err = wide_smem_bytes(gadjoint_totals<S1>, b1);
   if (err == 0) err = wide_smem_bytes(gadjoint_outputs<Src>, bytes);
   if (err != 0) return err;
-  const dim3 grid(unsigned(a.nblk), unsigned(batch));
-  gadjoint_totals<Src><<<grid, G::THREADS, b1, stream>>>(a, p);
+  gadjoint_totals<S1><<<dim3(unsigned(a.nblk), unsigned(batch)), G1::THREADS, b1, stream>>>(a, p);
   MF_CHECK_LAUNCH();
-  scan_totals<SmootherOp<T, D>, G::SCAN_THREADS, true>
+  scan_totals<typename Pass1Of<Src>::Op, G::SCAN_THREADS, true>
       <<<unsigned(batch), G::SCAN_THREADS, 0, stream>>>(
       reinterpret_cast<SElem<T, D>*>(a.totals), a.nblk);
   MF_CHECK_LAUNCH();
-  if constexpr (Src::NSUM > 0) p.partials = a.prefix + batch * a.nblk * G::THREADS * SElem<T, D>::SIZE;
-  gadjoint_outputs<Src><<<grid, G::THREADS, bytes, stream>>>(a, p);
+  gadjoint_outputs<Src><<<dim3(unsigned(a3.nblk), unsigned(batch)), G::THREADS, bytes, stream>>>(
+      a3, p);
   MF_CHECK_LAUNCH();
   if constexpr (Src::NSUM > 0) {
     sum_partials<T, 256><<<dim3(unsigned(Src::NSUM), unsigned(batch)), 256, 0, stream>>>(
-        p.partials, a.nblk, Src::NSUM, p.gscale, p.gsums);
+        p.partials, a3.nblk, Src::NSUM, p.gscale, p.gsums);
     MF_CHECK_LAUNCH();
   }
   return 0;
@@ -1016,7 +1232,8 @@ int launch_wide_general_adjoint(GeneralAdjointPrior<T> p, T* scratch, int64_t ba
 // C entry point for one dtype (T, suffix), as in general_scan.cuh: the
 // strides of F, c, Q, H and the sites in the general filter's order; the
 // scratch is mf_general_adjoint_scratch_*'s; any gradient pointer may be
-// null; the output dim o is 1 or, at d <= 6, one of MF_GENERAL_O_PAIRS.
+// null; the output dim o is 1 or, at d <= 6, one of MF_GENERAL_O_PAIRS (where
+// gH, gnu and glam are all null, through the lean pass 3).
 #define MF_DEFINE_GENERAL_ADJOINT_ENTRY_POINTS(T, SUFFIX)                              \
   extern "C" int mf_general_adjoint_##SUFFIX(                                          \
       const T* f, const T* c, const T* q, const T* h, const T* nu, const T* lam,       \
@@ -1035,9 +1252,15 @@ int launch_wide_general_adjoint(GeneralAdjointPrior<T> p, T* scratch, int64_t ba
     p.m_f = m_f; p.p_f = p_f; p.gscale = gscale;                                       \
     p.gf = gf; p.gc = gc; p.gq = gq; p.gh = gh; p.gnu = gnu; p.glam = glam;            \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (o != 1 && gh == nullptr && gnu == nullptr && glam == nullptr)                  \
+      MF_SWITCH_DO(d, o,                                                               \
+                   (mf::launch_general_adjoint<mf::GeneralAdjStepsO<T, D_, O_, false>>( \
+                       p, scratch, batch, n, s)),                                      \
+                   int(cudaErrorInvalidValue))                                         \
     if (o != 1)                                                                        \
-      MF_SWITCH_DO(d, o, (mf::launch_general_adjoint<mf::GeneralAdjStepsO<T, D_, O_>>(  \
-                             p, scratch, batch, n, s)),                                \
+      MF_SWITCH_DO(d, o,                                                               \
+                   (mf::launch_general_adjoint<mf::GeneralAdjStepsO<T, D_, O_, true>>(  \
+                       p, scratch, batch, n, s)),                                      \
                    int(cudaErrorInvalidValue))                                         \
     if (d >= mf::WIDE_MIN_D)                                                           \
       return mf::launch_wide_general_adjoint<T>(p, scratch, batch, n, int(d), s);      \

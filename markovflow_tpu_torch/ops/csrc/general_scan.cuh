@@ -1250,15 +1250,18 @@ MF_DEV int64_t prefix_slot(int64_t t, int64_t pre) {
   return SUB == 1 ? t : (t % SUB) * (pre / SUB) + t / SUB;
 }
 
-template <class Src>
-struct FilterSplit {
-  using G1 = FilterTiling1<Src>;
-  using G3 = FilterTiling<Src>;
+// Pass 1's tiling G1 against pass 3's G3: SUB pass-3 runs a pass-1 run,
+// BPB pass-3 blocks a pass-1 block.
+template <class G1, class G3>
+struct RunSplit {
   static_assert(G1::R % G3::R == 0 && G1::TILE % G3::TILE == 0,
                 "pass 1's runs and tile are whole pass-3 runs and tiles");
   static constexpr int SUB = G1::R / G3::R;
   static constexpr int BPB = int(G1::TILE / G3::TILE);
 };
+
+template <class Src>
+using FilterSplit = RunSplit<FilterTiling1<Src>, FilterTiling<Src>>;
 
 template <class Src>
 __global__ void __launch_bounds__(FilterTiling1<Src>::THREADS)

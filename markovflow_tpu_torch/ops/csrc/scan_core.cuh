@@ -130,7 +130,11 @@ struct FilterOp {
   }
 };
 
-template <typename T, int D>
+// CALL: the composition is a call (combine_call), not inlined; the default
+// at d >= 4, as FilterOp's.  The Koopman backwards at o x o sites inline it
+// in float32 (general_adjoint.cuh, Pass1Of): there the call's arguments,
+// two elements through local memory, took half of each composition's time.
+template <typename T, int D, bool CALL = (D >= 4)>
 struct SmootherOp {
   using Elem = SElem<T, D>;
 
@@ -144,7 +148,7 @@ struct SmootherOp {
   // out = e (earlier) composed with l (later, the suffix):
   // E = eE lE, g = eE lg + eg, L = sym(eE lL eE^T + eL)
   static MF_DEV void combine(const Elem& e, const Elem& l, Elem& out) {
-    if constexpr (D >= 4) combine_call(e, l, out);
+    if constexpr (CALL) combine_call(e, l, out);
     else combine_body(e, l, out);
   }
 

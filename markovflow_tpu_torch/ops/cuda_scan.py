@@ -216,7 +216,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.argtypes = [p] * 6 + [i64] * 3 + [p]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"mf_uniform_adjoint_{sfx}")
-        fn.argtypes = [p] * 10 + [p] * 3 + [p] * 6 + [i64] * 4 + [p]
+        fn.argtypes = [p] * 10 + [p] * 3 + [p] * 5 + [i64, p] + [i64] * 4 + [p]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"mf_filter_scan_{sfx}")
         fn.argtypes = [p] * 5 + [p] * 3 + [i64] * 3 + [p]

@@ -174,3 +174,44 @@ def test_uniform_likelihood_routes_by_state_dim(monkeypatch, d):
     with torch.no_grad():
         want = filter_pipeline_uniform_plain(*x)[2]
     np.testing.assert_allclose(ll.item(), want.item(), rtol=1e-12)
+
+
+@pytest.mark.parametrize("site_grads, hc_grad", [(True, True), (False, True), (True, False),
+                                                 (False, False)])
+def test_uniform_wrapper_returns_none_for_what_is_not_asked(site_grads, hc_grad):
+    """On CPU tensors the uniform Koopman backward's wrapper returns its
+    plain version's outputs, and None for gHc without ``hc_grad`` and for
+    gnu and glam without ``site_grads``, as a CUDA call does (which does
+    not compute them at o > 1)."""
+    x = [v.detach() for v in _constant_ssm(3, 41)]
+    m_f, p_f, _ = filter_pipeline_uniform_plain(*x)
+    gs = torch.tensor(0.7, dtype=torch.float64)
+    got = adj.adjoint_pipeline_uniform(*x, None, m_f, p_f, gs, site_grads=site_grads,
+                                       hc_grad=hc_grad)
+    want = adj.adjoint_pipeline_uniform_plain(*x, None, m_f, p_f, gs)
+    asked = (True,) * 5 + (hc_grad,) + (site_grads,) * 2
+    for key, g, w, a in zip(ADJOINT_NAMES, got, want, asked):
+        if a:
+            torch.testing.assert_close(g, w, rtol=0, atol=0, msg=key)
+        else:
+            assert g is None, key
+
+
+@pytest.mark.parametrize("hc_trainable", [False, True])
+def test_uniform_backward_asks_for_ghc_only_when_hc_needs_it(monkeypatch, hc_trainable):
+    """The uniform likelihood's backward asks its kernel for gHc only where
+    the emission needs a gradient (GPR's does not), and for gnu and glam
+    where the sites do."""
+    asked = []
+    wrapper = adj.adjoint_pipeline_uniform
+
+    def recording(*args, **kwargs):
+        asked.append(kwargs)
+        return wrapper(*args, **kwargs)
+    monkeypatch.setattr(adj, "adjoint_pipeline_uniform", recording)
+    x = _constant_ssm(3, 41)
+    x[5].requires_grad_(hc_trainable)
+    adj.log_likelihood_koopman_uniform(*x).backward()
+    assert asked == [{"site_grads": True, "hc_grad": hc_trainable}]
+    assert (x[5].grad is not None) == hc_trainable
+    assert all(v.grad is not None for i, v in enumerate(x) if i != 5)

@@ -189,6 +189,10 @@ template <typename T> T __shfl_down_sync(unsigned, T v, int off) {
   return mf_shim_shfl_from(v, int(mf_shim::tid.x & 31) + off);
 }
 
+// Loads and stores with a cache hint: plain ones here.
+template <typename T> T __ldcs(const T* p) { return *p; }
+template <typename T> void __stcs(T* p, T v) { *p = v; }
+
 template <class K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) {
   return bytes > 232448 ? cudaErrorInvalidValue : cudaSuccess;
