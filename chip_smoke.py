@@ -2747,7 +2747,7 @@ def stored_bytes(x) -> int:
     return math.prod(n for n, st in zip(x.shape, x.stride()) if st != 0) * x.element_size()
 
 
-def step_flops(name: str, d: int, o: int = 1) -> int:
+def step_flops(name: str, d: int, o: int = 1, obs: bool = True) -> int:
     """Operations of one step of the sequential recursion that a kernel's
     function computes (counting a d x d product as 2 d^3 and a d x d
     inverse as 2 d^3): the least arithmetic of the function, whatever the
@@ -2770,12 +2770,17 @@ def step_flops(name: str, d: int, o: int = 1) -> int:
         Zt lam and e (2 o^2 (o + 1) + 2 o^3), W H, F Pp H^T, their product
         and H^T W H (2 d o^2 + 6 d^2 o), and the observation terms:
         Pp NDK Pp H^T (4 d^2 o), lam H A and H A H^T (4 d o^2) and lam^-1
-        (4 o^3)."""
+        (4 o^3).  With obs False (a backward that writes no gH, gnu or
+        glam) neither the observation terms nor the uniform one's smoothed
+        covariance count."""
     d2, d3 = d * d, d ** 3
     if name in ("filter_pipeline", "filter_pipeline_uniform") and o > 1:
         return (4 * d3 + 4 * d2 * o + 4 * d * o * o + 2 * o * o * (o + 1) + 10 * o ** 3
                 + 6 * d2)
     extra = (12 * d2 * o + 8 * d * o * o + 2 * o * o * (o + 1) + 6 * o ** 3) if o > 1 else 0
+    if not obs:
+        extra -= (4 * d2 * o + 4 * d * o * o + 4 * o ** 3) if o > 1 else 0
+        extra -= 4 * d3 if name == "adjoint_pipeline_uniform" else 0
     return extra + {"filter_pipeline_uniform": 4 * d3 + 6 * d2,
             "filter_pipeline": 4 * d3 + 6 * d2,
             "smoother_pipeline_uniform": 12 * d3 + 6 * d2,
@@ -2789,7 +2794,8 @@ def bound(name, inputs, outputs, d, steps):
     """(bound_ms, bound_by) of one call: the larger of its bytes (each
     input read once, each output written once) over the H100's memory rate
     and its operations (step_flops per step, at the call's output dim)
-    over the H100's rate for its dtype."""
+    over the H100's rate for its dtype; a Koopman backward's observation
+    terms count only where the call wrote gH, gnu or glam."""
     nbytes = sum(stored_bytes(x) for x in list(inputs) + list(outputs)
                  if isinstance(x, torch.Tensor))
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
@@ -2797,8 +2803,11 @@ def bound(name, inputs, outputs, d, steps):
     lam_at = {"filter_pipeline": 5, "adjoint_pipeline": 5, "filter_pipeline_uniform": 7,
               "adjoint_pipeline_uniform": 7}
     o = inputs[lam_at[name]].shape[-3] if name in lam_at else 1
+    # a backward's gH, gnu and glam (the uniform one's gHc, gnu and glam)
+    obs_at = {"adjoint_pipeline": slice(3, 6), "adjoint_pipeline_uniform": slice(5, 8)}
+    obs = name not in obs_at or any(x is not None for x in outputs[obs_at[name]])
     rate = H100_F64_FLOPS if inputs[0].dtype == torch.float64 else H100_F32_FLOPS
-    t_ops = step_flops(name, d, o) * steps / rate * 1e3
+    t_ops = step_flops(name, d, o, obs) * steps / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

@@ -187,7 +187,7 @@ def adjoint_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf, m_f,
     gp0 = torch.empty((B, d, d, 1), **kw)
     # the summed gradients, one row per series: Fc, cc, Qc, Hc
     gsums = torch.empty((B, 2 * d * d + d + o * d), **kw)
-    scratch = cs._scratch("adjoint", sfx, (d, o), B, n, nu)
+    scratch = cs._scratch("adjoint", sfx, (d, o, int(hc_grad or site_grads)), B, n, nu)
     with torch.cuda.device(nu.device):
         err = getattr(cs.build_kernels(), f"mf_uniform_adjoint_{sfx}")(
             *(x.data_ptr() for x in consts), *sites,
@@ -268,7 +268,7 @@ def adjoint_pipeline(F, c, Q, H, nu, lam, maskf, m_f, p_f, gscale,
     shapes = ((d, d, n), (d, 1, n), (d, d, n), (o, d, n), (o, 1, n), (o, o, n))
     grads = [torch.empty((B,) + shape, **kw) if need else None
              for shape, need in zip(shapes, needs)]
-    scratch = cs._scratch("general_adjoint", sfx, (d, o), B, n, F)
+    scratch = cs._scratch("general_adjoint", sfx, (d, o, int(any(needs[3:]))), B, n, F)
     with torch.cuda.device(F.device):
         err = getattr(cs.build_kernels(), f"mf_general_adjoint_{sfx}")(
             *ptrs, strides, m_b.data_ptr(), p_b.data_ptr(), gs.data_ptr(),

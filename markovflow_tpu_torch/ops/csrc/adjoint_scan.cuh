@@ -358,8 +358,7 @@ struct UniformAdjStepsO {
 
   // the block's sums to its partial: sum v of the columns in thread order
   template <int THREADS>
-  MF_DEV void finish(const Prior& p, const SmootherArgs<T>& a, const WarpStage<T, G::R>&,
-                     int64_t b, T*) {
+  MF_DEV void finish(const Prior& p, const SmootherArgs<T>& a, int64_t b) {
     __syncthreads();
     const T* col0 = acc - threadIdx.x;
     for (int v = threadIdx.x; v < NSUM; v += THREADS) {

@@ -76,7 +76,10 @@ MF_EXTERN_WIDE(double)
 
 // Scratch sizes in elements of T (-1 for a state (or output) dimension with
 // no kernel; the filters and the Koopman backwards take the output dim o,
-// 1 or a pair of MF_GENERAL_O_PAIRS, after d):
+// 1 or a pair of MF_GENERAL_O_PAIRS, after d; the Koopman backwards then
+// obs, 0 where the call writes no observation term: the lean route's
+// scratch, which at o > 1 also keeps pass 1's stage 1 where its source
+// keeps it):
 // mf_smoother_scratch_* for the smoother scan; at d <= 6 the filters, the
 // Koopman backwards and the smoothers also keep each thread's in-block
 // prefix or suffix (the uniform backward also its partial sums),
@@ -119,7 +122,12 @@ MF_EXTERN_WIDE(double)
     MF_SWITCH_D(d, (mf::general_filter_scratch<mf::GeneralSteps<T, D_>>(batch, n)), -1) \
   }                                                                                     \
   extern "C" int64_t mf_general_adjoint_scratch_##SUFFIX(int64_t d, int64_t o,         \
-                                                         int64_t batch, int64_t n) {   \
+                                                         int64_t obs, int64_t batch,   \
+                                                         int64_t n) {                  \
+    if (o != 1 && obs == 0)                                                             \
+      MF_SWITCH_DO(d, o,                                                                \
+                   (mf::general_adjoint_scratch<mf::GeneralAdjStepsO<T, D_, O_, false>>(batch, n)), \
+                   -1)                                                                  \
     if (o != 1)                                                                         \
       MF_SWITCH_DO(d, o,                                                                \
                    (mf::general_adjoint_scratch<mf::GeneralAdjStepsO<T, D_, O_, true>>(batch, n)), \
@@ -135,8 +143,12 @@ MF_EXTERN_WIDE(double)
                                           mf::WideUniformRtsRow<T>::BUILD);             \
     MF_SWITCH_D(d, (mf::rts_scratch<mf::UniformRtsRow<T, D_>>(batch, n)), -1)           \
   }                                                                                     \
-  extern "C" int64_t mf_adjoint_scratch_##SUFFIX(int64_t d, int64_t o, int64_t batch,  \
-                                                 int64_t n) {                           \
+  extern "C" int64_t mf_adjoint_scratch_##SUFFIX(int64_t d, int64_t o, int64_t obs,    \
+                                                 int64_t batch, int64_t n) {            \
+    if (o != 1 && obs == 0)                                                             \
+      MF_SWITCH_DO(d, o,                                                                \
+                   (mf::general_adjoint_scratch<mf::UniformAdjStepsO<T, D_, O_, false>>(batch, n)), \
+                   -1)                                                                  \
     if (o != 1)                                                                         \
       MF_SWITCH_DO(d, o,                                                                \
                    (mf::general_adjoint_scratch<mf::UniformAdjStepsO<T, D_, O_, true>>(batch, n)), \

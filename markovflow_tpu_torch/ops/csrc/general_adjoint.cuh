@@ -302,7 +302,9 @@ MF_DEV void read_prev_moments(const P& p, const WarpStage<T, R>& st, const Gener
 //   out(prior, in, s1, rv, ndk, gs, st, l, r, b, k, n): pass 3, the step's
 //     gradients from r = rv and NDK = ndk of the suffix from step k on;
 //   finish<THREADS>(prior, a, st, b, red): pass 3's end, after every step
-//     (red: NSUM values a warp of the block's shared memory).
+//     (red: NSUM values a warp of the block's shared memory); a source with
+//     SMEM3 (Smem3Of) takes finish<THREADS>(prior, a, b), its sums in the
+//     dynamic shared memory.
 
 // Kernel 7: per-step F, Q, c and H through their strides, staged with the
 // sites and (m, P)_{k-1} to d = 3; pass 3 puts gF over the staged F, gQ
@@ -454,9 +456,9 @@ struct UnstagedTiling {
 
 // Pass 1's source and tiling of a Koopman backward: a source with a lean
 // twin (Src::Totals) runs the twin's pass 1, in the twin's tiling G1; any
-// other source runs its own pass 1 in its own tiling G.  KEPT: the twin
-// sets KEEP, so pass 1 keeps its stage 1 where the lean pass 3 follows;
-// keeps: this source's pass 3 is that lean one, and reads it.
+// other source runs its own pass 1 in its own tiling G.  keeps: the twin
+// sets KEEP and this source's pass 3 is the lean one, so pass 1 keeps its
+// stage 1 and pass 3 reads it.
 // Op: the composition of passes 1 and 2, inlined for the sources with a
 // lean twin in float32 (in float64, inlined at d = 6, ptxas kept 32
 // registers, spilled 114 KB and pass 1 took 3-5x as long).
@@ -465,7 +467,7 @@ struct Pass1Of {
   using type = Src;
   using G1 = typename Src::G;
   using Op = SmootherOp<typename Src::T, Src::D>;
-  static constexpr bool KEPT = false, keeps = false;
+  static constexpr bool keeps = false;
 };
 template <class Src>
 struct Pass1Of<Src, std::void_t<typename Src::Totals>> {
@@ -473,7 +475,7 @@ struct Pass1Of<Src, std::void_t<typename Src::Totals>> {
   using G1 = typename type::G1;
   using Op = SmootherOp<typename Src::T, Src::D,
                         std::is_same_v<typename Src::T, double> && (Src::D >= 4)>;
-  static constexpr bool KEPT = type::KEEP, keeps = type::KEEP && !Src::OBS;
+  static constexpr bool keeps = type::KEEP && !Src::OBS;
 };
 
 template <class Src>
@@ -885,7 +887,9 @@ gadjoint_outputs(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
   } else {
     gadjoint_walk<G, G::STAGED>(src, p, b, t, n, st, sl, step);
   }
-  if constexpr (Src::NSUM > 0) {
+  if constexpr (Smem3Of<Src>::value > 0) {
+    src.template finish<THREADS>(p, a, b);
+  } else if constexpr (Src::NSUM > 0) {
     __shared__ T red[Src::NSUM * (THREADS / 32)];
     src.template finish<THREADS>(p, a, st, b, red);
   } else {
@@ -895,7 +899,7 @@ gadjoint_outputs(SmootherArgs<typename Src::T> a, typename Src::Prior p) {
 
 // Scratch of the Koopman backward passes in elements of T: pass 1's block
 // totals, every pass-3 thread's stored element, the NSUM partial sums of
-// each pass-3 block and, for a source with a lean twin, the kept stage 1
+// each pass-3 block and, for a lean pass 3 that reads it, the kept stage 1
 // of every step.
 template <class Src>
 int64_t general_adjoint_scratch(int64_t batch, int64_t n) {
@@ -903,7 +907,7 @@ int64_t general_adjoint_scratch(int64_t batch, int64_t n) {
   constexpr int SIZE = SElem<typename Src::T, Src::D>::SIZE;
   const int64_t nblk = num_blocks(n, P1::G1::TILE), nblk3 = nblk * AdjointSplit<Src>::BPB;
   int64_t kept = 0;
-  if constexpr (P1::KEPT) kept = nblk * P1::G1::TILE * P1::type::Stage1::SIZE;
+  if constexpr (P1::keeps) kept = nblk * P1::G1::TILE * P1::type::Stage1::SIZE;
   return batch * (nblk * SIZE + nblk3 * (SIZE * Src::G::THREADS + Src::NSUM) + kept);
 }
 
@@ -942,8 +946,7 @@ int launch_general_adjoint(typename Src::Prior p, typename Src::T* scratch, int6
   T* partials = a.prefix + batch * a3.nblk * G::THREADS * SIZE;
   if constexpr (Src::NSUM > 0) p.partials = partials;
   // the kept stage 1, where the lean pass 3 reads it
-  if constexpr (Pass1Of<Src>::KEPT)
-    p.kept = Pass1Of<Src>::keeps ? partials + batch * a3.nblk * Src::NSUM : nullptr;
+  if constexpr (Pass1Of<Src>::keeps) p.kept = partials + batch * a3.nblk * Src::NSUM;
   const size_t bytes = adjoint_pass3_bytes<Src>(Src::slots(p).nv),
                b1 = S1::STAGED1 ? general_stage_bytes<G1, T>(S1::slots(p).nv) : 0;
   int err = wide_smem_bytes(gadjoint_totals<S1>, b1);

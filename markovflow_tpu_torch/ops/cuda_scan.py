@@ -198,10 +198,11 @@ def _declare(lib: ctypes.CDLL) -> None:
             fn = getattr(lib, f"mf_{kind}_scratch_{sfx}")
             fn.argtypes = [i64, i64, i64]
             fn.restype = i64
-        # (d, o, batch, n)
-        for kind in ("uniform_filter", "general_filter", "adjoint", "general_adjoint"):
+        # (d, o, batch, n); the Koopman backwards' (d, o, obs, batch, n)
+        for kind, nargs in (("uniform_filter", 4), ("general_filter", 4), ("adjoint", 5),
+                            ("general_adjoint", 5)):
             fn = getattr(lib, f"mf_{kind}_scratch_{sfx}")
-            fn.argtypes = [i64] * 4
+            fn.argtypes = [i64] * nargs
             fn.restype = i64
         fn = getattr(lib, f"mf_uniform_filter_{sfx}")
         fn.argtypes = [p] * 10 + [p] * 4 + [i64] * 4 + [p]
@@ -357,8 +358,9 @@ def _general_views(lead, B, F, c, Q, H, nu, lam, maskf):
 
 
 def _scratch(kind: str, sfx: str, dims, B: int, n: int, like):
-    """The kernel's scratch; ``dims``: (d,), or (d, o) for the filters and
-    the Koopman backwards."""
+    """The kernel's scratch; ``dims``: (d,), (d, o) for the filters, or
+    (d, o, obs) for the Koopman backwards (obs: whether the call writes an
+    observation term)."""
     lib = build_kernels()
     size = getattr(lib, f"mf_{kind}_scratch_{sfx}")(*dims, B, n)
     return torch.empty((size,), dtype=like.dtype, device=like.device)
