@@ -9,7 +9,10 @@ and kernels 1, 3, 4 and 7 at o x o sites as their main paths call them
 the Koopman backwards as GPR's backward calls them, writing only what it
 asks for) and kernel 4 at (2, 2) on bench config 2's natural-gradient
 synthetic model (chip_smoke.natgrad_kernel_calls, T = 1e5, float64),
-in two series: the calls back to back, and each call after a write of
+and at o > d kernels 4 and 7 at (6, 12) on fa12's jittered-grid inputs
+and kernels 1 and 3 at (4, 6) on fa6c's uniform-grid ones
+(chip_smoke.build_fa, T = N, float32; the backwards as a GPR backward
+with a trainable loading calls them: gH, or gHc), in two series: the calls back to back, and each call after a write of
 FLUSH_BYTES (five times the H100's 50 MB L2), so that no pass reads what an
 earlier call left in L2.
 
@@ -77,8 +80,8 @@ def calls(cs, adj, d, n):
 
 
 def multi_output_calls(cs, adj):
-    """name -> the kernel call of kernels 1, 3, 4 and 7 at o x o sites
-    (above)."""
+    """name -> the kernel call of kernels 1, 3, 4 and 7 at o x o sites,
+    o <= d and o > d (above)."""
     f32 = torch.float32
     mo3 = chip_smoke.kernel_calls(cs, adj, chip_smoke.build_mo3(N, f32),
                                   chip_smoke.build_mo3(N, f32, uniform=False))
@@ -87,6 +90,15 @@ def multi_output_calls(cs, adj):
                         "filter_pipeline", "adjoint_pipeline")}
     out["filter_pipeline o=2 d=2 float64"] = chip_smoke.natgrad_kernel_calls(cs)[
         "filter_pipeline"][0]
+    fa_needs = (True, True, True, True, False, False)
+    fa12 = chip_smoke.kernel_calls(cs, adj, None, chip_smoke.build_fa("fa12", N, f32, False),
+                                   fa_needs)
+    out.update((f"{name} o=12 d=6", fa12[name][0])
+               for name in ("filter_pipeline", "adjoint_pipeline"))
+    fa6c = chip_smoke.kernel_calls(cs, adj, chip_smoke.build_fa("fa6c", N, f32),
+                                   chip_smoke.build_fa("fa6c", N, f32, False), fa_needs)
+    out.update((f"{name} o=6 d=4", fa6c[name][0])
+               for name in ("filter_pipeline_uniform", "adjoint_pipeline_uniform"))
     return out
 
 

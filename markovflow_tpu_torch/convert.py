@@ -38,15 +38,25 @@ _COMBINATORS = {"Sum": kernels.Sum, "IndependentMultiOutput": kernels.Independen
 KernelSpec = Union[str, Sequence]
 
 
-def _model_kernel(kernel: KernelSpec, params, dtype, device):
+def _model_kernel(kernel: KernelSpec, params, dtype, device, weight_fn=None):
     """The model's kernel: the Matern ``kernel`` under ``kernel.*``; a Sum
-    of the named kernels under ``kernel.kernels[i].*``; or, for a pair
+    of the named kernels under ``kernel.kernels[i].*``; for a pair
     (combinator, names) such as ``("IndependentMultiOutput", ("Matern32",
     "Matern32"))``, that kernel of the named children under
     ``kernel.kernels[i].*`` (combinators: Sum, IndependentMultiOutput,
-    Product)."""
+    Product); or for ``("FactorAnalysisKernel", names)`` a
+    :class:`~markovflow_tpu_torch.kernels.FactorAnalysisKernel` of the named
+    latents under ``kernel._inner.kernels[i].*``, its loading
+    ``params["kernel._loading"]`` [output_dim, n_latents] (trainable) and
+    ``weight_fn``, a callable on torch tensors."""
     if isinstance(kernel, str):
         return _kernel(kernel, params, "kernel.", dtype, device)
+    if kernel[0] == "FactorAnalysisKernel":
+        loading = np.asarray(params["kernel._loading"])
+        return kernels.FactorAnalysisKernel(
+            weight_fn, [_kernel(name, params, f"kernel._inner.kernels[{i}].", dtype, device)
+                        for i, name in enumerate(kernel[1])],
+            output_dim=loading.shape[0], loading=loading)
     cls, names = kernels.Sum, kernel
     if len(kernel) == 2 and not isinstance(kernel[1], str):
         cls, names = _COMBINATORS[kernel[0]], kernel[1]
@@ -74,7 +84,7 @@ def _mean_function(name: Optional[str], params, k, dtype, device):
 def gpr_from_numpy(params: Dict[str, np.ndarray], time_points: np.ndarray,
                    observations: np.ndarray, *, dtype: torch.dtype,
                    device="cuda", kernel: KernelSpec = "Matern32",
-                   mean_function: Optional[str] = None
+                   mean_function: Optional[str] = None, weight_fn=None
                    ) -> GaussianProcessRegression:
     """A :class:`GaussianProcessRegression` from numpy parameters under the
     JAX model's attribute paths: ``kernel.lengthscale`` and
@@ -85,16 +95,19 @@ def gpr_from_numpy(params: Dict[str, np.ndarray], time_points: np.ndarray,
     parameters are ``kernel.kernels[i].lengthscale`` and so on, as in a JAX
     ``Sum([...])``, or a pair (combinator, names) for an
     :class:`~markovflow_tpu_torch.kernels.IndependentMultiOutput`, a
-    ``Product`` or a ``Sum`` of the named children, under the same paths;
-    a multi-output kernel takes observations [N, o] and an o x o
-    ``chol_obs_covariance``.  ``mean_function`` names the mean function ("Zero",
+    ``Product`` or a ``Sum`` of the named children, under the same paths,
+    or ``("FactorAnalysisKernel", names)`` for GP factor analysis, its
+    latents under ``kernel._inner.kernels[i].*``, its loading under
+    ``kernel._loading`` and its ``weight_fn`` (t -> [..., N, X, output_dim],
+    on torch tensors) given here; a multi-output kernel takes observations
+    [N, o] and an o x o ``chol_obs_covariance``.  ``mean_function`` names the mean function ("Zero",
     "Linear", "Impulse" or "Step"; the last two respond through the
     model's kernel), whose arrays are ``params["mean_function.*"]``.  The
     time points, on any grid, are checked, and the
     grid's uniformity detected, on the host before they move to ``device``.
     Training (:func:`markovflow_tpu_torch.training.fit`) starts from these
     parameter values."""
-    k = _model_kernel(kernel, params, dtype, device)
+    k = _model_kernel(kernel, params, dtype, device, weight_fn)
     as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
     # numpy time points: the model checks them on the host, then moves them
     return GaussianProcessRegression(

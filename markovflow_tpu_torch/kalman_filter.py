@@ -7,10 +7,15 @@ Two engines, each through the kernel wrappers of :mod:`.ops.cuda_scan`
 and :mod:`.ops.adjoint`, which launch the CUDA kernels on CUDA tensors and
 run the plain versions on CPU tensors:
 
-* the uniform-grid path, given ``prior_const_tl`` (constant prior steps):
-  the uniform filter and smoother, and the uniform Koopman backward;
-* the general path, given ``prior_tl`` (per-step prior arrays, any grid):
-  the general filter, the smoother scan, and the general Koopman backward.
+* the uniform-grid path, given ``prior_const_tl`` (constant prior steps)
+  and an emission that is the same at every step: the uniform filter and
+  smoother, and the uniform Koopman backward;
+* the general path, given ``prior_tl`` (per-step prior arrays, any grid),
+  or ``prior_const_tl`` with an emission that changes with the step (the
+  constant steps materialised): the general filter, the smoother scan,
+  and the general Koopman backward.  The JAX package's uniform path reads
+  step 0's emission at every step (``markovflow_tpu/kalman_filter.py``'s
+  ``hc``); the port does not copy that.
 
 The filters take the port's ``prior_tl`` / ``prior_const_tl`` in place of
 the JAX package's ``StateSpaceModel``.
@@ -22,10 +27,11 @@ import abc
 import torch
 from torch import nn
 
-from .emission_model import EmissionModel
+from .emission_model import EmissionModel, time_constant
 from .ops.adjoint import log_likelihood_koopman, log_likelihood_koopman_uniform
-from .ops.cuda_scan import (filter_pipeline, filter_pipeline_uniform,
-                            smoother_pipeline_uniform, smoother_scan)
+from .ops.cuda_scan import (UNIFORM_MAX_OUTPUT_DIM, filter_pipeline,
+                            filter_pipeline_uniform, smoother_pipeline_uniform,
+                            smoother_scan)
 from .ops.kalman import (_materialize_uniform, _posterior_ssm_tl, rts_gains_tl,
                          smoother_elements_tl)
 from .ops.scans import segmented_affine_cov_scan_tl
@@ -102,10 +108,22 @@ class BaseKalmanFilter(abc.ABC):
         """``prior_tl``: (F [..., d, d, N], c [..., d, 1, N], Q [..., d, d, N])
         from ``StationaryKernel.prior_arrays_tl``.  ``prior_const_tl``:
         (Fc, cc, Qc, mu0, P0) from ``StationaryKernel.prior_const_tl`` for a
-        uniform grid with a time-constant emission.  One of them is given."""
+        uniform grid.  One of them is given.  The route is chosen here, once,
+        on the emission tensor itself: constant prior steps take the uniform
+        kernels only where the emission is the same at every step
+        (:func:`~markovflow_tpu_torch.emission_model.time_constant`) and
+        has at most ``UNIFORM_MAX_OUTPUT_DIM`` rows (as the JAX package's
+        ``_uniform_engine`` routes it), and are materialised to per-step
+        arrays, for the general kernels, otherwise."""
         if (prior_tl is None) == (prior_const_tl is None):
             raise ValueError("give exactly one of prior_tl and prior_const_tl")
         self.emission = emission_model
+        h = emission_model.emission_matrix
+        if prior_const_tl is not None and (h.shape[-2] > UNIFORM_MAX_OUTPUT_DIM
+                                           or not time_constant(h)):
+            f_tl, c_tl, q_tl, _ = _materialize_uniform(
+                *prior_const_tl, self._const_emission_tl(), h.shape[-3])
+            prior_tl, prior_const_tl = (f_tl, c_tl, q_tl), None
         self.prior_tl = prior_tl
         self.prior_const_tl = prior_const_tl
 

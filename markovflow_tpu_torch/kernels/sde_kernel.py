@@ -12,18 +12,19 @@ parameters or of the time points it is given; nothing falls back to a
 global default dtype.  A kernel's parameters live on the CUDA card unless
 its constructor is given another ``device``; a :class:`Sum`, an
 :class:`IndependentMultiOutput` and a :class:`Product` hold no trainable
-parameters of their own and live where their children do.
+parameters of their own and live where their children do, as does a
+:class:`FactorAnalysisKernel`'s loading.
 """
 from __future__ import annotations
 
 import abc
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..emission_model import EmissionModel
+from ..emission_model import ComposedPairEmissionModel, EmissionModel
 from ..state_space_model import StateSpaceModel
 from ..utils.linalg import (batched_kron, block_diag, cholesky_or_zero, small_mv,
                             to_delta_time)
@@ -31,7 +32,7 @@ from ..utils.module import Parameter
 from .kernel import Kernel
 
 __all__ = ["SDEKernel", "StationaryKernel", "ConcatKernel", "Sum",
-           "IndependentMultiOutput", "Product"]
+           "IndependentMultiOutput", "Product", "FactorAnalysisKernel"]
 
 
 def _mat_vec_tl(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -346,3 +347,75 @@ class Product(StationaryKernel):
             hk = k.generate_emission_model(time_points).emission_matrix[..., :1, :, :]
             h = hk if h is None else batched_kron(h, hk)
         return EmissionModel(h.expand(h.shape[:-3] + time_points.shape[-1:] + h.shape[-2:]))
+
+
+class FactorAnalysisKernel(StationaryKernel):
+    """GP factor analysis: f_i(t) = sum_jk A_ij(t) B_jk g_k(t), latent
+    processes g (an :class:`IndependentMultiOutput` of ``kernels``, whose
+    state is this kernel's) mixed by a trainable loading B [output_dim,
+    n_latents] and a known weight function A(t).  ``weight_fn`` maps time
+    points [..., N] (a tensor) to A [..., N, X, output_dim]; H(t) =
+    A(t) B H_inner is [..., N, X, d] (a :class:`ComposedPairEmissionModel`),
+    so the observation dim is X and usually exceeds the state dim.  A
+    weight function that returns the same A at every step as an expanded
+    view (stride 0 along time) gives a constant emission, which takes the
+    uniform-grid kernels on a uniform grid; any other A takes the per-step
+    route (``kalman_filter.BaseKalmanFilter``)."""
+
+    def __init__(self, weight_fn: Callable, kernels: Sequence[StationaryKernel],
+                 output_dim: int, trainable_loading: bool = True, loading=None,
+                 jitter: float = 0.0):
+        """``loading``: the initial B (numpy or tensor), default
+        ``eye(output_dim, n_latents)``; it lives in the dtype and on the
+        device of the latents' parameters."""
+        kernels = list(kernels)
+        SDEKernel.__init__(self, output_dim, jitter)
+        self._inner = IndependentMultiOutput(kernels, jitter=jitter)
+        self.weight_fn = weight_fn
+        mean = kernels[0].state_mean
+        if loading is None:
+            loading = np.eye(output_dim, len(kernels))
+        self._loading = Parameter(loading, trainable=trainable_loading,
+                                  dtype=mean.dtype, device=mean.device)
+
+    @property
+    def loading(self) -> torch.Tensor:
+        return self._loading.value
+
+    @property
+    def state_dim(self) -> int:
+        return self._inner.state_dim
+
+    @property
+    def state_mean(self) -> torch.Tensor:
+        return self._inner.state_mean
+
+    @property
+    def feedback_matrix(self) -> torch.Tensor:
+        return self._inner.feedback_matrix
+
+    @property
+    def steady_state_covariance(self) -> torch.Tensor:
+        return self._inner.steady_state_covariance
+
+    def state_transitions_tl(self, time_deltas: torch.Tensor) -> torch.Tensor:
+        return self._inner.state_transitions_tl(time_deltas)
+
+    def transition_statistics_tl(self, time_deltas: torch.Tensor):
+        """The latents' (A, Q) [..., d, d, N]: block-diagonal, each child's
+        closed-form Q (:class:`IndependentMultiOutput`)."""
+        return self._inner.transition_statistics_tl(time_deltas)
+
+    def generate_emission_model(self, time_points: torch.Tensor) -> ComposedPairEmissionModel:
+        """H = (A(t) B) H_inner with A(t) = ``weight_fn(time_points)``: the
+        outer factor A B [..., N, X, n_latents], formed at one step and
+        expanded where A has stride 0 along time."""
+        inner = self._inner.generate_emission_model(time_points)
+        weights = self.weight_fn(time_points)
+        b = self.loading
+        if weights.shape[-3] > 1 and weights.stride(-3) == 0:
+            outer = (weights[..., :1, :, :, None] * b).sum(-2)
+            outer = outer.expand(weights.shape[:-2] + outer.shape[-2:])
+        else:
+            outer = (weights[..., :, :, None] * b).sum(-2)
+        return ComposedPairEmissionModel(EmissionModel(outer), inner)

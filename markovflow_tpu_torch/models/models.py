@@ -47,10 +47,11 @@ class MarkovFlowModel(nn.Module, abc.ABC):
     def _set_data(self, input_data: Tuple) -> None:
         """Check (time_points [..., N], observations [..., N, o]) on the
         host, keep both as buffers in the observations' dtype and on their
-        device, and pick the prior's path once: the stationary uniform-grid
-        path (constant prior steps, no [d, d, N] array) where the time
-        points are evenly spaced and ``self.kernel`` has constant steps,
-        the per-step path otherwise.  Numpy time points skip the one
+        device, and pick the prior's form once: constant prior steps (no
+        [d, d, N] array) where the time points are evenly spaced and
+        ``self.kernel`` has constant steps, per-step arrays otherwise.  The
+        filter then takes the uniform-grid kernels only if the emission is
+        also the same at every step (``BaseKalmanFilter``).  Numpy time points skip the one
         device-to-host copy that a CUDA tensor costs here."""
         time_points, observations = input_data
         tp_host = host_array(time_points)
@@ -63,8 +64,9 @@ class MarkovFlowModel(nn.Module, abc.ABC):
                               and hasattr(self.kernel, "prior_const_tl"))
 
     def _prior_kwargs(self) -> dict:
-        """The prior of the model's Kalman filter: ``prior_const_tl`` on the
-        uniform path, ``prior_tl`` on the per-step one."""
+        """The prior of the model's Kalman filter: ``prior_const_tl`` on a
+        uniform grid, ``prior_tl`` otherwise; the filter decides from the
+        emission whether the constant steps take the uniform kernels."""
         tp = self.time_points
         if self._uniform_grid:
             dt = (tp[..., -1:] - tp[..., :1]) / (tp.shape[-1] - 1)

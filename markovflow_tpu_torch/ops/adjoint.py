@@ -155,7 +155,8 @@ def adjoint_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf, m_f,
     steps for Hc), shaped [..., d1, d2, 1]; gnu [..., o, 1, N] and
     glam [..., o, o, N] are per step.  With ``site_grads=False`` a call
     returns None for gnu and glam, with ``hc_grad=False`` None for gHc: a
-    CUDA call does not compute them (at o = 1 it sums gHc all the same).
+    CUDA call does not compute them (at o = 1 and at o > d it sums gHc all
+    the same).
     """
     if nu.device.type == "cpu":
         out = adjoint_pipeline_uniform_plain(Fc, cc, Qc, mu0, P0, Hc, nu, lam,
@@ -168,7 +169,8 @@ def adjoint_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf, m_f,
     inputs = [Fc, cc, Qc, mu0, P0, Hc, nu, lam, m_f, p_f]
     if maskf is not None:
         inputs.append(maskf)
-    sfx = cs._check_cuda(inputs + [gscale], d, o, UNIFORM_ADJOINT_MAX_STATE_DIM)
+    sfx = cs._check_cuda(inputs + [gscale], d, o, UNIFORM_ADJOINT_MAX_STATE_DIM,
+                         cs.UNIFORM_MAX_OUTPUT_DIM)
     lead = torch.broadcast_shapes(*(x.shape[:-3] for x in inputs),
                                   gscale.shape)
     B = math.prod(lead)
@@ -185,8 +187,10 @@ def adjoint_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf, m_f,
     glam = torch.empty((B, o, o, n), **kw) if site_grads else None
     gm0 = torch.empty((B, d, 1, 1), **kw)
     gp0 = torch.empty((B, d, d, 1), **kw)
-    # the summed gradients, one row per series: Fc, cc, Qc, Hc
-    gsums = torch.empty((B, 2 * d * d + d + o * d), **kw)
+    # the summed gradients, one row per series: Fc, cc, Qc, Hc (at o > d
+    # UNIFORM_MAX_OUTPUT_DIM rows of Hc, those past o zero)
+    nh = (o if o <= d else cs.UNIFORM_MAX_OUTPUT_DIM) * d
+    gsums = torch.empty((B, 2 * d * d + d + nh), **kw)
     scratch = cs._scratch("adjoint", sfx, (d, o, int(hc_grad or site_grads)), B, n, nu)
     with torch.cuda.device(nu.device):
         err = getattr(cs.build_kernels(), f"mf_uniform_adjoint_{sfx}")(
@@ -198,7 +202,8 @@ def adjoint_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf, m_f,
             B, n, d, o, cs._stream(nu.device))
     cs._raise_on(err, "adjoint_pipeline_uniform")
     adjoint_pipeline_uniform.launches += 1
-    gfc, gcc, gqc, ghc = torch.split(gsums, [d * d, d, d * d, o * d], dim=1)
+    gfc, gcc, gqc, ghc = torch.split(gsums, [d * d, d, d * d, nh], dim=1)
+    ghc = ghc[:, :o * d]
     out = (gfc.reshape(lead + (d, d, 1)), gcc.reshape(lead + (d, 1, 1)),
            gqc.reshape(lead + (d, d, 1)), gm0.reshape(lead + (d, 1, 1)),
            gp0.reshape(lead + (d, d, 1)),
@@ -344,11 +349,13 @@ def log_likelihood_koopman_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam,
     constant emission Hc [..., o, d, 1]; per-step sites nu [..., o, 1, N],
     lam [..., o, o, N] and an optional boolean mask [..., N].  Its gradient
     is the Koopman score.  Up to state dim
-    :data:`UNIFORM_ADJOINT_MAX_STATE_DIM` no [d, d, N] array is materialised
-    on CUDA; above it, as in the JAX package, the prior steps are
-    materialised and take :func:`log_likelihood_koopman` (the general filter
-    and general backward kernels), whose per-step gradients autograd sums
-    back onto the constants.  Returns loglik [...]."""
+    :data:`UNIFORM_ADJOINT_MAX_STATE_DIM` and output dim
+    ``cuda_scan.UNIFORM_MAX_OUTPUT_DIM`` no [d, d, N] array is materialised
+    on CUDA; above either, as in the JAX package (``_uniform_engine``), the
+    prior steps are materialised and take :func:`log_likelihood_koopman`
+    (the general filter and general backward kernels), whose per-step
+    gradients autograd sums back onto the constants.  Returns loglik
+    [...]."""
     n = nu.shape[-1]
     lead = torch.broadcast_shapes(*(x.shape[:-3] for x in
                                     (Fc, cc, Qc, mu0, P0, Hc, nu, lam)))
@@ -356,8 +363,8 @@ def log_likelihood_koopman_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam,
     nu = nu.expand(lead + (o, 1, n))
     lam = lam.expand(lead + (o, o, n))
     maskf = _float_mask(mask, lead, n, nu.dtype)
-    if Fc.shape[-3] > UNIFORM_ADJOINT_MAX_STATE_DIM:
-        if o > 1 and nu.device.type == "cuda":
+    if Fc.shape[-3] > UNIFORM_ADJOINT_MAX_STATE_DIM or o > cs.UNIFORM_MAX_OUTPUT_DIM:
+        if o > 1 and Fc.shape[-3] > cs.MULTI_OUTPUT_MAX_STATE_DIM and nu.device.type == "cuda":
             raise NotImplementedError(
                 f"o = {o} at state dim {Fc.shape[-3]}: the CUDA kernels take "
                 f"o > 1 only at state dims 1..{cs.MULTI_OUTPUT_MAX_STATE_DIM}")

@@ -73,6 +73,7 @@ struct AdjointPrior {
   T* gsums;         // [B, NV]: the summed gradients (AdjointSums), scaled by gscale
   T* partials;      // scratch: [B, nblk, NV] block partials of the sums
   T* kept;          // scratch: the stage 1 pass 1 keeps for the lean pass 3 (o > 1), or null
+  int64_t o;        // the output dim, for the sources that take it at run time (o > d)
 };
 
 // Stage 2's prior-step terms at step k into the sums acc (AdjointSums
@@ -374,9 +375,11 @@ struct UniformAdjStepsO {
 // C entry point for one dtype (T, suffix), as in uniform_scan.cuh.  gsums
 // [B, NV] receives the summed gradients in AdjointSums order, scaled by
 // gscale, Hc's where sum_hc is not 0 (at o = 1 always); gnu and glam may be
-// null.  The scratch is mf_adjoint_scratch_*'s; the output dim o is 1 or
-// one of MF_GENERAL_O_PAIRS (UniformAdjStepsO, the lean pass 3 where
-// neither Hc's sums nor gnu and glam are asked for).
+// null.  The scratch is mf_adjoint_scratch_*'s; the output dim o is 1, one
+// of MF_GENERAL_O_PAIRS (UniformAdjStepsO, the lean pass 3 where neither
+// Hc's sums nor gnu and glam are asked for) or o > d (UniformAdjStepsW,
+// info_scan.cuh: NV counts INFO_UNIFORM_MAX_O rows of Hc, and Hc's sums
+// are made at every call).
 #define MF_DEFINE_ADJOINT_ENTRY_POINTS(T, SUFFIX)                                      \
   extern "C" int mf_uniform_adjoint_##SUFFIX(                                          \
       const T* fc, const T* cc, const T* qc, const T* mu0, const T* p0, const T* hc,   \
@@ -391,8 +394,12 @@ struct UniformAdjStepsO {
     p.nu = nu; p.lam = lam; p.mask = mask;                                             \
     mf::set_site_strides(p, site_strides);                                             \
     p.m_f = m_f; p.p_f = p_f; p.gscale = gscale;                                       \
-    p.gnu = gnu; p.glam = glam; p.gm0 = gm0; p.gp0 = gp0; p.gsums = gsums;             \
+    p.gnu = gnu; p.glam = glam; p.gm0 = gm0; p.gp0 = gp0; p.gsums = gsums; p.o = o;    \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (o > d)                                                                         \
+      MF_SWITCH_D5(d, (mf::launch_general_adjoint<mf::UniformAdjStepsW<T, D_>>(         \
+                          p, scratch, batch, n, s)),                                   \
+                   int(cudaErrorInvalidValue))                                         \
     if (o != 1 && sum_hc == 0 && gnu == nullptr)                                         \
       MF_SWITCH_DO(d, o,                                                               \
                    (mf::launch_general_adjoint<mf::UniformAdjStepsO<T, D_, O_, false>>( \

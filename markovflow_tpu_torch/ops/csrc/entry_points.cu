@@ -3,8 +3,10 @@
 // themselves are instantiated in the *_inst.cu units, one per (kernel family,
 // dtype, state dimension) for d <= 6, one per (family, dtype, d, o) for the
 // o x o sites at d <= 6 (generalo_inst.cu: the filters; adjointo_inst.cu:
-// the Koopman backwards) and one per (kernel family, dtype) for d = 7..12.
-#include "adjoint_scan.cuh"
+// the Koopman backwards), one per (part, dtype, d) for o > d at d <= 6
+// (info_inst.cu: the filters, the Koopman backwards) and one per (kernel
+// family, dtype) for d = 7..12.
+#include "info_scan.cuh"
 
 #define MF_EXTERN(T, D)                                                                   \
   extern template int mf::launch_general_filter<mf::UniformSteps<T, D>>(                 \
@@ -52,6 +54,24 @@ MF_EXTERN_ALL_D(double)
 #define MF_EXTERN_O_BOTH(D, O) MF_EXTERN_O(float, D, O) MF_EXTERN_O(double, D, O)
 MF_GENERAL_O_PAIRS(MF_EXTERN_O_BOTH)
 
+#define MF_EXTERN_INFO(T, D)                                                              \
+  extern template int mf::launch_general_filter<mf::GeneralStepsW<T, D>>(                \
+      mf::FilterArgs<T>, mf::GeneralPrior<T>, T*, int64_t, cudaStream_t);                 \
+  extern template int mf::launch_general_adjoint<mf::GeneralAdjStepsW<T, D>>(            \
+      mf::GeneralAdjointPrior<T>, T*, int64_t, int64_t, cudaStream_t);
+#define MF_EXTERN_INFO_UNIFORM(T, D)                                                      \
+  extern template int mf::launch_general_filter<mf::UniformStepsW<T, D>>(                \
+      mf::FilterArgs<T>, mf::UniformPrior<T>, T*, int64_t, cudaStream_t);                 \
+  extern template int mf::launch_general_adjoint<mf::UniformAdjStepsW<T, D>>(            \
+      mf::AdjointPrior<T>, T*, int64_t, int64_t, cudaStream_t);
+#define MF_EXTERN_INFO_ALL(T)                                                             \
+  MF_EXTERN_INFO(T, 1) MF_EXTERN_INFO(T, 2) MF_EXTERN_INFO(T, 3) MF_EXTERN_INFO(T, 4)     \
+  MF_EXTERN_INFO(T, 5) MF_EXTERN_INFO(T, 6) MF_EXTERN_INFO_UNIFORM(T, 1)                  \
+  MF_EXTERN_INFO_UNIFORM(T, 2) MF_EXTERN_INFO_UNIFORM(T, 3) MF_EXTERN_INFO_UNIFORM(T, 4)  \
+  MF_EXTERN_INFO_UNIFORM(T, 5)
+MF_EXTERN_INFO_ALL(float)
+MF_EXTERN_INFO_ALL(double)
+
 #define MF_EXTERN_WIDE(T)                                                                 \
   extern template int mf::launch_wide_filter<mf::WideUniformRow<T>>(                     \
       mf::FilterArgs<T>, mf::UniformPrior<T>, T*, int64_t, int, cudaStream_t);            \
@@ -76,7 +96,7 @@ MF_EXTERN_WIDE(double)
 
 // Scratch sizes in elements of T (-1 for a state (or output) dimension with
 // no kernel; the filters and the Koopman backwards take the output dim o,
-// 1 or a pair of MF_GENERAL_O_PAIRS, after d; the Koopman backwards then
+// 1, a pair of MF_GENERAL_O_PAIRS or o > d, after d; the Koopman backwards then
 // obs, 0 where the call writes no observation term: the lean route's
 // scratch, which at o > 1 also keeps pass 1's stage 1 where its source
 // keeps it):
@@ -88,6 +108,8 @@ MF_EXTERN_WIDE(double)
 #define MF_DEFINE_SCRATCH(T, SUFFIX)                                                    \
   extern "C" int64_t mf_uniform_filter_scratch_##SUFFIX(int64_t d, int64_t o,          \
                                                         int64_t batch, int64_t n) {    \
+    if (o > d)                                                                          \
+      MF_SWITCH_D5(d, (mf::general_filter_scratch<mf::UniformStepsW<T, D_>>(batch, n)), -1) \
     if (o != 1)                                                                         \
       MF_SWITCH_DO(d, o, (mf::general_filter_scratch_max<mf::UniformStepsO<T, D_, O_>,   \
                                                            mf::UniformStepsRankO<T, D_, O_>>( \
@@ -112,6 +134,8 @@ MF_EXTERN_WIDE(double)
   /* MF_GENERAL_O_PAIRS) */                                                             \
   extern "C" int64_t mf_general_filter_scratch_##SUFFIX(int64_t d, int64_t o,          \
                                                         int64_t batch, int64_t n) {    \
+    if (o > d)                                                                          \
+      MF_SWITCH_D(d, (mf::general_filter_scratch<mf::GeneralStepsW<T, D_>>(batch, n)), -1) \
     if (o != 1)                                                                         \
       MF_SWITCH_DO(d, o, (mf::general_filter_scratch_max<mf::GeneralStepsO<T, D_, O_>,   \
                                                            mf::GeneralStepsRankO<T, D_, O_>>( \
@@ -124,6 +148,8 @@ MF_EXTERN_WIDE(double)
   extern "C" int64_t mf_general_adjoint_scratch_##SUFFIX(int64_t d, int64_t o,         \
                                                          int64_t obs, int64_t batch,   \
                                                          int64_t n) {                  \
+    if (o > d)                                                                          \
+      MF_SWITCH_D(d, (mf::general_adjoint_scratch<mf::GeneralAdjStepsW<T, D_>>(batch, n)), -1) \
     if (o != 1 && obs == 0)                                                             \
       MF_SWITCH_DO(d, o,                                                                \
                    (mf::general_adjoint_scratch<mf::GeneralAdjStepsO<T, D_, O_, false>>(batch, n)), \
@@ -145,6 +171,8 @@ MF_EXTERN_WIDE(double)
   }                                                                                     \
   extern "C" int64_t mf_adjoint_scratch_##SUFFIX(int64_t d, int64_t o, int64_t obs,    \
                                                  int64_t batch, int64_t n) {            \
+    if (o > d)                                                                          \
+      MF_SWITCH_D5(d, (mf::general_adjoint_scratch<mf::UniformAdjStepsW<T, D_>>(batch, n)), -1) \
     if (o != 1 && obs == 0)                                                             \
       MF_SWITCH_DO(d, o,                                                                \
                    (mf::general_adjoint_scratch<mf::UniformAdjStepsO<T, D_, O_, false>>(batch, n)), \

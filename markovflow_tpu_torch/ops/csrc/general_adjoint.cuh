@@ -62,6 +62,7 @@ struct GeneralAdjointPrior {
   // glam [B, o, o, N]
   T *gf, *gc, *gq, *gh, *gnu, *glam;
   T* kept;  // scratch: the stage 1 pass 1 keeps for the lean pass 3 (o > 1), or null
+  int64_t o;  // the output dim, for the sources that take it at run time (o > d)
 };
 
 // ---------------------------------------------------------------------------
@@ -1253,8 +1254,12 @@ int launch_wide_general_adjoint(GeneralAdjointPrior<T> p, T* scratch, int64_t ba
     p.nu = nu; p.lam = lam; p.mask = mask;                                             \
     mf::set_site_strides(p, st + 15);                                                  \
     p.m_f = m_f; p.p_f = p_f; p.gscale = gscale;                                       \
-    p.gf = gf; p.gc = gc; p.gq = gq; p.gh = gh; p.gnu = gnu; p.glam = glam;            \
+    p.gf = gf; p.gc = gc; p.gq = gq; p.gh = gh; p.gnu = gnu; p.glam = glam; p.o = o;   \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (o > d)                                                                         \
+      MF_SWITCH_D(d, (mf::launch_general_adjoint<mf::GeneralAdjStepsW<T, D_>>(p, scratch, \
+                                                                            batch, n, s)), \
+                  int(cudaErrorInvalidValue))                                          \
     if (o != 1 && gh == nullptr && gnu == nullptr && glam == nullptr)                  \
       MF_SWITCH_DO(d, o,                                                               \
                    (mf::launch_general_adjoint<mf::GeneralAdjStepsO<T, D_, O_, false>>( \

@@ -1345,7 +1345,7 @@ gfilter_outputs(FilterArgs<typename Src::T> a, typename Src::Prior p) {
     const int64_t k = t * R + r;
     if (k >= n) break;
     src.template read<G::STAGED>(in, st, sl, lane, r, p, a, b, k, r == 0);
-    ll[0] += Src::step(m, P, in);
+    ll[0] += src.step(m, P, in);
     // P_f and m_f to the step's staged slots, or to step k
     T *pf = G::STAGED ? st.at(Src::P_OUT, lane, r) : a.p_f + b * D * D * n + k,
       *mf = G::STAGED ? st.at(Src::M_OUT, lane, r) : a.m_f + b * D * n + k;
@@ -1737,7 +1737,8 @@ struct WidePrebuiltSteps {
 // filter's strides: F (batch, row, column, step), c (batch, row, step),
 // Q and H as F, then the sites as set_site_strides takes them; its output
 // dim o is 1 or, at d <= 6, one of MF_GENERAL_O_PAIRS (GeneralStepsRankO
-// where lam's step stride is 0, else GeneralStepsO).
+// where lam's step stride is 0, else GeneralStepsO) or o > d
+// (GeneralStepsW, info_scan.cuh, which entry_points.cu includes).
 #define MF_DEFINE_GENERAL_ENTRY_POINTS(T, SUFFIX)                                      \
   extern "C" int mf_general_filter_##SUFFIX(                                           \
       const T* f, const T* c, const T* q, const T* h, const T* nu, const T* lam,       \
@@ -1752,8 +1753,12 @@ struct WidePrebuiltSteps {
     mf::FilterArgs<T> a{};                                                             \
     a.nu = nu; a.lam = lam; a.mask = mask;                                             \
     mf::set_site_strides(a, st + 15);                                                  \
-    a.m_f = m_f; a.p_f = p_f; a.loglik = loglik; a.n = n;                              \
+    a.m_f = m_f; a.p_f = p_f; a.loglik = loglik; a.n = n; a.o = o;                     \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (o > d)                                                                         \
+      MF_SWITCH_D(d, (mf::launch_general_filter<mf::GeneralStepsW<T, D_>>(a, p, scratch,  \
+                                                                        batch, s)),    \
+                  int(cudaErrorInvalidValue))                                          \
     if (o != 1 && a.lam_st == 0)                                                       \
       MF_SWITCH_DO(d, o, (mf::launch_general_filter<mf::GeneralStepsRankO<T, D_, O_>>(  \
                              a, p, scratch, batch, s)),                                \

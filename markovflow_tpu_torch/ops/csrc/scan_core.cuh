@@ -377,6 +377,7 @@ struct FilterArgs {
   // steps' constant terms (UniformStepsRankO)
   T *totals, *partials, *prefix, *table;
   int64_t n, nblk;
+  int64_t o;  // the output dim, for the sources that take it at run time (o > d)
 };
 
 // The site strides as the C entry points take them: nu (batch, row, step),

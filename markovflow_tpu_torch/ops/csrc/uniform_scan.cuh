@@ -532,8 +532,12 @@ struct WideUniformRtsRow {
     mf::FilterArgs<T> a{};                                                             \
     a.nu = nu; a.lam = lam; a.mask = mask;                                             \
     mf::set_site_strides(a, site_strides);                                             \
-    a.m_f = m_f; a.p_f = p_f; a.loglik = loglik; a.n = n;                              \
+    a.m_f = m_f; a.p_f = p_f; a.loglik = loglik; a.n = n; a.o = o;                     \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (o > d)                                                                         \
+      MF_SWITCH_D5(d, (mf::launch_general_filter<mf::UniformStepsW<T, D_>>(a, p, scratch, \
+                                                                        batch, s)),    \
+                   int(cudaErrorInvalidValue))                                         \
     if (o != 1 && a.lam_st == 0)                                                       \
       MF_SWITCH_DO(d, o, (mf::launch_general_filter<mf::UniformStepsRankO<T, D_, O_>>(  \
                              a, p, scratch, batch, s)),                                \

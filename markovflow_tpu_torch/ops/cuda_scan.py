@@ -51,7 +51,8 @@ __all__ = ["filter_pipeline_uniform", "smoother_pipeline_uniform",
            "filter_pipeline", "smoother_scan", "filter_scan",
            "filter_pipeline_uniform_plain", "smoother_pipeline_uniform_plain",
            "filter_pipeline_plain", "smoother_scan_plain", "filter_scan_plain",
-           "build_kernels", "MAX_STATE_DIM"]
+           "build_kernels", "MAX_STATE_DIM", "GENERAL_MAX_OUTPUT_DIM",
+           "UNIFORM_MAX_OUTPUT_DIM"]
 
 #: the filter and smoother kernels take state dims 1..12 and output dim 1:
 #: d = 1..6 as unrolled instantiations with elements in registers, d = 7..12
@@ -70,6 +71,16 @@ MAX_STATE_DIM = 12
 #: where lam changes with the step, as the natural-gradient inversion's
 #: indefinite sites do (the covariance form loses their digits)
 MULTI_OUTPUT_MAX_STATE_DIM = 6
+#: the largest output dims o > d the kernels take at those state dims, the
+#: JAX package's own limits: the general kernels (:func:`filter_pipeline`,
+#: ``adjoint.adjoint_pipeline``) 12 (``pick_scan_engine``), the uniform ones
+#: (:func:`filter_pipeline_uniform`, ``adjoint.adjoint_pipeline_uniform``)
+#: 6 (``_uniform_engine``).  At o > d a step's o x o site is folded into
+#: state space inside the kernel, with o a run-time bound (``GeneralStepsW``,
+#: ``UniformStepsW``, ``GeneralAdjStepsW``, ``UniformAdjStepsW`` in
+#: ``csrc/info_scan.cuh``; one unit per (dtype, d))
+GENERAL_MAX_OUTPUT_DIM = 12
+UNIFORM_MAX_OUTPUT_DIM = 6
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "_build" / "torch_kernels"
@@ -141,9 +152,11 @@ def _find_nvcc() -> str:
 #: compilation units: one per (family, dtype) of the runtime-d kernels for
 #: d = 7..12, one per (kernel family, dtype, state dim) instantiation of the
 #: unrolled kernels for d = 1..6, one per (dtype, d, o) of the filters and
-#: one of the Koopman backwards at o x o sites, and the C entry points, so
-#: that nvcc runs them in parallel; the runtime-d units start first, then
-#: the o x o units, then the others from the largest state dim.
+#: one of the Koopman backwards at o x o sites (o = 2..d), one per (dtype,
+#: d) of the filters and one of the Koopman backwards at o > d (run-time
+#: o, ``info_inst.cu``), and the C entry points, so that nvcc runs them in
+#: parallel; the runtime-d units start first, then the o x o units, then
+#: the others from the largest state dim.
 #: "gadjoint" is the general-grid Koopman backward.
 _FAMILIES = ("uniform", "general", "adjoint", "gadjoint")
 _O_PAIRS = [(d, o) for d in range(MULTI_OUTPUT_MAX_STATE_DIM, 1, -1)
@@ -153,6 +166,9 @@ _UNITS = [
     for fam in ("general", "gadjoint", "uniform") for t in ("double", "float")] + [
     (f"{fam}o_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}", f"-DMF_O={o}"])
     for fam in ("adjoint", "general") for d, o in _O_PAIRS
+    for t in ("double", "float")] + [
+    ("info_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}"] + part)
+    for d in range(6, 0, -1) for part in ([], ["-DMF_INFO_FILTERS"])
     for t in ("double", "float")] + [
     (f"{fam}_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}"])
     for d in range(6, 0, -1) for fam in _FAMILIES
@@ -261,11 +277,13 @@ def build_kernels() -> ctypes.CDLL:
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _check_cuda(tensors, d: int, o: int, max_d: int = MAX_STATE_DIM) -> str:
+def _check_cuda(tensors, d: int, o: int, max_d: int = MAX_STATE_DIM,
+                max_o: int = GENERAL_MAX_OUTPUT_DIM) -> str:
     """Raise unless every tensor is on one CUDA device with one supported
-    dtype and the dims are instantiated (state dims 1..``max_d``; output
-    dim 1, or 1..d at d <= MULTI_OUTPUT_MAX_STATE_DIM: the smoothers and
-    the filter scan, which have no output dim, pass 1); return the dtype
+    dtype and the dims have a kernel (state dims 1..``max_d``; output dim
+    1, or at d <= MULTI_OUTPUT_MAX_STATE_DIM 2..``max_o``: o <= d in the
+    o x o units, o > d in the run-time-o units; the smoothers and the
+    filter scan, which have no output dim, pass 1); return the dtype
     suffix."""
     device, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
@@ -283,10 +301,10 @@ def _check_cuda(tensors, d: int, o: int, max_d: int = MAX_STATE_DIM) -> str:
             f"the CUDA kernels take output dims o > 1 only at state dims "
             f"1..{MULTI_OUTPUT_MAX_STATE_DIM}, got o = {o} at d = {d} (o > 1 "
             f"at d = 7..12 has no kernel)")
-    if not 1 <= o <= d:
+    if not 1 <= o <= max(d, max_o):
         raise NotImplementedError(
-            f"the CUDA kernels take output dims 1..d, got o = {o} at d = {d} "
-            f"(o > d has no kernel)")
+            f"this CUDA kernel takes output dims 1..{max(d, max_o)} at d = {d}, "
+            f"got o = {o}")
     return _SUFFIX[dtype]
 
 
@@ -375,7 +393,8 @@ def filter_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf=None):
     lam [..., o, o, N] and an optional mask maskf [..., 1, 1, N] (steps with
     maskf <= 0.5 add 0 to the likelihood).  Site inputs may be expanded
     views: the kernel reads them through their strides.  o = 1 at
-    d = 1..12, o = 2..d at d = 1..6.
+    d = 1..12, o = 2..max(d, UNIFORM_MAX_OUTPUT_DIM) at d = 1..6 (at
+    o > d lam must be invertible where a step is kept).
 
     Returns (m_f [..., d, 1, N], P_f [..., d, d, N], loglik [...]).
     """
@@ -388,7 +407,7 @@ def filter_pipeline_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf=None):
     inputs = [Fc, cc, Qc, mu0, P0, Hc, nu, lam]
     if maskf is not None:
         inputs.append(maskf)
-    sfx = _check_cuda(inputs, d, o)
+    sfx = _check_cuda(inputs, d, o, max_o=UNIFORM_MAX_OUTPUT_DIM)
     lead = torch.broadcast_shapes(*(x.shape[:-3] for x in inputs))
     B = math.prod(lead)
     _check_grid(B, n)
@@ -466,9 +485,12 @@ def filter_pipeline(F, c, Q, H, nu, lam, maskf=None):
     nu [..., o, 1, N], lam [..., o, o, N] and an optional mask
     maskf [..., 1, 1, N] (steps with maskf <= 0.5 add 0 to the likelihood).
     Every input may be an expanded view: the kernel reads all of them
-    through their strides.  o = 1 at d = 1..12, o = 2..d at d = 1..6; lam
-    may be indefinite (the posterior must be proper) where it changes with
-    the step; a lam of step stride 0 takes the rank-o route.
+    through their strides.  o = 1 at d = 1..12, o = 2..max(d,
+    GENERAL_MAX_OUTPUT_DIM) at d = 1..6; at o <= d lam may be indefinite
+    (the posterior must be proper) where it changes with the step, and a
+    lam of step stride 0 takes the rank-o route; at o > d each site is
+    folded into state space (J = H^T lam H, h = H^T nu), and lam must be
+    invertible where a step is kept.
 
     Returns (m_f [..., d, 1, N], P_f [..., d, d, N], loglik [...]).
     """

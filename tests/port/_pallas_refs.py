@@ -20,10 +20,12 @@ tests/unit/test_uniform_path.py runs them; chunk=1, r_blk=1 for state dims
   on its output, ``pallas_adjoint_pipeline`` (the fused general-grid
   Koopman backward) with the per-row cotangent :func:`general_gscale`;
 * ``mo:CASE`` (a case of :data:`MO_CASES`, o x o sites with a full,
-  non-diagonal lam at every step) runs ``pallas_filter_pipeline_uniform``
-  and ``pallas_adjoint_pipeline_uniform`` on :func:`mo_inputs`' uniform
-  inputs, and ``pallas_filter_pipeline`` and ``pallas_adjoint_pipeline``
-  on its general ones (outputs ``u_*`` and ``g_*``).
+  non-diagonal lam at every step, o <= d and o > d) runs
+  ``pallas_filter_pipeline_uniform`` and ``pallas_adjoint_pipeline_uniform``
+  on :func:`mo_inputs`' uniform inputs, and ``pallas_filter_pipeline`` and
+  ``pallas_adjoint_pipeline`` on its general ones (outputs ``u_*`` and
+  ``g_*``); a case of :data:`MO_GENERAL_CASES` (o past the uniform
+  kernels' 6) only the general ones.
 
 The port's tests run it in fresh processes (:func:`run_refs`):
 interpret-mode Pallas programs can crash XLA:CPU in a process that has
@@ -77,7 +79,14 @@ WIDE_GENERAL_CASES = {
 MO_CASES = {
     "mo_d2_o2": (2, 2, 64, (), False),
     "mo_d3_o3": (3, 3, 73, (2,), True),
+    "mo_d2_o3": (2, 3, 64, (), False),
+    "mo_d3_o5": (3, 5, 73, (2,), True),
 }
+#: o x o sites past the uniform kernels' o <= 6, for the general kernels only
+MO_GENERAL_CASES = {
+    "mo_d3_o8": (3, 8, 64, (), True),
+}
+_MO = {**MO_CASES, **MO_GENERAL_CASES}
 _UNIFORM = {**CASES, **WIDE_CASES}
 _GENERAL = {**GENERAL_CASES, **WIDE_GENERAL_CASES}
 INPUT_NAMES = ("fc", "cc", "qc", "mu0", "p0", "hc", "nu", "lam", "maskf")
@@ -165,7 +174,7 @@ def mo_inputs(name: str):
     (constant, and per step with F_0 = 0), a dense emission [o, d] (constant,
     and per step), nu [o, 1, N] and a full lam = L L^T + I / 2 [o, o, N] at
     every step (numpy float64, time-last)."""
-    d, o, n, batch, masked = MO_CASES[name]
+    d, o, n, batch, masked = _MO[name]
     rng = np.random.default_rng(sum(map(ord, name)))
     lq = 0.3 * rng.standard_normal((d, d)) + np.eye(d)
     ll = 0.6 * rng.standard_normal(batch + (n, o, o))
@@ -193,7 +202,7 @@ def mo_inputs(name: str):
 
 def mo_gscale(name: str) -> np.ndarray:
     """The per-row cotangent of a multi-output case's log-likelihoods."""
-    batch = MO_CASES[name][3]
+    batch = _MO[name][3]
     return np.linspace(0.7, -1.3, int(np.prod(batch))).reshape(batch)
 
 
@@ -231,7 +240,7 @@ def main(out_path: str, names) -> None:
     out = {}
     for name in names:
         kind, case = name.split(":") if ":" in name else ("", name)
-        kw = interpret_kw(MO_CASES[case][0] if kind == "mo" else
+        kw = interpret_kw(_MO[case][0] if kind == "mo" else
                           (_GENERAL if case in _GENERAL else _UNIFORM)[case][0])
         filt = jax.jit(lambda *a: pallas_filter_pipeline_uniform(*a, **kw))
         smooth = jax.jit(lambda *a: pallas_smoother_pipeline_uniform(*a, **kw))
@@ -244,11 +253,13 @@ def main(out_path: str, names) -> None:
             uni, gen = ({k: None if v is None else jnp.asarray(v) for k, v in x.items()}
                         for x in mo_inputs(case))
             gs = jnp.asarray(mo_gscale(case))
-            uargs = [uni[k] for k in INPUT_NAMES]
-            m_f, p_f, ll = filt(*uargs)
-            vals = {"u_m_f": m_f, "u_p_f": p_f, "u_loglik": ll}
-            vals.update(("u_" + k, v) for k, v in zip(ADJOINT_NAMES,
-                                                      adjoint(*uargs, m_f, p_f, gs)))
+            vals = {}
+            if case in MO_CASES:
+                uargs = [uni[k] for k in INPUT_NAMES]
+                m_f, p_f, ll = filt(*uargs)
+                vals.update({"u_m_f": m_f, "u_p_f": p_f, "u_loglik": ll})
+                vals.update(("u_" + k, v) for k, v in zip(ADJOINT_NAMES,
+                                                          adjoint(*uargs, m_f, p_f, gs)))
             gargs = [gen[k] for k in GENERAL_INPUT_NAMES]
             m_f, p_f, ll = gfilt(*gargs)
             vals.update({"g_m_f": m_f, "g_p_f": p_f, "g_loglik": ll})

@@ -372,11 +372,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(NotImplementedError):
         ops.filter_pipeline_uniform(*_problem(13, 64, (), cuda_device))
     big = _problem(7, 64, (), cuda_device)
-    three_out = list(args)      # o = 3 > d = 2
-    three_out[5] = torch.ones((3, 2, 1), dtype=args[0].dtype, device=cuda_device)
-    three_out[7] = args[7].expand(3, 3, 64)
+    seven_out = list(args)      # o = 7 > d = 2: past the uniform kernels' o <= 6
+    seven_out[5] = torch.ones((7, 2, 1), dtype=args[0].dtype, device=cuda_device)
+    seven_out[7] = args[7].expand(7, 7, 64)
     with pytest.raises(NotImplementedError):
-        ops.filter_pipeline_uniform(*three_out)
+        ops.filter_pipeline_uniform(*seven_out)
     with pytest.raises(NotImplementedError):    # the batch is grid axis y
         ops.filter_pipeline_uniform(*_problem(2, 1, (65536,), cuda_device,
                                               masked=False))
@@ -898,29 +898,49 @@ def test_natgrad_step_kernels_match_plain(cuda_device, config):
 
 def test_wrappers_raise_at_o_sites_they_have_no_kernel_for(cuda_device):
     """o > 1 runs in the two filters and the two Koopman backwards at
-    d <= 6, o <= d: each raises at o > d and at o > 1 with d = 7..12, and
-    so does the uniform log-likelihood, rather than take the materialised
-    route of d > 6."""
+    d <= 6, to o = 12 in the general ones and o = 6 in the uniform ones:
+    each raises at o > 1 with d = 7..12 and above its o, and so does the
+    uniform log-likelihood at d = 7..12, rather than take the materialised
+    route of d > 6; at o = 7..12 (d <= 6) the uniform log-likelihood takes
+    the materialised route to the general kernels, as the JAX package's
+    uniform engine does."""
     kw = dict(dtype=torch.float64, device=cuda_device)
     gs = torch.ones((), **kw)
-    for d, o in ((7, 2), (9, 9), (3, 4), (2, 3)):
+
+    def inputs(d, o):
         eye = torch.eye(d, **kw)[..., None].expand(d, d, 64)
         gargs = (0.5 * eye, torch.zeros((d, 1, 64), **kw), eye, torch.ones((o, d, 64), **kw),
                  torch.zeros((o, 1, 64), **kw), torch.eye(o, **kw)[..., None].expand(o, o, 64))
         m_f, p_f = torch.zeros((d, 1, 64), **kw), eye.contiguous()
+        uargs = (0.5 * eye[..., :1], torch.zeros((d, 1, 1), **kw), eye[..., :1],
+                 torch.zeros((d, 1, 1), **kw), eye[..., :1], torch.ones((o, d, 1), **kw),
+                 gargs[4], gargs[5])
+        return gargs, uargs, m_f, p_f
+
+    for d, o in ((7, 2), (9, 9), (3, 13), (6, 13)):
+        gargs, uargs, m_f, p_f = inputs(d, o)
         with pytest.raises(NotImplementedError):
             ops.filter_pipeline(*gargs)
         with pytest.raises(NotImplementedError):
             adj.adjoint_pipeline(*gargs, None, m_f, p_f, gs)
-        uargs = (0.5 * eye[..., :1], torch.zeros((d, 1, 1), **kw), eye[..., :1],
-                 torch.zeros((d, 1, 1), **kw), eye[..., :1], torch.ones((o, d, 1), **kw),
-                 gargs[4], gargs[5])
         with pytest.raises(NotImplementedError):
             ops.filter_pipeline_uniform(*uargs)
         with pytest.raises(NotImplementedError):
             adj.adjoint_pipeline_uniform(*uargs, None, m_f, p_f, gs)
         with pytest.raises(NotImplementedError):
             adj.log_likelihood_koopman_uniform(*uargs)
+    for d, o in ((2, 7), (5, 12)):
+        _, uargs, m_f, p_f = inputs(d, o)
+        with pytest.raises(NotImplementedError):
+            ops.filter_pipeline_uniform(*uargs)
+        with pytest.raises(NotImplementedError):
+            adj.adjoint_pipeline_uniform(*uargs, None, m_f, p_f, gs)
+        before = _launches()
+        ll = adj.log_likelihood_koopman_uniform(*uargs)
+        torch.cuda.synchronize()
+        assert torch.isfinite(ll).all()
+        launched = {k: v - before[k] for k, v in _launches().items()}
+        assert launched["filter_pipeline"] == 1 and launched["filter_pipeline_uniform"] == 0
 
 
 @pytest.mark.parametrize("const_sites, masked, scaled", list(chip_smoke.O_KERNEL_SITES),
@@ -943,6 +963,52 @@ def test_kernels_1_3_7_at_o_sites_at_the_run_warp_and_block_edges(cuda_device, n
                                          scaled)
 
 
+@pytest.mark.parametrize("const_sites, masked, scaled", list(chip_smoke.O_KERNEL_SITES),
+                         ids=["per-step-dense-H", "per-step-dense-H-unscaled", "stride-0",
+                              "stride-0-maskless"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d, o", list(chip_smoke.O_OVER_D))
+@pytest.mark.parametrize("n", list(chip_smoke.EDGE_NS))
+def test_kernels_1_3_7_at_o_past_d_at_the_run_warp_and_block_edges(cuda_device, n, d, o,
+                                                                   dtype, const_sites, masked,
+                                                                   scaled):
+    """Kernels 1, 3 and 7 (and 4) at o > d (the run-time-o sources; kernels
+    1 and 3 to o = 6) against their plain versions, as the o <= d test
+    above: float64 within chip_smoke.TOL_F64, float32 by check_f32_wide's
+    rule."""
+    chip_smoke.multi_output_kernels_case(ops, adj, n, (3,), d, o, dtype, const_sites, masked,
+                                         scaled)
+
+
+@pytest.mark.parametrize("grid", ["uniform", "jittered"])
+@pytest.mark.parametrize("name", ["fa12", "fa6c"])
+def test_factor_analysis_gpr_runs_through_the_kernels(cuda_device, name, grid):
+    """chip_smoke's fa12 (time-varying weights, d = 6, o = 12) and fa6c
+    (identity weights, d = 4, o = 6) at N = 4099, float64: loss, backward
+    (the loading's gradient too), marginals, predict_f and predict_y
+    through the uniform kernels 1, 3 and 2 only where the emission is
+    constant on a uniform grid (fa6c), else through 4, 7 and 5 (fa12 on the
+    uniform grid too: the launch counters show no uniform kernel), against
+    the same model on the CPU."""
+    uniform = grid == "uniform"
+    filt, smooth, back = chip_smoke.fa_kernels(name, uniform)
+    n = 4099
+    x, _ = chip_smoke.fa_data(name, n, uniform)
+    pts = np.sort(np.concatenate([x[::97], np.linspace(-1.0, 101.0, 57)]))
+    model = chip_smoke.build_fa(name, n, torch.float64, uniform, device=cuda_device)
+    before = _launches()
+    outs = chip_smoke.gpr_outputs(model, torch.as_tensor(pts, device=cuda_device))
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _launches().items()}
+    want = dict.fromkeys(launched, 0)
+    want.update({filt: 3, back: 1, smooth: 2})
+    assert launched == want
+    cpu = chip_smoke.gpr_outputs(chip_smoke.build_fa(name, n, torch.float64, uniform,
+                                                    device="cpu"), torch.as_tensor(pts))
+    for key, val in cpu.items():
+        assert chip_smoke.rel_diff(outs[key].cpu(), val) <= F64_TOL, key
+
+
 @pytest.mark.parametrize("uniform", [True, False], ids=["uniform", "jittered"])
 def test_multi_output_gpr_runs_through_the_kernels(cuda_device, uniform):
     """mo3 (chip_smoke.build_mo3: d = 6, o = 3, a full noise Cholesky) at
@@ -957,7 +1023,7 @@ def test_multi_output_gpr_runs_through_the_kernels(cuda_device, uniform):
     x, _ = chip_smoke.mo3_data(n, uniform)
     pts = np.sort(np.concatenate([x[::97], np.linspace(-1.0, 101.0, 57)]))
     before = _launches()
-    outs = chip_smoke.mo3_outputs(chip_smoke.build_mo3(n, torch.float64, uniform,
+    outs = chip_smoke.gpr_outputs(chip_smoke.build_mo3(n, torch.float64, uniform,
                                                        device=cuda_device),
                                   torch.as_tensor(pts, device=cuda_device))
     torch.cuda.synchronize()
@@ -965,7 +1031,7 @@ def test_multi_output_gpr_runs_through_the_kernels(cuda_device, uniform):
     want = dict.fromkeys(launched, 0)
     want.update({filt: 3, back: 1, smooth: 2})
     assert launched == want
-    cpu = chip_smoke.mo3_outputs(chip_smoke.build_mo3(n, torch.float64, uniform,
+    cpu = chip_smoke.gpr_outputs(chip_smoke.build_mo3(n, torch.float64, uniform,
                                                       device="cpu"), torch.as_tensor(pts))
     for key, val in cpu.items():
         assert chip_smoke.rel_diff(outs[key].cpu(), val) <= F64_TOL, key

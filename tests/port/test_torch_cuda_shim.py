@@ -44,10 +44,13 @@ TOL = 1e-12
 # of kernels 1 and 4) over 2 N + 1 steps, across pass 1's blocks of
 # kernel 4's 8-step runs and kernels 3's and 7's at d = 4 (1,024 and
 # 2,048 steps; kernel 1's 16-step blocks, 3,072 steps there, are crossed
-# on the card at N = 4099), and stride-0 ones without a mask
+# on the card at N = 4099), and stride-0 ones without a mask; and the four
+# sources at o > d (info_scan.cuh: kernels 1, 3, 7 and 4 with a run-time
+# o) at (d, o) = (3, 5), across three blocks of their unstaged passes
 CASES = ["7:97:(2,)", "9:300:()", "9:64:(2,):sparse", "12:50:(2,)",
          "2:2100:(2,)", "2:700:(2,):sparse", "5:600:()", "3:1100:(2,)", "6:1100:()",
-         "4:1100:(2,)", "2:2100:(2,):multi", "3:1100:(2,):o2", "4:1100:(2,):o3"]
+         "4:1100:(2,)", "2:2100:(2,):multi", "3:1100:(2,):o2", "4:1100:(2,):o3",
+         "3:1100:(2,):o5"]
 # the o x o cases at o = 3 hold P_f to the plain version, which strays by
 # ~2e-11 there (above); the kernels differ from it by 4.5e-12 at most
 TOL_O = 1e-10
@@ -93,7 +96,7 @@ def test_kernels_match_plain_versions_under_the_shim(shim_lib, case):
     sites (lam = nu = 0 where masked): all seven kernels (the uniform Koopman
     backward at d <= 6, with the site gradients), and the smoother scan and
     the filter scan also on random prebuilt elements; the general filter at
-    o x o sites; kernels 1, 3 and 7 at o x o sites."""
+    o x o sites; kernels 1, 3 and 7 at o x o sites, o <= d and o > d."""
     # each case in a process of its own, under a time limit of its own
     run = subprocess.run([sys.executable, str(SHIM / "run_on_cpu.py"), str(shim_lib), case],
                          capture_output=True, text=True, timeout=CASE_SECONDS)

@@ -11,8 +11,8 @@ elements (from the float64 filter's moments) and filtering elements, each
 rounded to float32:
 
     python tests/tools/cuda_shim/f32_accuracy.py OUT_DIR [--root TREE] [--n N] [--seeds S]
-    python tests/tools/cuda_shim/f32_accuracy.py OUT_DIR --oxo [--seeds 8] [--jobs J] [--json PATH]
-    python3 tests/tools/cuda_shim/f32_accuracy.py --oxo --card [--json PATH]
+    python tests/tools/cuda_shim/f32_accuracy.py OUT_DIR --oxo [--over-d] [--seeds 8] [--jobs J] [--json PATH]
+    python3 tests/tools/cuda_shim/f32_accuracy.py --oxo [--over-d] --card [--json PATH]
 
 TREE (default: this checkout) is the tree whose package, run_on_cpu.py and
 chip_smoke.py are used; OUT_DIR must hold build.py's library of that tree's
@@ -24,7 +24,8 @@ seeds.  g++ rounds as the card does not (no fused multiply-adds), so these
 compare formulations, not the card's numbers.
 
 With ``--oxo``: kernels 1, 3, 4 and 7 at o x o sites, (d, o) = (6, o) for
-o = 2..6, N in OXO_NS, seeds 0..S-1 (default 8), on
+o = 2..6 and the o > d pairs of OXO_OVER_D (kernels 1 and 3 to o = 6;
+``--over-d``: those alone), N in OXO_NS, seeds 0..S-1 (default 8), on
 chip_smoke.multi_output_kernels' per-step sites with a dense H whose entries
 are not scaled to the states' spread (``scaled=False``): each output's
 float32 error against the plain version in float64 on the same inputs, for
@@ -49,16 +50,18 @@ import torch
 #: prior alone), a block and a few blocks of steps
 OXO_D = 6
 OXO_OS = (2, 3, 4, 5, 6)
+#: the o > d pairs (d, o) of the run-time-o sources (csrc/info_scan.cuh)
+OXO_OVER_D = ((1, 2), (2, 5), (4, 6), (3, 12), (6, 12))
 OXO_NS = (1, 257, 4099)
 _OXO = {}
 
 
 def oxo_case(case):
-    """One (o, N, seed) of the o x o mode: output -> (kernel error, plain
-    error, kernel against plain, tolerance)."""
-    o, n, seed = case
+    """One (d, o, N, seed) of the o x o mode: output -> (kernel error,
+    plain error, kernel against plain, tolerance)."""
+    d, o, n, seed = case
     cs, adj, chip_smoke = _OXO["cs"], _OXO["adj"], _OXO["chip_smoke"]
-    out, ref = chip_smoke.multi_output_kernels(cs, adj, OXO_D, o, n, (), torch.float32, seed,
+    out, ref = chip_smoke.multi_output_kernels(cs, adj, d, o, n, (), torch.float32, seed,
                                                device=chip_smoke.DEVICE, dense_h=True,
                                                scaled=False)
     res = {}
@@ -73,9 +76,10 @@ def oxo_case(case):
     return case, res
 
 
-def oxo(cs, adj, chip_smoke, seeds: int, jobs: int, json_path) -> None:
+def oxo(cs, adj, chip_smoke, seeds: int, jobs: int, json_path, over_d=False) -> None:
     _OXO.update(cs=cs, adj=adj, chip_smoke=chip_smoke)
-    cases = [(o, n, seed) for seed in range(seeds) for n in OXO_NS for o in OXO_OS]
+    pairs = list(OXO_OVER_D) if over_d else [(OXO_D, o) for o in OXO_OS] + list(OXO_OVER_D)
+    cases = [(d, o, n, seed) for seed in range(seeds) for n in OXO_NS for d, o in pairs]
     if jobs > 1:
         torch.set_num_threads(1)
         with multiprocessing.get_context("fork").Pool(jobs) as pool:
@@ -84,29 +88,29 @@ def oxo(cs, adj, chip_smoke, seeds: int, jobs: int, json_path) -> None:
         results = [oxo_case(c) for c in cases]
     no_worse = chip_smoke.F32_NO_WORSE
     table, rows = {}, []
-    for (o, n, seed), res in results:
+    for (d, o, n, seed), res in results:
         for name, (err_k, err_p, diff, tol) in res.items():
             fails = diff > tol and err_k > no_worse * err_p
-            table.setdefault((name, o, n), []).append((seed, err_k, err_p, fails))
-            rows.append({"output": name, "o": o, "n": n, "seed": seed, "kernel": err_k,
+            table.setdefault((name, d, o, n), []).append((seed, err_k, err_p, fails))
+            rows.append({"output": name, "d": d, "o": o, "n": n, "seed": seed, "kernel": err_k,
                          "plain": err_p, "kernel_vs_plain": diff, "tol": tol,
                          "fails": fails})
-    print(f"o x o sites, d = {OXO_D}, unscaled dense H, float32 against float64 "
+    print("o x o sites, unscaled dense H, float32 against float64 "
           f"(kernel / plain; the ratio's median and max over {seeds} seeds; seeds where "
           f"the kernel is over {no_worse:g}x the plain version; seeds failing "
           "check_f32_wide's rule):", flush=True)
     worse_all = fail_all = 0
-    for (name, o, n), per in table.items():
+    for (name, d, o, n), per in table.items():
         ratios = [k / max(p, 1e-300) for _, k, p, _ in per]
         worse = sum(r > no_worse for r in ratios)
         fails = sum(f for *_, f in per)
         worse_all += worse
         fail_all += fails
-        print(f"  {name} o={o} N={n}: kernel max {max(k for _, k, _, _ in per):.2e}, plain "
+        print(f"  {name} d={d} o={o} N={n}: kernel max {max(k for _, k, _, _ in per):.2e}, plain "
               f"max {max(p for _, _, p, _ in per):.2e}; ratio median "
               f"{statistics.median(ratios):.2f} max {max(ratios):.2f}; worse {worse}/{len(per)}"
               f"; fails {fails}/{len(per)}", flush=True)
-    print(f"in all: {worse_all} of {len(rows)} (output, o, N, seed) over {no_worse:g}x the "
+    print(f"in all: {worse_all} of {len(rows)} (output, d, o, N, seed) over {no_worse:g}x the "
           f"plain version's error, {fail_all} failing check_f32_wide's rule", flush=True)
     if json_path is not None:
         Path(json_path).parent.mkdir(parents=True, exist_ok=True)
@@ -120,6 +124,7 @@ def main() -> None:
     ap.add_argument("--n", type=int, default=100_000)
     ap.add_argument("--seeds", type=int)
     ap.add_argument("--oxo", action="store_true")
+    ap.add_argument("--over-d", action="store_true")
     ap.add_argument("--card", action="store_true")
     ap.add_argument("--jobs", type=int, default=1)
     ap.add_argument("--json", type=Path)
@@ -137,7 +142,7 @@ def main() -> None:
         cs, adj, _, _ = chip_smoke.modules()
         print(f"device {torch.cuda.get_device_name(0)}; nvidia-smi: {chip_smoke.card_line()}",
               flush=True)
-        return oxo(cs, adj, chip_smoke, args.seeds or 8, 1, args.json)
+        return oxo(cs, adj, chip_smoke, args.seeds or 8, 1, args.json, args.over_d)
     if args.out is None:
         ap.error("OUT_DIR is needed without --card")
     sys.path.insert(0, str(root / "tests" / "tools" / "cuda_shim"))
@@ -150,7 +155,7 @@ def main() -> None:
     chip_smoke.DEVICE = torch.device("cpu")
     torch.cuda.synchronize = lambda *a: None
     if args.oxo:
-        return oxo(cs, adj, chip_smoke, args.seeds or 8, args.jobs, args.json)
+        return oxo(cs, adj, chip_smoke, args.seeds or 8, args.jobs, args.json, args.over_d)
     seeds = args.seeds or 5
 
     def rel(a, b):
