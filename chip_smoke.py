@@ -13,7 +13,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the filters and one of the Koopman backwards at o x o sites, and one per
    family and dtype for d = 7..12, compiled in parallel);
 3. hold each of the seven kernels against its plain PyTorch version on the
-   card: N in {4099, 1e6}, batch () and (3,), d in {1, 2, 3}
+   card: N = 4099 with batch () and (3,) and N = 1e6 with batch (), d in
+   {1, 2, 3}
    (Matern12/32/52), float64 and float32, plus one masked case; the uniform
    kernels on a uniform grid, the general ones (filter, smoother scan,
    filter scan, general Koopman backward) on a jittered grid.  Then the
@@ -38,7 +39,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    on random prebuilt elements at d = 1, 2, 3, 4, 6 (d = 4 above its
    staged tile), and the smoother scan at d = 1..6 (d = 5, 6 above its
    staged tile) on the general problems' RTS elements and on random
-   prebuilt elements; and at the same N the general filter at o x o
+   prebuilt elements; and at O_EDGE_NS the general filter at o x o
    sites, o = 2..d for d = 2..6 (multi_output_problem: identity emission
    rows, H and lam per step with a mask (the element form), or stride 0
    (the rank-o route) with a mask and without; float32 on benign sites,
@@ -51,6 +52,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (multi_output_kernels, O_KERNEL_SITES), kernel 3 with and without the
    site gradients and gHc (ADJ_ASKS) and kernel 7 with all six outputs and
    GPR's three (both without any observation term: their lean pass 3);
+   and kernels 4 and 7 at o = 2..12 above d = 6 (csrc/wide_info.cuh) at
+   O_WIDE's (d, o), N in CHUNK_EDGES, on the same sites, and kernel 4 at
+   o = d = 9 on the inversion's indefinite sites;
 4. the slice at full size, T = 1e6, float32, flagship GPR (Matern32(0.5,
    1.0), noise Cholesky 0.2), each path with the launch counters set to 0
    just before it and read just after:
@@ -142,6 +146,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       float32 against float64 (TOL_MO3_F32_*), float64 at N = 500 against
       the numpy oracle and its finite differences; and a Product kernel's
       loss and gradient (kernels 1 and 3);
+   k. GP factor analysis at o > d (fa12, fa6c; phase_factor_analysis);
+   l. multi-output GPR above d = 6 at T = 1e5 (mo9: the d9 model's three
+      Matern52 children as an IndependentMultiOutput, o = 3; fa9: the same
+      as the latents of fa12's twelve outputs), both grids: kernels 4 and
+      7 at (9, 3) and (9, 12), 5 at d = 9 (phase_wide_multi_output);
 5. times, kernel path against plain path, with CUDA events after a warm-up
    (median of several runs): serving requests (gpr.posterior and
    predict_f at 1e5 points among them), training steps on both
@@ -155,7 +164,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    d9 model's d = 9 (kernel 4 also at o = d = 2 on config 2's synthetic
    model, float64; kernels 1, 3, 4 and 7 at o = 3 and the smoothers at
    d = 6 on mo3's inputs, whose requests and training steps are timed
-   too), beside its bound: the least time an H100 needs for
+   too; the same at o > d on fa12's and fa6c's and above d = 6 on mo9's
+   and fa9's), beside its bound: the least time an H100 needs for
    the bytes the call must move (each input read once, each output written
    once) or for the operations of the sequential Kalman recursion it
    computes, whichever is larger; and each kernel route's device time per
@@ -353,6 +363,49 @@ O_OVER_D = ((1, 2), (2, 5), (4, 6), (3, 12), (6, 12))
 #: card took 1103 and 1112 s without this cut; the cuda tests keep every
 #: pair)
 O_PAIRS = ((2, 2), (3, 2), (3, 3), (4, 2), (4, 4), (5, 2), (5, 5), (6, 2), (6, 3), (6, 6))
+#: phase 3, kernels 4 and 7 at o = 2..12 for d = 7..12 (csrc/wide_info.cuh,
+#: run-time d and o): the smallest wide d at the smallest o, mo9's (9, 3),
+#: fa9's (9, 12), (12, 5) and (12, 12), at the chunk and warp edges
+#: (CHUNK_EDGES), both dtypes, with per-step sites and stride-0 ones;
+#: kernel 4 also at (9, 9) on the natural-gradient inversion's indefinite
+#: per-step sites (float64)
+O_WIDE = ((7, 2), (9, 3), (9, 12), (12, 5), (12, 12))
+#: phase 4l, the multi-output models of the d9 model's three Matern52
+#: children (D9, d = 9) at T_D9: mo9, an IndependentMultiOutput of them with
+#: mo3's noise Cholesky (o = 3), and fa9, a FactorAnalysisKernel of them as
+#: latents with fa12's weights, seeded loading and noise Cholesky (o = 12);
+#: kernels 4 and 7 at (9, 3) and (9, 12) and kernel 5 on both grids (the
+#: uniform grid through the materialised route: kernels 1 and 3 take o = 1
+#: only above d = 6), predict_f at N_NEW_WIDE new points
+MO9_SPEC = ("IndependentMultiOutput", ("Matern52",) * 3)
+FA9_O = 12
+N_NEW_WIDE = 10_000
+#: gpr_outputs' predictions, held at the exact hits and ends in phase 4l
+WIDE_PREDICTIONS = ("f mean", "f var", "f cov", "y mean", "y cov")
+#: the dtype of phase 4l's fit.  fa9's float32 loss at T = 1e5 leaves
+#: float32 at some parameters on both paths (an H100 run, at the
+#: parameters of Adam's fourth step: kernel path 1.25e9 against float64's
+#: -173660, plain path -173022; the Matern52 children's generic process
+#: noise and the associative scan's compositions with J of twelve outputs,
+#: ROADMAP queue 3), so its fit runs in float64
+WIDE_FIT_DTYPE = {"mo9": torch.float32, "fa9": torch.float64}
+#: mo9 and fa9 in float32 (phase 4l, T = T_D9), the kernel path against
+#: the plain path (check_f32_wide: an output beyond its bound passes if its
+#: error against float64 is no worse than F32_NO_WORSE times the plain
+#: path's): the loss (relative), the gradients (normwise), the marginals
+#: and predictions at the exact hits and ends (normwise).  The Matern52
+#: children's generic Q loses digits in float32 (TOL_D9_F32_*).  Each is
+#: about 4x the largest of the first H100 runs (PERF.md), uniform /
+#: jittered grid: mo9's loss 7.2e-7 / 2.9e-7, gradients 3.3e-4 / 8.9e-4,
+#: marginals 9.2e-5 / 1.2e-4, predictions 2.7e-5 / 1.3e-5; fa9's loss
+#: 7.2e-7 / 4.5e-7, gradients 6.3e-5 / 7.4e-4, marginals 5.9e-4 / 4.6e-4,
+#: predictions 1.1e-4 / 1.7e-5
+TOL_MO9_F32_LOSS = 3e-6
+TOL_MO9_F32_GRAD = 4e-3
+TOL_MO9_F32_MOMENTS = 5e-4
+TOL_FA9_F32_LOSS = 3e-6
+TOL_FA9_F32_GRAD = 3e-3
+TOL_FA9_F32_MOMENTS = 2.5e-3
 #: fa12 and fa6c in float32 against float64 (phase 4k, T = T_FA_F64): the
 #: loss (relative), the gradients (normwise), the marginals and predictions
 #: (normwise), mo3's bounds; an output beyond its bound passes by
@@ -621,9 +674,11 @@ ADJ_ASKS = {(True, True): "", (False, True): " (no site grads)", (False, False):
 
 def phase_kernels_vs_plain(cs, adj):
     log("phase 3: kernels against their plain versions on the card")
+    # (T_FULL with batch (3,) cut for the time limit: batch () at T_FULL,
+    # (3,) at 4099)
     cases = [(n, batch, d, dtype, False)
              for dtype in (torch.float64, torch.float32)
-             for n in (4099, T_FULL) for batch in ((), (3,)) for d in (1, 2, 3)]
+             for n, batch in ((4099, ()), (4099, (3,)), (T_FULL, ())) for d in (1, 2, 3)]
     cases.append((4099, (3,), 2, torch.float64, True))
     cases.append((4099, (3,), 2, torch.float32, True))
     # the d = 7..12 kernels: float64 at N = 4099, float32 at d = 9, N = 1e5;
@@ -663,8 +718,10 @@ def phase_kernels_vs_plain(cs, adj):
                 smoother_scan_edges_case(cs, n, d, dtype)
             # the general filter at o = 2..d: H and lam stored at every
             # step, and stride 0 with a mask and without (definite sites;
-            # the indefinite ones of the natural-gradient inversion follow)
-            for d, o in O_PAIRS:
+            # the indefinite ones of the natural-gradient inversion
+            # follow), at O_EDGE_NS (cut for the time limit; the cuda
+            # tests keep every N of EDGE_NS)
+            for d, o in O_PAIRS if n in O_EDGE_NS else ():
                 for const_sites, masked in O_SITES:
                     multi_output_case(cs, n, (3,), d, o, dtype, const_sites, masked)
             # at o = d = 2 on the inversion's own indefinite sites (the bench
@@ -690,6 +747,17 @@ def phase_kernels_vs_plain(cs, adj):
                 for const_sites, masked, scaled in o_sites:
                     multi_output_kernels_case(cs, adj, n, (3,), d, o, dtype, const_sites,
                                               masked, scaled)
+        # kernels 4 and 7 at o = 2..12 above d = 6 (csrc/wide_info.cuh), at
+        # the chunk and warp edges of the wide passes; kernel 4 at (9, 9) on
+        # the natural-gradient inversion's indefinite per-step sites (its
+        # element form)
+        for n in CHUNK_EDGES:
+            for d, o in O_WIDE:
+                for const_sites, masked, scaled in o_sites:
+                    multi_output_kernels_case(cs, adj, n, (3,), d, o, dtype, const_sites,
+                                              masked, scaled)
+            if dtype == torch.float64:
+                natgrad_filter_case(cs, n, (3,), 9)
 
 
 def general_edges_case(cs, adj, n, d, dtype):
@@ -895,6 +963,12 @@ def multi_output_uniform_problem(d, o, n, batch, dtype, seed, device=DEVICE,
     return consts + (h[..., :1].contiguous(), nu, lam, maskf)
 
 
+def uniform_kernels_take(cs, adj, d, o) -> bool:
+    """Whether kernels 1 and 3 take o x o sites at (d, o): o = 2..6 at
+    d <= 6 (o > d by the run-time-o sources), o = 1 only above."""
+    return d <= adj.UNIFORM_ADJOINT_MAX_STATE_DIM and o <= max(d, cs.UNIFORM_MAX_OUTPUT_DIM)
+
+
 def multi_output_kernels(cs, adj, d, o, n, batch, dtype, seed, device=DEVICE,
                          const_sites=False, dense_h=False, scaled=True, masked=True):
     """Kernels 1, 3 and 7 (and kernel 4, whose moments kernel 7 reads) at
@@ -907,8 +981,9 @@ def multi_output_kernels(cs, adj, d, o, n, batch, dtype, seed, device=DEVICE,
     float32 inputs also the plain versions in float64 on the same inputs:
     name -> float64 output.  The cuda tests and the CPU shim run (tests/)
     take them from here.  At o > d (the run-time-o sources) kernels 1 and 3
-    run only to o = cs.UNIFORM_MAX_OUTPUT_DIM, as their wrappers take
-    them."""
+    run only to o = cs.UNIFORM_MAX_OUTPUT_DIM, and above d =
+    adj.UNIFORM_ADJOINT_MAX_STATE_DIM not at all (kernels 4 and 7 only), as
+    their wrappers take them."""
     args = multi_output_uniform_problem(d, o, n, batch, dtype, seed, device, const_sites,
                                         dense_h, scaled, masked)
     gargs = multi_output_problem(d, o, n, batch, dtype, seed, device, const_sites, dense_h,
@@ -917,7 +992,7 @@ def multi_output_kernels(cs, adj, d, o, n, batch, dtype, seed, device=DEVICE,
                             device=device).reshape(batch)
     out, ref = {}, {}
     f32 = dtype == torch.float32
-    uniform = o <= max(d, cs.UNIFORM_MAX_OUTPUT_DIM)
+    uniform = uniform_kernels_take(cs, adj, d, o)
     with torch.no_grad():
         if uniform:
             m_p, p_p, ll_p = cs.filter_pipeline_uniform_plain(*args)
@@ -1034,7 +1109,7 @@ def multi_output_kernels_case(cs, adj, n, batch, d, o, dtype, const_sites, maske
                                     const_sites=const_sites, dense_h=not const_sites,
                                     scaled=scaled, masked=masked)
     torch.cuda.synchronize()
-    kernels = "1, 3, 7" if o <= max(d, cs.UNIFORM_MAX_OUTPUT_DIM) else "4, 7"
+    kernels = "1, 3, 7" if uniform_kernels_take(cs, adj, d, o) else "4, 7"
     tag = (f"kernels {kernels} o={o} N={n} batch={batch} d={d} {str(dtype)[6:]} "
            + ("masked" if masked else "maskless")
            + (" stride-0 H, lam" if const_sites else " dense H per step")
@@ -2684,15 +2759,20 @@ def fa_weights(o, periods=None):
     return weight_fn
 
 
+#: the latents' kind of each factor analysis configuration
+FA_KIND = {"fa12": "Matern32", "fa6c": "Matern32", "fa9": "Matern52"}
+
+
 def fa_config(name):
     """(latents, output dim, periods or None, loading [o, latents], noise
-    Cholesky [o, o]) of fa12 or fa6c, from seeds."""
-    if name == "fa12":
+    Cholesky [o, o]) of fa12, fa9 (fa12's with the d9 model's children) or
+    fa6c, from seeds."""
+    if name in ("fa12", "fa9"):
         rng = np.random.default_rng(12)
         loading = rng.standard_normal((FA12_O, len(FA12)))
         chol = (np.tril(0.05 * rng.standard_normal((FA12_O, FA12_O)), -1)
                 + np.diag(rng.uniform(0.15, 0.3, FA12_O)))
-        return FA12, FA12_O, FA12_PERIODS, loading, chol
+        return FA12 if name == "fa12" else D9, FA12_O, FA12_PERIODS, loading, chol
     rng = np.random.default_rng(6)
     return FA6C, FA6C_O, None, 0.5 * rng.standard_normal((FA6C_O, len(FA6C))), 0.1 * np.eye(FA6C_O)
 
@@ -2710,7 +2790,7 @@ def fa_data(name, n, uniform=True):
 
 
 def build_fa(name, n, dtype, uniform=True, device=None):
-    """GPR on the factor analysis kernel of fa12 or fa6c (its loading
+    """GPR on the factor analysis kernel of fa12, fa9 or fa6c (its loading
     trainable), on a uniform or the jittered grid, on ``device`` (DEVICE
     unless given)."""
     from markovflow_tpu_torch.convert import gpr_from_numpy
@@ -2723,7 +2803,7 @@ def build_fa(name, n, dtype, uniform=True, device=None):
         params[f"kernel._inner.kernels[{i}].variance"] = positive().inverse(np.asarray(var))
     x, y = fa_data(name, n, uniform)
     model = gpr_from_numpy(params, x, y, device=device or DEVICE, dtype=dtype,
-                           kernel=("FactorAnalysisKernel", ("Matern32",) * len(latents)),
+                           kernel=("FactorAnalysisKernel", (FA_KIND[name],) * len(latents)),
                            weight_fn=fa_weights(o, periods))
     if model._uniform_grid != uniform:
         raise AssertionError(f"the grid was detected as uniform={model._uniform_grid}")
@@ -2829,6 +2909,129 @@ def phase_factor_analysis(cs, adj, kf, training):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4l
+# ---------------------------------------------------------------------------
+def build_mo9(n, dtype, uniform=True, device=None):
+    """The multi-output GPR mo9 (an IndependentMultiOutput of the d9
+    model's three Matern52 children, mo3's data and noise Cholesky) on a
+    uniform or the jittered grid, on ``device`` (DEVICE unless given)."""
+    from markovflow_tpu_torch.convert import gpr_from_numpy
+    from markovflow_tpu_torch.utils.bijectors import positive
+
+    params = {"chol_obs_covariance": np.asarray(MO3_CHOL)}
+    for i, (ell, var) in enumerate(D9):
+        params[f"kernel.kernels[{i}].lengthscale"] = positive().inverse(np.asarray(ell))
+        params[f"kernel.kernels[{i}].variance"] = positive().inverse(np.asarray(var))
+    x, y = mo3_data(n, uniform)
+    model = gpr_from_numpy(params, x, y, device=device or DEVICE, dtype=dtype, kernel=MO9_SPEC)
+    if model._uniform_grid != uniform:
+        raise AssertionError(f"the grid was detected as uniform={model._uniform_grid}")
+    return model
+
+
+def build_wide(name, n, dtype, uniform=True, device=None):
+    """mo9 or fa9 (phase 4l)."""
+    if name == "mo9":
+        return build_mo9(n, dtype, uniform, device)
+    return build_fa(name, n, dtype, uniform, device)
+
+
+def wide_data(name, n, uniform=True):
+    return mo3_data(n, uniform) if name == "mo9" else fa_data(name, n, uniform)
+
+
+def phase_wide_multi_output(cs, adj, kf, training):
+    """Multi-output GPR above state dim 6 on both grids, at T_D9: mo9 (d = 9,
+    o = 3: a constant emission and noise precision, kernels 4 and 7 at
+    (9, 3) through the d-space fold with J made once a warp) and fa9 (d = 9,
+    o = 12: fa12's time-varying weights and trainable loading, kernels 4
+    and 7 at (9, 12), H staged a step); kernel 5 at d = 9 on both; the
+    uniform grid through the materialised route, since kernels 1 and 3 take
+    o = 1 only above d = 6.  In float32 each path runs loss() and its
+    backward, posterior_marginals(), gpr.posterior with predict_f (both
+    output covariances) and predict_y at N_NEW_WIDE new points, with its
+    launch counts, and FIT_STEPS fit steps (Adam; fa9 at FA_FIT_LR, in
+    float64, mo9 at fit's default: the loss falls).  The same outputs in
+    float64 on the kernel path against the plain path (TOL_F64), and in
+    float32 on both paths against float64 (check_f32_wide's rule with the
+    TOL_MO9_F32_* and TOL_FA9_F32_* bounds).  The predictions are held as
+    d9_prediction holds the d9 model's: at the exact hits and past either
+    end; between the grid points the Matern52 children's process noise
+    P_inf - A P_inf A^T has no digits left at sub-grid steps (ROADMAP queue
+    3), so there the non-finite ones are counted and the differences
+    printed."""
+    log(f"phase 4l: mo9 (IndependentMultiOutput of three Matern52, d = 9, o = 3) and fa9 "
+        f"(FactorAnalysisKernel of three Matern52 latents, d = 9, o = {FA9_O}) at T = {T_D9}, "
+        "float32 and float64")
+    counts = {}
+    expect = no_launches(filter_pipeline=3, adjoint_pipeline=1, smoother_scan=2)
+    for name in ("mo9", "fa9"):
+        tols = ((TOL_MO9_F32_LOSS, TOL_MO9_F32_GRAD, TOL_MO9_F32_MOMENTS) if name == "mo9"
+                else (TOL_FA9_F32_LOSS, TOL_FA9_F32_GRAD, TOL_FA9_F32_MOMENTS))
+        for uniform in (True, False):
+            grid = "uniform" if uniform else "jittered"
+            x, _ = wide_data(name, T_D9, uniform)
+            pts, kinds = prediction_points(N_NEW_WIDE, x)
+            held = np.r_[kinds["hits"], kinds["left"], kinds["right"]]
+
+            def at_held(out):
+                return {k: v[held] if k in WIDE_PREDICTIONS else v for k, v in out.items()}
+
+            def inner(out):
+                return {k: v[kinds["inner"]] for k, v in out.items() if k in WIDE_PREDICTIONS}
+            runs = {}
+            for dtype in (torch.float32, torch.float64):
+                dname = str(dtype)[6:]
+                tn = torch.as_tensor(pts, dtype=dtype, device=DEVICE)
+                model = build_wide(name, T_D9, dtype, uniform)
+                path = f"{name} {grid} {dname}"
+                counts[path] = {}
+                with launches_of(cs, adj, counts[path]):
+                    runs[("kernel", dname)] = gpr_outputs(model, tn)
+                expect_launches(f"{path}: loss, backward, marginals, posterior", counts[path],
+                                expect)
+                check_finite(path, at_held(runs[("kernel", dname)]))
+                log(f"  {path}: non-finite predictions between the grid points: " + str(
+                    {k: int((~torch.isfinite(v)).sum())
+                     for k, v in inner(runs[("kernel", dname)]).items()}))
+                log(f"  {path}: loss = {float(runs[('kernel', dname)]['loss'])!r}")
+                if dtype == WIDE_FIT_DTYPE[name]:
+                    fpath = f"{name} {grid} training {dname}"
+                    counts[fpath] = {}
+                    lr = FA_FIT_LR if name == "fa9" else 1e-2
+                    opt = torch.optim.Adam([q for q in model.parameters() if q.requires_grad],
+                                           lr=lr)
+                    with launches_of(cs, adj, counts[fpath]):
+                        _, losses = training.fit(model, num_steps=FIT_STEPS, optimizer=opt)
+                    expect_launches(f"{fpath}: {FIT_STEPS} fit steps", counts[fpath],
+                                    no_launches(filter_pipeline=FIT_STEPS,
+                                                adjoint_pipeline=FIT_STEPS))
+                    check_fit(losses)
+                del model
+                with plain_path(cs, adj, kf):
+                    runs[("plain", dname)] = gpr_outputs(build_wide(name, T_D9, dtype, uniform),
+                                                         tn)
+            log(f"  {name} {grid} f64 between the grid points, kernel path vs plain path: "
+                + " ".join(f"{k}={finite_rel_diff(v, inner(runs[('plain', 'float64')])[k])}"
+                           for k, v in inner(runs[("kernel", "float64")]).items()))
+            k64, p64 = (at_held(runs[(path, "float64")]) for path in ("kernel", "plain"))
+            check(f"{name} {grid} T={T_D9} f64: kernel path vs plain path (predictions at the "
+                  "exact hits and ends)",
+                  {k: rel_diff(k64[k], p64[k]) for k in p64}, dict.fromkeys(p64, TOL_F64))
+            grads = [k for k in k64 if k.startswith("grad")]
+            gscale = torch.stack([p64[k].abs().max() for k in grads]).max()
+            k32, p32 = (at_held(runs[(path, "float32")]) for path in ("kernel", "plain"))
+            check_f32_wide(
+                f"{name} {grid} T={T_D9}: f32 vs f64, kernel path and plain path "
+                "(gradients normwise; predictions at the exact hits and ends)",
+                {k: (k32[k], p32[k], p64[k], gscale if k in grads else None) for k in p64},
+                {k: (tols[0] if k == "loss" else tols[1] if k in grads else tols[2])
+                 for k in p64})
+            del runs
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 5
 # ---------------------------------------------------------------------------
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -2860,7 +3063,7 @@ def pass_label(key: str) -> str:
     return key
 
 
-def kernel_device_ms(fn, reps: int = 20):
+def kernel_device_ms(fn, reps: int = 10):
     """Device milliseconds per call spent in the port's own CUDA kernels
     (namespace ``mf::``), from a torch.profiler trace of ``reps`` calls (0.0
     when the trace holds no device time), and per kernel of those (a pass):
@@ -2912,7 +3115,7 @@ def labelled_wrappers(cs, adj, kf):
             setattr(mod, name, fn)
 
 
-def device_ms_by_kernel(cs, adj, kf, fn, reps: int = 20):
+def device_ms_by_kernel(cs, adj, kf, fn, reps: int = 10):
     """Device milliseconds per call of ``fn``: in all the port's kernels
     together (``kernel_device_ms``); per wrapper, in the ``mf::`` kernels
     inside its span on the card's timeline (the trace's device-side
@@ -2971,7 +3174,7 @@ def stored_bytes(x) -> int:
     return math.prod(n for n, st in zip(x.shape, x.stride()) if st != 0) * x.element_size()
 
 
-def step_flops(name: str, d: int, o: int = 1, obs: bool = True) -> int:
+def step_flops(name: str, d: int, o: int = 1, obs: bool = True, js_step: bool = True) -> int:
     """Operations of one step of the sequential recursion that a kernel's
     function computes (counting a d x d product as 2 d^3 and a d x d
     inverse as 2 d^3): the least arithmetic of the function, whatever the
@@ -3007,14 +3210,18 @@ def step_flops(name: str, d: int, o: int = 1, obs: bool = True) -> int:
       Koopman backward: Pp, M^-1, L = F M^-1 and H^T W H (12 d^3), the
         suffix's L^T NDK L (4 d^3), N F P (2 d^3), J a step for the
         general one; the observation terms (the smoothed covariance 4 d^3,
-        lam H and A (lam H)^T: 2 d o^2 + 2 d^2 o)."""
+        lam H and A (lam H)^T: 2 d o^2 + 2 d^2 o).
+    The same at every o > 1 above d = 6 (csrc/wide_info.cuh).  J counts a
+    step only where H or lam changes with the step (``js_step``): made once
+    otherwise, as the kernels make it."""
     d2, d3 = d * d, d ** 3
-    if o > d:
+    if o > d or (o > 1 and d > 6):
         js = 2 * d * o * o + 2 * d2 * o
+        js_general = js if js_step else 0
         if name in ("filter_pipeline", "filter_pipeline_uniform"):
             return (12 * d3 + 6 * d2 + 4 * d * o + 4 * o * o
-                    + (js if name == "filter_pipeline" else 0))
-        return (18 * d3 + 2 * d2 + (js if name == "adjoint_pipeline" else 0)
+                    + (js_general if name == "filter_pipeline" else 0))
+        return (18 * d3 + 2 * d2 + (js_general if name == "adjoint_pipeline" else 0)
                 + (4 * d3 + js if obs else 0))
     if name in ("filter_pipeline", "filter_pipeline_uniform") and o > 1:
         return (4 * d3 + 4 * d2 * o + 4 * d * o * o + 2 * o * o * (o + 1) + 10 * o ** 3
@@ -3037,7 +3244,8 @@ def bound(name, inputs, outputs, d, steps):
     input read once, each output written once) over the H100's memory rate
     and its operations (step_flops per step, at the call's output dim)
     over the H100's rate for its dtype; a Koopman backward's observation
-    terms count only where the call wrote gH, gnu or glam."""
+    terms count only where the call wrote gH, gnu or glam, and J a step only
+    where H or lam changes with the step."""
     nbytes = sum(stored_bytes(x) for x in list(inputs) + list(outputs)
                  if isinstance(x, torch.Tensor))
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
@@ -3049,7 +3257,11 @@ def bound(name, inputs, outputs, d, steps):
     obs_at = {"adjoint_pipeline": slice(3, 6), "adjoint_pipeline_uniform": slice(5, 8)}
     obs = name not in obs_at or any(x is not None for x in outputs[obs_at[name]])
     rate = H100_F64_FLOPS if inputs[0].dtype == torch.float64 else H100_F32_FLOPS
-    t_ops = step_flops(name, d, o, obs) * steps / rate * 1e3
+    # the general kernels make J = H^T lam H once where H and lam have step
+    # stride 0
+    js_step = name not in ("filter_pipeline", "adjoint_pipeline") or not (
+        inputs[3].stride(-1) == 0 and inputs[5].stride(-1) == 0)
+    t_ops = step_flops(name, d, o, obs, js_step) * steps / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3159,6 +3371,10 @@ def phase_times(cs, adj, kf, card, counts):
     fa = {f"{name} {grid}": build_fa(name, T_FULL, torch.float32, grid == "uniform")
           for name in ("fa12", "fa6c") for grid in ("uniform", "jittered")}
     fa_needs = (True, True, True, True, False, False)
+    # mo9's and fa9's kernels 4 and 7 at (9, 3) and (9, 12), 5 at d = 9
+    # (T_D9), as their GPR backwards call them (fa9's with gH)
+    wide = {f"{name} {grid}": build_wide(name, T_D9, torch.float32, grid == "uniform")
+            for name in ("mo9", "fa9") for grid in ("uniform", "jittered")}
     sets = {"": (kernel_calls(cs, adj, uni, gen), 2, T_FULL),
             " d=9": (kernel_calls(cs, adj, d9u, d9j), 9, T_D9),
             " o=2": (natgrad_kernel_calls(cs), 2, NG_T),
@@ -3166,13 +3382,19 @@ def phase_times(cs, adj, kf, card, counts):
             " fa12": (kernel_calls(cs, adj, None, fa["fa12 jittered"], fa_needs, scan=False),
                       6, T_FULL),
             " fa6c": (kernel_calls(cs, adj, fa["fa6c uniform"], fa["fa6c jittered"], fa_needs,
-                                   scan=False), 4, T_FULL)}
+                                   scan=False), 4, T_FULL),
+            " mo9": (kernel_calls(cs, adj, None, wide["mo9 jittered"], scan=False), 9, T_D9),
+            " fa9": (kernel_calls(cs, adj, None, wide["fa9 jittered"], fa_needs, scan=False),
+                     9, T_D9)}
     with torch.no_grad():
         tn = torch.as_tensor(prediction_points(N_NEW, flagship_data(T_FULL)[0])[0],
                              dtype=torch.float32, device=DEVICE)
+        tn_wide = torch.as_tensor(prediction_points(N_NEW_WIDE, mo3_data(T_D9)[0])[0],
+                                  dtype=torch.float32, device=DEVICE)
         held = {"uniform": uni.posterior, "jittered": gen.posterior,
                 "mo3 uniform": mo3u.posterior, "mo3 jittered": mo3j.posterior,
-                **{tag: m.posterior for tag, m in fa.items()}}
+                **{tag: m.posterior for tag, m in fa.items()},
+                **{tag: m.posterior for tag, m in wide.items()}}
     requests = {
         # predict_f runs no kernel: its plain path is the same code
         "uniform posterior": lambda: uni.posterior,
@@ -3201,6 +3423,11 @@ def phase_times(cs, adj, kf, card, counts):
         requests[f"{tag} posterior_marginals()"] = lambda m=m: m.kalman.posterior_marginals()
         requests[f"{tag} posterior"] = lambda m=m: m.posterior
         requests[f"{tag} predict_f (1e5 points)"] = lambda tag=tag: held[tag].predict_f(tn)
+    for tag, m in wide.items():
+        requests[f"{tag} loss()"] = m.loss
+        requests[f"{tag} posterior_marginals()"] = lambda m=m: m.kalman.posterior_marginals()
+        requests[f"{tag} posterior"] = lambda m=m: m.posterior
+        requests[f"{tag} predict_f (1e4 points)"] = lambda tag=tag: held[tag].predict_f(tn_wide)
     sde_prob = sde_problem(torch.float32, SDE_N)
     sde_key = f"SDE VI iteration (n={SDE_N})"
     requests[sde_key] = lambda: sde_iteration(kf, sde_prob, sde_prob["path"])
@@ -3213,7 +3440,8 @@ def phase_times(cs, adj, kf, card, counts):
              "uniform CVI iteration": cvi_step(build_cvi(T_FULL, torch.float32)),
              "jittered CVI iteration": cvi_step(build_cvi(T_FULL, torch.float32,
                                                           uniform=False)),
-             **{f"{tag} training step": train_step(m) for tag, m in fa.items()}}
+             **{f"{tag} training step": train_step(m) for tag, m in fa.items()},
+             **{f"{tag} training step": train_step(m) for tag, m in wide.items()}}
     calls = {name + tag: fns for tag, (c, _, _) in sets.items()
              for name, fns in c.items()}
     natgrad = {}
@@ -3226,12 +3454,13 @@ def phase_times(cs, adj, kf, card, counts):
     t = {}
     def reps_of(key, turn):
         """(calls, warm-up calls) a turn: the factor analysis paths' plain
-        calls take 0.5-2 s each, so they run fewer (the time limit)."""
-        if key.startswith("fa"):
-            return (5, 2) if turn == "kernel" else (1, 0)
-        return (20, 2) if turn == "kernel" else (3, 2)
+        calls take 0.5-2 s each, and mo9's near that, so they run fewer; the
+        others 5 / 1 (20 / 3 before mo9's and fa9's paths: the time limit)."""
+        if key.startswith(("fa", "mo9")):
+            return (3, 1) if turn == "kernel" else (1, 0)
+        return (5, 1) if turn == "kernel" else (1, 1)
     for turn in ("plain", "kernel", "kernel", "plain"):
-        reps = 20 if turn == "kernel" else 3
+        reps = 5 if turn == "kernel" else 1
         ctx = plain_path(cs, adj, kf) if turn == "plain" else contextlib.nullcontext()
         with ctx:
             with torch.no_grad():
@@ -3256,12 +3485,14 @@ def phase_times(cs, adj, kf, card, counts):
                     ("jittered CVI iteration", steps["jittered CVI iteration"]),
                     ("mo3 uniform training step", steps["mo3 uniform training step"]),
                     ("mo3 jittered training step", steps["mo3 jittered training step"]),
-                    *((f"{tag} training step", steps[f"{tag} training step"]) for tag in fa),
+                    *((f"{tag} training step", steps[f"{tag} training step"])
+                      for tag in list(fa) + list(wide)),
                     (sde_key, requests[sde_key]), *natgrad.items()):
         ctx = torch.no_grad() if key.startswith("SDE") else contextlib.nullcontext()
         with ctx:
             total, per, traced = device_ms_by_kernel(
-                cs, adj, kf, fn, reps=3 if key in natgrad else 10 if key.startswith("fa") else 20)
+                cs, adj, kf, fn,
+                reps=3 if key in natgrad else 5 if key.startswith(("fa", "mo9")) else 10)
         log(f"  {key}: device ms per iteration in the port's kernels {total!r} "
             f"(torch.profiler); by wrapper, in its own kernels: " + (", ".join(
                 f"{k} {v!r}" for k, v in per.items()) or "not measured") + f"  [{card}]")
@@ -3339,8 +3570,16 @@ def phase_times(cs, adj, kf, card, counts):
                 " fa6c": {**{k: fa_runs("fa6c", ("uniform",)) for k in (
                     "filter_pipeline_uniform", "smoother_pipeline_uniform",
                     "adjoint_pipeline_uniform")}, **{k: fa_runs("fa6c", ("jittered",)) for k in (
-                        "filter_pipeline", "smoother_scan", "adjoint_pipeline")}}}
-    fa_dims = {" fa12": (6, FA12_O), " fa6c": (4, FA6C_O)}
+                        "filter_pipeline", "smoother_scan", "adjoint_pipeline")}},
+                # mo9's and fa9's paths (phase 4l) run kernels 4, 5 and 7 on
+                # both grids
+                **{f" {name}": {k: fa_runs(name, ("uniform", "jittered"))
+                                for k in ("filter_pipeline", "smoother_scan", "adjoint_pipeline")}
+                   for name in ("mo9", "fa9")}}
+    fa_dims = {" fa12": (6, FA12_O), " fa6c": (4, FA6C_O), " mo9": (9, 3), " fa9": (9, FA9_O)}
+    # the sources of the filters and backwards at o > d <= 6 and above d = 6
+    fa_src = {" fa12": "info_scan.cuh", " fa6c": "info_scan.cuh", " mo9": "wide_info.cuh",
+              " fa9": "wide_info.cuh"}
     out = []
     for name, src, wide_src, rep, paths, wide_paths in rows:
         tags = [("", src, paths), (" d=9", wide_src, wide_paths)]
@@ -3352,7 +3591,8 @@ def phase_times(cs, adj, kf, card, counts):
         for fa_tag, by_kernel in fa_paths.items():
             if name in by_kernel:
                 smoother = name.startswith("smoother")
-                tags.append((fa_tag, src if smoother else "info_scan.cuh", by_kernel[name]))
+                tags.append((fa_tag, (wide_src if fa_dims[fa_tag][0] > 6 else src) if smoother
+                             else fa_src[fa_tag], by_kernel[name]))
         for tag, file, run in tags:
             if file is None:
                 continue
@@ -3422,6 +3662,9 @@ def main() -> int:
     t1 = time.perf_counter()
     counts.update(phase_factor_analysis(cs, adj, kf, training))
     log(f"  phase 4k took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    counts.update(phase_wide_multi_output(cs, adj, kf, training))
+    log(f"  phase 4l took {time.perf_counter() - t1:.1f} s")
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels = phase_times(cs, adj, kf, card, counts)

@@ -7,7 +7,8 @@ backwards (kernels 1 to 7):
 
 1. ptxas's registers, stack and spills of every kernel of the runtime-d
    units (nvcc -Xptxas -v on csrc/wide_inst.cu, one unit per family and
-   dtype) and of the uniform, general, adjoint and gadjoint units at d = 2,
+   dtype, and csrc/wide_info_inst.cu: kernels 4 and 7 at o = 2..12, one
+   unit per kernel and dtype) and of the uniform, general, adjoint and gadjoint units at d = 2,
    3 and 6 in float32, and of the uniform and adjoint units in float64
    (uniform_inst.cu, general_inst.cu, adjoint_inst.cu, gadjoint_inst.cu;
    kernels 1 and 2, 4, 5 and 6, 3, and 7), and of the o x o units of mo3's
@@ -90,7 +91,7 @@ def ptxas(cs) -> tuple:
     filt = shutil.which("cu++filt", path=bindir) or shutil.which("c++filt")
     dump = shutil.which("cuobjdump", path=bindir)
     units = [(src, defines) for src, defines in cs._UNITS
-             if src == "wide_inst.cu"] + NARROW_UNITS
+             if src in ("wide_inst.cu", "wide_info_inst.cu")] + NARROW_UNITS
 
     def demangle(name):
         if filt is None:

@@ -29,9 +29,9 @@ from torch import nn
 
 from .emission_model import EmissionModel, time_constant
 from .ops.adjoint import log_likelihood_koopman, log_likelihood_koopman_uniform
-from .ops.cuda_scan import (UNIFORM_MAX_OUTPUT_DIM, filter_pipeline,
-                            filter_pipeline_uniform, smoother_pipeline_uniform,
-                            smoother_scan)
+from .ops.cuda_scan import (MULTI_OUTPUT_MAX_STATE_DIM, UNIFORM_MAX_OUTPUT_DIM,
+                            filter_pipeline, filter_pipeline_uniform,
+                            smoother_pipeline_uniform, smoother_scan)
 from .ops.kalman import (_materialize_uniform, _posterior_ssm_tl, rts_gains_tl,
                          smoother_elements_tl)
 from .ops.scans import segmented_affine_cov_scan_tl
@@ -112,15 +112,20 @@ class BaseKalmanFilter(abc.ABC):
         on the emission tensor itself: constant prior steps take the uniform
         kernels only where the emission is the same at every step
         (:func:`~markovflow_tpu_torch.emission_model.time_constant`) and
-        has at most ``UNIFORM_MAX_OUTPUT_DIM`` rows (as the JAX package's
-        ``_uniform_engine`` routes it), and are materialised to per-step
-        arrays, for the general kernels, otherwise."""
+        has at most ``UNIFORM_MAX_OUTPUT_DIM`` rows, or one row above state
+        dim ``MULTI_OUTPUT_MAX_STATE_DIM`` (as the JAX package's
+        ``_uniform_engine`` routes it: its uniform kernels stop at d = 6,
+        and its materialised route takes the general ones), and are
+        materialised to per-step arrays, for the general kernels,
+        otherwise."""
         if (prior_tl is None) == (prior_const_tl is None):
             raise ValueError("give exactly one of prior_tl and prior_const_tl")
         self.emission = emission_model
         h = emission_model.emission_matrix
-        if prior_const_tl is not None and (h.shape[-2] > UNIFORM_MAX_OUTPUT_DIM
-                                           or not time_constant(h)):
+        o, d = h.shape[-2:]
+        if prior_const_tl is not None and (
+                o > UNIFORM_MAX_OUTPUT_DIM or (o > 1 and d > MULTI_OUTPUT_MAX_STATE_DIM)
+                or not time_constant(h)):
             f_tl, c_tl, q_tl, _ = _materialize_uniform(
                 *prior_const_tl, self._const_emission_tl(), h.shape[-3])
             prior_tl, prior_const_tl = (f_tl, c_tl, q_tl), None

@@ -260,7 +260,7 @@ def adjoint_pipeline(F, c, Q, H, nu, lam, maskf, m_f, p_f, gscale,
     inputs = [F, c, Q, H, nu, lam, m_f, p_f]
     if maskf is not None:
         inputs.append(maskf)
-    sfx = cs._check_cuda(inputs + [gscale], d, o)
+    sfx = cs._check_cuda(inputs + [gscale], d, o, wide_o=True)
     lead = torch.broadcast_shapes(*(x.shape[:-3] for x in inputs),
                                   gscale.shape)
     B = math.prod(lead)
@@ -364,10 +364,6 @@ def log_likelihood_koopman_uniform(Fc, cc, Qc, mu0, P0, Hc, nu, lam,
     lam = lam.expand(lead + (o, o, n))
     maskf = _float_mask(mask, lead, n, nu.dtype)
     if Fc.shape[-3] > UNIFORM_ADJOINT_MAX_STATE_DIM or o > cs.UNIFORM_MAX_OUTPUT_DIM:
-        if o > 1 and Fc.shape[-3] > cs.MULTI_OUTPUT_MAX_STATE_DIM and nu.device.type == "cuda":
-            raise NotImplementedError(
-                f"o = {o} at state dim {Fc.shape[-3]}: the CUDA kernels take "
-                f"o > 1 only at state dims 1..{cs.MULTI_OUTPUT_MAX_STATE_DIM}")
         F, c, Q, H = _materialize_uniform(Fc, cc, Qc, mu0, P0, Hc, n)
         return _Koopman.apply(F, c, Q, H, nu, lam, maskf)
     return _KoopmanUniform.apply(Fc, cc, Qc, mu0, P0, Hc, nu, lam, maskf)

@@ -5,8 +5,10 @@
 // o x o sites at d <= 6 (generalo_inst.cu: the filters; adjointo_inst.cu:
 // the Koopman backwards), one per (part, dtype, d) for o > d at d <= 6
 // (info_inst.cu: the filters, the Koopman backwards) and one per (kernel
-// family, dtype) for d = 7..12.
+// family, dtype) for d = 7..12 (wide_inst.cu; wide_info_inst.cu: kernels 4
+// and 7 at o = 2..12).
 #include "info_scan.cuh"
+#include "wide_info.cuh"
 
 #define MF_EXTERN(T, D)                                                                   \
   extern template int mf::launch_general_filter<mf::UniformSteps<T, D>>(                 \
@@ -94,12 +96,20 @@ MF_EXTERN_INFO_ALL(double)
 MF_EXTERN_WIDE(float)
 MF_EXTERN_WIDE(double)
 
+#define MF_EXTERN_WIDE_INFO(T)                                                            \
+  extern template int mf::launch_wide_info_filter<T>(mf::FilterArgs<T>, mf::GeneralPrior<T>, \
+                                                     T*, int64_t, int, cudaStream_t);     \
+  extern template int mf::launch_wide_info_adjoint<T>(mf::GeneralAdjointPrior<T>, T*,      \
+                                                      int64_t, int64_t, int, cudaStream_t);
+MF_EXTERN_WIDE_INFO(float)
+MF_EXTERN_WIDE_INFO(double)
+
 // Scratch sizes in elements of T (-1 for a state (or output) dimension with
 // no kernel; the filters and the Koopman backwards take the output dim o,
 // 1, a pair of MF_GENERAL_O_PAIRS or o > d, after d; the Koopman backwards then
 // obs, 0 where the call writes no observation term: the lean route's
 // scratch, which at o > 1 also keeps pass 1's stage 1 where its source
-// keeps it):
+// keeps it; at d = 7..12 every o takes the same scratch):
 // mf_smoother_scratch_* for the smoother scan; at d <= 6 the filters, the
 // Koopman backwards and the smoothers also keep each thread's in-block
 // prefix or suffix (the uniform backward also its partial sums),
@@ -134,6 +144,8 @@ MF_EXTERN_WIDE(double)
   /* MF_GENERAL_O_PAIRS) */                                                             \
   extern "C" int64_t mf_general_filter_scratch_##SUFFIX(int64_t d, int64_t o,          \
                                                         int64_t batch, int64_t n) {    \
+    if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
+      return mf::wide_filter_scratch<T>(int(d), batch, n);                              \
     if (o > d)                                                                          \
       MF_SWITCH_D(d, (mf::general_filter_scratch<mf::GeneralStepsW<T, D_>>(batch, n)), -1) \
     if (o != 1)                                                                         \
@@ -141,13 +153,13 @@ MF_EXTERN_WIDE(double)
                                                            mf::GeneralStepsRankO<T, D_, O_>>( \
                              batch, n)),                                                \
                    -1)                                                                  \
-    if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
-      return mf::wide_filter_scratch<T>(int(d), batch, n);                              \
     MF_SWITCH_D(d, (mf::general_filter_scratch<mf::GeneralSteps<T, D_>>(batch, n)), -1) \
   }                                                                                     \
   extern "C" int64_t mf_general_adjoint_scratch_##SUFFIX(int64_t d, int64_t o,         \
                                                          int64_t obs, int64_t batch,   \
                                                          int64_t n) {                  \
+    if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
+      return mf::wide_smoother_scratch<T>(int(d), batch, n);                            \
     if (o > d)                                                                          \
       MF_SWITCH_D(d, (mf::general_adjoint_scratch<mf::GeneralAdjStepsW<T, D_>>(batch, n)), -1) \
     if (o != 1 && obs == 0)                                                             \
@@ -158,8 +170,6 @@ MF_EXTERN_WIDE(double)
       MF_SWITCH_DO(d, o,                                                                \
                    (mf::general_adjoint_scratch<mf::GeneralAdjStepsO<T, D_, O_, true>>(batch, n)), \
                    -1)                                                                  \
-    if (d >= mf::WIDE_MIN_D && d <= mf::WIDE_MAX_D)                                     \
-      return mf::wide_smoother_scratch<T>(int(d), batch, n);                            \
     MF_SWITCH_D(d, (mf::general_adjoint_scratch<mf::GeneralAdjSteps<T, D_>>(batch, n)), -1) \
   }                                                                                     \
   extern "C" int64_t mf_uniform_smoother_scratch_##SUFFIX(int64_t d, int64_t batch,     \

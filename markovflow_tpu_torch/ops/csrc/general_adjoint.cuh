@@ -1237,7 +1237,9 @@ int launch_wide_general_adjoint(GeneralAdjointPrior<T> p, T* scratch, int64_t ba
 // strides of F, c, Q, H and the sites in the general filter's order; the
 // scratch is mf_general_adjoint_scratch_*'s; any gradient pointer may be
 // null; the output dim o is 1 or, at d <= 6, one of MF_GENERAL_O_PAIRS (where
-// gH, gnu and glam are all null, through the lean pass 3).
+// gH, gnu and glam are all null, through the lean pass 3) or o > d, or at
+// d = 7..12 2..12 (launch_wide_info_adjoint, wide_info.cuh, which
+// entry_points.cu includes).
 #define MF_DEFINE_GENERAL_ADJOINT_ENTRY_POINTS(T, SUFFIX)                              \
   extern "C" int mf_general_adjoint_##SUFFIX(                                          \
       const T* f, const T* c, const T* q, const T* h, const T* nu, const T* lam,       \
@@ -1256,6 +1258,8 @@ int launch_wide_general_adjoint(GeneralAdjointPrior<T> p, T* scratch, int64_t ba
     p.m_f = m_f; p.p_f = p_f; p.gscale = gscale;                                       \
     p.gf = gf; p.gc = gc; p.gq = gq; p.gh = gh; p.gnu = gnu; p.glam = glam; p.o = o;   \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (o != 1 && d >= mf::WIDE_MIN_D)                                                 \
+      return mf::launch_wide_info_adjoint<T>(p, scratch, batch, n, int(d), s);         \
     if (o > d)                                                                         \
       MF_SWITCH_D(d, (mf::launch_general_adjoint<mf::GeneralAdjStepsW<T, D_>>(p, scratch, \
                                                                             batch, n, s)), \

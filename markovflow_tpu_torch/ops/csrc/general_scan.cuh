@@ -1738,7 +1738,8 @@ struct WidePrebuiltSteps {
 // Q and H as F, then the sites as set_site_strides takes them; its output
 // dim o is 1 or, at d <= 6, one of MF_GENERAL_O_PAIRS (GeneralStepsRankO
 // where lam's step stride is 0, else GeneralStepsO) or o > d
-// (GeneralStepsW, info_scan.cuh, which entry_points.cu includes).
+// (GeneralStepsW, info_scan.cuh), or at d = 7..12 2..12
+// (launch_wide_info_filter, wide_info.cuh; entry_points.cu includes both).
 #define MF_DEFINE_GENERAL_ENTRY_POINTS(T, SUFFIX)                                      \
   extern "C" int mf_general_filter_##SUFFIX(                                           \
       const T* f, const T* c, const T* q, const T* h, const T* nu, const T* lam,       \
@@ -1755,6 +1756,8 @@ struct WidePrebuiltSteps {
     mf::set_site_strides(a, st + 15);                                                  \
     a.m_f = m_f; a.p_f = p_f; a.loglik = loglik; a.n = n; a.o = o;                     \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                                \
+    if (o != 1 && d >= mf::WIDE_MIN_D)                                                 \
+      return mf::launch_wide_info_filter<T>(a, p, scratch, batch, int(d), s);          \
     if (o > d)                                                                         \
       MF_SWITCH_D(d, (mf::launch_general_filter<mf::GeneralStepsW<T, D_>>(a, p, scratch,  \
                                                                         batch, s)),    \

@@ -179,11 +179,12 @@ MF_DEV void tri_index(int e, int d, int& i, int& j) {
 // the vector v (none when v is null), so a row swap, the scaling and the
 // elimination are register operations; lane j's column gives the pivot row
 // and the factors by shuffles.  No shared memory and no __syncwarp() until
-// X goes to out (X^T when TRANS) and x to xo.
-template <typename T, bool TRANS = false>
-MF_DEV void wsolve(const T* m, const T* bm, const T* v, T* out, T* xo, int d) {
+// X goes to out (X^T when TRANS) and x to xo.  With LD every lane returns
+// log|det m| (the sum of the pivots' log magnitudes), else 0.
+template <typename T, bool TRANS = false, bool LD = false>
+MF_DEV T wsolve(const T* m, const T* bm, const T* v, T* out, T* xo, int d) {
   const int lane = lane_id();
-  T col[WIDE_MAX_D];
+  T col[WIDE_MAX_D], ld = T(0);
 #pragma unroll
   for (int i = 0; i < WIDE_MAX_D; ++i)
     col[i] = i >= d                  ? T(0)
@@ -204,7 +205,9 @@ MF_DEV void wsolve(const T* m, const T* bm, const T* v, T* out, T* xo, int d) {
 #pragma unroll
     for (int i = j + 1; i < WIDE_MAX_D; ++i)
       if (i == p) { const T t = col[i]; col[i] = x; x = t; }
-    col[j] = x * (T(1) / __shfl_sync(0xffffffffu, x, j));
+    const T piv = __shfl_sync(0xffffffffu, x, j);
+    if constexpr (LD) ld += log(fabs(piv));
+    col[j] = x * (T(1) / piv);
 #pragma unroll
     for (int i = 0; i < WIDE_MAX_D; ++i) {
       if (i == j || i >= d) continue;
@@ -222,6 +225,7 @@ MF_DEV void wsolve(const T* m, const T* bm, const T* v, T* out, T* xo, int d) {
       if (i < d) xo[i] = col[i];
   }
   __syncwarp();
+  return ld;
 }
 
 // Inverse of m [d x d] into out.
@@ -348,13 +352,14 @@ MF_DEV void wide_fetch_wait() {
 
 // Starts the copies of steps k .. k + cnt - 1 (cnt <= CH) into CH slots of
 // per values: value v of step k + s lands at slots[s * per + v], from
-// src(v, k + s) (null: 0).  The lanes take (v, s) with s fastest, so one
-// copy instruction reads CH neighbouring steps of 32 / CH values: a sector
-// (CH = 32 / sizeof(T)) or half of one each in the time-last layout, where
-// a step at a time reads 32 sectors.
+// src(v, k + s) (null: 0), for v < nv (0: every value of the slot).  The
+// lanes take (v, s) with s fastest, so one copy instruction reads CH
+// neighbouring steps of 32 / CH values: a sector (CH = 32 / sizeof(T)) or
+// half of one each in the time-last layout, where a step at a time reads
+// 32 sectors.
 template <int CH, typename T, class Src>
-MF_DEV void fetch_chunk(T* slots, int per, int64_t k, int cnt, const Src& src) {
-  for (int idx = lane_id(); idx < per * CH; idx += 32) {
+MF_DEV void fetch_chunk(T* slots, int per, int64_t k, int cnt, const Src& src, int nv = 0) {
+  for (int idx = lane_id(); idx < (nv > 0 ? nv : per) * CH; idx += 32) {
     const int v = idx / CH, s = idx - v * CH;
     if (s >= cnt) continue;
     const T* from = src(v, k + s);

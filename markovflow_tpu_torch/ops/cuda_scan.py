@@ -78,7 +78,11 @@ MULTI_OUTPUT_MAX_STATE_DIM = 6
 #: 6 (``_uniform_engine``).  At o > d a step's o x o site is folded into
 #: state space inside the kernel, with o a run-time bound (``GeneralStepsW``,
 #: ``UniformStepsW``, ``GeneralAdjStepsW``, ``UniformAdjStepsW`` in
-#: ``csrc/info_scan.cuh``; one unit per (dtype, d))
+#: ``csrc/info_scan.cuh``; one unit per (dtype, d)).  Above those state
+#: dims the general kernels take o = 2..GENERAL_MAX_OUTPUT_DIM too, with d
+#: and o bound at run time (one unit per (kernel, dtype),
+#: ``csrc/wide_info.cuh``), and the uniform ones o = 1 only: the JAX
+#: package sends o > 1 above d = 6 to its general kernels
 GENERAL_MAX_OUTPUT_DIM = 12
 UNIFORM_MAX_OUTPUT_DIM = 6
 
@@ -150,8 +154,9 @@ def _find_nvcc() -> str:
 
 
 #: compilation units: one per (family, dtype) of the runtime-d kernels for
-#: d = 7..12, one per (kernel family, dtype, state dim) instantiation of the
-#: unrolled kernels for d = 1..6, one per (dtype, d, o) of the filters and
+#: d = 7..12 (and of kernels 4 and 7 at o = 2..12 there, with a run-time o,
+#: ``wide_info_inst.cu``), one per (kernel family, dtype, state dim)
+#: instantiation of the unrolled kernels for d = 1..6, one per (dtype, d, o) of the filters and
 #: one of the Koopman backwards at o x o sites (o = 2..d), one per (dtype,
 #: d) of the filters and one of the Koopman backwards at o > d (run-time
 #: o, ``info_inst.cu``), and the C entry points, so that nvcc runs them in
@@ -164,6 +169,8 @@ _O_PAIRS = [(d, o) for d in range(MULTI_OUTPUT_MAX_STATE_DIM, 1, -1)
 _UNITS = [
     ("wide_inst.cu", [f"-DMF_T={t}", f"-DMF_{fam.upper()}"])
     for fam in ("general", "gadjoint", "uniform") for t in ("double", "float")] + [
+    ("wide_info_inst.cu", [f"-DMF_T={t}"] + part)
+    for part in (["-DMF_WIDE_INFO_FILTER"], []) for t in ("double", "float")] + [
     (f"{fam}o_inst.cu", [f"-DMF_T={t}", f"-DMF_D={d}", f"-DMF_O={o}"])
     for fam in ("adjoint", "general") for d, o in _O_PAIRS
     for t in ("double", "float")] + [
@@ -278,13 +285,13 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def _check_cuda(tensors, d: int, o: int, max_d: int = MAX_STATE_DIM,
-                max_o: int = GENERAL_MAX_OUTPUT_DIM) -> str:
+                max_o: int = GENERAL_MAX_OUTPUT_DIM, wide_o: bool = False) -> str:
     """Raise unless every tensor is on one CUDA device with one supported
     dtype and the dims have a kernel (state dims 1..``max_d``; output dim
-    1, or at d <= MULTI_OUTPUT_MAX_STATE_DIM 2..``max_o``: o <= d in the
-    o x o units, o > d in the run-time-o units; the smoothers and the
-    filter scan, which have no output dim, pass 1); return the dtype
-    suffix."""
+    1, or 2..``max_o``: at d <= MULTI_OUTPUT_MAX_STATE_DIM o <= d in the
+    o x o units, o > d in the run-time-o units, and above that d only where
+    ``wide_o`` (the general kernels); the smoothers and the filter scan,
+    which have no output dim, pass 1); return the dtype suffix."""
     device, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != device:
@@ -296,11 +303,11 @@ def _check_cuda(tensors, d: int, o: int, max_d: int = MAX_STATE_DIM,
     if not 1 <= d <= max_d:
         raise NotImplementedError(
             f"this CUDA kernel takes state dims 1..{max_d}, got {d}")
-    if o != 1 and d > MULTI_OUTPUT_MAX_STATE_DIM:
+    if o != 1 and d > MULTI_OUTPUT_MAX_STATE_DIM and not wide_o:
         raise NotImplementedError(
-            f"the CUDA kernels take output dims o > 1 only at state dims "
+            f"this CUDA kernel takes output dims o > 1 only at state dims "
             f"1..{MULTI_OUTPUT_MAX_STATE_DIM}, got o = {o} at d = {d} (o > 1 "
-            f"at d = 7..12 has no kernel)")
+            f"at d = 7..12 runs in the general kernels)")
     if not 1 <= o <= max(d, max_o):
         raise NotImplementedError(
             f"this CUDA kernel takes output dims 1..{max(d, max_o)} at d = {d}, "
@@ -486,11 +493,13 @@ def filter_pipeline(F, c, Q, H, nu, lam, maskf=None):
     maskf [..., 1, 1, N] (steps with maskf <= 0.5 add 0 to the likelihood).
     Every input may be an expanded view: the kernel reads all of them
     through their strides.  o = 1 at d = 1..12, o = 2..max(d,
-    GENERAL_MAX_OUTPUT_DIM) at d = 1..6; at o <= d lam may be indefinite
-    (the posterior must be proper) where it changes with the step, and a
-    lam of step stride 0 takes the rank-o route; at o > d each site is
-    folded into state space (J = H^T lam H, h = H^T nu), and lam must be
-    invertible where a step is kept.
+    GENERAL_MAX_OUTPUT_DIM) at d = 1..6 and 2..GENERAL_MAX_OUTPUT_DIM at
+    d = 7..12; at o <= d <= 6 lam may be indefinite (the posterior must be
+    proper) where it changes with the step, and a lam of step stride 0
+    takes the rank-o route; at o > d, and at d = 7..12, each site is folded
+    into state space (J = H^T lam H, h = H^T nu; M = I + Pp J inverted with
+    pivoting, so an indefinite lam works too), and lam must be invertible
+    where a step is kept.
 
     Returns (m_f [..., d, 1, N], P_f [..., d, d, N], loglik [...]).
     """
@@ -502,7 +511,7 @@ def filter_pipeline(F, c, Q, H, nu, lam, maskf=None):
     inputs = [F, c, Q, H, nu, lam]
     if maskf is not None:
         inputs.append(maskf)
-    sfx = _check_cuda(inputs, d, o)
+    sfx = _check_cuda(inputs, d, o, wide_o=True)
     lead = torch.broadcast_shapes(*(x.shape[:-3] for x in inputs))
     B = math.prod(lead)
     _check_grid(B, n)

@@ -52,6 +52,28 @@ CONFIGS = {
     "const_jittered": (4, False, False),
     "const8_uniform": (8, False, True),
 }
+#: fa9's latents: the d9 model's three Matern52 children, d = 9
+LATENTS9 = (("Matern52", 0.5, 1.0), ("Matern52", 2.0, 0.5), ("Matern52", 8.0, 0.25))
+#: fa9 (twelve outputs of LATENTS9 with time-varying weights: the general
+#: kernels at d = 9, o = 12), made only where named (main's ``names``;
+#: test_torch_wide_multi_output.py)
+WIDE_CONFIGS = {
+    "fa9_uniform": (12, True, True),
+    "fa9_jittered": (12, True, False),
+}
+_ALL = {**CONFIGS, **WIDE_CONFIGS}
+
+
+def _seed(name: str) -> int:
+    """The configuration's index (CONFIGS' sorted, then WIDE_CONFIGS')."""
+    if name in CONFIGS:
+        return sorted(CONFIGS).index(name)
+    return len(CONFIGS) + sorted(WIDE_CONFIGS).index(name)
+
+
+def latents_of(name: str):
+    """The latents (kind, lengthscale, variance) of a configuration."""
+    return LATENTS9 if name in WIDE_CONFIGS else LATENTS
 
 
 def periods(o: int) -> np.ndarray:
@@ -89,8 +111,8 @@ def chol(o: int) -> np.ndarray:
 def data(name: str):
     """(x [N], y [N, o]): linspace(0, 10, N), jittered by up to 0.4 of the
     spacing off the uniform grid; y_i = sin((i + 1) x / 2) + 0.3 noise."""
-    o, _, uniform = CONFIGS[name]
-    rng = np.random.default_rng(sorted(CONFIGS).index(name))
+    o, _, uniform = _ALL[name]
+    rng = np.random.default_rng(_seed(name))
     x = np.linspace(0.0, 10.0, N)
     if not uniform:
         x = x + 0.4 * (10.0 / (N - 1)) * rng.uniform(-1.0, 1.0, x.shape)
@@ -101,7 +123,7 @@ def data(name: str):
 def new_points(name: str) -> np.ndarray:
     """Points inside, on and past both ends of the grid."""
     x, _ = data(name)
-    rng = np.random.default_rng(100 + sorted(CONFIGS).index(name))
+    rng = np.random.default_rng(100 + _seed(name))
     pts = np.concatenate([[-0.5, x[0], x[7], 10.5], rng.uniform(0.0, 10.0, N_NEW - 4)])
     return np.sort(pts)
 
@@ -121,7 +143,9 @@ def projection_inputs(grid_shape):
     return rng.standard_normal(grid_shape + (3,)), lc @ np.swapaxes(lc, -1, -2) + 0.1 * np.eye(3)
 
 
-def main(out_path: str) -> None:
+def main(out_path: str, names=()) -> None:
+    """Everything but WIDE_CONFIGS, or with ``names`` only those
+    configurations."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -136,7 +160,7 @@ def main(out_path: str) -> None:
         return [getattr(jk, k)(lengthscale=e, variance=v) for k, e, v in specs]
 
     out = {}
-    for o in (2, 3):
+    for o in () if names else (2, 3):
         for gname, t in kernel_grids().items():
             tag = f"kernel/o{o}/{gname}"
             k = jk.FactorAnalysisKernel(lambda tt, o=o: weights(tt, o, False, jnp),
@@ -173,12 +197,15 @@ def main(out_path: str) -> None:
         h = k.generate_emission_model(ts).emission_matrix
         return (h[0] @ (p[0] @ a[0].T) @ h[1].T)[0, 0]
 
-    out["kernel/grad"] = jax.grad(probe)(0.7)
+    if not names:
+        out["kernel/grad"] = jax.grad(probe)(0.7)
 
-    for name, (o, varying, uniform) in CONFIGS.items():
-        kids = latents(LATENTS)
+    for name in names or CONFIGS:
+        o, varying, uniform = _ALL[name]
+        kids = latents(latents_of(name))
         kernel = jk.FactorAnalysisKernel(lambda tt, o=o, v=varying: weights(tt, o, v, jnp),
-                                         kids, output_dim=o, loading=jnp.asarray(loading(o)),
+                                         kids, output_dim=o,
+                                         loading=jnp.asarray(loading(o, len(kids))),
                                          trainable_loading=True)
         x, y = data(name)
         model = GaussianProcessRegression(
@@ -206,13 +233,15 @@ def main(out_path: str) -> None:
     np.savez(out_path, **{k: np.asarray(v) for k, v in out.items()})
 
 
-def run_refs(tmp_dir) -> dict:
-    """Run :func:`main` in a fresh process and load its outputs."""
+def run_refs(tmp_dir, names=()) -> dict:
+    """Run :func:`main` (on ``names``) in a fresh process and load its
+    outputs."""
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join(
                    [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     out = os.path.join(str(tmp_dir), "fa_refs.npz")
-    proc = subprocess.run([sys.executable, os.path.join(HERE, "_fa_refs.py"), out], env=env,
+    proc = subprocess.run([sys.executable, os.path.join(HERE, "_fa_refs.py"), out, *names],
+                          env=env,
                           cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True, timeout=1200)
     assert proc.returncode == 0, f"factor analysis reference process failed:\n{proc.stdout[-4000:]}"
@@ -221,4 +250,4 @@ def run_refs(tmp_dir) -> dict:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], sys.argv[2:])

@@ -38,6 +38,9 @@ N_NEW = 40
 #: variance) of each child
 MO3 = (("Matern32", 0.5, 1.0), ("Matern32", 1.0, 1.0), ("Matern32", 2.0, 1.0))
 MIXED = (("Matern12", 0.7, 1.3), ("Matern32", 1.1, 0.4), ("Matern52", 0.9, 0.6))
+#: mo9: the d9 model's three Matern52 children (bench.py's d9 config),
+#: d = 9, o = 3: the general kernels at o > 1 above d = 6
+MO9 = (("Matern52", 0.5, 1.0), ("Matern52", 2.0, 0.5), ("Matern52", 8.0, 0.25))
 #: a full noise Cholesky, so that the sites' lam is not diagonal
 CHOL3 = np.array([[0.2, 0.0, 0.0], [0.05, 0.2, 0.0], [0.02, 0.05, 0.2]])
 #: name -> (combinator, children, batch shape, uniform grid)
@@ -51,18 +54,33 @@ CONFIGS = {
     "product_32x32_jittered": ("Product", (("Matern32", 0.8, 1.0), ("Matern32", 1.5, 0.5)),
                                (), False),
 }
+#: mo9 on a uniform and a jittered grid, made only where named
+#: (test_torch_wide_multi_output.py); their seeds follow CONFIGS'
+WIDE_CONFIGS = {
+    "mo9_uniform": ("IndependentMultiOutput", MO9, (), True),
+    "mo9_jittered": ("IndependentMultiOutput", MO9, (), False),
+}
+_ALL = {**CONFIGS, **WIDE_CONFIGS}
 #: the kernels whose prior steps, emission and SSM ``kernels`` saves
 KERNELS = {"mo3": MO3, "mixed": MIXED, "mixed2": MIXED[:2]}
-#: the reference processes, balanced by cost: 85-130 s each for a model
-#: (its eager gradient, ~45 s at d = 6; its jitted pieces) when six run at
-#: once on eight cores
+#: the reference processes of test_torch_multi_output.py, balanced by
+#: cost: 85-130 s each for a model (its eager gradient, ~45 s at d = 6; its
+#: jitted pieces) when six run at once on eight cores (mo9's configurations
+#: run in test_torch_wide_multi_output.py)
 GROUPS = (("mo3_uniform",), ("mo3_jittered",), ("mixed_uniform",),
           ("mixed2_jittered_batch3", "likelihood"), ("product_12x32_uniform", "kernels"),
           ("product_32x32_jittered",))
 
 
+def _seed(name: str) -> int:
+    """The configuration's index (CONFIGS' sorted, then WIDE_CONFIGS')."""
+    if name in CONFIGS:
+        return sorted(CONFIGS).index(name)
+    return len(CONFIGS) + sorted(WIDE_CONFIGS).index(name)
+
+
 def output_dim(name: str) -> int:
-    comb, children, _, _ = CONFIGS[name]
+    comb, children, _, _ = _ALL[name]
     return len(children) if comb == "IndependentMultiOutput" else 1
 
 
@@ -74,9 +92,9 @@ def data(name: str):
     """(x [batch..., N], y [batch..., N, o]): linspace(0, 10, N), jittered
     by up to 0.4 of the spacing off the uniform grid; y_i = sin((i + 1) x)
     + 0.2 noise."""
-    _, _, batch, uniform = CONFIGS[name]
+    _, _, batch, uniform = _ALL[name]
     o = output_dim(name)
-    rng = np.random.default_rng(sorted(CONFIGS).index(name))
+    rng = np.random.default_rng(_seed(name))
     x = np.broadcast_to(np.linspace(0.0, 10.0, N), batch + (N,)).copy()
     if not uniform:
         x = x + 0.4 * (10.0 / (N - 1)) * rng.uniform(-1.0, 1.0, x.shape)
@@ -87,7 +105,7 @@ def data(name: str):
 def new_points(name: str) -> np.ndarray:
     """Points inside, on and past both ends of the grid."""
     x, _ = data(name)
-    rng = np.random.default_rng(100 + sorted(CONFIGS).index(name))
+    rng = np.random.default_rng(100 + _seed(name))
     pts = np.concatenate([[-0.5, x.reshape(-1)[0], x.reshape(-1)[7], 10.5],
                           rng.uniform(0.0, 10.0, N_NEW - 4)])
     return np.sort(pts)
@@ -157,7 +175,7 @@ def main(out_path: str, names) -> None:
             out[f"{name}/predict_density"] = lik.predict_density(fm, fc, y)
             out[f"{name}/needs_full_cov"] = np.asarray(lik.needs_full_cov)
             continue
-        comb, specs, _, _ = CONFIGS[name]
+        comb, specs, _, _ = _ALL[name]
         kids = children(specs)
         kernel = getattr(jk, comb)(kids)
         x, y = data(name)
@@ -174,7 +192,7 @@ def main(out_path: str, names) -> None:
         out[f"{name}/loglik"] = jax.jit(lambda m: m.log_likelihood())(model)
         out[f"{name}/marg_means"], out[f"{name}/marg_covs"] = \
             model.kalman.posterior_marginals()
-        if not CONFIGS[name][2]:  # the JAX conditionals take one series
+        if not _ALL[name][2]:  # the JAX conditionals take one series
             post = model.posterior
             out[f"{name}/f_mean"], out[f"{name}/f_var"] = post.predict_f(t)
             out[f"{name}/f_mean_full"], out[f"{name}/f_cov"] = post.predict_f(

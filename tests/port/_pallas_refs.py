@@ -25,7 +25,8 @@ tests/unit/test_uniform_path.py runs them; chunk=1, r_blk=1 for state dims
   on :func:`mo_inputs`' uniform inputs, and ``pallas_filter_pipeline`` and
   ``pallas_adjoint_pipeline`` on its general ones (outputs ``u_*`` and
   ``g_*``); a case of :data:`MO_GENERAL_CASES` (o past the uniform
-  kernels' 6) only the general ones.
+  kernels' 6) or of :data:`MO_WIDE_CASES` (d = 7..12) only the general
+  ones.
 
 The port's tests run it in fresh processes (:func:`run_refs`):
 interpret-mode Pallas programs can crash XLA:CPU in a process that has
@@ -86,7 +87,14 @@ MO_CASES = {
 MO_GENERAL_CASES = {
     "mo_d3_o8": (3, 8, 64, (), True),
 }
-_MO = {**MO_CASES, **MO_GENERAL_CASES}
+#: o x o sites at state dims 7..12, for the general kernels only (the JAX
+#: package sends o > 1 above d = 6 to them): mo9's (9, 3), masked, and
+#: (7, 12), the widest site at the smallest wide d
+MO_WIDE_CASES = {
+    "mo_d9_o3": (9, 3, 37, (2,), True),
+    "mo_d7_o12": (7, 12, 37, (), False),
+}
+_MO = {**MO_CASES, **MO_GENERAL_CASES, **MO_WIDE_CASES}
 _UNIFORM = {**CASES, **WIDE_CASES}
 _GENERAL = {**GENERAL_CASES, **WIDE_GENERAL_CASES}
 INPUT_NAMES = ("fc", "cc", "qc", "mu0", "p0", "hc", "nu", "lam", "maskf")

@@ -897,13 +897,12 @@ def test_natgrad_step_kernels_match_plain(cuda_device, config):
 
 
 def test_wrappers_raise_at_o_sites_they_have_no_kernel_for(cuda_device):
-    """o > 1 runs in the two filters and the two Koopman backwards at
-    d <= 6, to o = 12 in the general ones and o = 6 in the uniform ones:
-    each raises at o > 1 with d = 7..12 and above its o, and so does the
-    uniform log-likelihood at d = 7..12, rather than take the materialised
-    route of d > 6; at o = 7..12 (d <= 6) the uniform log-likelihood takes
-    the materialised route to the general kernels, as the JAX package's
-    uniform engine does."""
+    """o > 1 runs in the two general kernels to o = 12 at every d, in the
+    two uniform ones to o = 6 at d <= 6: each raises above its o, and the
+    uniform ones at o > 1 with d = 7..12; there, and at o = 7..12 (d <= 6),
+    the uniform log-likelihood takes the materialised route to the general
+    kernels, as the JAX package's uniform engine does (at o = 13 it raises
+    in the general filter)."""
     kw = dict(dtype=torch.float64, device=cuda_device)
     gs = torch.ones((), **kw)
 
@@ -917,7 +916,7 @@ def test_wrappers_raise_at_o_sites_they_have_no_kernel_for(cuda_device):
                  gargs[4], gargs[5])
         return gargs, uargs, m_f, p_f
 
-    for d, o in ((7, 2), (9, 9), (3, 13), (6, 13)):
+    for d, o in ((3, 13), (6, 13), (9, 13)):
         gargs, uargs, m_f, p_f = inputs(d, o)
         with pytest.raises(NotImplementedError):
             ops.filter_pipeline(*gargs)
@@ -929,8 +928,12 @@ def test_wrappers_raise_at_o_sites_they_have_no_kernel_for(cuda_device):
             adj.adjoint_pipeline_uniform(*uargs, None, m_f, p_f, gs)
         with pytest.raises(NotImplementedError):
             adj.log_likelihood_koopman_uniform(*uargs)
-    for d, o in ((2, 7), (5, 12)):
-        _, uargs, m_f, p_f = inputs(d, o)
+    for d, o in ((2, 7), (5, 12), (7, 2), (9, 9)):
+        gargs, uargs, m_f, p_f = inputs(d, o)
+        if d > 6:
+            assert all(torch.isfinite(x).all() for x in ops.filter_pipeline(*gargs))
+            assert all(torch.isfinite(x).all()
+                       for x in adj.adjoint_pipeline(*gargs, None, m_f, p_f, gs))
         with pytest.raises(NotImplementedError):
             ops.filter_pipeline_uniform(*uargs)
         with pytest.raises(NotImplementedError):
@@ -978,6 +981,57 @@ def test_kernels_1_3_7_at_o_past_d_at_the_run_warp_and_block_edges(cuda_device, 
     rule."""
     chip_smoke.multi_output_kernels_case(ops, adj, n, (3,), d, o, dtype, const_sites, masked,
                                          scaled)
+
+
+@pytest.mark.parametrize("const_sites, masked, scaled", list(chip_smoke.O_KERNEL_SITES),
+                         ids=["per-step-dense-H", "per-step-dense-H-unscaled", "stride-0",
+                              "stride-0-maskless"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d, o", list(chip_smoke.O_WIDE))
+@pytest.mark.parametrize("n", list(chip_smoke.CHUNK_EDGES))
+def test_kernels_4_7_above_d6_at_the_chunk_and_warp_edges(cuda_device, n, d, o, dtype,
+                                                          const_sites, masked, scaled):
+    """Kernels 4 and 7 at o = 2..12 above d = 6 (csrc/wide_info.cuh) against
+    their plain versions at the chunk and warp edges of the wide passes,
+    batch (3,), with per-step sites and a random dense H, scaled to the
+    states' spread or not (kernel 4's element form), or GPR's stride-0 H
+    and lam (the d-space fold), masked or not: float64 within
+    chip_smoke.TOL_F64, float32 by chip_smoke.check_f32_wide's rule."""
+    chip_smoke.multi_output_kernels_case(ops, adj, n, (3,), d, o, dtype, const_sites, masked,
+                                         scaled)
+
+
+@pytest.mark.parametrize("n", list(chip_smoke.CHUNK_EDGES))
+def test_general_filter_above_d6_on_the_natgrad_inversions_indefinite_sites(cuda_device, n):
+    """Kernel 4 at o = d = 9 (its element form) on the synthetic model of
+    the natural-gradient inversion, float64, as at d = 2
+    (chip_smoke.natgrad_filter_case)."""
+    chip_smoke.natgrad_filter_case(ops, n, (3,), 9)
+
+
+@pytest.mark.parametrize("grid", ["uniform", "jittered"])
+@pytest.mark.parametrize("name", ["mo9", "fa9"])
+def test_wide_multi_output_gpr_runs_through_the_kernels(cuda_device, name, grid):
+    """chip_smoke's mo9 (d = 9, o = 3) and fa9 (d = 9, o = 12) at N = 4099,
+    float64: loss, backward (fa9's loading too), marginals, predict_f and
+    predict_y through kernels 4, 7 and 5 on both grids (the launch counters
+    show no uniform kernel), against the same model on the CPU."""
+    uniform = grid == "uniform"
+    n = 4099
+    x, _ = chip_smoke.wide_data(name, n, uniform)
+    pts = np.sort(np.concatenate([x[::97], np.linspace(-1.0, 101.0, 57)]))
+    model = chip_smoke.build_wide(name, n, torch.float64, uniform, device=cuda_device)
+    before = _launches()
+    outs = chip_smoke.gpr_outputs(model, torch.as_tensor(pts, device=cuda_device))
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _launches().items()}
+    want = dict.fromkeys(launched, 0)
+    want.update({"filter_pipeline": 3, "adjoint_pipeline": 1, "smoother_scan": 2})
+    assert launched == want
+    cpu = chip_smoke.gpr_outputs(chip_smoke.build_wide(name, n, torch.float64, uniform,
+                                                      device="cpu"), torch.as_tensor(pts))
+    for key, val in cpu.items():
+        assert chip_smoke.rel_diff(outs[key].cpu(), val) <= F64_TOL, key
 
 
 @pytest.mark.parametrize("grid", ["uniform", "jittered"])

@@ -46,11 +46,15 @@ TOL = 1e-12
 # 2,048 steps; kernel 1's 16-step blocks, 3,072 steps there, are crossed
 # on the card at N = 4099), and stride-0 ones without a mask; and the four
 # sources at o > d (info_scan.cuh: kernels 1, 3, 7 and 4 with a run-time
-# o) at (d, o) = (3, 5), across three blocks of their unstaged passes
+# o) at (d, o) = (3, 5), across three blocks of their unstaged passes; and
+# kernels 4 and 7 above d = 6 (wide_info.cuh, run-time d and o) at N = 9,
+# across a chunk edge of both and a warp's run of 8 steps: kernel 4's
+# d-space fold and kernel 7 at mo9's (9, 3) on stride-0 H and lam, and
+# kernel 4's element form on per-step sites, all three at (7, 12)
 CASES = ["7:97:(2,)", "9:300:()", "9:64:(2,):sparse", "12:50:(2,)",
          "2:2100:(2,)", "2:700:(2,):sparse", "5:600:()", "3:1100:(2,)", "6:1100:()",
          "4:1100:(2,)", "2:2100:(2,):multi", "3:1100:(2,):o2", "4:1100:(2,):o3",
-         "3:1100:(2,):o5"]
+         "3:1100:(2,):o5", "9:9:(2,):o3", "7:9:():o12"]
 # the o x o cases at o = 3 hold P_f to the plain version, which strays by
 # ~2e-11 there (above); the kernels differ from it by 4.5e-12 at most
 TOL_O = 1e-10
@@ -64,7 +68,8 @@ TOL_O = 1e-10
 # the site gradients and without them and gHc (the lean pass 3, as GPR's
 # backward asks: 8 + 6 + 5), the general filter (3) and Koopman backward
 # with all six outputs and with GPR's three (6 + 3), for per-step sites,
-# stride-0 ones and stride-0 ones without a mask
+# stride-0 ones and stride-0 ones without a mask (above d = 6 the general
+# kernels' only: 3 + 6 + 3 for each)
 N_OUTPUTS = {True: 30, False: 22}
 
 
@@ -72,7 +77,9 @@ def n_outputs(case: str) -> int:
     d = int(case.split(":")[0])
     if case.endswith(":multi"):
         return 3 * d
-    return 102 if ":o" in case else N_OUTPUTS[d <= 6]
+    if ":o" in case:
+        return 102 if d <= 6 else 36
+    return N_OUTPUTS[d <= 6]
 # a case takes 5-15 s alone (lanes as fibers, one core each)
 CASE_SECONDS = 300
 
