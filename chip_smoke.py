@@ -13,8 +13,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the filters and one of the Koopman backwards at o x o sites, and one per
    family and dtype for d = 7..12, compiled in parallel);
 3. hold each of the seven kernels against its plain PyTorch version on the
-   card: N = 4099 with batch () and (3,) and N = 1e6 with batch (), d in
-   {1, 2, 3}
+   card: N = 4099 and N = 1e6 with batch () and (3,), d in {1, 2, 3}
    (Matern12/32/52), float64 and float32, plus one masked case; the uniform
    kernels on a uniform grid, the general ones (filter, smoother scan,
    filter scan, general Koopman backward) on a jittered grid.  Then the
@@ -39,7 +38,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    on random prebuilt elements at d = 1, 2, 3, 4, 6 (d = 4 above its
    staged tile), and the smoother scan at d = 1..6 (d = 5, 6 above its
    staged tile) on the general problems' RTS elements and on random
-   prebuilt elements; and at O_EDGE_NS the general filter at o x o
+   prebuilt elements; and at the same N the general filter at o x o
    sites, o = 2..d for d = 2..6 (multi_output_problem: identity emission
    rows, H and lam per step with a mask (the element form), or stride 0
    (the rank-o route) with a mask and without; float32 on benign sites,
@@ -54,7 +53,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    GPR's three (both without any observation term: their lean pass 3);
    and kernels 4 and 7 at o = 2..12 above d = 6 (csrc/wide_info.cuh) at
    O_WIDE's (d, o), N in CHUNK_EDGES, on the same sites, and kernel 4 at
-   o = d = 9 on the inversion's indefinite sites;
+   o = d = 9 on the inversion's indefinite sites, and at o = d = 7, 9, 12
+   at N in NATGRAD_WIDE_NS;
 4. the slice at full size, T = 1e6, float32, flagship GPR (Matern32(0.5,
    1.0), noise Cholesky 0.2), each path with the launch counters set to 0
    just before it and read just after:
@@ -370,6 +370,11 @@ O_PAIRS = ((2, 2), (3, 2), (3, 3), (4, 2), (4, 4), (5, 2), (5, 5), (6, 2), (6, 3
 #: kernel 4 also at (9, 9) on the natural-gradient inversion's indefinite
 #: per-step sites (float64)
 O_WIDE = ((7, 2), (9, 3), (9, 12), (12, 5), (12, 12))
+#: phase 3, kernel 4's element form on the natural-gradient inversion's
+#: indefinite sites at d = 7, 9 and 12 beyond the chunk edges: float64's
+#: ill-conditioned range, where the plain version's own one-ulp spread of
+#: the log-likelihood reaches 1e-9 to 3e-8
+NATGRAD_WIDE_NS = (200, 300)
 #: phase 4l, the multi-output models of the d9 model's three Matern52
 #: children (D9, d = 9) at T_D9: mo9, an IndependentMultiOutput of them with
 #: mo3's noise Cholesky (o = 3), and fa9, a FactorAnalysisKernel of them as
@@ -382,13 +387,6 @@ FA9_O = 12
 N_NEW_WIDE = 10_000
 #: gpr_outputs' predictions, held at the exact hits and ends in phase 4l
 WIDE_PREDICTIONS = ("f mean", "f var", "f cov", "y mean", "y cov")
-#: the dtype of phase 4l's fit.  fa9's float32 loss at T = 1e5 leaves
-#: float32 at some parameters on both paths (an H100 run, at the
-#: parameters of Adam's fourth step: kernel path 1.25e9 against float64's
-#: -173660, plain path -173022; the Matern52 children's generic process
-#: noise and the associative scan's compositions with J of twelve outputs,
-#: ROADMAP queue 3), so its fit runs in float64
-WIDE_FIT_DTYPE = {"mo9": torch.float32, "fa9": torch.float64}
 #: mo9 and fa9 in float32 (phase 4l, T = T_D9), the kernel path against
 #: the plain path (check_f32_wide: an output beyond its bound passes if its
 #: error against float64 is no worse than F32_NO_WORSE times the plain
@@ -674,11 +672,9 @@ ADJ_ASKS = {(True, True): "", (False, True): " (no site grads)", (False, False):
 
 def phase_kernels_vs_plain(cs, adj):
     log("phase 3: kernels against their plain versions on the card")
-    # (T_FULL with batch (3,) cut for the time limit: batch () at T_FULL,
-    # (3,) at 4099)
     cases = [(n, batch, d, dtype, False)
              for dtype in (torch.float64, torch.float32)
-             for n, batch in ((4099, ()), (4099, (3,)), (T_FULL, ())) for d in (1, 2, 3)]
+             for n in (4099, T_FULL) for batch in ((), (3,)) for d in (1, 2, 3)]
     cases.append((4099, (3,), 2, torch.float64, True))
     cases.append((4099, (3,), 2, torch.float32, True))
     # the d = 7..12 kernels: float64 at N = 4099, float32 at d = 9, N = 1e5;
@@ -719,9 +715,8 @@ def phase_kernels_vs_plain(cs, adj):
             # the general filter at o = 2..d: H and lam stored at every
             # step, and stride 0 with a mask and without (definite sites;
             # the indefinite ones of the natural-gradient inversion
-            # follow), at O_EDGE_NS (cut for the time limit; the cuda
-            # tests keep every N of EDGE_NS)
-            for d, o in O_PAIRS if n in O_EDGE_NS else ():
+            # follow)
+            for d, o in O_PAIRS:
                 for const_sites, masked in O_SITES:
                     multi_output_case(cs, n, (3,), d, o, dtype, const_sites, masked)
             # at o = d = 2 on the inversion's own indefinite sites (the bench
@@ -758,6 +753,14 @@ def phase_kernels_vs_plain(cs, adj):
                                               masked, scaled)
             if dtype == torch.float64:
                 natgrad_filter_case(cs, n, (3,), 9)
+        # kernel 4's element form on the inversion's sites above d = 6 at
+        # NATGRAD_WIDE_NS (a warp's steps folded in order left the
+        # log-likelihood 15x the plain version's one-ulp spread at d = 9,
+        # N = 200 and 90x at d = 7, N = 300; folded as a binary tree, 4x at most)
+        if dtype == torch.float64:
+            for n in NATGRAD_WIDE_NS:
+                for d in (7, 9, 12):
+                    natgrad_filter_case(cs, n, (3,), d)
 
 
 def general_edges_case(cs, adj, n, d, dtype):
@@ -1091,6 +1094,7 @@ def natgrad_filter_case(cs, n, batch, d):
             raise AssertionError(f"natgrad sites N={n} d={d}: {k} differs by {v:.3e} > "
                                  f"{TOL_F64:g} and > {COND_FACTOR:g} x the plain version's "
                                  f"one-ulp spread {spread[k]:.3e}")
+    return diffs, spread
 
 
 def multi_output_kernels_case(cs, adj, n, batch, d, o, dtype, const_sites, masked=True,
@@ -2950,8 +2954,8 @@ def phase_wide_multi_output(cs, adj, kf, training):
     o = 1 only above d = 6.  In float32 each path runs loss() and its
     backward, posterior_marginals(), gpr.posterior with predict_f (both
     output covariances) and predict_y at N_NEW_WIDE new points, with its
-    launch counts, and FIT_STEPS fit steps (Adam; fa9 at FA_FIT_LR, in
-    float64, mo9 at fit's default: the loss falls).  The same outputs in
+    launch counts, and FIT_STEPS fit steps (Adam; fa9 at FA_FIT_LR, mo9 at
+    1e-2: the loss falls).  The same outputs in
     float64 on the kernel path against the plain path (TOL_F64), and in
     float32 on both paths against float64 (check_f32_wide's rule with the
     TOL_MO9_F32_* and TOL_FA9_F32_* bounds).  The predictions are held as
@@ -2995,7 +2999,7 @@ def phase_wide_multi_output(cs, adj, kf, training):
                     {k: int((~torch.isfinite(v)).sum())
                      for k, v in inner(runs[("kernel", dname)]).items()}))
                 log(f"  {path}: loss = {float(runs[('kernel', dname)]['loss'])!r}")
-                if dtype == WIDE_FIT_DTYPE[name]:
+                if dtype == torch.float32:
                     fpath = f"{name} {grid} training {dname}"
                     counts[fpath] = {}
                     lr = FA_FIT_LR if name == "fa9" else 1e-2
@@ -3157,9 +3161,10 @@ def cvi_step(model):
     return step
 
 
-def train_step(model):
-    opt = torch.optim.Adam([p for p in model.parameters() if p.requires_grad],
-                           lr=1e-2)
+def train_step(model, lr=1e-2):
+    """One Adam step of loss().backward() (the factor analysis models at
+    FA_FIT_LR, as their fits in phases 4k and 4l take it)."""
+    opt = torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=lr)
 
     def step():
         opt.zero_grad(set_to_none=True)
@@ -3440,8 +3445,9 @@ def phase_times(cs, adj, kf, card, counts):
              "uniform CVI iteration": cvi_step(build_cvi(T_FULL, torch.float32)),
              "jittered CVI iteration": cvi_step(build_cvi(T_FULL, torch.float32,
                                                           uniform=False)),
-             **{f"{tag} training step": train_step(m) for tag, m in fa.items()},
-             **{f"{tag} training step": train_step(m) for tag, m in wide.items()}}
+             **{f"{tag} training step": train_step(m, FA_FIT_LR) for tag, m in fa.items()},
+             **{f"{tag} training step": train_step(m, FA_FIT_LR if "fa9" in tag else 1e-2)
+                for tag, m in wide.items()}}
     calls = {name + tag: fns for tag, (c, _, _) in sets.items()
              for name, fns in c.items()}
     natgrad = {}
@@ -3455,12 +3461,13 @@ def phase_times(cs, adj, kf, card, counts):
     def reps_of(key, turn):
         """(calls, warm-up calls) a turn: the factor analysis paths' plain
         calls take 0.5-2 s each, and mo9's near that, so they run fewer; the
-        others 5 / 1 (20 / 3 before mo9's and fa9's paths: the time limit)."""
+        others 3 / 1 (20 / 3 before mo9's and fa9's paths, 5 / 1 before
+        phase 3 took back its full-length batched cases: the time limit)."""
         if key.startswith(("fa", "mo9")):
             return (3, 1) if turn == "kernel" else (1, 0)
-        return (5, 1) if turn == "kernel" else (1, 1)
+        return (3, 1) if turn == "kernel" else (1, 1)
     for turn in ("plain", "kernel", "kernel", "plain"):
-        reps = 5 if turn == "kernel" else 1
+        reps = 3 if turn == "kernel" else 1
         ctx = plain_path(cs, adj, kf) if turn == "plain" else contextlib.nullcontext()
         with ctx:
             with torch.no_grad():
@@ -3492,7 +3499,7 @@ def phase_times(cs, adj, kf, card, counts):
         with ctx:
             total, per, traced = device_ms_by_kernel(
                 cs, adj, kf, fn,
-                reps=3 if key in natgrad else 5 if key.startswith(("fa", "mo9")) else 10)
+                reps=3 if key in natgrad else 5)
         log(f"  {key}: device ms per iteration in the port's kernels {total!r} "
             f"(torch.profiler); by wrapper, in its own kernels: " + (", ".join(
                 f"{k} {v!r}" for k, v in per.items()) or "not measured") + f"  [{card}]")

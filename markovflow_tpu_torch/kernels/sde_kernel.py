@@ -107,6 +107,18 @@ class SDEKernel(Kernel, abc.ABC):
         return self.state_space_model(time_points)
 
 
+def stationary_q_tl(a: torch.Tensor, p: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """The generic process noise Q = sym(P_inf - A P_inf A^T) (+ jitter I)
+    [..., d, d, N] of transitions A [..., d, d, N] and P_inf [..., d, d]."""
+    ap = (a[..., :, :, None, :] * p[..., None, :, :, None]).sum(-3)
+    apa = (ap[..., :, None, :, :] * a[..., None, :, :, :]).sum(-2)
+    q = p[..., None] - apa
+    q = 0.5 * (q + q.transpose(-3, -2))
+    if jitter:
+        q = q + jitter * torch.eye(a.shape[-2], dtype=q.dtype, device=q.device)[..., None]
+    return q
+
+
 class StationaryKernel(SDEKernel, abc.ABC):
     """Stationary kernels: fixed feedback matrix F and steady state P_inf,
     Q_k = P_inf - A_k P_inf A_k^T."""
@@ -169,15 +181,7 @@ class StationaryKernel(SDEKernel, abc.ABC):
     def transition_statistics_tl(self, time_deltas: torch.Tensor):
         """(A, Q) in time-last layout [..., d, d, N]."""
         a = self.state_transitions_tl(time_deltas)
-        p = self.steady_state_covariance
-        ap = (a[..., :, :, None, :] * p[..., None, :, :, None]).sum(-3)
-        apa = (ap[..., :, None, :, :] * a[..., None, :, :, :]).sum(-2)
-        q = p[..., None] - apa
-        q = 0.5 * (q + q.transpose(-3, -2))
-        if self._jitter:
-            q = q + self._jitter * torch.eye(
-                self.state_dim, dtype=q.dtype, device=q.device)[..., None]
-        return a, q
+        return a, stationary_q_tl(a, self.steady_state_covariance, self._jitter)
 
     def prior_arrays_tl(self, time_points: torch.Tensor):
         """(F [..., d, d, N], c [..., d, 1, N], Q [..., d, d, N]) with

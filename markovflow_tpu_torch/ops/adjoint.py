@@ -260,7 +260,7 @@ def adjoint_pipeline(F, c, Q, H, nu, lam, maskf, m_f, p_f, gscale,
     inputs = [F, c, Q, H, nu, lam, m_f, p_f]
     if maskf is not None:
         inputs.append(maskf)
-    sfx = cs._check_cuda(inputs + [gscale], d, o, wide_o=True)
+    sfx = cs._check_cuda(inputs + [gscale], d, o)
     lead = torch.broadcast_shapes(*(x.shape[:-3] for x in inputs),
                                   gscale.shape)
     B = math.prod(lead)

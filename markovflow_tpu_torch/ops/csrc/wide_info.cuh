@@ -30,9 +30,12 @@
 // lam changes with the step (the natural-gradient inversion's indefinite
 // sites at o = d) kernel 4 takes the element form instead, as GeneralStepsO
 // does at d <= 6: each step's filtering element built by one pivoted o x o
-// solve (winfo_element), composed into the run by WideFilterOp in pass 1
-// and carried through by wide_filter_moments in pass 3, the
-// log-likelihood in lam form (winfo_loglik_lam).  Kernel 7 keeps the
+// solve (winfo_element), composed by WideFilterOp in pass 1 as a binary
+// tree (the runs of 1, 2, 4, ... steps that the step count's bits stand
+// for; folded in order, float64 on those sites left the log-likelihood
+// 15x the plain version's one-ulp spread at d = 9, N = 200, and 90x at
+// d = 7, N = 300), and carried through by wide_filter_moments in pass 3,
+// the log-likelihood in lam form (winfo_loglik_lam).  Kernel 7 keeps the
 // d-space stage 1 on every lam.
 //
 // A step's inputs go through the chunks of wide_scan.cuh (cp.async, CH
@@ -76,6 +79,7 @@ struct WideInfoSlot {
   int d, o, mx;
   bool hs, ls;
   int oh, onu, olam, nin;
+  int levels = 0;  // kernel 4's element form: the levels of pass 1's tree
 
   __host__ __device__ WideInfoSlot(int d_, int o_, bool hs_, bool ls_, int base)
       : d(d_), o(o_), mx(d_ > o_ ? d_ : o_), hs(hs_), ls(ls_) {
@@ -109,8 +113,8 @@ MF_DEV const T* winfo_site_src(const GeneralPrior<T>& p, const A& a, const WideI
 // values (kernel 7's F_{k+1}, kernel 4's element of a step), two chunks of
 // CH slots of per values, the
 // constants (H, lam, lam^-1, J and lam H of step stride 0), a step's site
-// terms (J, h, lam H) and NM temporaries of max(d, o)^2 values and NV of
-// max(d, o).
+// terms (J, h, lam H), NM temporaries of max(d, o)^2 values and NV of
+// max(d, o), and s.levels runs of pass 1's tree (kernel 4's element form).
 template <typename T, int CH_, int NM, int NV>
 struct WideInfoWork {
   static constexpr int CH = CH_;
@@ -118,12 +122,13 @@ struct WideInfoWork {
   T *ch, *cl, *cli, *cj, *clh;
   T *js, *hs, *lh;
   T *m[NM], *v[NV];
+  T* tree;  // s.levels runs of nrun values (kernel 4's element form)
 
   static __host__ __device__ int floats(const WideInfoSlot& s, int nrun, int nnxt, int naux,
                                         int per) {
     const int d = s.d, o = s.o, mx = s.mx;
     return nrun + nnxt + naux + 2 * CH * per + 2 * o * d + 2 * o * o + d * d + d * d + d +
-           o * d + NM * mx * mx + NV * mx;
+           o * d + NM * mx * mx + NV * mx + s.levels * nrun;
   }
 
   MF_DEV WideInfoWork(T* p, const WideInfoSlot& s, int nrun, int nnxt, int naux, int per) {
@@ -143,6 +148,7 @@ struct WideInfoWork {
     lh = p; p += o * d;
     for (int i = 0; i < NM; ++i) { m[i] = p; p += mx * mx; }
     for (int i = 0; i < NV; ++i) { v[i] = p; p += mx; }
+    tree = p;
   }
 };
 
@@ -475,9 +481,16 @@ wide_info_filter(FilterArgs<T> a, GeneralPrior<T> p, WideInfoSlot s, int64_t ste
         for (int e = lane; e < dd + d; e += 32) st[dd + e] = w.run[e < dd ? dd + d + e : e];
         __syncwarp();
       } else if (s.ls) {
+        // the element of the warp's i-th step merged with the runs of 1, 2,
+        // 4, ... steps before it that the set low bits of i stand for
         winfo_element(w, st, st + dd, st + 2 * dd, h, nu, lam, s);
-        WideFilterOp<T>::combine(w.run, w.aux, w.nxt, wt, d);
-        T* t = w.run; w.run = w.nxt; w.nxt = t;
+        T *cur = w.aux, *spare = w.nxt;
+        int lvl = 0;
+        for (int64_t i = kc + j - k0; i & 1; i >>= 1, ++lvl) {
+          WideFilterOp<T>::combine(w.tree + lvl * size, cur, spare, wt, d);
+          T* t = cur; cur = spare; spare = t;
+        }
+        wcopy(w.tree + lvl * size, cur, size);
       } else {
         winfo_fold(w, st, st + dd, st + 2 * dd, h, nu, lam, jconst, s);
       }
@@ -488,9 +501,22 @@ wide_info_filter(FilterArgs<T> a, GeneralPrior<T> p, WideInfoSlot s, int64_t ste
   }
   if (OUTPUTS) {
     if (lane == 0) a.partials[b * a.nblk + u] = ll;
-  } else {
-    wcopy(total, w.run, size);
+    return;
   }
+  if (s.ls) {  // the runs of the set bits of the step count, the earliest first
+    bool first = true;
+    for (int lvl = s.levels - 1; lvl >= 0; --lvl) {
+      if (!((k1 - k0) >> lvl & 1)) continue;
+      if (first) {
+        wcopy(w.run, w.tree + lvl * size, size);
+        first = false;
+      } else {
+        WideFilterOp<T>::combine(w.run, w.tree + lvl * size, w.nxt, wt, d);
+        T* t = w.run; w.run = w.nxt; w.nxt = t;
+      }
+    }
+  }
+  wcopy(total, w.run, size);
 }
 
 // The warps a block of a pass whose warps take warp_bytes of dynamic
@@ -512,8 +538,10 @@ int launch_wide_info_filter(FilterArgs<T> a, GeneralPrior<T> p, T* scratch, int6
   const int o = int(a.o);
   if (d < WIDE_MIN_D || d > WIDE_MAX_D || o < 2 || o > WIDE_INFO_MAX_O)
     return int(cudaErrorInvalidValue);
-  const WideInfoSlot s = winfo_filter_slot(d, o, p.h_st != 0, a.lam_st != 0);
+  WideInfoSlot s = winfo_filter_slot(d, o, p.h_st != 0, a.lam_st != 0);
   const int64_t steps = wide_steps(a.n);
+  if (s.ls)
+    while (int64_t(1) << s.levels <= steps) ++s.levels;
   a.nblk = num_blocks(a.n, steps);
   a.totals = scratch;
   a.partials = scratch + batch * a.nblk * wide_filter_size(d);

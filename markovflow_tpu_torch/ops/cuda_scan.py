@@ -285,13 +285,14 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def _check_cuda(tensors, d: int, o: int, max_d: int = MAX_STATE_DIM,
-                max_o: int = GENERAL_MAX_OUTPUT_DIM, wide_o: bool = False) -> str:
+                max_o: int = GENERAL_MAX_OUTPUT_DIM) -> str:
     """Raise unless every tensor is on one CUDA device with one supported
     dtype and the dims have a kernel (state dims 1..``max_d``; output dim
     1, or 2..``max_o``: at d <= MULTI_OUTPUT_MAX_STATE_DIM o <= d in the
-    o x o units, o > d in the run-time-o units, and above that d only where
-    ``wide_o`` (the general kernels); the smoothers and the filter scan,
-    which have no output dim, pass 1); return the dtype suffix."""
+    o x o units, o > d in the run-time-o units, and above that d only in
+    the general kernels, whose ``max_o`` is GENERAL_MAX_OUTPUT_DIM; the
+    smoothers and the filter scan, which have no output dim, pass 1); return
+    the dtype suffix."""
     device, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != device:
@@ -303,7 +304,7 @@ def _check_cuda(tensors, d: int, o: int, max_d: int = MAX_STATE_DIM,
     if not 1 <= d <= max_d:
         raise NotImplementedError(
             f"this CUDA kernel takes state dims 1..{max_d}, got {d}")
-    if o != 1 and d > MULTI_OUTPUT_MAX_STATE_DIM and not wide_o:
+    if o != 1 and d > MULTI_OUTPUT_MAX_STATE_DIM and max_o < GENERAL_MAX_OUTPUT_DIM:
         raise NotImplementedError(
             f"this CUDA kernel takes output dims o > 1 only at state dims "
             f"1..{MULTI_OUTPUT_MAX_STATE_DIM}, got o = {o} at d = {d} (o > 1 "
@@ -511,7 +512,7 @@ def filter_pipeline(F, c, Q, H, nu, lam, maskf=None):
     inputs = [F, c, Q, H, nu, lam]
     if maskf is not None:
         inputs.append(maskf)
-    sfx = _check_cuda(inputs, d, o, wide_o=True)
+    sfx = _check_cuda(inputs, d, o)
     lead = torch.broadcast_shapes(*(x.shape[:-3] for x in inputs))
     B = math.prod(lead)
     _check_grid(B, n)

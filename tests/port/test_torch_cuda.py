@@ -1009,6 +1009,16 @@ def test_general_filter_above_d6_on_the_natgrad_inversions_indefinite_sites(cuda
     chip_smoke.natgrad_filter_case(ops, n, (3,), 9)
 
 
+@pytest.mark.parametrize("n", list(chip_smoke.NATGRAD_WIDE_NS))
+@pytest.mark.parametrize("d", [7, 9, 12])
+def test_general_filter_above_d6_on_the_natgrad_sites_past_the_chunk_edges(cuda_device, d, n):
+    """The same at o = d = 7, 9 and 12 and N = 200 and 300, where float64
+    itself loses digits and pass 1's tree of compositions keeps the
+    log-likelihood within chip_smoke.COND_FACTOR of the plain version's
+    one-ulp spread."""
+    chip_smoke.natgrad_filter_case(ops, n, (3,), d)
+
+
 @pytest.mark.parametrize("grid", ["uniform", "jittered"])
 @pytest.mark.parametrize("name", ["mo9", "fa9"])
 def test_wide_multi_output_gpr_runs_through_the_kernels(cuda_device, name, grid):

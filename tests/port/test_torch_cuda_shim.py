@@ -114,6 +114,26 @@ def test_kernels_match_plain_versions_under_the_shim(shim_lib, case):
     assert all(v <= (TOL_O if ":o" in case else TOL) for v in diffs), line
 
 
+# kernel 4's element form (wide_info.cuh) at o = d on the natural-gradient
+# inversion's indefinite sites, float64, at sizes past a few warps' runs:
+# with a warp's steps folded in order the log-likelihood left the plain
+# version by 15x its one-ulp spread at d = 9, N = 200 and by 90x at d = 7,
+# N = 300 (chip_smoke's bound is 10x)
+NATGRAD_CASES = ["9:200:():natgrad", "7:300:():natgrad", "12:200:():natgrad"]
+
+
+@pytest.mark.parametrize("case", NATGRAD_CASES)
+def test_element_form_on_natgrad_sites_under_the_shim(shim_lib, case):
+    """m_f, P_f and the log-likelihood within chip_smoke.natgrad_filter_case's
+    bounds (each printed as its difference over its bound)."""
+    run = subprocess.run([sys.executable, str(SHIM / "run_on_cpu.py"), str(shim_lib), case],
+                         capture_output=True, text=True, timeout=CASE_SECONDS)
+    assert run.returncode == 0, run.stdout + run.stderr
+    line = next(ln[len(case) + 1:] for ln in run.stdout.splitlines() if ln.startswith(case + ":"))
+    ratios = [float(v) for v in re.findall(r"=(\S+)", line)]
+    assert len(ratios) == 3 and all(v <= 1.0 for v in ratios), line
+
+
 @pytest.mark.parametrize("sfx", ["f32", "f64"])
 @pytest.mark.parametrize("d", [7, 9, 12])
 def test_uniform_smoother_keeps_only_the_e_legs(shim_lib, sfx, d):

@@ -71,6 +71,31 @@ def test_float32_process_noise_is_stable_at_small_steps(name):
                                rtol=1e-5)
 
 
+@pytest.mark.parametrize("dt", [1e-3, 1e-2])
+def test_float32_matern52_transition_statistics_are_float64_rounded(dt):
+    """Matern52's generic Q = P_inf - A P_inf A^T has no float32 digits left
+    at small steps (its smallest eigenvalue is ~(lam dt)^5 of P_inf's
+    scale), so with float32 parameters A and Q are evaluated in float64 and
+    rounded: they agree with float64 to float32 precision entrywise, Q stays
+    positive definite, and the parameters' gradients flow through.  (In
+    float32 the generic form's Q[0, 0] at dt = 1e-3 would be off by about
+    eps32 |P_inf| / Q[0, 0], some hundred times itself.)"""
+    _, k64 = _pair("Matern52", lengthscale=0.25)
+    _, k32 = _pair("Matern52", dtype=torch.float32, lengthscale=0.25)
+    a64, q64 = k64.transition_statistics_tl(torch.tensor([dt], dtype=torch.float64))
+    a32, q32 = k32.transition_statistics_tl(torch.tensor([dt], dtype=torch.float32))
+    assert a32.dtype == q32.dtype == torch.float32
+    np.testing.assert_allclose(a32.detach().numpy(), a64.detach().numpy(), rtol=1e-6,
+                               atol=1e-6 * float(a64.abs().max()))
+    # float64's own cancellation leaves ~1e-16 absolute in Q's entries
+    np.testing.assert_allclose(q32.detach().numpy(), q64.detach().numpy(), rtol=1e-5,
+                               atol=1e-12)
+    assert torch.linalg.eigvalsh(q32[..., 0].double()).min() > 0
+    q32.sum().backward()
+    for p in (k32.lengthscale, k32.variance):
+        assert p.unconstrained.grad is not None and torch.isfinite(p.unconstrained.grad).all()
+
+
 def test_positive_bijector_matches_jax():
     y = np.array([1e-5, 0.5, 1.0, 30.0, 1e3])
     x = Positive().inverse(y)

@@ -282,12 +282,12 @@ def test_general_wrappers_take_o_to_twelve_above_d6(d):
     neither o = 13."""
     x = [torch.zeros(1, dtype=torch.float64)]
     for o in (2, 3, d, 12):
-        assert cs._check_cuda(x, d, o, wide_o=True) == "f64"
+        assert cs._check_cuda(x, d, o) == "f64"
         with pytest.raises(NotImplementedError):
             cs._check_cuda(x, d, o, max_o=cs.UNIFORM_MAX_OUTPUT_DIM)
     assert cs._check_cuda(x, d, 1, max_o=cs.UNIFORM_MAX_OUTPUT_DIM) == "f64"
     with pytest.raises(NotImplementedError):
-        cs._check_cuda(x, d, 13, wide_o=True)
+        cs._check_cuda(x, d, 13)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,9 @@ library of build.py, against the plain versions, in float64:
     python tests/tools/cuda_shim/run_on_cpu.py OUT_DIR D:N:BATCH[:sparse|:multi|:oO] ...
 
 e.g. ``9:4099:(3,)`` (state dim 9, 4,099 steps, batch (3,), a mask),
-``9:300:(2,):sparse`` (lam = nu = 0 at the masked steps) or ``3:1100:(2,):multi``
+``9:300:(2,):sparse`` (lam = nu = 0 at the masked steps), ``9:200:():natgrad``
+(the general filter at o = d on the natural-gradient inversion's indefinite
+sites: each output's difference over chip_smoke's bound for it) or ``3:1100:(2,):multi``
 (only the general filter, at o x o sites for o = 2..d: chip_smoke's
 multi_output_problem with H and lam stored at every step, and for o = d
 also with both stride 0), or ``3:1100:(2,):o2`` (kernels 1, 3 and 7, and 4, at
@@ -127,6 +129,25 @@ def check_o(cs, adj, d, o, n, batch):
     return out
 
 
+def check_natgrad(cs, d, n, batch):
+    """The general filter at o = d on the natural-gradient inversion's
+    indefinite sites (chip_smoke.natgrad_filter_case, which raises past its
+    bound): each output's difference from the plain version over its bound,
+    the larger of TOL_F64 and COND_FACTOR times the plain version's one-ulp
+    spread."""
+    import chip_smoke
+
+    problem = chip_smoke.natgrad_filter_problem
+    chip_smoke.natgrad_filter_problem = lambda *a, **k: problem(*a, device="cpu", **k)
+    sync, torch.cuda.synchronize = torch.cuda.synchronize, lambda *a, **k: None
+    try:
+        diffs, spread = chip_smoke.natgrad_filter_case(cs, n, batch, d)
+    finally:
+        chip_smoke.natgrad_filter_problem, torch.cuda.synchronize = problem, sync
+    return {k: v / max(chip_smoke.TOL_F64, chip_smoke.COND_FACTOR * spread[k])
+            for k, v in diffs.items()}
+
+
 def check(cs, adj, d, n, batch, sparse=False):
     import chip_smoke
     from markovflow_tpu_torch.ops.kalman import make_filter_elements_tl, smoother_elements_tl
@@ -180,6 +201,8 @@ if __name__ == "__main__":
         d, n, batch, *flag = case.split(":")
         if flag == ["multi"]:
             res = check_multi(cs, int(d), int(n), eval(batch))
+        elif flag == ["natgrad"]:
+            res = check_natgrad(cs, int(d), int(n), eval(batch))
         elif flag and flag[0].startswith("o"):
             res = check_o(cs, adj, int(d), int(flag[0][1:]), int(n), eval(batch))
         else:
